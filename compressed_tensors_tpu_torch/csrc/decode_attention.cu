@@ -1,0 +1,152 @@
+// One decode step of GQA attention on the stacked KV cache, for Hopper.
+//
+// Replaces compressed_tensors_tpu/ops/kernels/decode_attention.py:
+// decode_attention. One block per (kv head, batch row) on the cache
+// (L, B, KVH, S_pad, D) at layer `layer`:
+//   1. the new K/V row is written in place at position lengths[b]; a row
+//      with a negative length is left untouched (and its output is zero);
+//   2. the block stages 32-key chunks of K and V for positions
+//      0..lengths[b] in shared memory, and each warp runs the online softmax
+//      in f32 for its query heads of the group: lane j scores key j, the
+//      warp reduces max and sum with shuffles, and each lane accumulates
+//      D/32 output dims.
+// Positions past lengths[b] are never read, so the cost follows the
+// row's length, not S_pad. Scores are (q . k) * 1/sqrt(D) in f32 as in the
+// TPU kernel; probabilities stay in f32 (the TPU kernel rounds normalized
+// probabilities to bf16 before P.V; the difference is within bf16
+// rounding).
+//
+// Bound on the H100: the bytes of the cache prefix it reads,
+// B*KVH*(len+1)*D*2 per K and V, against 3.35 TB/s.
+#include "common.cuh"
+
+namespace {
+
+constexpr int KC = 32, THREADS = 256, WARPS = THREADS / 32, MAX_HPW = 2;
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
+              const __nv_bfloat16* __restrict__ new_k,  // (B, KVH, D)
+              const __nv_bfloat16* __restrict__ new_v,
+              __nv_bfloat16* __restrict__ cache_k,      // (L, B, KVH, S_pad, D)
+              __nv_bfloat16* __restrict__ cache_v,
+              const int* __restrict__ lengths,          // (B,)
+              __nv_bfloat16* __restrict__ out,          // (B, H, D)
+              int B, int KVH, int rep, int s_pad, int layer, float inv_sqrt_d) {
+  constexpr int DPL = D / 32;  // output dims per lane
+  __shared__ float qs[WARPS * MAX_HPW][D];
+  __shared__ float ks[KC][D + 1];
+  __shared__ float vs[KC][D];
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = KVH * rep;
+  const int len = lengths[b];
+  const size_t row_off = (((size_t)layer * B + b) * KVH + kvh) * s_pad * D;
+  __nv_bfloat16* ck = cache_k + row_off;
+  __nv_bfloat16* cv = cache_v + row_off;
+
+  if (len < 0) {  // inactive row: cache untouched, output zero
+    for (int i = tid; i < rep * D; i += THREADS)
+      out[((size_t)b * H + kvh * rep) * D + i] = __float2bfloat16(0.f);
+    return;
+  }
+  if (len < s_pad) {
+    const size_t src = ((size_t)b * KVH + kvh) * D;
+    for (int d = tid; d < D; d += THREADS) {
+      ck[(size_t)len * D + d] = new_k[src + d];
+      cv[(size_t)len * D + d] = new_v[src + d];
+    }
+  }
+  for (int i = tid; i < rep * D; i += THREADS)
+    qs[i / D][i % D] = __bfloat162float(q[((size_t)b * H + kvh * rep) * D + i]);
+  __syncthreads();  // the new row and q are visible to the whole block
+
+  const int n_keys = min(len, s_pad - 1) + 1;
+  float m[MAX_HPW], l[MAX_HPW], acc[MAX_HPW][DPL];
+#pragma unroll
+  for (int i = 0; i < MAX_HPW; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int c0 = 0; c0 < n_keys; c0 += KC) {
+    for (int i = tid; i < KC * D / 2; i += THREADS) {
+      const int j = i / (D / 2), d2 = (i % (D / 2)) * 2;
+      float2 kf = make_float2(0.f, 0.f), vf = make_float2(0.f, 0.f);
+      if (c0 + j < n_keys) {
+        const size_t off = (size_t)(c0 + j) * D + d2;
+        kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ck + off));
+        vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cv + off));
+      }
+      ks[j][d2] = kf.x; ks[j][d2 + 1] = kf.y;
+      vs[j][d2] = vf.x; vs[j][d2 + 1] = vf.y;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int hi = 0; hi < MAX_HPW; ++hi) {
+      const int h = warp + hi * WARPS;
+      if (h >= rep) break;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot += qs[h][d] * ks[lane][d];
+      const float s = (c0 + lane < n_keys) ? dot * inv_sqrt_d : -INFINITY;
+      const float m_new = fmaxf(m[hi], ct::warp_max(s));  // key c0 is live
+      const float p = __expf(s - m_new);
+      const float alpha = __expf(m[hi] - m_new);
+      l[hi] = l[hi] * alpha + ct::warp_sum(p);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[hi][e] *= alpha;
+      for (int j = 0; j < KC && c0 + j < n_keys; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[hi][e] += pj * vs[j][lane + 32 * e];
+      }
+      m[hi] = m_new;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < MAX_HPW; ++hi) {
+    const int h = warp + hi * WARPS;
+    if (h >= rep) break;
+    __nv_bfloat16* op = out + ((size_t)b * H + kvh * rep + h) * D;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) op[lane + 32 * e] = __float2bfloat16(acc[hi][e] / l[hi]);
+  }
+}
+
+}  // namespace
+
+// q (B, H, D), new_k/new_v (B, KVH, D), cache_k/cache_v (L, B, KVH, S_pad, D)
+// all bf16 and contiguous; lengths (B,) int32; out (B, H, D) bf16.
+// D in {64, 128} and rep = H / KVH <= 16.
+extern "C" int ct_decode_attention(const void* q, const void* new_k,
+                                   const void* new_v, void* cache_k,
+                                   void* cache_v, const void* lengths, void* out,
+                                   int B, int KVH, int rep, int s_pad, int D,
+                                   int layer, float inv_sqrt_d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rep > WARPS * MAX_HPW) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(KVH, B);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* nk = static_cast<const __nv_bfloat16*>(new_k);
+  const auto* nv = static_cast<const __nv_bfloat16*>(new_v);
+  auto* ckp = static_cast<__nv_bfloat16*>(cache_k);
+  auto* cvp = static_cast<__nv_bfloat16*>(cache_v);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 64)
+    decode_kernel<64><<<grid, THREADS, 0, s>>>(qp, nk, nv, ckp, cvp, lp, op, B, KVH,
+                                               rep, s_pad, layer, inv_sqrt_d);
+  else if (D == 128)
+    decode_kernel<128><<<grid, THREADS, 0, s>>>(qp, nk, nv, ckp, cvp, lp, op, B, KVH,
+                                                rep, s_pad, layer, inv_sqrt_d);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,4 @@
+from compressed_tensors_tpu_torch.engine.generate import (  # noqa: F401
+    greedy_generate,
+    make_step_fns,
+)

@@ -1,0 +1,7 @@
+from compressed_tensors_tpu_torch.models.config import LlamaConfig  # noqa: F401
+from compressed_tensors_tpu_torch.models.llama import (  # noqa: F401
+    KVCache,
+    init_kv_cache,
+    llama_forward,
+    load_llama_params,
+)

@@ -1,0 +1,202 @@
+"""Synthetic compressed Llama models, and a writer that saves one as a
+compressed-tensors checkpoint.
+
+Counterpart of ``compressed_tensors_tpu/models/synthetic.py``. Weights are
+drawn with numpy from ``seed`` in the same order and with the same
+distributions as the JAX package, directly in their packed
+representation, so both packages build the same model from the same seed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from compressed_tensors_tpu_torch.config import CompressionFormat
+from compressed_tensors_tpu_torch.models.config import LlamaConfig
+from compressed_tensors_tpu_torch.models.llama import resolve_device
+from compressed_tensors_tpu_torch.ops.linear import (
+    QuantizedTensor,
+    prepare_for_kernels,
+)
+from compressed_tensors_tpu_torch.ops.pack import packed_cols
+from compressed_tensors_tpu_torch.quantization import (
+    QuantizationConfig,
+    QuantizationScheme,
+    QuantizationStatus,
+    preset_name_to_scheme,
+)
+from compressed_tensors_tpu_torch.utils.safetensors_io import save_safetensors
+
+__all__ = ["make_synthetic_llama", "save_llama_checkpoint", "TINYLLAMA_1_1B"]
+
+TINYLLAMA_1_1B = LlamaConfig(
+    vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=22, num_attention_heads=32, num_key_value_heads=4,
+    head_dim=64, rope_theta=10000.0, max_position_embeddings=2048,
+)
+
+
+def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
+                  dtype, device) -> QuantizedTensor:
+    """Random compressed weight for `shape` (dense, pack-quantized or int8)."""
+    n, k = shape
+    args = scheme.weights
+    if args is None:
+        w = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             * 0.02).to(device=device, dtype=dtype)
+        return QuantizedTensor(weight=w, shape=shape, scheme=scheme,
+                               format=CompressionFormat.dense.value)
+    if args.num_bits == 8 and args.type == "int":
+        wq = rng.integers(-127, 128, size=shape, dtype=np.int8)
+        scale = rng.uniform(size=(n, 1)).astype(np.float32) * 2e-4 + 1e-4
+        return QuantizedTensor(
+            weight=torch.from_numpy(wq).to(device),
+            scale=torch.from_numpy(scale).to(device), shape=shape,
+            scheme=scheme, format=CompressionFormat.int_quantized.value)
+    if args.type != "int":
+        raise NotImplementedError(f"synthetic {args.type} weights")
+    g = args.group_size or k
+    packed = rng.integers(-(2**31), 2**31, size=(n, packed_cols(k, args.num_bits)),
+                          dtype=np.int32)
+    scale = rng.uniform(size=(n, k // g)).astype(np.float32) * 0.002 + 0.001
+    return QuantizedTensor(
+        weight_packed=torch.from_numpy(packed).to(device),
+        scale=torch.from_numpy(scale).to(device=device, dtype=torch.bfloat16),
+        shape=shape, scheme=scheme,
+        format=CompressionFormat.pack_quantized.value)
+
+
+def make_synthetic_llama(
+    config: LlamaConfig,
+    preset: str = "W4A16",
+    seed: int = 0,
+    dtype=torch.bfloat16,
+    use_kernels: bool = True,
+    lm_head_preset: str | None = None,
+    device="cuda",
+) -> dict:
+    """Build a synthetic compressed Llama params dict on ``device``.
+
+    :param lm_head_preset: quantize the lm_head with this preset instead of
+        tying it to the embedding table
+    :param use_kernels: build the kernel weight layouts
+    """
+    device = resolve_device(device)
+    H, I, V = config.hidden_size, config.intermediate_size, config.vocab_size
+    NH, KVH, D = (config.num_attention_heads, config.num_key_value_heads,
+                  config.head_dim)
+    rng = np.random.default_rng(seed)
+
+    def linear(shape, scheme):
+        qt = _synthetic_qt(rng, shape, scheme, dtype, device)
+        return prepare_for_kernels(qt) if use_kernels else qt
+
+    params: dict = {
+        "embed_tokens": torch.from_numpy(
+            rng.standard_normal((V, H), dtype=np.float32) * 0.02).to(
+                device=device, dtype=dtype),
+        "norm": torch.ones((H,), dtype=dtype, device=device),
+        "layers": [],
+    }
+    scheme = preset_name_to_scheme(preset, ["Linear"])
+    for _ in range(config.num_hidden_layers):
+        layer = {
+            "q_proj": linear((NH * D, H), scheme),
+            "k_proj": linear((KVH * D, H), scheme),
+            "v_proj": linear((KVH * D, H), scheme),
+            "o_proj": linear((H, NH * D), scheme),
+            "input_layernorm": torch.ones((H,), dtype=dtype, device=device),
+            "post_attention_layernorm": torch.ones((H,), dtype=dtype,
+                                                   device=device),
+        }
+        layer["gate_proj"] = linear((I, H), scheme)
+        layer["up_proj"] = linear((I, H), scheme)
+        layer["down_proj"] = linear((H, I), scheme)
+        params["layers"].append(layer)
+    if lm_head_preset is not None:
+        params["lm_head"] = linear(
+            (V, H), preset_name_to_scheme(lm_head_preset, ["lm_head"]))
+    else:
+        params["lm_head"] = params["embed_tokens"]
+    return params
+
+
+def _checkpoint_state(qt: QuantizedTensor) -> dict[str, torch.Tensor]:
+    """The checkpoint-layout tensors of one linear (kernel layout dropped)."""
+    state = {}
+    if qt.weight_packed is not None:
+        state["weight_packed"] = qt.weight_packed
+        state["weight_shape"] = torch.tensor(qt.shape, dtype=torch.int32)
+    if qt.weight is not None:
+        state["weight"] = qt.weight
+    for local, field in (("weight_scale", "scale"),
+                         ("weight_zero_point", "zero_point"),
+                         ("weight_g_idx", "g_idx"), ("bias", "bias")):
+        if getattr(qt, field) is not None:
+            state[local] = getattr(qt, field)
+    return state
+
+
+def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
+    """Write unfused Llama params as a compressed-tensors checkpoint:
+    ``model.safetensors`` plus ``config.json`` with its
+    ``quantization_config`` (one config group per distinct scheme, the
+    lm_head's targeting ``lm_head``)."""
+    os.makedirs(path, exist_ok=True)
+    tensors: dict[str, torch.Tensor] = {
+        "model.embed_tokens.weight": params["embed_tokens"],
+        "model.norm.weight": params["norm"],
+    }
+    linears: dict[str, QuantizedTensor] = {}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            linears[f"{p}.self_attn.{proj}"] = layer[proj]
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            linears[f"{p}.mlp.{proj}"] = layer[proj]
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{p}.{norm}.weight"] = layer[norm]
+    if isinstance(params["lm_head"], QuantizedTensor):
+        linears["lm_head"] = params["lm_head"]
+
+    groups: dict[str, QuantizationScheme] = {}
+    formats = set()
+    for name, qt in linears.items():
+        for local, t in _checkpoint_state(qt).items():
+            tensors[f"{name}.{local}"] = t
+        if qt.scheme is None or qt.scheme.weights is None:
+            continue
+        scheme = qt.scheme.model_copy(update={"format": qt.format})
+        formats.add(qt.format)
+        if all(s != scheme for s in groups.values()):
+            groups[f"group_{len(groups)}"] = scheme
+    save_safetensors(os.path.join(path, "model.safetensors"), tensors,
+                     metadata={"format": "pt"})
+
+    cfg = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+        "intermediate_size": config.intermediate_size,
+        "num_hidden_layers": config.num_hidden_layers,
+        "num_attention_heads": config.num_attention_heads,
+        "num_key_value_heads": config.num_key_value_heads,
+        "head_dim": config.head_dim, "rms_norm_eps": config.rms_norm_eps,
+        "rope_theta": config.rope_theta,
+        "max_position_embeddings": config.max_position_embeddings,
+        "tie_word_embeddings": not isinstance(params["lm_head"],
+                                              QuantizedTensor),
+    }
+    if groups:
+        qconfig = QuantizationConfig(
+            config_groups=groups,
+            format=(formats.pop() if len(formats) == 1
+                    else CompressionFormat.mixed_precision.value),
+            quantization_status=QuantizationStatus.COMPRESSED,
+        )
+        cfg["quantization_config"] = qconfig.model_dump(mode="json")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)

@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a``, and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes. The library lands in
+``build/kernels/`` beside the package, named by a hash of the sources and
+flags, so a changed source is rebuilt and a built one is reused. Nothing
+is built at import: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+__all__ = ["build", "load", "check"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = ("w4a16_matmul.cu", "w8a8_matmul.cu", "prefill_attention.cu",
+           "decode_attention.cu", "errors.cu")
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ct_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ct_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ct_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built with the CUDA "
+            "toolkit (nvcc on PATH or /usr/local/cuda/bin/nvcc)")
+    return path
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels (if this exact source set is not built yet) and
+    return the shared library's path. ``verbose`` prints ptxas's register
+    and shared-memory report per kernel."""
+    sources = [CSRC / s for s in SOURCES]
+    headers = sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in sources + headers)
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libct_kernels_{digest}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}_{digest}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode or verbose:
+            print(f"[nvcc {src.name}]\n{out}", file=sys.stderr)
+        if proc.returncode:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}")
+    tmp = lib_path.with_name(lib_path.name + f".{os.getpid()}.tmp")
+    subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                    *(str(obj) for _, obj, _ in jobs)], check=True)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ct_error_string.argtypes = [ctypes.c_int]
+            lib.ct_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = _lib.ct_error_string(err).decode() if _lib is not None else ""
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,124 @@
+"""W4A16 group-quantized matmul: y = x @ W^T with W kept packed.
+
+Replaces ``compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:w4a16_matmul``
+(mode ``int4b``) with the hand-written Hopper kernel in
+``csrc/w4a16_matmul.cu``.
+
+Weight layout: the checkpoint's pack-quantized words, (N, K/8) int32 with
+nibble j of word w holding u = q + 8 of column 8w + j -- already K-major
+per output row, which is what the kernel's tensor-core B operand wants, so
+the layout needs no repacking. Group scales (and zero points) are stored
+(K/group, N) f32 so a k-tile reads one contiguous row of them.
+
+Bound on the H100: at decode (M = 64) the packed weight bytes, K*N/2 read
+once; at prefill (M = B*S) the 2*M*N*K bf16 tensor-core operations. The
+kernel keeps the weight packed in device memory and decodes it in shared
+memory, and at small M splits K across blocks so the weight streams on
+more SMs (see the source note in the .cu file).
+
+``w4a16_matmul`` launches the kernel for CUDA tensors and uses
+``w4a16_matmul_plain`` only for CPU tensors. Mode ``a8b`` (int8
+activations) is ROADMAP B2 and has no CUDA kernel yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from compressed_tensors_tpu_torch.ops.kernels import _build
+from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
+
+__all__ = ["w4a16_matmul", "w4a16_matmul_plain"]
+
+_BK = 64
+_TILE = 64
+_SMS = 132
+
+
+def _dequantized_weight(w_packed, scales, zp, n, k, group_size):
+    """(N, K) f32 weight: (q - zp) * s."""
+    q = unpack_from_int32(w_packed, 4, (n, k)).to(torch.float32)
+    s = scales.to(torch.float32).t().repeat_interleave(group_size, dim=1)
+    if zp is not None:
+        q = q - zp.to(torch.float32).t().repeat_interleave(group_size, dim=1)
+    return q * s
+
+
+def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
+                       mode="int4b"):
+    """Plain PyTorch version: dequantize the weight in f32, one f32 matmul,
+    cast to x's dtype. Mode "a8b" first quantizes x per row to int8
+    (scale = absmax / 127, clip to +-127), as the TPU kernel's a8b mode."""
+    w = _dequantized_weight(w_packed, scales, zp, n, k, group_size)
+    xf = x.to(torch.float32)
+    if mode == "a8b":
+        x_scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+        xq = torch.round(xf / x_scale).clamp(-127, 127)
+        return ((xq @ w.t()) * x_scale).to(x.dtype)
+    if mode != "int4b":
+        raise ValueError(f"unknown w4a16 mode {mode!r}")
+    return (xf @ w.t()).to(x.dtype)
+
+
+def _split_k(m: int, n: int, k: int, group_size: int) -> tuple[int, int]:
+    """(splits, k-tiles per split): split K over up to 4 blocks when the
+    (M, N) tile grid leaves most SMs idle; splits cut at group bounds."""
+    tiles = k // _BK
+    per_group = group_size // _BK
+    blocks = -(-n // _TILE) * -(-m // _TILE)
+    want = min(4, max(1, _SMS // blocks), k // group_size)
+    groups_per_split = -(-(k // group_size) // want)
+    tiles_per_split = groups_per_split * per_group
+    return -(-tiles // tiles_per_split), tiles_per_split
+
+
+def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                 scales: torch.Tensor, zp: torch.Tensor | None, *,
+                 n: int, k: int, group_size: int,
+                 mode: str = "int4b") -> torch.Tensor:
+    """y (M, N) = x (M, K) @ W^T for W packed (N, K/8) int32 with (K/g, N)
+    f32 scales and optional (K/g, N) f32 zero points."""
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, w_packed, scales, zp, n=n, k=k,
+                                  group_size=group_size, mode=mode)
+    if mode != "int4b":
+        raise NotImplementedError(
+            f"w4a16_matmul mode {mode!r} has no CUDA kernel yet "
+            "(ROADMAP B2: int8-activation W4A16)")
+    m = x.shape[0]
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}) bf16, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if k % _BK or group_size % _BK:
+        raise NotImplementedError(
+            f"w4a16 kernel needs K and group_size multiples of {_BK}, got "
+            f"K={k}, group_size={group_size}")
+    if (w_packed.dtype != torch.int32 or tuple(w_packed.shape) != (n, k // 8)
+            or scales.dtype != torch.float32
+            or tuple(scales.shape) != (k // group_size, n)
+            or (zp is not None and (zp.dtype != torch.float32
+                                    or zp.shape != scales.shape))):
+        raise ValueError("w4a16 kernel layout mismatch")
+    tensors = [x, w_packed, scales] + ([zp] if zp is not None else [])
+    if any(t.device != x.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("w4a16 operands must be contiguous on one device")
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    splits, tiles_per_split = _split_k(m, n, k, group_size)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ct_w4a16_matmul(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            zp.data_ptr() if zp is not None else None, y.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            m, n, k, group_size, splits, tiles_per_split,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "w4a16_matmul")
+    w4a16_matmul.launches += 1
+    return y
+
+
+w4a16_matmul.launches = 0

@@ -1,0 +1,129 @@
+"""Quantize / dequantize: the QDQ math the run-compressed path needs.
+
+Counterpart of ``compressed_tensors_tpu/ops/quantize.py`` for the tensor,
+channel, token and group strategies of int and fp8 quantization (the
+block and fp4 branches wait for their slices). Same operation order as the
+JAX package, so f32 results agree to the last bit on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from compressed_tensors_tpu_torch.ops.qparams import calculate_range
+from compressed_tensors_tpu_torch.quantization.quant_args import (
+    QuantizationArgs,
+    QuantizationStrategy,
+    QuantizationType,
+)
+
+__all__ = ["quantize", "dequantize"]
+
+
+def _round_to_grid(x, args: QuantizationArgs, q_min, q_max):
+    x = x.clamp(q_min, q_max)
+    if args.type == QuantizationType.FLOAT.value and args.num_bits == 8:
+        return x.to(torch.float8_e4m3fn).to(x.dtype)
+    if args.type == QuantizationType.INT.value:
+        return torch.round(x)
+    raise NotImplementedError(f"{args.type} with {args.num_bits} bits")
+
+
+def _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype):
+    scaled = x / scale.to(x.dtype)
+    if zero_point is not None:
+        scaled = scaled + zero_point.to(x.dtype)
+    q = _round_to_grid(scaled, args, q_min, q_max)
+    return q.to(dtype) if dtype is not None else q
+
+
+def _dequantize_op(x_q, scale, zero_point, dtype):
+    # narrow float scales compute in f32 (no fp8 arithmetic)
+    compute = torch.float32 if scale.dtype.itemsize == 1 else scale.dtype
+    dq = x_q.to(compute)
+    if zero_point is not None:
+        dq = dq - zero_point.to(compute)
+    dq = dq * scale.to(compute)
+    return dq.to(dtype) if dtype is not None else dq
+
+
+def _apply(x, scale, zero_point, q_min, q_max, args, dtype, do_quantize):
+    if do_quantize:
+        return _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype)
+    return _dequantize_op(x, scale, zero_point, dtype)
+
+
+def _process_group(x, scale, zero_point, args, q_min, q_max, dtype,
+                   do_quantize, g_idx):
+    """Group strategy: optional activation-order permutation, reshape the
+    last dim into (groups, group_size), apply, restore."""
+    group_size = args.group_size
+    output_dtype = dtype if dtype is not None else x.dtype
+    columns = x.shape[-1]
+    while scale.ndim < 2:
+        scale = scale[..., None]
+        zero_point = zero_point[..., None] if zero_point is not None else None
+    if columns >= group_size and columns % group_size != 0:
+        raise ValueError(
+            "tensor column shape must be divisible "
+            f"by the given group_size {group_size} but got {columns}")
+
+    perm = None
+    if g_idx is not None:
+        perm = torch.argsort(g_idx, stable=True)
+        x = x.index_select(-1, perm)
+
+    num_groups = math.ceil(x.shape[-1] / group_size)
+    x = x.reshape(*x.shape[:-1], num_groups, group_size)
+    out = _apply(x, scale[..., None],
+                 zero_point[..., None] if zero_point is not None else None,
+                 q_min, q_max, args, dtype, do_quantize)
+    out = out.reshape(*out.shape[:-2], num_groups * group_size).to(
+        output_dtype)
+    if perm is not None:
+        out = out.index_select(-1, torch.argsort(perm))
+    return out
+
+
+def _process(x, scale, zero_point, args, g_idx, dtype, do_quantize):
+    q_min, q_max = calculate_range(args)
+    if args.strategy == QuantizationStrategy.GROUP.value:
+        return _process_group(x, scale, zero_point, args, q_min, q_max,
+                              dtype, do_quantize, g_idx)
+    if args.strategy in (QuantizationStrategy.TENSOR.value,
+                         QuantizationStrategy.CHANNEL.value,
+                         QuantizationStrategy.TOKEN.value):
+        return _apply(x, scale, zero_point, q_min, q_max, args, dtype,
+                      do_quantize)
+    raise NotImplementedError(f"{args.strategy} strategy")
+
+
+def quantize(x, scale, zero_point, args: QuantizationArgs, dtype=None,
+             g_idx=None) -> torch.Tensor:
+    """Quantize x per the strategy in args."""
+    return _process(x, scale, zero_point, args, g_idx, dtype, True)
+
+
+def dequantize(x_q, scale, zero_point=None, args: QuantizationArgs = None,
+               dtype=None, g_idx=None) -> torch.Tensor:
+    """Dequantize x_q. Without args the strategy follows from the scale's
+    shape: 0/1-D tensor, (rows, 1) channel, (rows, groups) group."""
+    if args is None:
+        if scale.ndim <= 1:
+            args = QuantizationArgs(strategy=QuantizationStrategy.TENSOR)
+        elif scale.ndim == 2 and scale.shape[1] == 1:
+            args = QuantizationArgs(strategy=QuantizationStrategy.CHANNEL)
+        elif scale.ndim == 2 and scale.shape[0] in (1, x_q.shape[0]):
+            args = QuantizationArgs(
+                strategy=QuantizationStrategy.GROUP,
+                group_size=int(x_q.shape[1] / scale.shape[1]))
+        else:
+            raise NotImplementedError(
+                f"strategy for scale shape {tuple(scale.shape)}")
+    if dtype is None:
+        dtype = scale.dtype
+        if dtype.itemsize == 1 or not dtype.is_floating_point:
+            dtype = torch.float32
+    return _process(x_q, scale, zero_point, args, g_idx, dtype, False)

@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small shapes (``chip_smoke.py`` repeats this at the main path's shapes).
+Marked ``cuda``: they skip without an NVIDIA GPU. On a machine with one:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from compressed_tensors_tpu_torch.ops.kernels import (
+    decode_attention as da,
+    prefill_attention as pa,
+    w4a16_matmul as w4,
+    w8a8_matmul as w8,
+)
+
+pytestmark = pytest.mark.cuda
+
+# bf16 output rounding (2^-8 relative) plus another f32 summation order
+TOL = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _bf16(rng, *shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device, torch.bfloat16)
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("m,asym", [(5, False), (70, True)])
+def test_w4a16_matmul(dev, m, asym):
+    rng = np.random.default_rng(m)
+    n, k, g = 192, 384, 128
+    w = torch.from_numpy(rng.integers(-2**31, 2**31, (n, k // 8),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 3e-3, (k // g, n)).astype(
+        np.float32)).to(dev)
+    zp = (torch.from_numpy(rng.integers(-8, 8, (k // g, n)).astype(
+        np.float32)).to(dev) if asym else None)
+    x = _bf16(rng, m, k, device=dev)
+    before = w4.w4a16_matmul.launches
+    got = w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=g)
+    assert w4.w4a16_matmul.launches == before + 1
+    _close(got, w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=g))
+
+
+def test_w8a8_matmul(dev):
+    rng = np.random.default_rng(0)
+    n, k = 200, 256
+    x = _bf16(rng, 33, k, device=dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-4, 3e-4, n).astype(np.float32)).to(dev)
+    _close(w8.w8a8_matmul(x, w, s, n=n, k=k),
+           w8.w8a8_matmul_plain(x, w, s, n=n, k=k))
+
+
+def test_prefill_attention(dev):
+    rng = np.random.default_rng(0)
+    q, k, v = (_bf16(rng, 2, 70, h, 64, device=dev) for h in (8, 2, 2))
+    _close(pa.prefill_attention(q, k, v), pa.prefill_attention_plain(q, k, v))
+
+
+def test_decode_attention_in_place(dev):
+    rng = np.random.default_rng(0)
+    q = _bf16(rng, 3, 8, 64, device=dev)
+    nk, nv = _bf16(rng, 3, 2, 64, device=dev), _bf16(rng, 3, 2, 64, device=dev)
+    ck, cv = _bf16(rng, 2, 3, 2, 64, 64, device=dev), _bf16(
+        rng, 2, 3, 2, 64, 64, device=dev)
+    lengths = torch.tensor([10, -1, 63], dtype=torch.int32, device=dev)
+    ck_p, cv_p = ck.clone(), cv.clone()
+    out, ck_r, cv_r = da.decode_attention(q, nk, nv, ck, cv, lengths, layer=1)
+    assert ck_r is ck and cv_r is cv
+    want, _, _ = da.decode_attention_plain(q, nk, nv, ck_p, cv_p, lengths,
+                                           layer=1)
+    _close(out[[0, 2]], want[[0, 2]])
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)

@@ -1,0 +1,33 @@
+"""The PyTorch port imports neither JAX nor the JAX package, and importing
+any of its modules builds no kernel."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import compressed_tensors_tpu_torch as pkg
+        from compressed_tensors_tpu_torch.ops.kernels import _build
+        names = [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        assert "compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul" in names
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "compressed_tensors_tpu"
+                     or m.startswith("compressed_tensors_tpu."))
+        assert not bad, bad
+        assert _build._lib is None
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30

@@ -1,0 +1,162 @@
+"""quantized_matmul and projection fusion of the PyTorch port against the
+JAX package, in f32 on the CPU: the port's kernel path (the W4A16 / W8A8
+kernels' plain versions) and its non-kernel path against the JAX
+``use_kernels=False`` output and the JAX Pallas kernel in interpret mode.
+Tolerance: atol = rtol = 1e-4 * max|y|."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from compressed_tensors_tpu.flags import flag_overrides as j_flags
+from compressed_tensors_tpu.ops.fuse import fuse_quantized_tensors as j_fuse
+from compressed_tensors_tpu.ops.linear import (
+    from_compressed_state as j_from_state,
+    prepare_for_kernels as j_prepare,
+    quantized_matmul as j_matmul,
+)
+from compressed_tensors_tpu.ops.pack import pack_to_int32 as j_pack
+from compressed_tensors_tpu.quantization import (
+    preset_name_to_scheme as j_preset,
+)
+
+from compressed_tensors_tpu_torch.flags import flag_overrides
+from compressed_tensors_tpu_torch.ops.fuse import fuse_quantized_tensors
+from compressed_tensors_tpu_torch.ops.linear import (
+    from_compressed_state,
+    prepare_for_kernels,
+    quantized_matmul,
+)
+from compressed_tensors_tpu_torch.quantization import preset_name_to_scheme
+
+from torch_port_utils import to_torch
+
+
+def _state(rng, preset, n, k, actorder=False):
+    """A checkpoint-layout module state in numpy."""
+    args = j_preset(preset, ["Linear"]).weights
+    if preset in ("W8A8", "FP8_DYNAMIC"):
+        w = (rng.integers(-128, 128, (n, k)).astype(np.int8)
+             if preset == "W8A8" else
+             rng.uniform(-400, 400, (n, k)).astype(ml_dtypes.float8_e4m3fn))
+        return {"weight": w,
+                "weight_scale": rng.uniform(1e-3, 1e-2, (n, 1)).astype(
+                    np.float32)}
+    g = args.group_size
+    q = rng.integers(-8, 8, (n, k)).astype(np.int8)
+    state = {
+        "weight_packed": np.asarray(j_pack(jnp.asarray(q), 4)),
+        "weight_scale": rng.uniform(1e-3, 1e-2, (n, k // g)).astype(
+            np.float32),
+        "weight_shape": np.asarray([n, k], np.int32),
+    }
+    if not args.symmetric:
+        zp = rng.integers(-8, 8, (n, k // g)).astype(np.int8)
+        state["weight_zero_point"] = np.asarray(
+            j_pack(jnp.asarray(zp), 4, packed_dim=0))
+    if actorder:
+        state["weight_g_idx"] = rng.permutation(np.arange(k) // g).astype(
+            np.int32)
+    return state
+
+
+def _both(state, preset, actorder=False):
+    j_scheme = j_preset(preset, ["Linear"])
+    t_scheme = preset_name_to_scheme(preset, ["Linear"])
+    if actorder:
+        j_scheme.weights.actorder = "group"
+        t_scheme.weights.actorder = "group"
+    jqt = j_from_state({k: jnp.asarray(v) for k, v in state.items()},
+                       j_scheme)
+    tqt = from_compressed_state({k: to_torch(v) for k, v in state.items()},
+                                t_scheme)
+    return jqt, tqt
+
+
+def _close(got, want):
+    got = got.detach().numpy()
+    want = np.asarray(want, dtype=np.float32)
+    tol = 1e-4 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=1e-4)
+
+
+CASES = [
+    ("W4A16", 256, 512, False),
+    ("W4A16_ASYM", 256, 512, False),
+    ("W4A16", 128, 384, False),   # K not a multiple of the TPU k-tile
+    ("W4A16", 128, 256, True),    # actorder (g_idx) checkpoint
+    ("W8A8", 192, 256, False),
+    ("FP8_DYNAMIC", 192, 256, False),
+]
+
+
+@pytest.mark.parametrize("preset,n,k,actorder", CASES,
+                         ids=[f"{c[0]}-{c[1]}x{c[2]}{'-actorder' * c[3]}"
+                              for c in CASES])
+def test_quantized_matmul_matches_jax(preset, n, k, actorder):
+    rng = np.random.default_rng(0)
+    jqt, tqt = _both(_state(rng, preset, n, k, actorder), preset, actorder)
+    x = rng.standard_normal((2, 5, k)).astype(np.float32)
+    if preset in ("W8A8", "FP8_DYNAMIC"):
+        # a row whose largest |x| is negative quantizes that element from
+        # x/scale = -127.5, a rounding tie, and the JAX package's own two
+        # paths break the tie differently; positive maxima avoid the tie
+        i = np.abs(x).argmax(-1)[..., None]
+        np.put_along_axis(x, i, np.abs(np.take_along_axis(x, i, -1)), -1)
+
+    want = j_matmul(jnp.asarray(x), jqt, use_kernels=False)
+    want_kernel = j_matmul(jnp.asarray(x), j_prepare(jqt), use_kernels=True)
+    tx = torch.from_numpy(x)
+    tk = prepare_for_kernels(tqt)
+    assert tk.kernel_meta[0] == ("w4a16" if preset.startswith("W4")
+                                 else "w8a8")
+    got_kernel = quantized_matmul(tx, tk, use_kernels=True)
+    got = quantized_matmul(tx, tqt, use_kernels=False)
+    _close(got, want)
+    _close(got_kernel, want)
+    _close(got_kernel, want_kernel)
+
+
+def test_int8_activation_mode_matches_jax():
+    """w4_act="int8" selects the a8b mode: the port's plain version of it
+    against the JAX kernel in interpret mode (on CUDA the mode raises until
+    its kernel is ported)."""
+    rng = np.random.default_rng(3)
+    jqt, tqt = _both(_state(rng, "W4A16", 128, 256), "W4A16")
+    x = rng.standard_normal((4, 256)).astype(np.float32)
+    with j_flags(w4_act="int8"):
+        want = j_matmul(jnp.asarray(x), j_prepare(jqt), use_kernels=True)
+    with flag_overrides(w4_act="int8"):
+        got = quantized_matmul(torch.from_numpy(x), prepare_for_kernels(tqt))
+    _close(got, want)
+    plain = quantized_matmul(torch.from_numpy(x), prepare_for_kernels(tqt))
+    assert not torch.equal(got, plain)  # the mode changed the arithmetic
+
+
+def test_fused_projections_match_members():
+    rng = np.random.default_rng(1)
+    pairs = [_both(_state(rng, "W4A16", n, 256), "W4A16")
+             for n in (128, 64, 64)]
+    x = rng.standard_normal((3, 256)).astype(np.float32)
+    j_fused = j_fuse([j for j, _ in pairs])
+    t_fused = fuse_quantized_tensors([prepare_for_kernels(t) for _, t in pairs])
+    assert t_fused.shape == (256, 256)
+    assert t_fused.kernel_meta == ("w4a16", 256, 256, 128)
+    got = quantized_matmul(torch.from_numpy(x), t_fused)
+    _close(got, j_matmul(jnp.asarray(x), j_fused, use_kernels=False))
+    parts = [quantized_matmul(torch.from_numpy(x), prepare_for_kernels(t))
+             for _, t in pairs]
+    np.testing.assert_array_equal(got.numpy(), torch.cat(parts, -1).numpy())
+
+
+def test_mismatched_schemes_do_not_fuse():
+    rng = np.random.default_rng(2)
+    _, a = _both(_state(rng, "W4A16", 64, 256), "W4A16")
+    _, b = _both(_state(rng, "W4A16_ASYM", 64, 256), "W4A16_ASYM")
+    assert fuse_quantized_tensors([a, b]) is None
+    c = dataclasses.replace(a, shape=(64, 128))
+    assert fuse_quantized_tensors([a, c]) is None

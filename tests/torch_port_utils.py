@@ -1,0 +1,88 @@
+"""Helpers for the parity tests of compressed_tensors_tpu_torch against the
+JAX package: numpy bridges for parameters, and the small model shared by
+the slice tests."""
+
+import numpy as np
+import torch
+
+# 2 layers, hidden 256, intermediate 512, 8 heads / 2 KV heads, head_dim
+# 32, vocab 512: the smallest Llama whose widths group size 128 divides
+TORCH_TINY_CONFIG = {
+    "architectures": ["LlamaForCausalLM"],
+    "model_type": "llama",
+    "vocab_size": 512,
+    "hidden_size": 256,
+    "intermediate_size": 512,
+    "num_hidden_layers": 2,
+    "num_attention_heads": 8,
+    "num_key_value_heads": 2,
+    "head_dim": 32,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0,
+    "max_position_embeddings": 512,
+    "tie_word_embeddings": False,
+}
+
+
+def w4a16_config(symmetric=True, group_size=128):
+    return {
+        "config_groups": {"group_0": {
+            "targets": ["Linear"],
+            "weights": {"num_bits": 4, "type": "int",
+                        "symmetric": symmetric, "strategy": "group",
+                        "group_size": group_size},
+            "format": "pack-quantized"}},
+        "format": "pack-quantized",
+        "ignore": ["lm_head"],
+        "quant_method": "compressed-tensors",
+        "quantization_status": "compressed",
+    }
+
+
+_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def to_torch(a) -> torch.Tensor:
+    """numpy/JAX array -> torch tensor (bf16 and fp8 through an integer
+    view of the same bytes)."""
+    a = np.array(a)
+    if a.dtype.name in _VIEWS:
+        view, dtype = _VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(view)).view(dtype)
+    return torch.from_numpy(a)
+
+
+def to_numpy(t) -> np.ndarray:
+    """torch tensor or JAX array -> f32 (floats) or integer numpy array."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+    a = np.asarray(t)
+    return a.astype(np.float32) if a.dtype.kind == "V" or \
+        a.dtype.name == "bfloat16" else a
+
+
+_LINEAR_FIELDS = ("weight", "weight_packed", "scale", "zero_point", "bias",
+                  "g_idx")
+
+
+def jax_params_to_numpy(params):
+    """The JAX params tree with every leaf in numpy; each QuantizedTensor
+    becomes a dict of its checkpoint-layout fields (kernel layouts are
+    dropped)."""
+    from compressed_tensors_tpu.ops.linear import QuantizedTensor
+
+    if isinstance(params, QuantizedTensor):
+        out = {"format": params.format, "shape": tuple(params.shape),
+               "scheme": (params.scheme.model_dump()
+                          if params.scheme is not None else None)}
+        for f in _LINEAR_FIELDS:
+            v = getattr(params, f)
+            out[f] = None if v is None else np.asarray(v)
+        return out
+    if isinstance(params, dict):
+        return {k: jax_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [jax_params_to_numpy(v) for v in params]
+    return np.asarray(params)
