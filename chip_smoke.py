@@ -4,14 +4,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
-into ``build/``), holds each kernel against its plain PyTorch version at the
-shapes of the main path, then drives the main path end to end: a
-full-width TinyLlama-1.1B-shape W4A16 checkpoint (W8A8-int lm_head, random
-weights from a seed) is written, loaded with ``load_llama_params``, fused,
-and decoded greedily at batch 64 (128-token prompts, 32 new tokens). The
-first step's logits are held against the same model on the non-kernel
-path (``use_kernels=False``), and every kernel must have launched during
-the run. Per-kernel times, bounds, plain and library times follow.
+into ``build/``) and holds each kernel against its plain PyTorch version at
+the shapes of the main paths. Then it drives two paths end to end:
+
+- greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
+  (W8A8-int lm_head, random weights from a seed), written, loaded with
+  ``load_llama_params``, fused, and decoded at batch 64 (128-token prompts,
+  32 new tokens), its first-step logits held against the non-kernel path
+  (``use_kernels=False``);
+- the continuous-batching ``ServingEngine`` at full Llama-3-8B W4A16 width
+  (32 layers, random weights from a seed): 96 requests, a third of them
+  sharing a 256-token prefix, through the dense engine (flash decode), the
+  paged engine and the paged engine with prefix caching. Dense and paged
+  completions must be equal token for token, and the prefix-cached ones
+  equal them but for a few greedy near-ties after the first token (see
+  ``phase_serving``); one request's first-token logits are held against
+  the non-kernel path.
+
+Every kernel of each path must have launched during that path's run.
+Per-kernel times, bounds, plain and library times follow.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 any failure raises and exits non-zero. Without a CUDA device, or outside
@@ -43,6 +54,28 @@ TOL_KERNEL = 1e-2
 # other places, and the reference also rounds every dequantized weight to
 # bf16 (2^-9); a few such roundings compound over the layers
 TOL_E2E = 2e-2
+# the same at Llama-3-8B width (32 layers), where prefill rows go through
+# a8b and the reference keeps bf16 activations: per-token int8 rounding
+# (absmax/127) adds about 0.9% of a row's RMS to each linear's input. An
+# estimate of 1.5-3% of max|logits| from that was refuted on the H100:
+# two runs read 0.57%. The limit leaves 2.6x room over that reading.
+TOL_E2E_8B = 1.5e-2
+# a8b against its f32 plain result, per element: bf16 output rounding
+# (2^-8 of |y|) plus f32 summation order (1e-4 of max|y|)
+A8B_REL, A8B_ABS = 2**-8, 1e-4
+
+# serving at Llama-3-8B width (phase 5)
+SERVE = dict(max_batch=64, max_len=1024, page_size=64, prefill_chunk=512,
+             steps_per_sync=4)
+N_REQUESTS, SHARED_PREFIX = 96, 256
+SHARE_EVERY = 3            # requests 0, 3, 6, ... begin with the prefix
+SHARED_SAME_MIN = 28       # of those 32, identical with and without reuse
+PROMPT_LENS, NEW_LENS = (64, 768), (16, 64)   # uniform, inclusive
+W4_SHAPES_8B = {"qkv_proj": (6144, 4096), "o_proj": (4096, 4096),
+                "gate_up_proj": (28672, 4096), "down_proj": (4096, 14336)}
+M_CHUNK = 512              # a full prefill chunk's rows
+L8, KVH8, D8, H8 = 32, 8, 128, 32
+VOCAB8 = 128256
 
 
 def log(*a):
@@ -119,6 +152,54 @@ def check_close(name, got, want, tol=TOL_KERNEL):
 
 # --------------------------------------------------------------------- #
 # inputs at the main path's shapes
+
+def check_a8b(name, x, w, s, zp, n, k):
+    """a8b against its plain version, tighter than TOL_KERNEL: at these
+    shapes the int8 rounding of x itself moves y by about 1% of max|y|, as
+    much as that rule allows. So the kernel's quantization pass must equal
+    the plain one bit for bit, and each output element must equal the
+    plain f32 result within A8B_REL * |y| + A8B_ABS * max|y|. The int4b
+    output on the same operands (bf16 activations, no int8 rounding) is a
+    control that must fail the same check. Returns max|kernel - plain|."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    m = x.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    got = w4.w4a16_a8b_matmul(x, w, s, zp, n=n, k=k, group_size=128, xq=xq,
+                              xs=xs)
+    xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+    if not (torch.equal(xq, xq_p) and torch.equal(xs, xs_p)):
+        raise AssertionError(
+            f"{name}: quantization pass differs from plain in "
+            f"{int((xq != xq_p).sum())} of {xq.numel()} values and "
+            f"{int((xs != xs_p).sum())} of {m} scales")
+    want = w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=128,
+                                 mode="a8b", out_dtype=torch.float32)
+    scale = want.abs().max().item()
+    slack = A8B_REL * want.abs() + A8B_ABS * scale
+
+    def outside(y):
+        return int(((y.float() - want).abs() > slack).sum())
+
+    bad = outside(got)
+    control = outside(w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=128,
+                                      mode="int4b"))
+    err = (got.float() - want).abs().max().item()
+    log(f"parity {name}: quantization pass equal bit for bit; "
+        f"max_abs_err={err:.6g} max|plain f32|={scale:.6g} "
+        f"rel={err / scale:.3g}; elements outside {A8B_REL:.4g}|y| + "
+        f"{A8B_ABS} max|y|: kernel {bad}, int4b control {control} of "
+        f"{want.numel()}")
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at {bad} elements")
+    if not control:
+        raise AssertionError(f"{name}: the check cannot tell a8b from int4b")
+    return err
+
 
 def w4_inputs(rng, n, k, m, device, group=128, asym=False):
     import torch
@@ -258,6 +339,160 @@ def phase_parity():
     return errs
 
 
+def dev_randn(gen, *shape):
+    """bf16 N(0, 1) drawn on the card from a seeded generator (the 8B
+    caches hold billions of values, too many to draw on the host)."""
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.float32).to(torch.bfloat16)
+
+
+def serving_lengths(rng, batch, inactive):
+    """Decode lengths spread over 0-1000, with some rows inactive (-1)."""
+    import torch
+
+    lengths = rng.integers(0, 1001, size=batch).astype(np.int32)
+    lengths[list(inactive)] = -1
+    return lengths, torch.from_numpy(lengths).cuda()
+
+
+def check_written(name, after, before, expect):
+    """Only the (layer, row-or-page, kv head, position) entries in
+    ``expect`` changed between two caches (L, X, KVH, T, D)."""
+    import torch
+
+    changed = torch.nonzero((after != before).any(dim=-1)).tolist()
+    if sorted(map(tuple, changed)) != sorted(expect):
+        raise AssertionError(f"{name} wrote outside the step's positions")
+
+
+def phase_parity_8b(errs):
+    """The kernels of the serving path against their plain versions at
+    Llama-3-8B shapes, bf16 on the card; updates ``errs``."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+        flash_decode as fd,
+        paged_decode as pd,
+        prefill_attention as pa,
+        w4a16_matmul as w4,
+        w8a8_matmul as w8,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for name, (n, k) in W4_SHAPES_8B.items():
+        for asym in (False, True):
+            x, w, s, zp = w4_inputs(rng, n, k, M_CHUNK, dev, asym=asym)
+            keep("w4a16_a8b_matmul", check_a8b(
+                f"a8b {name} M={M_CHUNK}{' zero-point' if asym else ''}",
+                x, w, s, zp, n, k))
+        x, w, s, _ = w4_inputs(rng, n, k, BATCH, dev)
+        keep("w4a16_matmul", check_close(
+            f"w4a16 {name} M={BATCH} (8B)",
+            w4.w4a16_matmul(x, w, s, None, n=n, k=k, group_size=128),
+            w4.w4a16_matmul_plain(x, w, s, None, n=n, k=k, group_size=128)))
+
+    x = dev_randn(gen, BATCH, 4096)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(VOCAB8, 4096),
+                                       dtype=np.int8)).to(dev)
+    ws = torch.from_numpy((rng.uniform(size=VOCAB8) * 2e-4 + 1e-4)
+                          .astype(np.float32)).to(dev)
+    keep("w8a8_matmul", check_close(
+        "w8a8 lm_head 4096 -> 128256",
+        w8.w8a8_matmul(x, wq, ws, n=VOCAB8, k=4096),
+        w8.w8a8_matmul_plain(x, wq, ws, n=VOCAB8, k=4096)))
+    del wq
+
+    q, k, v = (dev_randn(gen, 1, M_CHUNK, h, D8) for h in (H8, KVH8, KVH8))
+    keep("prefill_attention", check_close(
+        "prefill_attention B=1 S=512 H=32 KVH=8 D=128",
+        pa.prefill_attention(q, k, v), pa.prefill_attention_plain(q, k, v)))
+
+    # block decode at D = 128 (two layers of a 256-position cache)
+    q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
+    ck, cv = (dev_randn(gen, 2, BATCH, KVH8, 256, D8) for _ in range(2))
+    lengths = torch.from_numpy(rng.integers(0, 255, BATCH).astype(
+        np.int32)).to(dev)
+    ck_p, cv_p = ck.clone(), cv.clone()
+    out, _, _ = da.decode_attention(q, nk, nv, ck, cv, lengths, layer=1)
+    want, _, _ = da.decode_attention_plain(q, nk, nv, ck_p, cv_p, lengths,
+                                           layer=1)
+    keep("decode_attention", check_close("decode_attention D=128", out, want))
+    if not (torch.equal(ck, ck_p) and torch.equal(cv, cv_p)):
+        raise AssertionError("decode_attention D=128 cache write differs")
+    del ck, cv, ck_p, cv_p
+
+    # flash decode on the dense engine's (32, 64, 8, 1024, 128) cache
+    inactive = (3, 17, 40)
+    lens_np, lengths = serving_lengths(rng, BATCH, inactive)
+    active = lengths >= 0
+    layer = 7
+    ck, cv = (dev_randn(gen, L8, BATCH, KVH8, SERVE["max_len"], D8)
+              for _ in range(2))
+    ck0, cv0 = ck.clone(), cv.clone()
+    out, ck_r, cv_r = fd.flash_decode_attention(q, nk, nv, ck, cv, lengths,
+                                                layer=layer)
+    if ck_r.data_ptr() != ck.data_ptr():
+        raise AssertionError("flash_decode did not update in place")
+    ck_p, cv_p = ck0.clone(), cv0.clone()
+    want, _, _ = fd.flash_decode_attention_plain(q, nk, nv, ck_p, cv_p,
+                                                 lengths, layer=layer)
+    keep("flash_decode_attention", check_close(
+        "flash_decode (32, 64, 8, 1024, 128)", out[active], want[active]))
+    if out[~active].any():
+        raise AssertionError("flash_decode: inactive rows must be zero")
+    if not (torch.equal(ck, ck_p) and torch.equal(cv, cv_p)):
+        raise AssertionError("flash_decode cache write differs from plain")
+    expect = [(layer, b, h, int(lens_np[b])) for b in range(BATCH)
+              for h in range(KVH8) if b not in inactive]
+    check_written("flash_decode", ck, ck0, expect)
+    check_written("flash_decode", cv, cv0, expect)
+    log("parity flash_decode cache: in-place write at lengths[b] only, "
+        "inactive rows untouched")
+    del ck, cv, ck0, cv0, ck_p, cv_p
+
+    # paged decode on the paged engine's pool, shuffled tables, rows
+    # released to the null page
+    pages_per_row = SERVE["max_len"] // SERVE["page_size"]
+    num_pages = BATCH * pages_per_row + 1
+    tables = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
+    tables = tables.reshape(BATCH, pages_per_row)
+    tables[list(inactive)] = 0
+    tables_d = torch.from_numpy(tables).to(dev)
+    pk, pv = (dev_randn(gen, L8, num_pages, KVH8, SERVE["page_size"], D8)
+              for _ in range(2))
+    pk0, pv0 = pk.clone(), pv.clone()
+    out, pk_r, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d,
+                                             lengths, layer=layer)
+    if pk_r.data_ptr() != pk.data_ptr():
+        raise AssertionError("paged_decode did not update in place")
+    pk_p, pv_p = pk0.clone(), pv0.clone()
+    want, _, _ = pd.paged_decode_attention_plain(
+        q, nk, nv, pk_p, pv_p, tables_d, lengths, layer=layer)
+    keep("paged_decode_attention", check_close(
+        "paged_decode (32, 1025, 8, 64, 128)", out[active], want[active]))
+    if out[~active].any():
+        raise AssertionError("paged_decode: inactive rows must be zero")
+    if not (torch.equal(pk, pk_p) and torch.equal(pv, pv_p)):
+        raise AssertionError("paged_decode pool write differs from plain")
+    page = SERVE["page_size"]
+    expect = [(layer, int(tables[b, lens_np[b] // page]), h,
+               int(lens_np[b] % page)) for b in range(BATCH)
+              for h in range(KVH8) if b not in inactive]
+    check_written("paged_decode", pk, pk0, expect)
+    check_written("paged_decode", pv, pv0, expect)
+    log("parity paged_decode pool: writes at tables[b, len // page] only; "
+        "every other page, the null page 0 included, untouched")
+
+
 def phase_end_to_end():
     import torch
 
@@ -274,15 +509,24 @@ def phase_end_to_end():
     from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
     from compressed_tensors_tpu_torch.ops.kernels import (
         decode_attention,
+        flash_decode,
+        paged_decode,
         prefill_attention,
         w4a16_matmul,
         w8a8_matmul,
     )
 
     wrappers = {"w4a16_matmul": w4a16_matmul.w4a16_matmul,
+                "w4a16_a8b_matmul": w4a16_matmul.w4a16_a8b_matmul,
                 "w8a8_matmul": w8a8_matmul.w8a8_matmul,
                 "prefill_attention": prefill_attention.prefill_attention,
-                "decode_attention": decode_attention.decode_attention}
+                "decode_attention": decode_attention.decode_attention,
+                "flash_decode_attention": flash_decode.flash_decode_attention,
+                "paged_decode_attention": paged_decode.paged_decode_attention}
+    # the kernels this path must launch (TinyLlama widths never select a8b,
+    # and S_pad 192 selects the block decode kernel)
+    needs = ("w4a16_matmul", "w8a8_matmul", "prefill_attention",
+             "decode_attention")
 
     def reset():
         for fn in wrappers.values():
@@ -324,7 +568,7 @@ def phase_end_to_end():
     run_counts = counts()
     log(f"greedy_generate: {tuple(out.shape)} in {total * 1e3:.1f} ms, "
         f"kernel launches {run_counts}")
-    missing = [k for k, c in run_counts.items() if c == 0]
+    missing = [k for k in needs if run_counts[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
@@ -372,6 +616,205 @@ def phase_end_to_end():
     log(f"launches per decode step: {per_step}")
     result.update(run_counts=run_counts, per_step=per_step)
     return result
+
+
+def serving_requests():
+    """96 requests drawn with numpy seed 0: prompt lengths uniform in
+    64-768 (257-768 for the third that begin with the shared 256-token
+    prefix, so each holds the whole prefix and a token of its own), new
+    tokens uniform in 16-64."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, VOCAB8, size=SHARED_PREFIX).tolist()
+    reqs = []
+    for i in range(N_REQUESTS):
+        shared = i % SHARE_EVERY == 0
+        low = SHARED_PREFIX + 1 if shared else PROMPT_LENS[0]
+        n = int(rng.integers(low, PROMPT_LENS[1] + 1))
+        ids = rng.integers(0, VOCAB8, size=n).tolist()
+        if shared:
+            ids[:SHARED_PREFIX] = prefix
+        reqs.append((i, ids, int(rng.integers(NEW_LENS[0], NEW_LENS[1] + 1))))
+    return reqs
+
+
+def phase_serving():
+    """The ServingEngine at Llama-3-8B W4A16 width: the same requests
+    through the dense engine (flash decode at S_pad 1024), the paged engine
+    and the paged engine with prefix caching."""
+    import torch
+
+    from compressed_tensors_tpu_torch.engine import Request, ServingEngine
+    from compressed_tensors_tpu_torch.models.llama import (
+        init_kv_cache,
+        llama_forward,
+    )
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        LLAMA3_8B,
+        make_synthetic_llama,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention,
+        flash_decode,
+        paged_decode,
+        prefill_attention,
+        w4a16_matmul,
+        w8a8_matmul,
+    )
+
+    wrappers = {"w4a16_matmul": w4a16_matmul.w4a16_matmul,
+                "w4a16_a8b_matmul": w4a16_matmul.w4a16_a8b_matmul,
+                "w8a8_matmul": w8a8_matmul.w8a8_matmul,
+                "prefill_attention": prefill_attention.prefill_attention,
+                "decode_attention": decode_attention.decode_attention,
+                "flash_decode_attention": flash_decode.flash_decode_attention,
+                "paged_decode_attention": paged_decode.paged_decode_attention}
+    config = LLAMA3_8B
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(make_synthetic_llama(
+        config, "W4A16", seed=0, lm_head_preset="W8A8", device="cuda"))
+    torch.cuda.synchronize()
+    log(f"Llama-3-8B W4A16 synthetic model (seed 0, fused): built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+
+    # one request's first-token logits: kernel path vs non-kernel path
+    rid, ids, _ = next(r for r in requests
+                          if SHARED_PREFIX <= len(r[1]) <= SERVE["prefill_chunk"])
+    x = torch.tensor([ids], device="cuda")
+    pos = torch.arange(len(ids), device="cuda")[None]
+    logits = {}
+    for use_kernels in (True, False):
+        cache = init_kv_cache(config, 1, len(ids), device="cuda")
+        logits[use_kernels], _ = llama_forward(
+            params, config, x, pos, cache, fresh_prefill=True,
+            use_kernels=use_kernels, last_logit_only=True)
+    got, ref = logits[True].float(), logits[False].float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite 8B logits")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    same = int(got.argmax()) == int(ref.argmax())
+    log(f"8B first-token logits (request {rid}, {len(ids)} prompt tokens) "
+        f"vs non-kernel path: max_abs_err={err:.5g} max|ref|={scale:.5g} "
+        f"rel={err / scale:.4g} (limit {TOL_E2E_8B}), argmax "
+        f"{'agrees' if same else 'differs'}")
+    if err > TOL_E2E_8B * scale:
+        raise AssertionError("8B first-token logits disagree with the "
+                             "non-kernel path")
+    del logits, got, ref
+
+    runs = {"dense": dict(paged=False),
+            "paged": dict(paged=True, prefix_caching=False),
+            "paged+prefix": dict(paged=True)}
+    results = {}
+    for name, kw in runs.items():
+        engine = ServingEngine(params, config, **SERVE, **kw)
+        timing = {"prefill_s": 0.0, "chunks": 0, "decode_s": 0.0, "steps": 0}
+        prefill_chunk, decode = engine._prefill_chunk, engine._decode
+
+        def timed_prefill(*a, _f=prefill_chunk, _t=timing):
+            t = time.perf_counter()
+            out = _f(*a)
+            torch.cuda.synchronize()
+            _t["prefill_s"] += time.perf_counter() - t
+            _t["chunks"] += 1
+            return out
+
+        def timed_decode(active, burst, _f=decode, _t=timing):
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            t = time.perf_counter()
+            out = _f(active, burst)  # ends in the trace's host copy
+            _t["decode_s"] += time.perf_counter() - t
+            _t["steps"] += burst
+            _t.setdefault("per_step", {
+                k: (fn.launches - before[k]) / burst
+                for k, fn in wrappers.items()})
+            return out
+
+        engine._prefill_chunk, engine._decode = timed_prefill, timed_decode
+        for i, ids, new in requests:
+            engine.submit(Request(request_id=i, prompt_ids=ids,
+                                  max_new_tokens=new))
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        outs = {c.request_id: c.output_ids for c in done}
+        generated = sum(len(o) for o in outs.values())
+        log(f"serving {name}: {len(outs)} completions, {generated} tokens in "
+            f"{wall:.2f} s ({generated / wall:.1f} tok/s); prefill "
+            f"{timing['prefill_s'] * 1e3 / max(timing['chunks'], 1):.2f} ms/"
+            f"chunk over {timing['chunks']} chunks; decode "
+            f"{timing['decode_s'] * 1e3 / max(timing['steps'], 1):.2f} ms/"
+            f"step over {timing['steps']} steps; prefix-cache hits "
+            f"{engine.prefix_cache_hits}; preemptions {engine.preemptions}; "
+            f"kernel launches {counts}")
+        if sorted(outs) != list(range(N_REQUESTS)) or any(
+                len(outs[i]) != new for i, _, new in requests):
+            raise AssertionError(f"serving {name}: completions missing")
+        if not all(0 <= t < VOCAB8 for o in outs.values() for t in o):
+            raise AssertionError(f"serving {name}: token ids out of range")
+        results[name] = dict(outs=outs, counts=counts, wall=wall,
+                             hits=engine.prefix_cache_hits, **timing)
+        del engine._prefill_chunk, engine._decode, engine  # frees its cache
+        torch.cuda.empty_cache()
+
+    dense, paged, prefix = (results[k]["outs"] for k in runs)
+
+    def first_diff(a, b):
+        return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+
+    # paged and dense run the same chunks through decode kernels that
+    # share one body: identical completions
+    bad = [i for i in dense if paged[i] != dense[i]]
+    log(f"serving paged vs dense: {N_REQUESTS - len(bad)}/{N_REQUESTS} "
+        "completions identical token for token")
+    if bad:
+        raise AssertionError(f"serving paged and dense completions differ "
+                             f"for requests {bad}")
+    # with prefix caching the requests without the shared prefix run the
+    # same chunks as dense: identical. Those with it prefill only their own
+    # tail, as one continuation chunk over the cached pages: other row
+    # counts, so _w4b8_mode may pick int4b where a dense chunk picks a8b or
+    # the reverse (a difference of the size of the int8 rounding, about 1%
+    # of a linear's input), and the non-kernel attention over the cache.
+    # That may flip a greedy near-tie; stale or wrong pages would change
+    # nearly all of them. So every first token must agree, and at least
+    # SHARED_SAME_MIN of the completions in full.
+    shared = list(range(0, N_REQUESTS, SHARE_EVERY))
+    bad = [i for i in dense if i not in shared and prefix[i] != dense[i]]
+    if bad:
+        raise AssertionError(f"prefix caching changed requests {bad} that "
+                             "do not share the prefix")
+    differ = {i: first_diff(prefix[i], dense[i]) for i in shared
+              if prefix[i] != dense[i]}
+    log(f"serving paged+prefix vs dense: the {N_REQUESTS - len(shared)} "
+        f"requests without the shared prefix identical; of the "
+        f"{len(shared)} with it, {len(shared) - len(differ)} identical "
+        f"(limit {SHARED_SAME_MIN}); first differing token of the others: "
+        f"{differ}")
+    if any(t == 0 for t in differ.values()):
+        raise AssertionError("prefix caching changed a first token")
+    if len(shared) - len(differ) < SHARED_SAME_MIN:
+        raise AssertionError("prefix caching changed too many completions")
+    if results["paged+prefix"]["hits"] <= 0:
+        raise AssertionError("prefix caching reused no page")
+    needs = {"dense": ("flash_decode_attention", "w4a16_a8b_matmul",
+                       "w4a16_matmul", "w8a8_matmul", "prefill_attention"),
+             "paged": ("paged_decode_attention", "w4a16_a8b_matmul",
+                       "w4a16_matmul", "w8a8_matmul", "prefill_attention")}
+    for name, kernels in needs.items():
+        missing = [k for k in kernels if results[name]["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"serving {name} never launched {missing}")
+    return results
 
 
 def phase_timings(errs, run_counts, per_step):
@@ -507,32 +950,229 @@ def phase_timings(errs, run_counts, per_step):
                      bound_ms=bm, bound_by=by, library_ms=tl,
                      shapes="B=64 H=32 KVH=4 D=64 S_pad=192, one layer"))
 
-    meta = {
-        "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
-                         "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
-        "w8a8_matmul": ("compressed_tensors_tpu_torch/csrc/w8a8_matmul.cu",
-                        "compressed_tensors_tpu/ops/kernels/w8a8_matmul.py:118"),
-        "prefill_attention": (
-            "compressed_tensors_tpu_torch/csrc/prefill_attention.cu",
-            "compressed_tensors_tpu/ops/kernels/prefill_attention.py:141"),
-        "decode_attention": (
-            "compressed_tensors_tpu_torch/csrc/decode_attention.cu",
-            "compressed_tensors_tpu/ops/kernels/decode_attention.py:290"),
-    }
-    out = []
     for r in rows:
-        source, replaces = meta[r["name"]]
         log(f"kernel {r['name']} [{r['shapes']}]: {r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"{per_step[r['name']]} launches per decode step, "
             f"{run_counts[r['name']]} in the greedy_generate run")
+    return rows
+
+
+def phase_timings_8b(serving):
+    """Per-kernel time at the serving path's Llama-3-8B shapes, bound,
+    plain, library; the launches of each engine run beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        flash_decode as fd,
+        paged_decode as pd,
+        prefill_attention as pa,
+        w4a16_matmul as w4,
+        w8a8_matmul as w8,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+
+    def bound(nbytes, ops, peak):
+        t_bytes, t_ops = nbytes / HBM_BPS, ops / peak
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
+    # W4A16 at the 8B widths: int4b at decode (M = 64), a8b at a prefill
+    # chunk (M = 512); each row sums the four linears of one layer
+    for name, m, mode in (("w4a16_matmul", BATCH, "int4b"),
+                          ("w4a16_a8b_matmul", M_CHUNK, "a8b")):
+        ms = plain = lib = nbytes = ops = 0.0
+        for lin, (n, k) in W4_SHAPES_8B.items():
+            x, w, s, _ = w4_inputs(rng, n, k, m, dev)
+            ws = [w.clone() for _ in range(copies_for(n * k // 2))]
+            t = device_ms([lambda w=w: w4.w4a16_matmul(
+                x, w, s, None, n=n, k=k, group_size=128, mode=mode)
+                for w in ws])
+            tp = eager_ms(lambda: w4.w4a16_matmul_plain(
+                x, w, s, None, n=n, k=k, group_size=128, mode=mode), iters=3)
+            del ws
+            wd = w4._dequantized_weight(w, s, None, n, k, 128).to(
+                torch.bfloat16)
+            wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
+            tl = device_ms([lambda wd=wd: torch.matmul(x, wd.t())
+                            for wd in wds])
+            del wds, wd
+            b = m * k * 2 + n * k // 2 + (k // 128) * n * 4 + m * n * 2
+            peak = PEAK_INT8 if mode == "a8b" else PEAK_BF16
+            bm, by = bound(b, 2 * m * n * k, peak)
+            log(f"time {name} {lin} M={m} (8B): {t:.4f} ms, bound {bm:.4f} "
+                f"ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
+                f"dequantized bf16 weight {tl:.4f} ms")
+            ms, plain, lib = ms + t, plain + tp, lib + tl
+            nbytes, ops = nbytes + b, ops + 2 * m * n * k
+        bm, by = bound(nbytes, ops, PEAK_INT8 if mode == "a8b" else PEAK_BF16)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bm,
+                         bound_by=by, library_ms=lib,
+                         shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}"
+                         + ("; library: torch.matmul on the dequantized bf16 "
+                            "weight, the nearest single call" if mode == "a8b"
+                            else "")))
+
+    # W8A8: the 8B lm_head at M = 64 (525 MB of weight: two copies)
+    n, k = VOCAB8, 4096
+    x = dev_randn(gen, BATCH, k)
+    wqs = [torch.from_numpy(rng.integers(-127, 128, size=(n, k),
+                                         dtype=np.int8)).to(dev)
+           for _ in range(2)]
+    wsc = torch.from_numpy((rng.uniform(size=n) * 2e-4 + 1e-4)
+                           .astype(np.float32)).to(dev)
+    t = device_ms([lambda wq=wq: w8.w8a8_matmul(x, wq, wsc, n=n, k=k)
+                   for wq in wqs * 2])
+    tp = eager_ms(lambda: w8.w8a8_matmul_plain(x, wqs[0], wsc, n=n, k=k),
+                  iters=3)
+    xq = torch.randint(-128, 128, (BATCH, k), dtype=torch.int8, device=dev)
+    try:
+        tl = device_ms([lambda wq=wq: torch._int_mm(xq, wq.t())
+                        for wq in wqs * 2])
+    except RuntimeError as exc:  # a library limit, reported, not a failure
+        log(f"torch._int_mm unavailable here: {exc}")
+        tl = None
+    del wqs
+    bm, by = bound(BATCH * k * 2 + n * k + n * 4 + BATCH * n * 2,
+                   2 * BATCH * n * k, PEAK_INT8)
+    rows.append(dict(name="w8a8_matmul", ms=t, plain_ms=tp, bound_ms=bm,
+                     bound_by=by, library_ms=tl,
+                     shapes="8B lm_head 64x4096 -> 128256"))
+
+    # prefill attention of one fresh 512-token chunk at D = 128
+    q, k_, v_ = (dev_randn(gen, 1, M_CHUNK, h, D8) for h in (H8, KVH8, KVH8))
+    t = device_ms([lambda: pa.prefill_attention(q, k_, v_)] * 5)
+    tp = eager_ms(lambda: pa.prefill_attention_plain(q, k_, v_))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k_, v_))
+    try:
+        tl = device_ms([lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)] * 5)
+    except (RuntimeError, TypeError) as exc:
+        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+        tl = None
+    pairs = M_CHUNK * (M_CHUNK + 1) // 2
+    bm, by = bound(2 * (2 * q.numel() + k_.numel() + v_.numel()),
+                   4 * H8 * D8 * pairs, PEAK_BF16)
+    rows.append(dict(name="prefill_attention", ms=t, plain_ms=tp,
+                     bound_ms=bm, bound_by=by, library_ms=tl,
+                     shapes="8B chunk B=1 S=512 H=32 KVH=8 D=128 causal"))
+
+    # flash and paged decode: one decode step's 32 layers at batch 64
+    lens_np, lengths = serving_lengths(rng, BATCH, ())
+    q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
+    live = int((lens_np + 1).sum())
+    b = 2 * live * KVH8 * D8 * 2 + (q.numel() + 2 * nk.numel()) * 2 * 2
+    bm, by = bound(b, 4 * H8 * D8 * live, PEAK_BF16)
+    ck, cv = (dev_randn(gen, L8, BATCH, KVH8, SERVE["max_len"], D8)
+              for _ in range(2))
+    t = device_ms([lambda i=i: fd.flash_decode_attention(
+        q, nk, nv, ck, cv, lengths, layer=i) for i in range(L8)])
+    tp = eager_ms(lambda: fd.flash_decode_attention_plain(
+        q, nk, nv, ck, cv, lengths, layer=0))
+    mask = (torch.arange(SERVE["max_len"], device=dev)[None, :]
+            <= lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    try:
+        tl = device_ms([lambda i=i: F.scaled_dot_product_attention(
+            q4, ck[i], cv[i], attn_mask=mask, enable_gqa=True)
+            for i in range(L8)])
+    except (RuntimeError, TypeError) as exc:
+        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+        tl = None
+    rows.append(dict(name="flash_decode_attention", ms=t, plain_ms=tp,
+                     bound_ms=bm, bound_by=by, library_ms=tl,
+                     shapes="8B dense cache (32, 64, 8, 1024, 128), one "
+                     "layer, lengths 0-1000; library: SDPA with GQA and a "
+                     "mask of the live prefix over S_pad"))
+    del ck, cv
+
+    page = SERVE["page_size"]
+    per_row = SERVE["max_len"] // page
+    num_pages = BATCH * per_row + 1
+    tables = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32).reshape(BATCH, per_row)).to(dev)
+    pk, pv = (dev_randn(gen, L8, num_pages, KVH8, page, D8) for _ in range(2))
+    t = device_ms([lambda i=i: pd.paged_decode_attention(
+        q, nk, nv, pk, pv, tables, lengths, layer=i) for i in range(L8)])
+    tp = eager_ms(lambda: pd.paged_decode_attention_plain(
+        q, nk, nv, pk, pv, tables, lengths, layer=0))
+    gathered = [(pk[i][tables.long()].permute(0, 2, 1, 3, 4).reshape(
+        BATCH, KVH8, per_row * page, D8), pv[i][tables.long()].permute(
+        0, 2, 1, 3, 4).reshape(BATCH, KVH8, per_row * page, D8))
+        for i in range(4)]
+    try:
+        tl = device_ms([lambda g=g: F.scaled_dot_product_attention(
+            q4, g[0], g[1], attn_mask=mask, enable_gqa=True)
+            for g in gathered * (L8 // 4)])
+    except (RuntimeError, TypeError) as exc:
+        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+        tl = None
+    del gathered, pk, pv
+    rows.append(dict(name="paged_decode_attention", ms=t, plain_ms=tp,
+                     bound_ms=bm, bound_by=by, library_ms=tl,
+                     shapes="8B pool (32, 1025, 8, 64, 128), shuffled "
+                     "tables, one layer, lengths 0-1000; library: SDPA over "
+                     "a copy gathered beforehand into a contiguous cache"))
+
+    for r in rows:
+        counts = {run: res["counts"][r["name"]]
+                  for run, res in serving.items()}
+        steps = {run: res.get("per_step", {}).get(r["name"])
+                 for run, res in serving.items()}
+        log(f"kernel {r['name']} [{r['shapes']}]: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}; launches "
+            f"per decode step {steps}, per serving run {counts}")
+    return rows
+
+
+KERNEL_META = {
+    "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
+                     "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
+    "w4a16_a8b_matmul": (
+        "compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
+        "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
+    "w8a8_matmul": ("compressed_tensors_tpu_torch/csrc/w8a8_matmul.cu",
+                    "compressed_tensors_tpu/ops/kernels/w8a8_matmul.py:118"),
+    "prefill_attention": (
+        "compressed_tensors_tpu_torch/csrc/prefill_attention.cu",
+        "compressed_tensors_tpu/ops/kernels/prefill_attention.py:141"),
+    "decode_attention": (
+        "compressed_tensors_tpu_torch/csrc/decode_attention.cu",
+        "compressed_tensors_tpu/ops/kernels/decode_attention.py:290"),
+    "flash_decode_attention": (
+        "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
+        "compressed_tensors_tpu/ops/kernels/flash_decode.py:317"),
+    "paged_decode_attention": (
+        "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
+        "compressed_tensors_tpu/ops/kernels/paged_decode.py:310"),
+}
+
+
+def kernel_report(errs, rows, run_counts, serving):
+    """The kernels line: one entry per kernel, at the newest (8B) shapes
+    where the serving path runs it; launches summed over the main paths'
+    runs, with the split by run beside them."""
+    by_name = {r["name"]: r for r in rows}  # later (8B) rows win
+    out = []
+    for name, (source, replaces) in KERNEL_META.items():
+        r = by_name[name]
+        by_path = {"greedy_generate": run_counts[name]}
+        by_path.update({f"serving {run}": res["counts"][name]
+                        for run, res in serving.items()})
         out.append({
-            "name": r["name"], "route": "cuda", "source": source,
-            "replaces": replaces, "launches": run_counts[r["name"]],
-            "max_abs_err": errs[r["name"]], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shapes": r["shapes"],
         })
     return out
 
@@ -554,8 +1194,15 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device_and_build()
     errs = phase_parity()
+    phase_parity_8b(errs)
+    log(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s")
     e2e = phase_end_to_end()
-    kernels = phase_timings(errs, e2e["run_counts"], e2e["per_step"])
+    rows = phase_timings(errs, e2e["run_counts"], e2e["per_step"])
+    log(f"phases 3-4 (TinyLlama) done at {time.perf_counter() - t_start:.1f} s")
+    serving = phase_serving()
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    rows += phase_timings_8b(serving)
+    kernels = kernel_report(errs, rows, e2e["run_counts"], serving)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,18 +6,21 @@
 //   1. the new K/V row is written in place at position lengths[b]; a row
 //      with a negative length is left untouched (and its output is zero);
 //   2. the block stages 32-key chunks of K and V for positions
-//      0..lengths[b] in shared memory, and each warp runs the online softmax
-//      in f32 for its query heads of the group: lane j scores key j, the
-//      warp reduces max and sum with shuffles, and each lane accumulates
-//      D/32 output dims.
+//      0..lengths[b] in shared memory, and each warp runs the softmax in
+//      f32 for its query heads of the group: lane j scores key j, the warp
+//      reduces max and sum with shuffles, and each lane accumulates D/32
+//      output dims.
 // Positions past lengths[b] are never read, so the cost follows the
 // row's length, not S_pad. Scores are (q . k) * 1/sqrt(D) in f32 as in the
-// TPU kernel; probabilities stay in f32 (the TPU kernel rounds normalized
-// probabilities to bf16 before P.V; the difference is within bf16
-// rounding).
+// TPU kernel, which normalizes the probabilities and rounds them to bf16
+// before P.V (decode_attention.py:233). So does this kernel, in two passes
+// over the keys: the first finds each head's softmax max and sum, the
+// second forms p = exp(s - max) / sum, rounds it to bf16 and accumulates
+// P.V in f32.
 //
 // Bound on the H100: the bytes of the cache prefix it reads,
-// B*KVH*(len+1)*D*2 per K and V, against 3.35 TB/s.
+// B*KVH*(len+1)*D*2 per K and V, against 3.35 TB/s; the first pass reads
+// K a second time.
 #include "common.cuh"
 
 namespace {
@@ -73,39 +76,58 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
   }
 
-  for (int c0 = 0; c0 < n_keys; c0 += KC) {
+  // stage keys [c0, c0 + KC) (and their values) as f32; zeros past n_keys
+  auto stage = [&](int c0, bool values) {
     for (int i = tid; i < KC * D / 2; i += THREADS) {
       const int j = i / (D / 2), d2 = (i % (D / 2)) * 2;
       float2 kf = make_float2(0.f, 0.f), vf = make_float2(0.f, 0.f);
       if (c0 + j < n_keys) {
         const size_t off = (size_t)(c0 + j) * D + d2;
         kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ck + off));
-        vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cv + off));
+        if (values)
+          vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cv + off));
       }
       ks[j][d2] = kf.x; ks[j][d2 + 1] = kf.y;
-      vs[j][d2] = vf.x; vs[j][d2 + 1] = vf.y;
+      if (values) { vs[j][d2] = vf.x; vs[j][d2 + 1] = vf.y; }
     }
     __syncthreads();
+  };
+  // lane's score for key c0 + lane of head h; -inf past n_keys
+  auto score = [&](int c0, int h) {
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) dot += qs[h][d] * ks[lane][d];
+    return (c0 + lane < n_keys) ? dot * inv_sqrt_d : -INFINITY;
+  };
+
+  // pass 1: each head's softmax max and sum
+  for (int c0 = 0; c0 < n_keys; c0 += KC) {
+    stage(c0, false);
 #pragma unroll
     for (int hi = 0; hi < MAX_HPW; ++hi) {
       const int h = warp + hi * WARPS;
       if (h >= rep) break;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot += qs[h][d] * ks[lane][d];
-      const float s = (c0 + lane < n_keys) ? dot * inv_sqrt_d : -INFINITY;
+      const float s = score(c0, h);
       const float m_new = fmaxf(m[hi], ct::warp_max(s));  // key c0 is live
-      const float p = __expf(s - m_new);
-      const float alpha = __expf(m[hi] - m_new);
-      l[hi] = l[hi] * alpha + ct::warp_sum(p);
+      l[hi] = l[hi] * expf(m[hi] - m_new) + ct::warp_sum(expf(s - m_new));
+      m[hi] = m_new;
+    }
+    __syncthreads();
+  }
+  // pass 2: normalized probabilities, rounded to bf16, times V
+  for (int c0 = 0; c0 < n_keys; c0 += KC) {
+    stage(c0, true);
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[hi][e] *= alpha;
+    for (int hi = 0; hi < MAX_HPW; ++hi) {
+      const int h = warp + hi * WARPS;
+      if (h >= rep) break;
+      const float p = __bfloat162float(
+          __float2bfloat16(expf(score(c0, h) - m[hi]) / l[hi]));
       for (int j = 0; j < KC && c0 + j < n_keys; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int e = 0; e < DPL; ++e) acc[hi][e] += pj * vs[j][lane + 32 * e];
       }
-      m[hi] = m_new;
     }
     __syncthreads();
   }
@@ -116,7 +138,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
     if (h >= rep) break;
     __nv_bfloat16* op = out + ((size_t)b * H + kvh * rep + h) * D;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) op[lane + 32 * e] = __float2bfloat16(acc[hi][e] / l[hi]);
+    for (int e = 0; e < DPL; ++e) op[lane + 32 * e] = __float2bfloat16(acc[hi][e]);
   }
 }
 

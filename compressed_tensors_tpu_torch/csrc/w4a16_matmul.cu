@@ -16,6 +16,9 @@
 // only N/64 blocks, so small-N calls split K across blocks (f32 partials,
 // reduced by a second kernel) to bring more SMs to the weight stream. At
 // prefill (M = B*S) it is bound by bf16 tensor-core operations.
+//
+// The second entry point, ct_w4a16_a8b_matmul, is the int8-activation mode
+// "a8b" (see its note below).
 #include "common.cuh"
 
 namespace {
@@ -169,6 +172,193 @@ w4a16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- mode a8b: int8 activations --------------------------------------- //
+// Replaces the same TPU function's mode "a8b" (w4a16_matmul.py:579-590 and
+// the kernel body :258-290). Pass 1 quantizes each row of x as the TPU
+// kernel does: scale = max(absmax, 1e-8) / 127, q = clip(rint(x / scale),
+// -127, 127) with IEEE division and round half to even. Pass 2 decodes the
+// nibbles to exact int8 values q - zp = u - (8 + zp) in shared memory and
+// runs mma.sync s8.s8 -> s32 over each quant group; at the group's end the
+// exact integer sums are scaled by the group's f32 scale into an f32
+// accumulator, the row's x scale is applied once, and y is written once in
+// bf16. The TPU kernel dots the offset nibbles u and subtracts
+// (8 + zp) * sum(x) afterwards; with exact integer group sums both give
+// the same value up to f32 rounding.
+//
+// Bound on the H100: at prefill chunks (M = 512 rows and more) the
+// 2*M*N*K int8 tensor-core operations.
+
+__global__ void quantize_rows_a8b_kernel(const __nv_bfloat16* __restrict__ x,
+                                         int8_t* __restrict__ xq,
+                                         float* __restrict__ xs, int K) {
+  const int row = blockIdx.x;
+  const __nv_bfloat16* xr = x + (size_t)row * K;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
+  __shared__ float red[32];
+  amax = ct::warp_max(amax);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
+    v = ct::warp_max(v);
+    if (threadIdx.x == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float scale = fmaxf(red[0], 1e-8f) / 127.f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    const float q = rintf(__bfloat162float(xr[i]) / scale);
+    xq[(size_t)row * K + i] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  }
+  if (threadIdx.x == 0) xs[row] = scale;
+}
+
+constexpr int AS8 = BK + 16;  // int8 smem row stride (bytes)
+
+__global__ void __launch_bounds__(THREADS)
+w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+            const int32_t* __restrict__ w,
+            const float* __restrict__ scales,  // (K/group, N)
+            const float* __restrict__ zp,      // (K/group, N) or null
+            __nv_bfloat16* __restrict__ y, int M, int N, int K, int group) {
+  __shared__ __align__(16) int8_t as[2][BM][AS8];
+  __shared__ __align__(16) int32_t wp[2][BN][BK / 8];
+  __shared__ __align__(16) int8_t wd[BN][AS8];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps of 32x32
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kwords = K / 8, ktiles = K / BK;
+  const int tiles_per_group = group / BK;
+
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    // x: 64 rows x 4 chunks of 16 int8
+    for (int c = tid; c < BM * (BK / 16); c += THREADS) {
+      const int r = c >> 2, c16 = c & 3;
+      const int row = m0 + r;
+      ct::cp_async16(&as[stage][r][c16 * 16],
+                     xq + (size_t)min(row, M - 1) * K + k0 + c16 * 16,
+                     row < M ? 16 : 0);
+    }
+    // packed weights: 64 rows x 2 chunks of 4 words
+    {
+      const int r = tid >> 1, h = tid & 1;
+      const int n = n0 + r;
+      const int32_t* src = w + (size_t)min(n, N - 1) * kwords + k0 / 8 + h * 4;
+      ct::cp_async16(&wp[stage][r][h * 4], src, n < N ? 16 : 0);
+    }
+    ct::cp_async_commit();
+  };
+
+  float acc[2][4][4];
+  int part[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.f;
+        part[i][j][e] = 0;
+      }
+
+  load_tile(0, 0);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int stage = kt & 1;
+    if (kt + 1 < ktiles) {
+      load_tile(stage ^ 1, kt + 1);
+      ct::cp_async_wait<1>();
+    } else {
+      ct::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int g = kt / tiles_per_group;
+    // decode: each thread turns 4 words of one weight row into 32 exact
+    // int8 values u - (8 + zp), |value| <= 15
+    {
+      const int r = tid >> 1, h = tid & 1;
+      const int n = min(n0 + r, N - 1);
+      const int off = zp ? 8 + __float2int_rn(zp[(size_t)g * N + n]) : 8;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t word = static_cast<uint32_t>(wp[stage][r][h * 4 + j]);
+        uint32_t lo = 0, hi = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          lo |= (static_cast<uint32_t>(static_cast<int>((word >> (4 * e)) & 0xF) - off) & 0xFF) << (8 * e);
+          hi |= (static_cast<uint32_t>(static_cast<int>((word >> (4 * e + 16)) & 0xF) - off) & 0xFF) << (8 * e);
+        }
+        *reinterpret_cast<uint2*>(&wd[r][(h * 4 + j) * 8]) = make_uint2(lo, hi);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      const int c = ks * 32 + (lane & 3) * 4;
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm * 32 + mt * 16 + (lane >> 2);
+        a[mt][0] = ct::ld_shared_u32(&as[stage][r][c]);
+        a[mt][1] = ct::ld_shared_u32(&as[stage][r + 8][c]);
+        a[mt][2] = ct::ld_shared_u32(&as[stage][r][c + 16]);
+        a[mt][3] = ct::ld_shared_u32(&as[stage][r + 8][c + 16]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = wn * 32 + nt * 8 + (lane >> 2);
+        b[nt][0] = ct::ld_shared_u32(&wd[n][c]);
+        b[nt][1] = ct::ld_shared_u32(&wd[n][c + 16]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) ct::mma_s8_16832(part[mt][nt], a[mt], b[nt]);
+    }
+
+    // end of a quant group: its exact integer sums times the f32 scale
+    if ((kt + 1) % tiles_per_group == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
+        const float s0 = col < N ? scales[(size_t)g * N + col] : 0.f;
+        const float s1 = col + 1 < N ? scales[(size_t)g * N + col + 1] : 0.f;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          acc[mt][nt][0] += static_cast<float>(part[mt][nt][0]) * s0;
+          acc[mt][nt][1] += static_cast<float>(part[mt][nt][1]) * s1;
+          acc[mt][nt][2] += static_cast<float>(part[mt][nt][2]) * s0;
+          acc[mt][nt][3] += static_cast<float>(part[mt][nt][3]) * s1;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0;
+        }
+      }
+    }
+    __syncthreads();  // stage and wd are overwritten next iteration
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + wm * 32 + mt * 16 + (lane >> 2) + hh * 8;
+      if (row >= M) continue;
+      const float sx = xs[row];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
+        __nv_bfloat16* dst = y + (size_t)row * N + col;
+        if (col < N) dst[0] = __float2bfloat16(acc[mt][nt][hh * 2] * sx);
+        if (col + 1 < N) dst[1] = __float2bfloat16(acc[mt][nt][hh * 2 + 1] * sx);
+      }
+    }
+  }
+}
+
 // y = bf16(sum over splits of the f32 partials)
 __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
                                      __nv_bfloat16* __restrict__ y,
@@ -204,5 +394,25 @@ extern "C" int ct_w4a16_matmul(const void* x, const void* w, const void* scales,
         static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(y),
         splits, count);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Mode a8b. x (M, K) bf16; w (N, K/8) int32; scales/zp (K/group, N) f32
+// (zp may be null); y (M, N) bf16; xq (M, K) int8 and xs (M,) f32 scratch.
+// K % 64 == 0 and group % 64 == 0.
+extern "C" int ct_w4a16_a8b_matmul(const void* x, const void* w,
+                                   const void* scales, const void* zp, void* y,
+                                   void* xq, void* xs, int M, int N, int K,
+                                   int group, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_rows_a8b_kernel<<<M, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
+      static_cast<float*>(xs), K);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  w4a8_kernel<<<grid, THREADS, 0, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const int32_t*>(w), static_cast<const float*>(scales),
+      static_cast<const float*>(zp), static_cast<__nv_bfloat16*>(y), M, N, K,
+      group);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,8 @@ class _Flags:
     # W4A16 activation precision: "auto" (int8 acts at >= 256 rows with N
     # and K >= 4096, bf16 otherwise) | "bf16" | "int8"
     w4_act: str = "auto"
-    # decode attention kernel: "auto" | "block" | "flash"
+    # decode attention on the dense cache: "auto" (flash decode when the
+    # cache's S_pad >= 512, the block kernel below) | "block" | "flash"
     decode_attn: str = "auto"
 
 

@@ -1,11 +1,12 @@
 """Llama-family forward pass over compressed-tensors checkpoints run
 compressed, in PyTorch.
 
-Counterpart of ``compressed_tensors_tpu/models/llama.py`` for the dense
-KV cache, non-MoE, non-MLA path. Every linear is a ``QuantizedTensor``
-through ``quantized_matmul``, so weights stay compressed on the device.
-The KV cache is (L, B, KVH, S_pad, D) in the cache dtype -- no lane padding
-of D and no head packing -- and is updated in place.
+Counterpart of ``compressed_tensors_tpu/models/llama.py`` for the dense and
+paged KV caches, non-MoE, non-MLA path. Every linear is a
+``QuantizedTensor`` through ``quantized_matmul``, so weights stay
+compressed on the device. The dense KV cache is (L, B, KVH, S_pad, D) and
+the paged pool (L, NP, KVH, page, D), in the cache dtype -- no lane padding
+of D and no head packing -- and both are updated in place.
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ from compressed_tensors_tpu_torch.models.config import LlamaConfig
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
 )
+from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+    flash_decode_attention,
+)
+from compressed_tensors_tpu_torch.ops.kernels.paged_decode import (
+    paged_decode_attention,
+)
 from compressed_tensors_tpu_torch.ops.kernels.prefill_attention import (
     prefill_attention,
 )
@@ -35,7 +42,9 @@ from compressed_tensors_tpu_torch.ops.linear import (
 __all__ = [
     "LlamaConfig",
     "KVCache",
+    "PagedKVCache",
     "init_kv_cache",
+    "init_paged_kv_cache",
     "llama_forward",
     "load_llama_params",
     "resolve_device",
@@ -75,6 +84,48 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
     return KVCache(
         k=torch.zeros(shape, dtype=cd, device=device),
         v=torch.zeros(shape, dtype=cd, device=device),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV cache: a page pool shared by all sequences plus per-row
+    page tables. Page 0 is the null page: unallocated table entries and
+    released rows point at it; its contents are garbage and never read into
+    a live sequence."""
+
+    k: torch.Tensor        # (L, NP, KVH, page, D) pool
+    v: torch.Tensor
+    tables: torch.Tensor   # (B, P_max) int32 page ids
+    lengths: torch.Tensor  # (B,) int32 valid prefix length per row
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def max_len(self) -> int:
+        return self.tables.shape[1] * self.k.shape[3]
+
+
+def init_paged_kv_cache(config: LlamaConfig, batch: int, max_len: int,
+                        num_pages: int | None = None, page_size: int = 64,
+                        dtype=torch.bfloat16, cache_dtype=None,
+                        device="cuda") -> PagedKVCache:
+    """Zeroed pool and all-null tables. ``num_pages`` defaults to full
+    residency: ``batch`` sequences of ``max_len`` plus the null page."""
+    device = resolve_device(device)
+    p_max = -(-max_len // page_size)
+    if num_pages is None:
+        num_pages = batch * p_max + 1
+    shape = (config.num_hidden_layers, num_pages, config.num_key_value_heads,
+             page_size, config.head_dim)
+    cd = cache_dtype or dtype
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=cd, device=device),
+        v=torch.zeros(shape, dtype=cd, device=device),
+        tables=torch.zeros((batch, p_max), dtype=torch.int32, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
@@ -134,7 +185,8 @@ def _dequantize_from_cache(x, scale, dtype, head_axis=1):
 
 def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
                cache_lens, config: LlamaConfig, positions,
-               fresh_prefill: bool = False, use_kernels: bool = True):
+               fresh_prefill: bool = False, tables=None,
+               use_kernels: bool = True):
     B, S, _ = x.shape
     H, KVH, D = (config.num_attention_heads, config.num_key_value_heads,
                  config.head_dim)
@@ -152,19 +204,63 @@ def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
     k = _apply_rope(k, cos, sin)
 
     k_scale, v_scale = layer.get("k_scale"), layer.get("v_scale")
-    if S == 1 and use_kernels and (k_scale is None) == (v_scale is None):
+    # both scales present or absent; the flash and paged kernels take
+    # per-tensor scales only (per-head ones ride the block kernel)
+    scales_ok = (k_scale is None) == (v_scale is None)
+    scalar_scales = scales_ok and (k_scale is None or (
+        k_scale.numel() == 1 and v_scale.numel() == 1))
+
+    def project(out):
+        out = out.reshape(B, S, H * D).to(x.dtype)
+        return quantized_matmul(out, layer["o_proj"], use_kernels)
+
+    def step():  # the decode kernels' (B, heads, D) operands
+        return (q[:, 0].contiguous(), k[:, 0].contiguous(),
+                v[:, 0].contiguous())
+
+    if tables is not None and S == 1 and use_kernels and scalar_scales:
+        out, kv_k_all, kv_v_all = paged_decode_attention(
+            *step(), kv_k_all, kv_v_all, tables, cache_lens, layer=layer_idx,
+            k_scale=k_scale, v_scale=v_scale)
+        return project(out), kv_k_all, kv_v_all
+
+    if tables is not None:
+        # paged prefill: gather the rows' pages into a contiguous view, run
+        # the dense tail on it, scatter the pages back (duplicate table ids
+        # only ever point at the null page 0, whose contents are garbage)
+        P, page = tables.shape[1], kv_k_all.shape[3]
+        idx = tables.to(torch.int64)
+
+        def gather(pool):
+            return pool[layer_idx][idx].permute(0, 2, 1, 3, 4).reshape(
+                B, KVH, P * page, D)
+
+        dense_k, dense_v = gather(kv_k_all), gather(kv_v_all)
+        out = _attention_dense_tail(
+            layer, x, q, k, v, dense_k, dense_v, cache_lens, config,
+            positions, fresh_prefill, k_scale, v_scale, use_kernels)
+        flat = idx.reshape(-1)
+        for pool, dense in ((kv_k_all, dense_k), (kv_v_all, dense_v)):
+            pool[layer_idx][flat] = dense.reshape(
+                B, KVH, P, page, D).permute(0, 2, 1, 3, 4).reshape(
+                    B * P, KVH, page, D)
+        return out, kv_k_all, kv_v_all
+
+    if S == 1 and use_kernels and scales_ok:
         from compressed_tensors_tpu_torch.flags import FLAGS
 
-        if FLAGS.decode_attn == "flash" and x.is_cuda:
-            raise NotImplementedError(
-                "decode_attn='flash' has no CUDA kernel yet (ROADMAP B6: "
-                "flash_decode_attention); 'auto' runs decode_attention")
-        out, kv_k_all, kv_v_all = decode_attention(
-            q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-            kv_k_all, kv_v_all, cache_lens, layer=layer_idx,
+        # the block kernel for small allocations, flash decode (chunks of
+        # the live prefix only) for serving-scale ones, as in the JAX
+        # package; only the block kernel takes per-head scales
+        s_max = kv_k_all.shape[3]
+        use_flash = scalar_scales and s_max % 64 == 0 and (
+            FLAGS.decode_attn == "flash"
+            or (FLAGS.decode_attn == "auto" and s_max >= 512))
+        kernel = flash_decode_attention if use_flash else decode_attention
+        out, kv_k_all, kv_v_all = kernel(
+            *step(), kv_k_all, kv_v_all, cache_lens, layer=layer_idx,
             k_scale=k_scale, v_scale=v_scale)
-        out = out.reshape(B, S, H * D).to(x.dtype)
-        return quantized_matmul(out, layer["o_proj"], use_kernels), kv_k_all, kv_v_all
+        return project(out), kv_k_all, kv_v_all
 
     out = _attention_dense_tail(
         layer, x, q, k, v, kv_k_all[layer_idx], kv_v_all[layer_idx],
@@ -252,13 +348,15 @@ def _mlp(layer: dict, x, config: LlamaConfig, use_kernels: bool = True):
 def llama_forward(params: dict, config: LlamaConfig,
                   input_ids: torch.Tensor,     # (B, S)
                   positions: torch.Tensor,     # (B, S)
-                  kv_cache: Optional[KVCache] = None,
+                  kv_cache: KVCache | PagedKVCache | None = None,
                   fresh_prefill: Optional[bool] = None,
                   use_kernels: bool = True,
                   last_logit_only: bool = False):
     """Full forward pass. Returns (logits, kv cache); the cache tensors are
     updated in place and returned with lengths advanced by S.
 
+    :param kv_cache: a dense ``KVCache`` or a ``PagedKVCache``; rows with a
+        negative length are inactive (their cache bytes stay untouched)
     :param fresh_prefill: every active cache slot is empty (lengths 0);
         defaults to True when no cache is passed (one is created)
     :param use_kernels: run the hand-written kernels (their plain versions
@@ -277,12 +375,14 @@ def llama_forward(params: dict, config: LlamaConfig,
     if kv_cache is None:
         kv_cache = init_kv_cache(config, B, S, dtype=x.dtype, device=x.device)
     cache_lens = kv_cache.lengths
+    tables = kv_cache.tables if isinstance(kv_cache, PagedKVCache) else None
     kv_k_all, kv_v_all = kv_cache.k, kv_cache.v
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_layernorm"], config.rms_norm_eps)
         attn_out, kv_k_all, kv_v_all = _attention(
             layer, i, h, cos, sin, kv_k_all, kv_v_all, cache_lens, config,
-            positions, fresh_prefill=fresh_prefill, use_kernels=use_kernels)
+            positions, fresh_prefill=fresh_prefill, tables=tables,
+            use_kernels=use_kernels)
         x = x + attn_out
         h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
         x = x + _mlp(layer, h, config, use_kernels)
@@ -296,8 +396,11 @@ def llama_forward(params: dict, config: LlamaConfig,
     else:
         logits = torch.matmul(x.to(torch.float32),
                               lm_head.to(torch.float32).t())
-    return logits, KVCache(k=kv_k_all, v=kv_v_all,
-                           lengths=(cache_lens + S).to(torch.int32))
+    lengths = (cache_lens + S).to(torch.int32)
+    if tables is not None:
+        return logits, PagedKVCache(k=kv_k_all, v=kv_v_all, tables=tables,
+                                    lengths=lengths)
+    return logits, KVCache(k=kv_k_all, v=kv_v_all, lengths=lengths)
 
 
 def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",

@@ -31,12 +31,19 @@ from compressed_tensors_tpu_torch.quantization import (
 )
 from compressed_tensors_tpu_torch.utils.safetensors_io import save_safetensors
 
-__all__ = ["make_synthetic_llama", "save_llama_checkpoint", "TINYLLAMA_1_1B"]
+__all__ = ["make_synthetic_llama", "save_llama_checkpoint", "TINYLLAMA_1_1B",
+           "LLAMA3_8B"]
 
 TINYLLAMA_1_1B = LlamaConfig(
     vocab_size=32000, hidden_size=2048, intermediate_size=5632,
     num_hidden_layers=22, num_attention_heads=32, num_key_value_heads=4,
     head_dim=64, rope_theta=10000.0, max_position_embeddings=2048,
+)
+
+LLAMA3_8B = LlamaConfig(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=500000.0, max_position_embeddings=8192,
 )
 
 

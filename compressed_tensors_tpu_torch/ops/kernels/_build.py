@@ -25,17 +25,22 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("w4a16_matmul.cu", "w8a8_matmul.cu", "prefill_attention.cu",
-           "decode_attention.cu", "errors.cu")
+           "decode_attention.cu", "paged_decode.cu", "errors.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ct_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ct_w4a16_a8b_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ct_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "ct_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _F, _P],
+    "ct_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _P],
+    "ct_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _P],
 }
 
 _lib = None

@@ -5,23 +5,23 @@ decode_attention`` with the hand-written Hopper kernel in
 ``csrc/decode_attention.cu``: one block per (kv head, batch row) writes the
 step's K/V row in place at ``lengths[b]`` (rows with a negative length are
 left untouched), then attends the group's query heads over positions
-0..lengths[b] with an f32 online softmax. The cache is (L, B, KVH, S_pad,
-D): no lane padding of D and no head packing, which the TPU layout needed
-for Mosaic's (8, 128) tiles.
+0..lengths[b] in f32, with the normalized probabilities rounded to q's
+dtype before P.V as in the TPU kernel. The cache is (L, B, KVH, S_pad, D):
+no lane padding of D and no head packing, which the TPU layout needed for
+Mosaic's (8, 128) tiles.
 
 The cache tensors are updated in place, by the kernel and by the plain
 version alike; the function returns them for the JAX package's (out,
 cache_k, cache_v) contract.
 
 Bound on the H100: the bytes of the cache prefix each row reads,
-2 * B*KVH*(len+1)*D*2 per step and layer, against 3.35 TB/s. Reading only
-the live prefix keeps the cost O(length) for every S_pad, so on CUDA this
-kernel also serves the allocations the TPU sends to
-``flash_decode_attention`` (ROADMAP B6, a faster variant of this contract).
+2 * B*KVH*(len+1)*D*2 per step and layer, against 3.35 TB/s. The model
+runs it for caches with S_pad < 512 under ``decode_attn="auto"``, as the
+JAX package does; ``flash_decode.py`` serves the larger ones.
 
 ``decode_attention`` launches the kernel for CUDA tensors and uses
 ``decode_attention_plain`` only for CPU tensors. Quantized (fp8/int8)
-caches with k/v scales have no CUDA kernel yet (ROADMAP B5, scales).
+caches with k/v scales have no CUDA kernel yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -42,6 +42,32 @@ def _layer_views(cache_k, cache_v, layer):
                              "the layer index")
         return cache_k[layer], cache_v[layer]
     return cache_k, cache_v
+
+
+def check_decode_operands(name, q, new_k, new_v, cache_k, cache_v,
+                          lengths):
+    """Raise on operands the CUDA decode kernels (block, flash, paged) do
+    not take; returns (B, H, D, KVH, rep)."""
+    B, H, D = q.shape
+    KVH = new_k.shape[1]
+    rep = H // KVH if KVH else 0
+    if D not in (64, 128) or H != KVH * rep or rep > 16:
+        raise NotImplementedError(
+            f"{name} kernel serves D in (64, 128) and H/KVH <= 16, got D={D}, "
+            f"H={H}, KVH={KVH}")
+    if (tuple(new_k.shape) != (B, KVH, D) or new_v.shape != new_k.shape
+            or cache_v.shape != cache_k.shape or cache_k.shape[-1] != D
+            or cache_k.shape[-3] != KVH):
+        raise ValueError(f"{name} shape mismatch")
+    for t in (q, new_k, new_v, cache_k, cache_v):
+        if (t.dtype != torch.bfloat16 or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} operands must be contiguous bf16 on "
+                             "one device")
+    if (lengths.dtype != torch.int32 or lengths.device != q.device
+            or tuple(lengths.shape) != (B,)):
+        raise ValueError("lengths must be (B,) int32 on q's device")
+    return B, H, D, KVH, rep
 
 
 def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, *,
@@ -96,32 +122,19 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             "decode_attention on a quantized cache (k/v scales) has no CUDA "
-            "kernel yet (ROADMAP B5, scales)")
-    B, H, D = q.shape
+            "kernel yet (ROADMAP A8)")
+    B, H, D, KVH, rep = check_decode_operands(
+        "decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
     if cache_k.dim() == 4:
         cache_shape5 = (1, *cache_k.shape)
         layer = 0
     else:
         cache_shape5 = tuple(cache_k.shape)
-    L, Bc, KVH, S_pad, Dc = cache_shape5
+    L, Bc, _, S_pad, _ = cache_shape5
     if layer is None or not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} cache layers")
-    rep = H // KVH if KVH else 0
-    if D not in (64, 128) or H != KVH * rep or rep > 16:
-        raise NotImplementedError(
-            f"decode_attention kernel serves D in (64, 128) and H/KVH <= 16, "
-            f"got D={D}, H={H}, KVH={KVH}")
-    if (Bc, Dc) != (B, D) or tuple(new_k.shape) != (B, KVH, D) \
-            or new_v.shape != new_k.shape or cache_v.shape != cache_k.shape:
+    if Bc != B:
         raise ValueError("decode_attention shape mismatch")
-    for t in (q, new_k, new_v, cache_k, cache_v):
-        if (t.dtype != torch.bfloat16 or t.device != q.device
-                or not t.is_contiguous()):
-            raise ValueError("decode_attention operands must be contiguous "
-                             "bf16 on one device")
-    if (lengths.dtype != torch.int32 or lengths.device != q.device
-            or tuple(lengths.shape) != (B,)):
-        raise ValueError("lengths must be (B,) int32 on q's device")
     out = torch.empty_like(q)
     lib = _build.load()
     with torch.cuda.device(q.device):

@@ -1,0 +1,140 @@
+"""Length-aware decode attention on the dense slab cache (flash decode).
+
+Replaces ``compressed_tensors_tpu/ops/kernels/flash_decode.py:
+flash_decode_attention`` with the hand-written Hopper kernel in
+``csrc/paged_decode.cu`` (entry point ``ct_flash_decode``), which shares
+its body with the paged pool's kernel (``paged_decode.py``): one block per
+(kv head, batch row) writes the step's K/V row in place at ``lengths[b]``,
+then walks the row's keys chunk by chunk, reading only the chunks that hold
+positions 0..lengths[b], with an f32 online softmax whose unnormalized
+probabilities are rounded to q's dtype before P.V, as the TPU kernel does.
+A row with a negative length is inactive: its output is zero and its cache
+bytes are neither read nor written.
+
+The cache is (L, B, KVH, S_pad, D) with S_pad a multiple of the chunk (64),
+updated in place; the function returns it for the JAX package's (out,
+cache_k, cache_v) contract.
+
+Bound on the H100: the live cache bytes, 2 * sum(len + 1) * KVH * D * 2 per
+layer, against 3.35 TB/s.
+
+``flash_decode_attention`` launches the kernel for CUDA tensors and uses
+``flash_decode_attention_plain`` only for CPU tensors. Quantized (fp8/int8)
+caches with per-tensor k/v scales are implemented by the plain version; on
+CUDA they raise until the scaled-cache kernels are ported (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from compressed_tensors_tpu_torch.ops.kernels import _build
+from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
+    check_decode_operands,
+)
+
+__all__ = ["flash_decode_attention", "flash_decode_attention_plain"]
+
+CHUNK = 64  # positions per chunk, as the TPU kernel's default
+
+
+def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
+                 v_scale):
+    """The flash/paged decode arithmetic in plain PyTorch, as the TPU
+    kernels compute it: the new token (in its cache representation) plus
+    each row's cached positions 0..lengths[b]-1 of ``keys``/``values``
+    (B, KVH, T, D); softmax in f32 with the unnormalized probabilities cast
+    to q's dtype before P.V. Scalar cache scales fold into q and onto the
+    output, so cached values only take a dtype cast. Inactive rows give
+    zeros."""
+    B, H, D = q.shape
+    KVH, T = keys.shape[1], keys.shape[2]
+    cd = q.dtype
+    folded = k_scale is not None and keys.dtype != cd
+    qh = ((q.to(torch.float32) * k_scale.to(torch.float32).reshape(()))
+          .to(cd) if folded else q)
+    qg = qh.to(torch.float32).reshape(B, KVH, H // KVH, D)
+    kf, vf = (t.to(cd).to(torch.float32) for t in (keys, values))
+    nkf, nvf = (t.to(cd).to(torch.float32) for t in (new_k_c, new_v_c))
+    inv_sqrt_d = 1.0 / math.sqrt(D)
+    lengths = lengths.to(torch.int64)
+    s_new = torch.einsum("bkrd,bkd->bkr", qg, nkf)[..., None] * inv_sqrt_d
+    s_old = torch.einsum("bkrd,bktd->bkrt", qg, kf) * inv_sqrt_d
+    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    s_old = s_old.masked_fill(~valid[:, None, None, :], float("-inf"))
+    s = torch.cat([s_new, s_old], dim=-1)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    pr = p.to(cd).to(torch.float32)
+    acc = (pr[..., :1] * nvf[:, :, None, :]
+           + torch.einsum("bkrt,bktd->bkrd", pr[..., 1:], vf))
+    out = acc / l.clamp_min(1e-30)
+    if folded:
+        out = out * v_scale.to(torch.float32).reshape(())
+    out = out.reshape(B, H, D)
+    out = torch.where((lengths >= 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(cd)
+
+
+def flash_decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths,
+                                 *, layer=None, k_scale=None, v_scale=None):
+    """Plain PyTorch version: the in-place row write at lengths[b], then
+    ``attend_plain`` over the row's cached prefix."""
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
+
+    ck, cv = (cache_k[layer], cache_v[layer]) if cache_k.dim() == 5 else (
+        cache_k, cache_v)
+    nk_c = _quantize_to_cache(new_k, k_scale, ck.dtype, head_axis=1)
+    nv_c = _quantize_to_cache(new_v, v_scale, cv.dtype, head_axis=1)
+    out = attend_plain(q, nk_c, nv_c, ck, cv, lengths, k_scale, v_scale)
+    lengths = lengths.to(torch.int64)
+    rows = torch.nonzero((lengths >= 0) & (lengths < ck.shape[2])).reshape(-1)
+    ck[rows, :, lengths[rows]] = nk_c[rows]
+    cv[rows, :, lengths[rows]] = nv_c[rows]
+    return out, cache_k, cache_v
+
+
+def flash_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
+                           new_v: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, lengths: torch.Tensor, *,
+                           layer: int = 0,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None):
+    """q (B, H, D), new_k/new_v (B, KVH, D) post-RoPE; cache (L, B, KVH,
+    S_pad, D); lengths (B,) int32, negative = inactive. Returns (out (B, H,
+    D), cache_k, cache_v), the caches updated in place."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_plain(
+            q, new_k, new_v, cache_k, cache_v, lengths, layer=layer,
+            k_scale=k_scale, v_scale=v_scale)
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "flash_decode_attention on a quantized cache (k/v scales) has no "
+            "CUDA kernel yet (ROADMAP A8)")
+    B, H, D, KVH, rep = check_decode_operands(
+        "flash_decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
+    if cache_k.dim() != 5 or cache_k.shape[1] != B:
+        raise ValueError("flash_decode_attention needs the (L, B, KVH, S_pad, "
+                         "D) cache")
+    L, _, _, S_pad, _ = cache_k.shape
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range for {L} cache layers")
+    if S_pad % CHUNK:
+        raise ValueError(f"S_pad={S_pad} must be a multiple of the chunk "
+                         f"{CHUNK}")
+    out = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.ct_flash_decode(
+            q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+            cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, KVH, rep, S_pad, CHUNK, D, layer,
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return out, cache_k, cache_v
+
+
+flash_decode_attention.launches = 0

@@ -1,0 +1,116 @@
+"""Decode attention over the paged KV pool.
+
+Replaces ``compressed_tensors_tpu/ops/kernels/paged_decode.py:
+paged_decode_attention`` with the hand-written Hopper kernel in
+``csrc/paged_decode.cu`` (entry point ``ct_paged_decode``): the flash
+decode kernel's body (``flash_decode.py``) with one indirection, chunk c of
+row b being pool page ``tables[b, c]`` (the page size is the chunk size).
+The pool is (L, NP, KVH, page, D): no lane padding, no head packing. Page 0
+is the null page that unallocated table entries point at. A row with a
+negative length is inactive: its output is zero and the kernel reads and
+writes no pool byte for it, not even page 0. The caller guarantees that
+``tables[b, lengths[b] // page]`` is a real page for every active row.
+
+The pools are updated in place and returned for the JAX package's (out,
+pool_k, pool_v) contract.
+
+Bound on the H100: the live cache bytes, 2 * sum(len + 1) * KVH * D * 2 per
+layer, against 3.35 TB/s.
+
+``paged_decode_attention`` launches the kernel for CUDA tensors and uses
+``paged_decode_attention_plain`` only for CPU tensors. Quantized pools with
+per-tensor k/v scales are implemented by the plain version; on CUDA they
+raise until the scaled-cache kernels are ported (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from compressed_tensors_tpu_torch.ops.kernels import _build
+from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
+    check_decode_operands,
+)
+from compressed_tensors_tpu_torch.ops.kernels.flash_decode import attend_plain
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
+
+
+def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
+                                 lengths, *, layer=0, k_scale=None,
+                                 v_scale=None):
+    """Plain PyTorch version: gather each row's pages into a contiguous
+    view, ``attend_plain`` over its cached prefix, then write the new row
+    into page tables[b, len // page] at offset len % page."""
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
+
+    pk, pv = pool_k[layer], pool_v[layer]          # (NP, KVH, page, D)
+    B, P = tables.shape
+    _, KVH, page, D = pk.shape
+    idx = tables.to(torch.int64)
+
+    def gather(pool):
+        return pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * page, D)
+
+    nk_c = _quantize_to_cache(new_k, k_scale, pk.dtype, head_axis=1)
+    nv_c = _quantize_to_cache(new_v, v_scale, pv.dtype, head_axis=1)
+    out = attend_plain(q, nk_c, nv_c, gather(pk), gather(pv), lengths,
+                       k_scale, v_scale)
+    lengths = lengths.to(torch.int64)
+    rows = torch.nonzero((lengths >= 0) & (lengths < P * page)).reshape(-1)
+    pids = idx[rows, lengths[rows] // page]
+    offs = lengths[rows] % page
+    pk[pids, :, offs] = nk_c[rows]
+    pv[pids, :, offs] = nv_c[rows]
+    return out, pool_k, pool_v
+
+
+def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
+                           new_v: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor, *, layer: int = 0,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None):
+    """q (B, H, D), new_k/new_v (B, KVH, D) post-RoPE; pools (L, NP, KVH,
+    page, D); tables (B, P) int32 page ids; lengths (B,) int32, negative =
+    inactive. Returns (out (B, H, D), pool_k, pool_v), the pools updated in
+    place."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, new_k, new_v, pool_k, pool_v, tables, lengths, layer=layer,
+            k_scale=k_scale, v_scale=v_scale)
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged_decode_attention on a quantized pool (k/v scales) has no "
+            "CUDA kernel yet (ROADMAP A8)")
+    B, H, D, KVH, rep = check_decode_operands(
+        "paged_decode_attention", q, new_k, new_v, pool_k, pool_v, lengths)
+    if pool_k.dim() != 5:
+        raise ValueError("paged_decode_attention needs the (L, NP, KVH, page, "
+                         "D) pool")
+    L, NP, _, page, _ = pool_k.shape
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range for {L} pool layers")
+    if page % 16:
+        raise ValueError(f"page size {page} must be a multiple of 16")
+    if (tables.dtype != torch.int32 or tables.device != q.device
+            or tables.dim() != 2 or tables.shape[0] != B
+            or not tables.is_contiguous()):
+        raise ValueError("tables must be (B, P) contiguous int32 on q's device")
+    out = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.ct_paged_decode(
+            q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+            pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, KVH, rep, NP,
+            tables.shape[1], page, D, layer, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out, pool_k, pool_v
+
+
+paged_decode_attention.launches = 0

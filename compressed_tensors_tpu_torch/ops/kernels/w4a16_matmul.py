@@ -16,9 +16,15 @@ kernel keeps the weight packed in device memory and decodes it in shared
 memory, and at small M splits K across blocks so the weight streams on
 more SMs (see the source note in the .cu file).
 
-``w4a16_matmul`` launches the kernel for CUDA tensors and uses
-``w4a16_matmul_plain`` only for CPU tensors. Mode ``a8b`` (int8
-activations) is ROADMAP B2 and has no CUDA kernel yet.
+Mode ``a8b`` (int8 activations, the TPU kernel's mode for prefill row
+counts) is the second entry point of the same source, launched by
+``w4a16_a8b_matmul``: a row pass quantizes x per token (absmax / 127,
+clip to +-127), then int8 tensor-core group dots sum exactly in int32, each
+group is scaled in f32 and the row's x scale is applied once. Bound: the
+2*M*N*K int8 operations at prefill chunks.
+
+Each wrapper launches its kernel for CUDA tensors and uses
+``w4a16_matmul_plain`` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 
-__all__ = ["w4a16_matmul", "w4a16_matmul_plain"]
+__all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
+           "quantize_rows_a8b_plain"]
 
 _BK = 64
 _TILE = 64
@@ -44,20 +51,34 @@ def _dequantized_weight(w_packed, scales, zp, n, k, group_size):
     return q * s
 
 
-def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
-                       mode="int4b"):
-    """Plain PyTorch version: dequantize the weight in f32, one f32 matmul,
-    cast to x's dtype. Mode "a8b" first quantizes x per row to int8
-    (scale = absmax / 127, clip to +-127), as the TPU kernel's a8b mode."""
-    w = _dequantized_weight(w_packed, scales, zp, n, k, group_size)
+def quantize_rows_a8b_plain(x):
+    """Mode a8b's per-row int8 quantization of x: (xq int8, scale f32 of
+    shape x.shape[:-1]) with scale = max(absmax, 1e-8) / 127 and xq =
+    clip(round(x / scale), -127, 127), rounding half to even."""
     xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1).clamp_min(1e-8)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, which is not the IEEE division the kernel does
+    scale = absmax / torch.full_like(absmax, 127.0)
+    xq = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return xq.to(torch.int8), scale
+
+
+def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
+                       mode="int4b", out_dtype=None):
+    """Plain PyTorch version: dequantize the weight in f32, one f32 matmul,
+    cast to ``out_dtype`` (x's dtype by default). Mode "a8b" first
+    quantizes x per row to int8 (``quantize_rows_a8b_plain``), as the TPU
+    kernel's a8b mode."""
+    w = _dequantized_weight(w_packed, scales, zp, n, k, group_size)
     if mode == "a8b":
-        x_scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
-        xq = torch.round(xf / x_scale).clamp(-127, 127)
-        return ((xq @ w.t()) * x_scale).to(x.dtype)
-    if mode != "int4b":
+        xq, x_scale = quantize_rows_a8b_plain(x)
+        y = (xq.to(torch.float32) @ w.t()) * x_scale[..., None]
+    elif mode == "int4b":
+        y = x.to(torch.float32) @ w.t()
+    else:
         raise ValueError(f"unknown w4a16 mode {mode!r}")
-    return (xf @ w.t()).to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def _split_k(m: int, n: int, k: int, group_size: int) -> tuple[int, int]:
@@ -72,20 +93,8 @@ def _split_k(m: int, n: int, k: int, group_size: int) -> tuple[int, int]:
     return -(-tiles // tiles_per_split), tiles_per_split
 
 
-def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
-                 scales: torch.Tensor, zp: torch.Tensor | None, *,
-                 n: int, k: int, group_size: int,
-                 mode: str = "int4b") -> torch.Tensor:
-    """y (M, N) = x (M, K) @ W^T for W packed (N, K/8) int32 with (K/g, N)
-    f32 scales and optional (K/g, N) f32 zero points."""
-    if x.device.type == "cpu":
-        return w4a16_matmul_plain(x, w_packed, scales, zp, n=n, k=k,
-                                  group_size=group_size, mode=mode)
-    if mode != "int4b":
-        raise NotImplementedError(
-            f"w4a16_matmul mode {mode!r} has no CUDA kernel yet "
-            "(ROADMAP B2: int8-activation W4A16)")
-    m = x.shape[0]
+def _check(x, w_packed, scales, zp, n, k, group_size):
+    """Raise on operands the CUDA kernels do not take."""
     if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be (M, {k}) bf16, got {tuple(x.shape)} "
                          f"{x.dtype}")
@@ -102,6 +111,24 @@ def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     tensors = [x, w_packed, scales] + ([zp] if zp is not None else [])
     if any(t.device != x.device or not t.is_contiguous() for t in tensors):
         raise ValueError("w4a16 operands must be contiguous on one device")
+
+
+def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                 scales: torch.Tensor, zp: torch.Tensor | None, *,
+                 n: int, k: int, group_size: int,
+                 mode: str = "int4b") -> torch.Tensor:
+    """y (M, N) = x (M, K) @ W^T for W packed (N, K/8) int32 with (K/g, N)
+    f32 scales and optional (K/g, N) f32 zero points."""
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, w_packed, scales, zp, n=n, k=k,
+                                  group_size=group_size, mode=mode)
+    if mode == "a8b":
+        return w4a16_a8b_matmul(x, w_packed, scales, zp, n=n, k=k,
+                                group_size=group_size)
+    if mode != "int4b":
+        raise ValueError(f"unknown w4a16 mode {mode!r}")
+    _check(x, w_packed, scales, zp, n, k, group_size)
+    m = x.shape[0]
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
@@ -122,3 +149,48 @@ def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 w4a16_matmul.launches = 0
+
+
+def w4a16_a8b_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                     scales: torch.Tensor, zp: torch.Tensor | None, *,
+                     n: int, k: int, group_size: int,
+                     xq: torch.Tensor | None = None,
+                     xs: torch.Tensor | None = None) -> torch.Tensor:
+    """Mode ``a8b`` of ``w4a16_matmul``: x quantized per row to int8, int8
+    group dots, the same operands and result shape.
+
+    :param xq: optional (M, K) int8 buffer for the kernel's quantized rows
+    :param xs: optional (M,) f32 buffer for their scales; pass both to read
+        the quantization pass back
+    """
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, w_packed, scales, zp, n=n, k=k,
+                                  group_size=group_size, mode="a8b")
+    _check(x, w_packed, scales, zp, n, k, group_size)
+    m = x.shape[0]
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    if xq is None:
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    if xs is None:
+        xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if (xq.dtype != torch.int8 or tuple(xq.shape) != (m, k)
+            or xs.dtype != torch.float32 or tuple(xs.shape) != (m,)
+            or not (xq.is_contiguous() and xs.is_contiguous())
+            or xq.device != x.device or xs.device != x.device):
+        raise ValueError("a8b scratch must be (M, K) int8 and (M,) f32, "
+                         "contiguous on x's device")
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ct_w4a16_a8b_matmul(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            zp.data_ptr() if zp is not None else None, y.data_ptr(),
+            xq.data_ptr(), xs.data_ptr(), m, n, k, group_size,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "w4a16_a8b_matmul")
+    w4a16_a8b_matmul.launches += 1
+    return y
+
+
+w4a16_a8b_matmul.launches = 0

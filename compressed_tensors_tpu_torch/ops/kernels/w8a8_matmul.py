@@ -38,7 +38,10 @@ def w8a8_matmul_plain(x, w, w_scale, *, n, k):
     q_max = 127.0 if is_int8 else 448.0
     half_range = (2 * q_max + 1) / 2 if is_int8 else q_max
     absmax = xf.abs().amax(dim=-1, keepdim=True)
-    x_scale = torch.clamp(absmax / half_range, min=1e-10)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, which is not the IEEE division the kernel does
+    x_scale = torch.clamp(absmax / torch.full_like(absmax, half_range),
+                          min=1e-10)
     scaled = xf / x_scale
     if is_int8:
         xq = torch.round(scaled.clamp(-q_max - 1, q_max))

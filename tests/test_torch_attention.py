@@ -11,12 +11,24 @@ import torch
 from compressed_tensors_tpu.ops.kernels.decode_attention import (
     decode_attention as j_decode,
 )
+from compressed_tensors_tpu.ops.kernels.flash_decode import (
+    flash_decode_attention as j_flash,
+)
+from compressed_tensors_tpu.ops.kernels.paged_decode import (
+    paged_decode_attention as j_paged,
+)
 from compressed_tensors_tpu.ops.kernels.prefill_attention import (
     prefill_attention as j_prefill,
 )
 
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
+)
+from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+    flash_decode_attention,
+)
+from compressed_tensors_tpu_torch.ops.kernels.paged_decode import (
+    paged_decode_attention,
 )
 from compressed_tensors_tpu_torch.ops.kernels.prefill_attention import (
     prefill_attention,
@@ -78,3 +90,94 @@ def test_decode_attention_matches_jax():
     assert sorted(map(tuple, changed[:, [0, 1, 3]])) == sorted(
         (layer, b, int(lengths[b])) for b in np.flatnonzero(active)
         for _ in range(KVH))
+
+
+# flash and paged decode: 2 layers, 4 rows (one inactive), 8 query / 2 KV
+# heads of D = 128, 64-position chunks (the port's fixed chunk) or pages
+FL, FB, FH, FKVH, FD, CH = 2, 4, 8, 2, 128, 64
+F_LENGTHS = np.asarray([0, 70, -1, 127], np.int32)
+
+
+def _decode_inputs(rng, cache_shape, scaled):
+    """q, new k/v and a cache (f32, or int8 with per-tensor scales)."""
+    q = rng.standard_normal((FB, FH, FD)).astype(np.float32)
+    nk = rng.standard_normal((FB, FKVH, FD)).astype(np.float32)
+    nv = rng.standard_normal((FB, FKVH, FD)).astype(np.float32)
+    if scaled:
+        ck = rng.integers(-128, 128, cache_shape).astype(np.int8)
+        cv = rng.integers(-128, 128, cache_shape).astype(np.int8)
+        scales = (np.asarray([0.02], np.float32), np.asarray([0.03], np.float32))
+    else:
+        ck = rng.standard_normal(cache_shape).astype(np.float32)
+        cv = rng.standard_normal(cache_shape).astype(np.float32)
+        scales = (None, None)
+    return q, nk, nv, ck, cv, scales
+
+
+def _jx(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _th(a):
+    return None if a is None else torch.from_numpy(a.copy())
+
+
+def _check_decode(out_t, cache_t, out_j, cache_j, original, rows_changed):
+    active = F_LENGTHS >= 0
+    np.testing.assert_allclose(out_t.numpy()[active], np.asarray(out_j)[active],
+                               atol=ATOL, rtol=0)
+    assert not out_t.numpy()[~active].any()  # inactive rows: zeros
+    for got, want, before in zip(cache_t, cache_j, original):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        changed = np.argwhere((got.numpy() != before).any(-1))
+        assert set(map(tuple, changed.tolist())) == set(rows_changed)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["f32", "int8-scales"])
+def test_flash_decode_matches_jax(scaled):
+    rng = np.random.default_rng(5)
+    shape = (FL, FB, FKVH, 128, FD)
+    q, nk, nv, ck, cv, (ks, vs) = _decode_inputs(rng, shape, scaled)
+    layer = 1
+    out_j, ck_j, cv_j = j_flash(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.asarray(F_LENGTHS), kvh=FKVH, rep=FH // FKVH,
+        d=FD, k_scale=_jx(ks), v_scale=_jx(vs), layer=layer, chunk=CH)
+    tck, tcv = _th(ck), _th(cv)
+    out_t, ck_t, cv_t = flash_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv), tck,
+        tcv, torch.from_numpy(F_LENGTHS), layer=layer, k_scale=_th(ks),
+        v_scale=_th(vs))
+    assert ck_t is tck and cv_t is tcv  # updated in place
+    written = [(layer, b, h, int(F_LENGTHS[b])) for b in range(FB)
+               for h in range(FKVH) if F_LENGTHS[b] >= 0]
+    _check_decode(out_t, (tck, tcv), out_j, (ck_j, cv_j), (ck, cv), written)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["f32", "int8-scales"])
+def test_paged_decode_matches_jax(scaled):
+    rng = np.random.default_rng(6)
+    NP, P = 10, 2
+    shape = (FL, NP, FKVH, CH, FD)
+    q, nk, nv, pk, pv, (ks, vs) = _decode_inputs(rng, shape, scaled)
+    # shuffled pages; the inactive row points at the null page 0
+    tables = rng.permutation(np.arange(1, NP))[:FB * P].reshape(FB, P)
+    tables = tables.astype(np.int32)
+    tables[2] = 0
+    layer = 0
+    out_j, pk_j, pv_j = j_paged(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(pk),
+        jnp.asarray(pv), jnp.asarray(tables), jnp.asarray(F_LENGTHS),
+        kvh=FKVH, rep=FH // FKVH, d=FD, k_scale=_jx(ks), v_scale=_jx(vs),
+        layer=layer)
+    tpk, tpv = _th(pk), _th(pv)
+    out_t, pk_t, pv_t = paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv), tpk,
+        tpv, torch.from_numpy(tables), torch.from_numpy(F_LENGTHS),
+        layer=layer, k_scale=_th(ks), v_scale=_th(vs))
+    assert pk_t is tpk and pv_t is tpv
+    written = [(layer, int(tables[b, F_LENGTHS[b] // CH]), h,
+                int(F_LENGTHS[b] % CH)) for b in range(FB)
+               for h in range(FKVH) if F_LENGTHS[b] >= 0]
+    _check_decode(out_t, (tpk, tpv), out_j, (pk_j, pv_j), (pk, pv), written)
+    assert np.array_equal(tpk.numpy()[:, 0], pk[:, 0])  # null page untouched

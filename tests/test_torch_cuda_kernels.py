@@ -11,6 +11,8 @@ import torch
 
 from compressed_tensors_tpu_torch.ops.kernels import (
     decode_attention as da,
+    flash_decode as fd,
+    paged_decode as pd,
     prefill_attention as pa,
     w4a16_matmul as w4,
     w8a8_matmul as w8,
@@ -56,6 +58,36 @@ def test_w4a16_matmul(dev, m, asym):
     _close(got, w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=g))
 
 
+@pytest.mark.parametrize("m,asym", [(5, False), (300, True)])
+def test_w4a16_a8b_matmul(dev, m, asym):
+    rng = np.random.default_rng(m)
+    n, k, g = 192, 512, 128
+    w = torch.from_numpy(rng.integers(-2**31, 2**31, (n, k // 8),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 3e-3, (k // g, n)).astype(
+        np.float32)).to(dev)
+    zp = (torch.from_numpy(rng.integers(-8, 8, (k // g, n)).astype(
+        np.float32)).to(dev) if asym else None)
+    x = _bf16(rng, m, k, device=dev)
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    before = w4.w4a16_a8b_matmul.launches
+    got = w4.w4a16_a8b_matmul(x, w, s, zp, n=n, k=k, group_size=g, xq=xq,
+                              xs=xs)
+    assert w4.w4a16_a8b_matmul.launches == before + 1
+    # the quantization pass bit for bit
+    xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+    assert torch.equal(xq, xq_p) and torch.equal(xs, xs_p)
+    # exact integer group sums: the output is the f32 plain result up to
+    # bf16 rounding (2^-8 relative) and f32 summation order
+    want = w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=g,
+                                 mode="a8b", out_dtype=torch.float32)
+    err = (got.float() - want).abs()
+    assert bool((err <= 2**-8 * want.abs() + 1e-4 * want.abs().max()).all())
+    assert torch.equal(
+        w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=g, mode="a8b"), got)
+
+
 def test_w8a8_matmul(dev):
     rng = np.random.default_rng(0)
     n, k = 200, 256
@@ -86,3 +118,60 @@ def test_decode_attention_in_place(dev):
                                            layer=1)
     _close(out[[0, 2]], want[[0, 2]])
     assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+
+
+def _decode_operands(rng, dev, B=4, H=8, KVH=2, D=128):
+    return (_bf16(rng, B, H, D, device=dev), _bf16(rng, B, KVH, D, device=dev),
+            _bf16(rng, B, KVH, D, device=dev))
+
+
+def test_flash_decode_in_place(dev):
+    rng = np.random.default_rng(1)
+    q, nk, nv = _decode_operands(rng, dev)
+    ck, cv = (_bf16(rng, 2, 4, 2, 192, 128, device=dev) for _ in range(2))
+    ck0, cv0 = ck.clone(), cv.clone()
+    lengths = torch.tensor([0, -1, 100, 191], dtype=torch.int32, device=dev)
+    ck_p, cv_p = ck.clone(), cv.clone()
+    before = fd.flash_decode_attention.launches
+    out, ck_r, cv_r = fd.flash_decode_attention(q, nk, nv, ck, cv, lengths,
+                                                layer=1)
+    assert fd.flash_decode_attention.launches == before + 1
+    assert ck_r is ck and cv_r is cv
+    want, _, _ = fd.flash_decode_attention_plain(q, nk, nv, ck_p, cv_p,
+                                                 lengths, layer=1)
+    _close(out[[0, 2, 3]], want[[0, 2, 3]])
+    assert not out[1].any()  # inactive row: zeros
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    assert torch.equal(ck[:, 1], ck0[:, 1]) and torch.equal(cv[0], cv0[0])
+
+
+def test_paged_decode_in_place_and_null_page(dev):
+    rng = np.random.default_rng(2)
+    q, nk, nv = _decode_operands(rng, dev)
+    pk, pv = (_bf16(rng, 2, 9, 2, 64, 128, device=dev) for _ in range(2))
+    pk0 = pk.clone()
+    tables = torch.tensor([[3, 7], [0, 0], [5, 1], [8, 2]], dtype=torch.int32,
+                          device=dev)
+    lengths = torch.tensor([5, -1, 64, 127], dtype=torch.int32, device=dev)
+    pk_p, pv_p = pk.clone(), pv.clone()
+    out, pk_r, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables,
+                                             lengths, layer=0)
+    assert pk_r is pk
+    want, _, _ = pd.paged_decode_attention_plain(q, nk, nv, pk_p, pv_p,
+                                                 tables, lengths, layer=0)
+    _close(out[[0, 2, 3]], want[[0, 2, 3]])
+    assert torch.equal(pk, pk_p) and torch.equal(pv, pv_p)
+    assert torch.equal(pk[:, 0], pk0[:, 0])  # the null page is untouched
+    # the paged and dense layouts of the same contents give the same bits
+    dense_k = pk_p[0][tables.long()].permute(0, 2, 1, 3, 4).reshape(
+        4, 2, 128, 128)
+    dense_v = pv_p[0][tables.long()].permute(0, 2, 1, 3, 4).reshape(
+        4, 2, 128, 128)
+    pk2, pv2 = pk0.clone(), pv.clone()
+    out_p, _, _ = pd.paged_decode_attention(q, nk, nv, pk2, pv2, tables,
+                                            lengths, layer=0)
+    lengths_d = lengths.clone()
+    out_d, _, _ = fd.flash_decode_attention(
+        q, nk, nv, dense_k[None].contiguous(), dense_v[None].contiguous(),
+        lengths_d, layer=0)
+    assert torch.equal(out_p[[0, 2, 3]], out_d[[0, 2, 3]])

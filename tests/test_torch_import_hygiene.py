@@ -18,7 +18,9 @@ def test_port_imports_no_jax_and_builds_nothing():
             pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert "compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul" in names
+        for mod in ("ops.kernels.w4a16_matmul", "ops.kernels.flash_decode",
+                    "ops.kernels.paged_decode", "engine.serving"):
+            assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "compressed_tensors_tpu"

@@ -14,6 +14,9 @@ import torch
 
 from compressed_tensors_tpu.flags import flag_overrides as j_flags
 from compressed_tensors_tpu.ops.fuse import fuse_quantized_tensors as j_fuse
+from compressed_tensors_tpu.ops.kernels.w4a16_matmul import (
+    w4a16_matmul as j_w4a16,
+)
 from compressed_tensors_tpu.ops.linear import (
     from_compressed_state as j_from_state,
     prepare_for_kernels as j_prepare,
@@ -26,6 +29,9 @@ from compressed_tensors_tpu.quantization import (
 
 from compressed_tensors_tpu_torch.flags import flag_overrides
 from compressed_tensors_tpu_torch.ops.fuse import fuse_quantized_tensors
+from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+    w4a16_a8b_matmul,
+)
 from compressed_tensors_tpu_torch.ops.linear import (
     from_compressed_state,
     prepare_for_kernels,
@@ -123,8 +129,7 @@ def test_quantized_matmul_matches_jax(preset, n, k, actorder):
 
 def test_int8_activation_mode_matches_jax():
     """w4_act="int8" selects the a8b mode: the port's plain version of it
-    against the JAX kernel in interpret mode (on CUDA the mode raises until
-    its kernel is ported)."""
+    against the JAX kernel in interpret mode."""
     rng = np.random.default_rng(3)
     jqt, tqt = _both(_state(rng, "W4A16", 128, 256), "W4A16")
     x = rng.standard_normal((4, 256)).astype(np.float32)
@@ -135,6 +140,31 @@ def test_int8_activation_mode_matches_jax():
     _close(got, want)
     plain = quantized_matmul(torch.from_numpy(x), prepare_for_kernels(tqt))
     assert not torch.equal(got, plain)  # the mode changed the arithmetic
+
+
+@pytest.mark.parametrize("preset", ["W4A16", "W4A16_ASYM"])
+def test_a8b_matches_jax_kernel_and_dispatch(preset):
+    """The a8b wrapper (its plain version on the CPU) against the JAX
+    w4a16_matmul(mode="a8b") called directly on its own layout, and the
+    port's dispatch under w4_act="int8" against the JAX dispatch."""
+    rng = np.random.default_rng(4)
+    n, k = 256, 512
+    jqt, tqt = _both(_state(rng, preset, n, k), preset)
+    jk, tk = j_prepare(jqt), prepare_for_kernels(tqt)
+    x = rng.standard_normal((6, k)).astype(np.float32)
+    _, jn, _, k_pad, g, j_tk = jk.kernel_meta
+    want = j_w4a16(jnp.asarray(x), jk.kernel_packed, jk.kernel_scales,
+                   jk.kernel_zp, n=jn, k=k_pad, group_size=g, tk=j_tk,
+                   out_dtype=jnp.float32, mode="a8b")
+    got = w4a16_a8b_matmul(torch.from_numpy(x), tk.kernel_packed,
+                           tk.kernel_scales, tk.kernel_zp, n=n, k=k,
+                           group_size=128)
+    _close(got, want)
+    with j_flags(w4_act="int8"):
+        want = j_matmul(jnp.asarray(x), jk, use_kernels=True)
+    with flag_overrides(w4_act="int8"):
+        got = quantized_matmul(torch.from_numpy(x), tk)
+    _close(got, want)
 
 
 def test_fused_projections_match_members():

@@ -86,6 +86,33 @@ def test_greedy_tokens_match(loaded, S):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_greedy_tokens_match_with_flash_decode(loaded, monkeypatch):
+    """decode_attn="flash" sends the small greedy cache (S_pad 64, where
+    "auto" picks the block kernel) through flash decode."""
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.ops.kernels import flash_decode
+
+    jp, jc, tp, tc = loaded
+    ids = _ids(2, 16, seed=5)
+    want = np.asarray(j_generate(jp, jc, jnp.asarray(ids, jnp.int32),
+                                 max_new_tokens=6, dtype=jnp.float32,
+                                 use_kernels=False))
+    calls = []
+    plain = flash_decode.flash_decode_attention_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(flash_decode, "flash_decode_attention_plain", counted)
+    with flag_overrides(decode_attn="flash"):
+        got = greedy_generate(fuse_llama_layers(tp), tc, ids,
+                              max_new_tokens=6, dtype=torch.float32,
+                              device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(calls) == 5 * tc.num_hidden_layers  # every decode step
+
+
 def test_decode_step_with_packed_cache(loaded):
     """A prefill and one decode step in both packages (the port through its
     kernels' plain versions, the JAX package on its non-kernel path):
