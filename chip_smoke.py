@@ -19,7 +19,14 @@ the shapes of the main paths. Then it drives two paths end to end:
   completions must be equal token for token, and the prefix-cached ones
   equal them but for a few greedy near-ties after the first token (see
   ``phase_serving``); one request's first-token logits are held against
-  the non-kernel path.
+  the non-kernel path;
+- Llama-3-8B FP8 W8A8 with an FP8 KV cache (BASELINE config 3: fp8 e4m3
+  per-channel weights with dynamic per-token fp8 activations, a W8A8-int
+  lm_head, k_scale = v_scale = 0.03 in every layer): the same requests
+  through the dense and the paged engine with an fp8 cache, equal token for
+  token, ``greedy_generate`` at batch 64 through the scaled block decode
+  kernel, and one request's first-token logits against the non-kernel
+  path.
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -29,6 +36,7 @@ any failure raises and exits non-zero. Without a CUDA device, or outside
 the repository, it exits non-zero without a result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,6 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_FP8 = 1979e12
 
 BATCH, PROMPT, NEW_TOKENS = 64, 128, 32
 # max|kernel - plain| <= TOL * max|plain|: bf16 output rounding (2^-8
@@ -61,8 +70,27 @@ TOL_E2E = 2e-2
 # two runs read 0.57%. The limit leaves 2.6x room over that reading.
 TOL_E2E_8B = 1.5e-2
 # a8b against its f32 plain result, per element: bf16 output rounding
-# (2^-8 of |y|) plus f32 summation order (1e-4 of max|y|)
+# (2^-8 of |y|) plus f32 summation order (1e-4 of max|y|); the fp8 W8A8
+# kernel is held to the same rule
 A8B_REL, A8B_ABS = 2**-8, 1e-4
+# first-token logits of the FP8 W8A8 + FP8 KV model at Llama-3-8B width
+# against the non-kernel path (phase 6), as relative RMS error
+# |a - b| / |b| over the vocabulary. Every linear rounds its input to fp8
+# e4m3 per token (steps of 2^-4 to 2^-3 of a value), so a tiny upstream
+# difference flips some roundings by a full step, and the random model
+# amplifies that layer by layer: a one-ulp bf16 change to 64 embedding
+# values of one prompt token moves the non-kernel path's own logits by
+# several percent after one layer and by tens of percent after 32 (phase
+# 6 prints the sweep). The first run's limit of 5% of max|logits| at full
+# depth was refuted that way. So the kernel path is held to that
+# sensitivity: at one layer (full width) within TOL_FP8_DEPTH1, where a
+# wrong layout, scale or cache read moves the logits by O(1); at full
+# depth within FP8_FLOOR_RATIO times the non-kernel path's own spread
+# under that perturbation.
+TOL_FP8_DEPTH1 = 0.25
+FP8_FLOOR_RATIO = 3.0
+FP8_DEPTHS = (1, 2, 4, 8, 16, 32)
+KV_SCALE = 0.03            # k_scale = v_scale of every layer, bench.py:320
 
 # serving at Llama-3-8B width (phase 5)
 SERVE = dict(max_batch=64, max_len=1024, page_size=64, prefill_chunk=512,
@@ -134,6 +162,49 @@ def device_ms(calls, replays=5):
 def copies_for(nbytes):
     """How many copies of an operand of ``nbytes`` exceed L2 three times."""
     return max(2, min(32, -(-150 * 2**20 // nbytes)))
+
+
+# kernel name -> (module under ops/kernels, wrapper, launch counter)
+COUNTERS = {
+    "w4a16_matmul": ("w4a16_matmul", "w4a16_matmul", "launches"),
+    "w4a16_a8b_matmul": ("w4a16_matmul", "w4a16_a8b_matmul", "launches"),
+    "w8a8_matmul": ("w8a8_matmul", "w8a8_matmul", "launches"),
+    "w8a8_matmul_fp8": ("w8a8_matmul", "w8a8_matmul", "fp8_launches"),
+    "prefill_attention": ("prefill_attention", "prefill_attention",
+                          "launches"),
+    "decode_attention": ("decode_attention", "decode_attention", "launches"),
+    "decode_attention_scaled": ("decode_attention", "decode_attention",
+                                "scaled_launches"),
+    "flash_decode_attention": ("flash_decode", "flash_decode_attention",
+                               "launches"),
+    "flash_decode_attention_scaled": ("flash_decode",
+                                      "flash_decode_attention",
+                                      "scaled_launches"),
+    "paged_decode_attention": ("paged_decode", "paged_decode_attention",
+                               "launches"),
+    "paged_decode_attention_scaled": ("paged_decode",
+                                      "paged_decode_attention",
+                                      "scaled_launches"),
+}
+
+
+def _counter(name):
+    import importlib
+
+    module, fn, attr = COUNTERS[name]
+    mod = importlib.import_module(
+        f"compressed_tensors_tpu_torch.ops.kernels.{module}")
+    return getattr(mod, fn), attr
+
+
+def reset_counts():
+    for name in COUNTERS:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(*_counter(name)) for name in COUNTERS}
 
 
 def check_close(name, got, want, tol=TOL_KERNEL):
@@ -362,9 +433,176 @@ def check_written(name, after, before, expect):
     ``expect`` changed between two caches (L, X, KVH, T, D)."""
     import torch
 
-    changed = torch.nonzero((after != before).any(dim=-1)).tolist()
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    changed = torch.nonzero(
+        (byte_view(after) != byte_view(before)).any(dim=-1)).tolist()
     if sorted(map(tuple, changed)) != sorted(expect):
         raise AssertionError(f"{name} wrote outside the step's positions")
+
+
+def bound(nbytes, ops, peak):
+    """(ms, what bounds it): the larger of the bytes at HBM_BPS and the
+    operations at ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def serving_tables(rng, inactive=()):
+    """Page tables of the paged engine's full-residency pool: the pages
+    1..NP-1 shuffled over the rows, ``inactive`` rows on the null page 0;
+    returns (tables (B, P) int32 numpy, number of pool pages)."""
+    per_row = SERVE["max_len"] // SERVE["page_size"]
+    num_pages = BATCH * per_row + 1
+    tables = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
+    tables = tables.reshape(BATCH, per_row)
+    tables[list(inactive)] = 0
+    return tables, num_pages
+
+
+def check_serving_decode(errs, rng, q, nk, nv, make, label, ks=None,
+                         vs=None):
+    """Flash decode on the dense engine's (32, 64, 8, 1024, 128) cache and
+    paged decode on the paged engine's pool against their plain versions,
+    with three rows inactive (released to the null page): outputs within
+    TOL_KERNEL, inactive rows zero, the caches updated in place, their
+    bytes equal to the plain version's and changed at the step's positions
+    only. ``make(shape)`` builds a cache; with scales ``ks``/``vs`` the
+    errors go to the ``_scaled`` counters' names in ``errs``."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        flash_decode as fd,
+        paged_decode as pd,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    inactive = (3, 17, 40)
+    lens_np, lengths = serving_lengths(rng, BATCH, inactive)
+    active = lengths >= 0
+    layer, page = 7, SERVE["page_size"]
+    tables, num_pages = serving_tables(rng, inactive)
+    tables_d = torch.from_numpy(tables).cuda()
+    scales = dict(layer=layer, k_scale=ks, v_scale=vs)
+    cases = {
+        "flash_decode_attention": (
+            (L8, BATCH, KVH8, SERVE["max_len"], D8),
+            lambda k, v: fd.flash_decode_attention(q, nk, nv, k, v, lengths,
+                                                   **scales),
+            lambda k, v: fd.flash_decode_attention_plain(
+                q, nk, nv, k, v, lengths, **scales),
+            lambda b: (b, int(lens_np[b]))),
+        "paged_decode_attention": (
+            (L8, num_pages, KVH8, page, D8),
+            lambda k, v: pd.paged_decode_attention(q, nk, nv, k, v, tables_d,
+                                                   lengths, **scales),
+            lambda k, v: pd.paged_decode_attention_plain(
+                q, nk, nv, k, v, tables_d, lengths, **scales),
+            lambda b: (int(tables[b, lens_np[b] // page]),
+                       int(lens_np[b] % page))),
+    }
+    for name, (shape, kernel, plain, at) in cases.items():
+        ck, cv = make(shape), make(shape)
+        ck0, cv0 = ck.clone(), cv.clone()
+        out, ck_r, cv_r = kernel(ck, cv)
+        if ck_r.data_ptr() != ck.data_ptr() or cv_r.data_ptr() != cv.data_ptr():
+            raise AssertionError(f"{name} did not update in place")
+        ck_p, cv_p = ck0.clone(), cv0.clone()
+        want, _, _ = plain(ck_p, cv_p)
+        key = name + ("" if ks is None else "_scaled")
+        errs[key] = max(errs.get(key, 0.0), check_close(
+            f"{name} {label} {shape}", out[active], want[active]))
+        if out[~active].any():
+            raise AssertionError(f"{name}: inactive rows must be zero")
+        if not (torch.equal(byte_view(ck), byte_view(ck_p))
+                and torch.equal(byte_view(cv), byte_view(cv_p))):
+            raise AssertionError(f"{name} {label} write differs from plain")
+        expect = [(layer, at(b)[0], h, at(b)[1]) for b in range(BATCH)
+                  for h in range(KVH8) if b not in inactive]
+        check_written(name, ck, ck0, expect)
+        check_written(name, cv, cv0, expect)
+        del ck, cv, ck0, cv0, ck_p, cv_p
+    log(f"parity flash/paged decode, {label}: cache bytes equal to the plain "
+        "version's, written at lengths[b] only; inactive rows and the null "
+        "page 0 untouched")
+    torch.cuda.empty_cache()
+
+
+def time_serving_decode(rng, q, nk, nv, make, label, ks=None, vs=None,
+                        widen=None):
+    """Device ms of flash decode over the dense engine's cache and paged
+    decode over its pool (shuffled tables) for one layer, the calls
+    walking the 32 layers as a decode step does, at lengths 0-1000; bound,
+    plain ms, and SDPA with GQA and a mask of the live prefix over the
+    bf16 cache (``widen`` dequantizes a quantized one; the pool's pages
+    gathered beforehand). Returns {kernel name: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        flash_decode as fd,
+        paged_decode as pd,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    widen = widen or (lambda c: c)
+    lens_np, lengths = serving_lengths(rng, BATCH, ())
+    tables, num_pages = serving_tables(rng)
+    tables_d = torch.from_numpy(tables).cuda()
+    page, per_row = SERVE["page_size"], tables.shape[1]
+    mask = (torch.arange(SERVE["max_len"], device="cuda")[None, :]
+            <= lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    scales = dict(k_scale=ks, v_scale=vs)
+    suffix = "" if ks is None else "_scaled"
+    rows = {}
+    for name, shape in (
+            ("flash_decode_attention", (L8, BATCH, KVH8, SERVE["max_len"], D8)),
+            ("paged_decode_attention", (L8, num_pages, KVH8, page, D8))):
+        ck, cv = make(shape), make(shape)
+        live = int((lens_np + 1).sum())
+        b = (2 * live * KVH8 * D8 * ck.element_size()
+             + (q.numel() + 2 * nk.numel()) * 2 * 2)
+        bm, by = bound(b, 4 * H8 * D8 * live, PEAK_BF16)
+        if name == "flash_decode_attention":
+            t = device_ms([lambda i=i: fd.flash_decode_attention(
+                q, nk, nv, ck, cv, lengths, layer=i, **scales)
+                for i in range(L8)])
+            tp = eager_ms(lambda: fd.flash_decode_attention_plain(
+                q, nk, nv, ck, cv, lengths, layer=0, **scales))
+            keys = [widen(ck[i]) for i in range(4)]
+            values = [widen(cv[i]) for i in range(4)]
+            how = "mask of the live prefix over S_pad"
+        else:
+            t = device_ms([lambda i=i: pd.paged_decode_attention(
+                q, nk, nv, ck, cv, tables_d, lengths, layer=i, **scales)
+                for i in range(L8)])
+            tp = eager_ms(lambda: pd.paged_decode_attention_plain(
+                q, nk, nv, ck, cv, tables_d, lengths, layer=0, **scales))
+
+            def gathered(pool, i):
+                return widen(byte_view(pool[i])[tables_d.long()].permute(
+                    0, 2, 1, 3, 4).reshape(BATCH, KVH8, per_row * page, D8)
+                    .view(pool.dtype))
+
+            keys = [gathered(ck, i) for i in range(4)]
+            values = [gathered(cv, i) for i in range(4)]
+            how = "a copy gathered beforehand into a contiguous cache"
+        try:
+            tl = device_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask, enable_gqa=True)
+                for k, v in zip(keys * (L8 // 4), values * (L8 // 4))])
+        except (RuntimeError, TypeError) as exc:
+            log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+            tl = None
+        del ck, cv, keys, values
+        torch.cuda.empty_cache()
+        rows[name + suffix] = dict(
+            ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
+            shapes=f"8B {label} {shape}, one layer, lengths 0-1000; library: "
+            f"SDPA over the cache in bf16 ({how})")
+    return rows
 
 
 def phase_parity_8b(errs):
@@ -374,8 +612,6 @@ def phase_parity_8b(errs):
 
     from compressed_tensors_tpu_torch.ops.kernels import (
         decode_attention as da,
-        flash_decode as fd,
-        paged_decode as pd,
         prefill_attention as pa,
         w4a16_matmul as w4,
         w8a8_matmul as w8,
@@ -430,67 +666,8 @@ def phase_parity_8b(errs):
         raise AssertionError("decode_attention D=128 cache write differs")
     del ck, cv, ck_p, cv_p
 
-    # flash decode on the dense engine's (32, 64, 8, 1024, 128) cache
-    inactive = (3, 17, 40)
-    lens_np, lengths = serving_lengths(rng, BATCH, inactive)
-    active = lengths >= 0
-    layer = 7
-    ck, cv = (dev_randn(gen, L8, BATCH, KVH8, SERVE["max_len"], D8)
-              for _ in range(2))
-    ck0, cv0 = ck.clone(), cv.clone()
-    out, ck_r, cv_r = fd.flash_decode_attention(q, nk, nv, ck, cv, lengths,
-                                                layer=layer)
-    if ck_r.data_ptr() != ck.data_ptr():
-        raise AssertionError("flash_decode did not update in place")
-    ck_p, cv_p = ck0.clone(), cv0.clone()
-    want, _, _ = fd.flash_decode_attention_plain(q, nk, nv, ck_p, cv_p,
-                                                 lengths, layer=layer)
-    keep("flash_decode_attention", check_close(
-        "flash_decode (32, 64, 8, 1024, 128)", out[active], want[active]))
-    if out[~active].any():
-        raise AssertionError("flash_decode: inactive rows must be zero")
-    if not (torch.equal(ck, ck_p) and torch.equal(cv, cv_p)):
-        raise AssertionError("flash_decode cache write differs from plain")
-    expect = [(layer, b, h, int(lens_np[b])) for b in range(BATCH)
-              for h in range(KVH8) if b not in inactive]
-    check_written("flash_decode", ck, ck0, expect)
-    check_written("flash_decode", cv, cv0, expect)
-    log("parity flash_decode cache: in-place write at lengths[b] only, "
-        "inactive rows untouched")
-    del ck, cv, ck0, cv0, ck_p, cv_p
-
-    # paged decode on the paged engine's pool, shuffled tables, rows
-    # released to the null page
-    pages_per_row = SERVE["max_len"] // SERVE["page_size"]
-    num_pages = BATCH * pages_per_row + 1
-    tables = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
-    tables = tables.reshape(BATCH, pages_per_row)
-    tables[list(inactive)] = 0
-    tables_d = torch.from_numpy(tables).to(dev)
-    pk, pv = (dev_randn(gen, L8, num_pages, KVH8, SERVE["page_size"], D8)
-              for _ in range(2))
-    pk0, pv0 = pk.clone(), pv.clone()
-    out, pk_r, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d,
-                                             lengths, layer=layer)
-    if pk_r.data_ptr() != pk.data_ptr():
-        raise AssertionError("paged_decode did not update in place")
-    pk_p, pv_p = pk0.clone(), pv0.clone()
-    want, _, _ = pd.paged_decode_attention_plain(
-        q, nk, nv, pk_p, pv_p, tables_d, lengths, layer=layer)
-    keep("paged_decode_attention", check_close(
-        "paged_decode (32, 1025, 8, 64, 128)", out[active], want[active]))
-    if out[~active].any():
-        raise AssertionError("paged_decode: inactive rows must be zero")
-    if not (torch.equal(pk, pk_p) and torch.equal(pv, pv_p)):
-        raise AssertionError("paged_decode pool write differs from plain")
-    page = SERVE["page_size"]
-    expect = [(layer, int(tables[b, lens_np[b] // page]), h,
-               int(lens_np[b] % page)) for b in range(BATCH)
-              for h in range(KVH8) if b not in inactive]
-    check_written("paged_decode", pk, pk0, expect)
-    check_written("paged_decode", pv, pv0, expect)
-    log("parity paged_decode pool: writes at tables[b, len // page] only; "
-        "every other page, the null page 0 included, untouched")
+    check_serving_decode(errs, rng, q, nk, nv,
+                         lambda shape: dev_randn(gen, *shape), "bf16 cache")
 
 
 def phase_end_to_end():
@@ -507,33 +684,11 @@ def phase_end_to_end():
         save_llama_checkpoint,
     )
     from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
-    from compressed_tensors_tpu_torch.ops.kernels import (
-        decode_attention,
-        flash_decode,
-        paged_decode,
-        prefill_attention,
-        w4a16_matmul,
-        w8a8_matmul,
-    )
 
-    wrappers = {"w4a16_matmul": w4a16_matmul.w4a16_matmul,
-                "w4a16_a8b_matmul": w4a16_matmul.w4a16_a8b_matmul,
-                "w8a8_matmul": w8a8_matmul.w8a8_matmul,
-                "prefill_attention": prefill_attention.prefill_attention,
-                "decode_attention": decode_attention.decode_attention,
-                "flash_decode_attention": flash_decode.flash_decode_attention,
-                "paged_decode_attention": paged_decode.paged_decode_attention}
     # the kernels this path must launch (TinyLlama widths never select a8b,
     # and S_pad 192 selects the block decode kernel)
     needs = ("w4a16_matmul", "w8a8_matmul", "prefill_attention",
              "decode_attention")
-
-    def reset():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
 
     config = TINYLLAMA_1_1B
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -560,12 +715,12 @@ def phase_end_to_end():
     greedy_generate(params, config, ids, max_new_tokens=2)  # warm-up
     torch.cuda.synchronize()
 
-    reset()
+    reset_counts()
     t0 = time.perf_counter()
     out = greedy_generate(params, config, ids, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    run_counts = counts()
+    run_counts = read_counts()
     log(f"greedy_generate: {tuple(out.shape)} in {total * 1e3:.1f} ms, "
         f"kernel launches {run_counts}")
     missing = [k for k in needs if run_counts[k] == 0]
@@ -592,7 +747,7 @@ def phase_end_to_end():
                              "non-kernel path")
 
     prefill_ms = eager_ms(lambda: prefill(params, ids, PROMPT))
-    reset()
+    reset_counts()
     step_cache = {"token": token, "cache": cache}
 
     def one_step():
@@ -601,7 +756,7 @@ def phase_end_to_end():
 
     torch.cuda.synchronize()
     one_step()
-    per_step = counts()
+    per_step = read_counts()
     # decode steps while the cache has room (one step above is spent)
     steps = NEW_TOKENS - 2
     t0 = time.perf_counter()
@@ -637,13 +792,76 @@ def serving_requests():
     return reqs
 
 
+def serve_requests(params, config, requests, name, **kw):
+    """The requests through one ServingEngine run (``SERVE`` settings plus
+    ``kw``): the completions, the kernel launches of the run and per decode
+    step, and host-clock times (prefill per chunk, synchronized; decode
+    per step, each burst ending in the trace's host copy)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.engine import Request, ServingEngine
+
+    engine = ServingEngine(params, config, **SERVE, **kw)
+    timing = {"prefill_s": 0.0, "chunks": 0, "decode_s": 0.0, "steps": 0}
+    prefill_chunk, decode = engine._prefill_chunk, engine._decode
+
+    def timed_prefill(*a):
+        t = time.perf_counter()
+        out = prefill_chunk(*a)
+        torch.cuda.synchronize()
+        timing["prefill_s"] += time.perf_counter() - t
+        timing["chunks"] += 1
+        return out
+
+    def timed_decode(active, burst):
+        before = read_counts()
+        t = time.perf_counter()
+        out = decode(active, burst)  # ends in the trace's host copy
+        timing["decode_s"] += time.perf_counter() - t
+        timing["steps"] += burst
+        after = read_counts()
+        timing.setdefault("per_step", {
+            k: (after[k] - before[k]) / burst for k in after})
+        return out
+
+    engine._prefill_chunk, engine._decode = timed_prefill, timed_decode
+    for i, ids, new in requests:
+        engine.submit(Request(request_id=i, prompt_ids=ids,
+                              max_new_tokens=new))
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    outs = {c.request_id: c.output_ids for c in done}
+    generated = sum(len(o) for o in outs.values())
+    log(f"serving {name}: {len(outs)} completions, {generated} tokens in "
+        f"{wall:.2f} s ({generated / wall:.1f} tok/s); prefill "
+        f"{timing['prefill_s'] * 1e3 / max(timing['chunks'], 1):.2f} ms/"
+        f"chunk over {timing['chunks']} chunks; decode "
+        f"{timing['decode_s'] * 1e3 / max(timing['steps'], 1):.2f} ms/"
+        f"step over {timing['steps']} steps; prefix-cache hits "
+        f"{engine.prefix_cache_hits}; preemptions {engine.preemptions}; "
+        f"kernel launches {counts}")
+    if sorted(outs) != list(range(N_REQUESTS)) or any(
+            len(outs[i]) != new for i, _, new in requests):
+        raise AssertionError(f"serving {name}: completions missing")
+    if not all(0 <= t < VOCAB8 for o in outs.values() for t in o):
+        raise AssertionError(f"serving {name}: token ids out of range")
+    hits = engine.prefix_cache_hits
+    del engine._prefill_chunk, engine._decode, engine  # frees its cache
+    torch.cuda.empty_cache()
+    return dict(outs=outs, counts=counts, wall=wall, hits=hits, **timing)
+
+
 def phase_serving():
     """The ServingEngine at Llama-3-8B W4A16 width: the same requests
     through the dense engine (flash decode at S_pad 1024), the paged engine
     and the paged engine with prefix caching."""
     import torch
 
-    from compressed_tensors_tpu_torch.engine import Request, ServingEngine
     from compressed_tensors_tpu_torch.models.llama import (
         init_kv_cache,
         llama_forward,
@@ -653,22 +871,7 @@ def phase_serving():
         make_synthetic_llama,
     )
     from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
-    from compressed_tensors_tpu_torch.ops.kernels import (
-        decode_attention,
-        flash_decode,
-        paged_decode,
-        prefill_attention,
-        w4a16_matmul,
-        w8a8_matmul,
-    )
 
-    wrappers = {"w4a16_matmul": w4a16_matmul.w4a16_matmul,
-                "w4a16_a8b_matmul": w4a16_matmul.w4a16_a8b_matmul,
-                "w8a8_matmul": w8a8_matmul.w8a8_matmul,
-                "prefill_attention": prefill_attention.prefill_attention,
-                "decode_attention": decode_attention.decode_attention,
-                "flash_decode_attention": flash_decode.flash_decode_attention,
-                "paged_decode_attention": paged_decode.paged_decode_attention}
     config = LLAMA3_8B
     t0 = time.perf_counter()
     params = fuse_llama_layers(make_synthetic_llama(
@@ -708,62 +911,8 @@ def phase_serving():
     runs = {"dense": dict(paged=False),
             "paged": dict(paged=True, prefix_caching=False),
             "paged+prefix": dict(paged=True)}
-    results = {}
-    for name, kw in runs.items():
-        engine = ServingEngine(params, config, **SERVE, **kw)
-        timing = {"prefill_s": 0.0, "chunks": 0, "decode_s": 0.0, "steps": 0}
-        prefill_chunk, decode = engine._prefill_chunk, engine._decode
-
-        def timed_prefill(*a, _f=prefill_chunk, _t=timing):
-            t = time.perf_counter()
-            out = _f(*a)
-            torch.cuda.synchronize()
-            _t["prefill_s"] += time.perf_counter() - t
-            _t["chunks"] += 1
-            return out
-
-        def timed_decode(active, burst, _f=decode, _t=timing):
-            before = {k: fn.launches for k, fn in wrappers.items()}
-            t = time.perf_counter()
-            out = _f(active, burst)  # ends in the trace's host copy
-            _t["decode_s"] += time.perf_counter() - t
-            _t["steps"] += burst
-            _t.setdefault("per_step", {
-                k: (fn.launches - before[k]) / burst
-                for k, fn in wrappers.items()})
-            return out
-
-        engine._prefill_chunk, engine._decode = timed_prefill, timed_decode
-        for i, ids, new in requests:
-            engine.submit(Request(request_id=i, prompt_ids=ids,
-                                  max_new_tokens=new))
-        torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
-        t = time.perf_counter()
-        done = engine.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        outs = {c.request_id: c.output_ids for c in done}
-        generated = sum(len(o) for o in outs.values())
-        log(f"serving {name}: {len(outs)} completions, {generated} tokens in "
-            f"{wall:.2f} s ({generated / wall:.1f} tok/s); prefill "
-            f"{timing['prefill_s'] * 1e3 / max(timing['chunks'], 1):.2f} ms/"
-            f"chunk over {timing['chunks']} chunks; decode "
-            f"{timing['decode_s'] * 1e3 / max(timing['steps'], 1):.2f} ms/"
-            f"step over {timing['steps']} steps; prefix-cache hits "
-            f"{engine.prefix_cache_hits}; preemptions {engine.preemptions}; "
-            f"kernel launches {counts}")
-        if sorted(outs) != list(range(N_REQUESTS)) or any(
-                len(outs[i]) != new for i, _, new in requests):
-            raise AssertionError(f"serving {name}: completions missing")
-        if not all(0 <= t < VOCAB8 for o in outs.values() for t in o):
-            raise AssertionError(f"serving {name}: token ids out of range")
-        results[name] = dict(outs=outs, counts=counts, wall=wall,
-                             hits=engine.prefix_cache_hits, **timing)
-        del engine._prefill_chunk, engine._decode, engine  # frees its cache
-        torch.cuda.empty_cache()
+    results = {name: serve_requests(params, config, requests, name, **kw)
+               for name, kw in runs.items()}
 
     dense, paged, prefix = (results[k]["outs"] for k in runs)
 
@@ -832,11 +981,6 @@ def phase_timings(errs, run_counts, per_step):
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     rows = []
-
-    def bound(nbytes, ops, peak):
-        t_bytes, t_ops = nbytes / HBM_BPS, ops / peak
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                           else "operations")
 
     # W4A16: the four matmuls of one decoder layer at decode (M = 64)
     ms = plain = lib = nbytes = ops = 0.0
@@ -966,8 +1110,6 @@ def phase_timings_8b(serving):
     import torch.nn.functional as F
 
     from compressed_tensors_tpu_torch.ops.kernels import (
-        flash_decode as fd,
-        paged_decode as pd,
         prefill_attention as pa,
         w4a16_matmul as w4,
         w8a8_matmul as w8,
@@ -977,11 +1119,6 @@ def phase_timings_8b(serving):
     rng = np.random.default_rng(4)
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-
-    def bound(nbytes, ops, peak):
-        t_bytes, t_ops = nbytes / HBM_BPS, ops / peak
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                           else "operations")
 
     # W4A16 at the 8B widths: int4b at decode (M = 64), a8b at a prefill
     # chunk (M = 512); each row sums the four linears of one layer
@@ -1064,61 +1201,11 @@ def phase_timings_8b(serving):
                      shapes="8B chunk B=1 S=512 H=32 KVH=8 D=128 causal"))
 
     # flash and paged decode: one decode step's 32 layers at batch 64
-    lens_np, lengths = serving_lengths(rng, BATCH, ())
     q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
-    live = int((lens_np + 1).sum())
-    b = 2 * live * KVH8 * D8 * 2 + (q.numel() + 2 * nk.numel()) * 2 * 2
-    bm, by = bound(b, 4 * H8 * D8 * live, PEAK_BF16)
-    ck, cv = (dev_randn(gen, L8, BATCH, KVH8, SERVE["max_len"], D8)
-              for _ in range(2))
-    t = device_ms([lambda i=i: fd.flash_decode_attention(
-        q, nk, nv, ck, cv, lengths, layer=i) for i in range(L8)])
-    tp = eager_ms(lambda: fd.flash_decode_attention_plain(
-        q, nk, nv, ck, cv, lengths, layer=0))
-    mask = (torch.arange(SERVE["max_len"], device=dev)[None, :]
-            <= lengths[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    try:
-        tl = device_ms([lambda i=i: F.scaled_dot_product_attention(
-            q4, ck[i], cv[i], attn_mask=mask, enable_gqa=True)
-            for i in range(L8)])
-    except (RuntimeError, TypeError) as exc:
-        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
-        tl = None
-    rows.append(dict(name="flash_decode_attention", ms=t, plain_ms=tp,
-                     bound_ms=bm, bound_by=by, library_ms=tl,
-                     shapes="8B dense cache (32, 64, 8, 1024, 128), one "
-                     "layer, lengths 0-1000; library: SDPA with GQA and a "
-                     "mask of the live prefix over S_pad"))
-    del ck, cv
-
-    page = SERVE["page_size"]
-    per_row = SERVE["max_len"] // page
-    num_pages = BATCH * per_row + 1
-    tables = torch.from_numpy(rng.permutation(np.arange(1, num_pages)).astype(
-        np.int32).reshape(BATCH, per_row)).to(dev)
-    pk, pv = (dev_randn(gen, L8, num_pages, KVH8, page, D8) for _ in range(2))
-    t = device_ms([lambda i=i: pd.paged_decode_attention(
-        q, nk, nv, pk, pv, tables, lengths, layer=i) for i in range(L8)])
-    tp = eager_ms(lambda: pd.paged_decode_attention_plain(
-        q, nk, nv, pk, pv, tables, lengths, layer=0))
-    gathered = [(pk[i][tables.long()].permute(0, 2, 1, 3, 4).reshape(
-        BATCH, KVH8, per_row * page, D8), pv[i][tables.long()].permute(
-        0, 2, 1, 3, 4).reshape(BATCH, KVH8, per_row * page, D8))
-        for i in range(4)]
-    try:
-        tl = device_ms([lambda g=g: F.scaled_dot_product_attention(
-            q4, g[0], g[1], attn_mask=mask, enable_gqa=True)
-            for g in gathered * (L8 // 4)])
-    except (RuntimeError, TypeError) as exc:
-        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
-        tl = None
-    del gathered, pk, pv
-    rows.append(dict(name="paged_decode_attention", ms=t, plain_ms=tp,
-                     bound_ms=bm, bound_by=by, library_ms=tl,
-                     shapes="8B pool (32, 1025, 8, 64, 128), shuffled "
-                     "tables, one layer, lengths 0-1000; library: SDPA over "
-                     "a copy gathered beforehand into a contiguous cache"))
+    for name, row in time_serving_decode(
+            rng, q, nk, nv, lambda shape: dev_randn(gen, *shape),
+            "bf16 cache").items():
+        rows.append(dict(name=name, **row))
 
     for r in rows:
         counts = {run: res["counts"][r["name"]]
@@ -1132,6 +1219,408 @@ def phase_timings_8b(serving):
     return rows
 
 
+def check_w8a8_fp8(name, x, w, s, n, k):
+    """The fp8 W8A8 kernel against its plain version, by the a8b rule: the
+    quantization pass (e4m3 rows and their scales) equal bit for bit, and
+    each output element within A8B_REL * |y| + A8B_ABS * max|y| of the f32
+    plain result. The bf16 product without the fp8 activation rounding is
+    a control that must fail the same rule. Returns max|kernel - plain|."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    m = x.shape[0]
+    xq = torch.empty((m, k), dtype=w.dtype, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    got = w8.w8a8_matmul(x, w, s, n=n, k=k, xq=xq, xs=xs)
+    xq_p, xs_p = w8.quantize_rows_plain(x, w.dtype)
+    same_q = xq.view(torch.uint8) == xq_p.view(torch.uint8)
+    if not (bool(same_q.all()) and torch.equal(xs, xs_p)):
+        raise AssertionError(
+            f"{name}: quantization pass differs from plain in "
+            f"{int((~same_q).sum())} of {xq.numel()} values and "
+            f"{int((xs != xs_p).sum())} of {m} scales")
+    want = w8.w8a8_matmul_plain(x, w, s, n=n, k=k, out_dtype=torch.float32)
+    scale = want.abs().max().item()
+    slack = A8B_REL * want.abs() + A8B_ABS * scale
+
+    def outside(y):
+        return int(((y.float() - want).abs() > slack).sum())
+
+    bad = outside(got)
+    control = outside((x.float() @ w.float().t()) * s[None, :])
+    err = (got.float() - want).abs().max().item()
+    log(f"parity {name}: quantization pass equal bit for bit; "
+        f"max_abs_err={err:.6g} max|plain f32|={scale:.6g} "
+        f"rel={err / scale:.3g}; elements outside {A8B_REL:.4g}|y| + "
+        f"{A8B_ABS} max|y|: kernel {bad}, bf16-activation control "
+        f"{control} of {want.numel()}")
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at {bad} elements")
+    if not control:
+        raise AssertionError(f"{name}: the check cannot tell fp8 "
+                             "activations from bf16 ones")
+    return err
+
+
+def fp8_weight(gen, n, k):
+    """(N, K) fp8 e4m3 weight as the synthetic model draws it (N(0, 100^2)
+    clipped to +-440), on the card, and (N,) f32 scales."""
+    import torch
+
+    w = (torch.randn((n, k), generator=gen, device="cuda") * 100).clamp_(
+        -440, 440).to(torch.float8_e4m3fn)
+    s = torch.rand((n,), generator=gen, device="cuda") * 2e-4 + 1e-4
+    return w, s
+
+
+def dev_cache(gen, shape, dtype, scale):
+    """A quantized cache (L, ...) of N(0, 1) draws divided by ``scale``,
+    in fp8 e4m3 or int8, filled layer by layer on the card."""
+    import torch
+
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    out = torch.empty(shape, dtype=dtype, device="cuda")
+    for i in range(shape[0]):
+        x = torch.randn(shape[1:], generator=gen, device="cuda") / scale
+        if dtype == torch.int8:
+            x = x.round_().clamp_(-128, 127)
+        byte_view(out)[i] = byte_view(x.to(dtype))
+    return out
+
+
+CACHE_SCALES = {"fp8": KV_SCALE, "int8": KV_SCALE * 448 / 127}
+
+
+def phase_parity_fp8(errs):
+    """The kernels of the FP8 path against their plain versions at
+    Llama-3-8B shapes on the card: fp8 W8A8 at the four linears (M = 64 and
+    512), and block (per-tensor and per-head scales), flash and paged
+    decode on fp8 and int8 caches; updates ``errs``."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def same(a, b):
+        return torch.equal(byte_view(a), byte_view(b))
+
+    for lin, (n, k) in W4_SHAPES_8B.items():
+        w, s = fp8_weight(gen, n, k)
+        for m in (BATCH, M_CHUNK):
+            keep("w8a8_matmul_fp8", check_w8a8_fp8(
+                f"w8a8 fp8 {lin} M={m}", dev_randn(gen, m, k), w, s, n, k))
+        del w
+
+    q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
+    for cache, dtype in (("fp8", torch.float8_e4m3fn), ("int8", torch.int8)):
+        sc = CACHE_SCALES[cache]
+        per_tensor = (torch.tensor([sc], device=dev),
+                      torch.tensor([sc * 1.5], device=dev))
+        per_head = (torch.linspace(sc, 2 * sc, KVH8, device=dev).reshape(
+            KVH8, 1, 1), torch.linspace(2 * sc, sc, KVH8, device=dev).reshape(
+            KVH8, 1, 1))
+
+        # block decode: two layers of a 256-position cache
+        blens = torch.from_numpy(rng.integers(0, 255, BATCH).astype(
+            np.int32)).to(dev)
+        for label, (ks, vs) in (("per-tensor", per_tensor),
+                                ("per-head", per_head)):
+            ck, cv = (dev_cache(gen, (2, BATCH, KVH8, 256, D8), dtype, sc)
+                      for _ in range(2))
+            ck_p, cv_p = ck.clone(), cv.clone()
+            out, _, _ = da.decode_attention(q, nk, nv, ck, cv, blens, layer=1,
+                                            k_scale=ks, v_scale=vs)
+            want, _, _ = da.decode_attention_plain(
+                q, nk, nv, ck_p, cv_p, blens, layer=1, k_scale=ks,
+                v_scale=vs)
+            keep("decode_attention_scaled", check_close(
+                f"decode_attention {cache} cache, {label} scales", out,
+                want))
+            if not (same(ck, ck_p) and same(cv, cv_p)):
+                raise AssertionError(f"decode_attention {cache} cache write "
+                                     "differs from plain")
+            del ck, cv, ck_p, cv_p
+
+        check_serving_decode(
+            errs, rng, q, nk, nv,
+            lambda shape, dtype=dtype, sc=sc: dev_cache(gen, shape, dtype, sc),
+            f"{cache} cache", *per_tensor)
+
+
+def phase_fp8():
+    """Phase 6: Llama-3-8B FP8 W8A8 with an FP8 KV cache (BASELINE config
+    3): first-token logits against the non-kernel path, the serving
+    requests through the dense and the paged engine with an fp8 cache, and
+    greedy_generate at batch 64 (S_pad 192: the block decode kernel)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.engine import greedy_generate
+    from compressed_tensors_tpu_torch.models.llama import (
+        init_kv_cache,
+        llama_forward,
+    )
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        LLAMA3_8B,
+        make_synthetic_llama,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    fp8 = torch.float8_e4m3fn
+    config = LLAMA3_8B
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(make_synthetic_llama(
+        config, "FP8_DYNAMIC", seed=0, lm_head_preset="W8A8",
+        device="cuda"))
+    for layer in params["layers"]:
+        layer["k_scale"] = torch.tensor([KV_SCALE], device="cuda")
+        layer["v_scale"] = torch.tensor([KV_SCALE], device="cuda")
+    torch.cuda.synchronize()
+    log(f"Llama-3-8B FP8_DYNAMIC synthetic model (seed 0, fused, W8A8-int "
+        f"lm_head, k_scale = v_scale = {KV_SCALE}): built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+
+    # one request's first chunk: the range its K/V take on the fp8 lattice
+    # (from a bf16 cache, which holds them unscaled), then its first-token
+    # logits with an fp8 cache, kernel path against non-kernel path
+    rid, ids, _ = next(r for r in requests
+                       if SHARED_PREFIX <= len(r[1]) <= SERVE["prefill_chunk"])
+    n = len(ids)
+    x = torch.tensor([ids], device="cuda")
+    pos = torch.arange(n, device="cuda")[None]
+    cache = init_kv_cache(config, 1, n, device="cuda")
+    llama_forward(params, config, x, pos, cache, fresh_prefill=True,
+                  last_logit_only=True)
+    k_max = cache.k[:, :, :, :n].float().abs().max().item() / KV_SCALE
+    v_max = cache.v[:, :, :, :n].float().abs().max().item() / KV_SCALE
+    log(f"fp8 KV range of request {rid} ({n} tokens): largest |k|/k_scale "
+        f"{k_max:.1f}, |v|/v_scale {v_max:.1f} (e4m3 overflows to NaN above "
+        "464)")
+    def first_token_logits(depth, use_kernels):
+        """The request's last-position logits through the first ``depth``
+        layers (full width), with an fp8 cache."""
+        cfg = dataclasses.replace(config, num_hidden_layers=depth)
+        cache = init_kv_cache(cfg, 1, n, cache_dtype=fp8, device="cuda")
+        logits, cache = llama_forward(
+            dict(params, layers=params["layers"][:depth]), cfg, x, pos, cache,
+            fresh_prefill=True, use_kernels=use_kernels,
+            last_logit_only=True)
+        nans = int(cache.k.float().isnan().sum()
+                   + cache.v.float().isnan().sum())
+        if nans:
+            raise AssertionError(f"fp8 KV cache overflow: {nans} NaN values")
+        logits = logits.float().reshape(-1)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"non-finite FP8 8B logits at depth {depth}")
+        return logits
+
+    def rel_rms(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # the non-kernel path's own spread: one bf16 ulp up on 64 embedding
+    # values of one prompt token
+    emb, tok = params["embed_tokens"], ids[n // 3]
+    row = emb[tok].clone()
+    sweep = {}
+    for depth in FP8_DEPTHS:
+        got = first_token_logits(depth, True)
+        ref = first_token_logits(depth, False)
+        emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
+        moved = first_token_logits(depth, False)
+        emb[tok] = row
+        sweep[depth] = (rel_rms(got, ref), rel_rms(moved, ref))
+        log(f"FP8 8B first-token logits (request {rid}), {depth} of "
+            f"{config.num_hidden_layers} layers: kernel vs non-kernel path "
+            f"rel_rms={sweep[depth][0]:.4g} (max abs {(got - ref).abs().max().item():.4g}"
+            f" of max|ref| {ref.abs().max().item():.4g}); non-kernel path "
+            f"under the perturbation rel_rms={sweep[depth][1]:.4g}; argmax "
+            f"kernel {int(got.argmax())} reference {int(ref.argmax())}")
+    del got, ref, moved, row
+    full = config.num_hidden_layers
+    if sweep[1][0] > TOL_FP8_DEPTH1:
+        raise AssertionError(f"FP8 8B logits at one layer disagree with the "
+                             f"non-kernel path ({sweep[1][0]:.4g} > "
+                             f"{TOL_FP8_DEPTH1})")
+    if sweep[full][0] > FP8_FLOOR_RATIO * sweep[full][1]:
+        raise AssertionError(f"FP8 8B logits at full depth: {sweep[full][0]:.4g}"
+                             f" > {FP8_FLOOR_RATIO} x the non-kernel path's "
+                             f"own spread {sweep[full][1]:.4g}")
+    log(f"FP8 8B logits: within {TOL_FP8_DEPTH1} at one layer and within "
+        f"{FP8_FLOOR_RATIO}x the perturbation spread at {full} layers")
+
+    runs = {"fp8 dense": dict(paged=False, cache_dtype=fp8),
+            "fp8 paged": dict(paged=True, prefix_caching=False,
+                              cache_dtype=fp8)}
+    results = {name: serve_requests(params, config, requests, name, **kw)
+               for name, kw in runs.items()}
+    dense, paged = (results[k]["outs"] for k in runs)
+    bad = [i for i in dense if paged[i] != dense[i]]
+    log(f"serving fp8 paged vs fp8 dense: {N_REQUESTS - len(bad)}/"
+        f"{N_REQUESTS} completions identical token for token")
+    if bad:
+        raise AssertionError(f"fp8 serving: paged and dense completions "
+                             f"differ for requests {bad}")
+
+    rng = np.random.default_rng(0)
+    gids = torch.from_numpy(rng.integers(0, VOCAB8, size=(BATCH, PROMPT))).cuda()
+    greedy_generate(params, config, gids, max_new_tokens=2, cache_dtype=fp8)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, config, gids, max_new_tokens=NEW_TOKENS,
+                          cache_dtype=fp8)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"fp8 greedy_generate: {tuple(out.shape)} at batch {BATCH} in "
+        f"{total * 1e3:.1f} ms ({BATCH * NEW_TOKENS / total:.0f} tok/s "
+        f"end to end), kernel launches {counts}")
+    if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
+            ((out >= 0) & (out < VOCAB8)).all()):
+        raise AssertionError("fp8 greedy_generate: ids out of range")
+    results["fp8 greedy_generate"] = dict(counts=counts, wall=total)
+
+    base = ("w8a8_matmul_fp8", "w8a8_matmul", "prefill_attention")
+    needs = {"fp8 dense": base + ("flash_decode_attention_scaled",),
+             "fp8 paged": base + ("paged_decode_attention_scaled",),
+             "fp8 greedy_generate": base + ("decode_attention_scaled",)}
+    for name, kernels in needs.items():
+        missing = [k for k in kernels if results[name]["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"{name} never launched {missing}")
+    return results
+
+
+def phase_timings_fp8():
+    """Per-kernel time of the FP8 path's kernels at Llama-3-8B shapes:
+    fp8 W8A8 (the four linears of one layer at M = 64 and 512), and the
+    scaled block, flash and paged decode on fp8 and int8 caches (one
+    layer, rotating over the 32); bound, plain, library. Returns
+    {kernel name: {cache or M: row}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+        w8a8_matmul as w8,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+
+    rows["w8a8_matmul_fp8"] = {}
+    for m in (BATCH, M_CHUNK):
+        ms = plain = nbytes = ops = 0.0
+        lib = 0.0
+        for lin, (n, k) in W4_SHAPES_8B.items():
+            x = dev_randn(gen, m, k)
+            w, s = fp8_weight(gen, n, k)
+            ws = [w.clone() for _ in range(copies_for(n * k))]
+            t = device_ms([lambda w=w: w8.w8a8_matmul(x, w, s, n=n, k=k)
+                           for w in ws])
+            tp = eager_ms(lambda: w8.w8a8_matmul_plain(x, w, s, n=n, k=k),
+                          iters=3)
+            xq, xs = w8.quantize_rows_plain(x, w.dtype)
+            try:
+                tl = device_ms([lambda w=w: torch._scaled_mm(
+                    xq, w.t(), scale_a=xs[:, None], scale_b=s[None, :],
+                    out_dtype=torch.bfloat16) for w in ws])
+            except (RuntimeError, TypeError) as exc:
+                log(f"torch._scaled_mm with row-wise scales unavailable: "
+                    f"{exc}")
+                tl = None
+            del ws, w
+            b = m * k * 2 + n * k + n * 4 + m * n * 2
+            bm, by = bound(b, 2 * m * n * k, PEAK_FP8)
+            log(f"time w8a8_matmul_fp8 {lin} M={m} (8B): {t:.4f} ms, bound "
+                f"{bm:.4f} ms ({by}), plain {tp:.4f} ms, torch._scaled_mm "
+                f"(row-wise scales, activations quantized beforehand) {tl}")
+            ms, plain, nbytes, ops = ms + t, plain + tp, nbytes + b, \
+                ops + 2 * m * n * k
+            lib = None if lib is None or tl is None else lib + tl
+        bm, by = bound(nbytes, ops, PEAK_FP8)
+        rows["w8a8_matmul_fp8"][m] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bm, bound_by=by, library_ms=lib,
+            shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}; library: "
+            "torch._scaled_mm with row-wise scales on activations quantized "
+            "beforehand")
+
+    q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
+    for name in ("decode_attention_scaled", "flash_decode_attention_scaled",
+                 "paged_decode_attention_scaled"):
+        rows[name] = {}
+    for cache, dtype in (("fp8", torch.float8_e4m3fn), ("int8", torch.int8)):
+        sc = CACHE_SCALES[cache]
+        ks, vs = (torch.tensor([sc], device=dev) for _ in range(2))
+
+        def make(shape, dtype=dtype, sc=sc):
+            return dev_cache(gen, shape, dtype, sc)
+
+        def widen(c, sc=sc):  # the cache dequantized to bf16
+            return (c.float() * sc).to(torch.bfloat16)
+
+        # block decode: greedy_generate's (32, 64, 8, 192, 128) cache at
+        # lengths 128-159
+        s_pad = 192
+        lens_np = rng.integers(PROMPT, PROMPT + NEW_TOKENS, BATCH).astype(
+            np.int32)
+        lengths = torch.from_numpy(lens_np).to(dev)
+        ck, cv = (make((L8, BATCH, KVH8, s_pad, D8)) for _ in range(2))
+        t = device_ms([lambda i=i: da.decode_attention(
+            q, nk, nv, ck, cv, lengths, layer=i, k_scale=ks, v_scale=vs)
+            for i in range(L8)])
+        tp = eager_ms(lambda: da.decode_attention_plain(
+            q, nk, nv, ck, cv, lengths, layer=0, k_scale=ks, v_scale=vs))
+        mask = (torch.arange(s_pad, device=dev)[None, :]
+                <= lengths[:, None])[:, None, None, :]
+        keys = [widen(ck[i]) for i in range(4)] * (L8 // 4)
+        values = [widen(cv[i]) for i in range(4)] * (L8 // 4)
+        try:
+            tl = device_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+                q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)
+                for k, v in zip(keys, values)])
+        except (RuntimeError, TypeError) as exc:
+            log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+            tl = None
+        live = int((lens_np + 1).sum())
+        bm, by = bound(2 * live * KVH8 * D8
+                       + (q.numel() + 2 * nk.numel()) * 2 * 2,
+                       4 * H8 * D8 * live, PEAK_BF16)
+        rows["decode_attention_scaled"][cache] = dict(
+            ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
+            shapes=f"8B {cache} cache (32, 64, 8, 192, 128), one layer, "
+            "lengths 128-159; library: SDPA over the cache in bf16")
+        del ck, cv, keys, values
+
+        for name, row in time_serving_decode(
+                rng, q, nk, nv, make, f"{cache} cache", ks, vs,
+                widen).items():
+            rows[name][cache] = row
+
+    for name, by_variant in rows.items():
+        for variant, r in by_variant.items():
+            log(f"kernel {name} [{r['shapes']}]: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
+    return rows
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -1140,39 +1629,59 @@ KERNEL_META = {
         "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
     "w8a8_matmul": ("compressed_tensors_tpu_torch/csrc/w8a8_matmul.cu",
                     "compressed_tensors_tpu/ops/kernels/w8a8_matmul.py:118"),
+    "w8a8_matmul_fp8": ("compressed_tensors_tpu_torch/csrc/w8a8_matmul.cu",
+                        "compressed_tensors_tpu/ops/kernels/w8a8_matmul.py:118"),
     "prefill_attention": (
         "compressed_tensors_tpu_torch/csrc/prefill_attention.cu",
         "compressed_tensors_tpu/ops/kernels/prefill_attention.py:141"),
     "decode_attention": (
         "compressed_tensors_tpu_torch/csrc/decode_attention.cu",
         "compressed_tensors_tpu/ops/kernels/decode_attention.py:290"),
+    "decode_attention_scaled": (
+        "compressed_tensors_tpu_torch/csrc/decode_attention.cu",
+        "compressed_tensors_tpu/ops/kernels/decode_attention.py:290"),
     "flash_decode_attention": (
+        "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
+        "compressed_tensors_tpu/ops/kernels/flash_decode.py:317"),
+    "flash_decode_attention_scaled": (
         "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
         "compressed_tensors_tpu/ops/kernels/flash_decode.py:317"),
     "paged_decode_attention": (
         "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
         "compressed_tensors_tpu/ops/kernels/paged_decode.py:310"),
+    "paged_decode_attention_scaled": (
+        "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
+        "compressed_tensors_tpu/ops/kernels/paged_decode.py:310"),
 }
 
 
-def kernel_report(errs, rows, run_counts, serving):
+def kernel_report(errs, rows, fp8_rows, paths):
     """The kernels line: one entry per kernel, at the newest (8B) shapes
-    where the serving path runs it; launches summed over the main paths'
-    runs, with the split by run beside them."""
+    where a path runs it: fp8 W8A8 at decode rows (M = 64) with the
+    512-row chunk under ``variants``, the scaled decode kernels on the
+    fp8 cache with the int8 cache under ``variants``. Launches are summed
+    over the main paths' runs (``paths``: run name -> launch counts), with
+    the split by run beside them."""
     by_name = {r["name"]: r for r in rows}  # later (8B) rows win
+    main = {"w8a8_matmul_fp8": BATCH}
     out = []
     for name, (source, replaces) in KERNEL_META.items():
-        r = by_name[name]
-        by_path = {"greedy_generate": run_counts[name]}
-        by_path.update({f"serving {run}": res["counts"][name]
-                        for run, res in serving.items()})
+        if name in fp8_rows:
+            variants = fp8_rows[name]
+            key = main.get(name, "fp8")
+            r = variants[key]
+            extra = {"variants": {str(v): dict(vr) for v, vr in
+                                  variants.items() if v != key}}
+        else:
+            r, extra = by_name[name], {}
+        by_path = {run: counts[name] for run, counts in paths.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": errs[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shapes": r["shapes"],
+            "library_ms": r["library_ms"], "shapes": r["shapes"], **extra,
         })
     return out
 
@@ -1195,6 +1704,7 @@ def main() -> int:
     phase_device_and_build()
     errs = phase_parity()
     phase_parity_8b(errs)
+    phase_parity_fp8(errs)
     log(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s")
     e2e = phase_end_to_end()
     rows = phase_timings(errs, e2e["run_counts"], e2e["per_step"])
@@ -1202,7 +1712,14 @@ def main() -> int:
     serving = phase_serving()
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     rows += phase_timings_8b(serving)
-    kernels = kernel_report(errs, rows, e2e["run_counts"], serving)
+    fp8 = phase_fp8()
+    log(f"phase 6 (FP8) done at {time.perf_counter() - t_start:.1f} s")
+    fp8_rows = phase_timings_fp8()
+    paths = {"greedy_generate": e2e["run_counts"]}
+    paths.update({f"serving {run}": res["counts"]
+                  for run, res in serving.items()})
+    paths.update({run: res["counts"] for run, res in fp8.items()})
+    kernels = kernel_report(errs, rows, fp8_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,15 @@
 // Helpers shared by the port's hand-written Hopper kernels: tensor-core
-// mma.sync wrappers, cp.async copies and warp reductions.
+// mma.sync wrappers, cp.async copies, warp reductions, fp8 e4m3
+// conversions and the KV cache element types.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ct {
 
@@ -56,6 +61,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// D += A * B for one 16x8x32 fp8 e4m3 tile, f32 accumulate (sm_89+).
+// Fragments as for the int8 tile, 4 e4m3 bytes per register.
+__device__ __forceinline__ void mma_e4m3_16832(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// f32 -> fp8 e4m3 (float8_e4m3fn) bits, round to nearest even, with no
+// saturation: |x| above 464 (448 plus half an ulp), inf and NaN become
+// NaN (0x7f), as __NV_NOSAT specifies and as ml_dtypes and XLA cast. The
+// bit manipulation of c10::Float8_e4m3fn, without the saturation newer
+// PyTorch versions add (the plain versions mark overflow NaN explicitly).
+__device__ __forceinline__ uint8_t f32_to_e4m3(float x) {
+  uint32_t f = __float_as_uint(x);
+  const uint32_t sign = f & 0x80000000u;
+  f ^= sign;
+  uint32_t r;
+  if (f >= (1087u << 20)) {          // >= 480, inf or NaN
+    r = 0x7fu;
+  } else if (f < (121u << 23)) {     // below 2^-6: subnormal e4m3
+    r = __float_as_uint(__fadd_rn(__uint_as_float(f),
+                                  __uint_as_float(141u << 23))) - (141u << 23);
+  } else {
+    const uint32_t odd = (f >> 20) & 1u;
+    f += ((uint32_t)(7 - 127) << 23) + 0x7ffffu;
+    f += odd;
+    r = f >> 20;
+  }
+  return static_cast<uint8_t>(r | (sign >> 24));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -65,5 +105,50 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// KV cache element types of the decode kernels. A bf16 cache holds the
+// model's K/V as they are; an e4m3 or int8 cache holds x / scale, written
+// with IEEE division (e4m3: the cast above; int8: rint, then clip to
+// [-128, 127]), and is read back with a raw conversion: the scales fold
+// into q and onto the output instead.
+enum CacheKind { kCacheBF16 = 0, kCacheE4M3 = 1, kCacheInt8 = 2 };
+
+template <int KIND> struct Cache;
+
+template <> struct Cache<kCacheBF16> {
+  using T = __nv_bfloat16;
+  static constexpr bool kScaled = false;
+  __device__ static float2 load2(const T* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ static T from_new(__nv_bfloat16 x, float) { return x; }
+};
+
+template <> struct Cache<kCacheE4M3> {
+  using T = uint8_t;
+  static constexpr bool kScaled = true;
+  // two e4m3 values -> f16x2 in one cvt (sm_89+), then f32: both exact
+  __device__ static float2 load2(const T* p) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3);
+    return __half22float2(__half2(h));
+  }
+  __device__ static T from_new(__nv_bfloat16 x, float s) {
+    return f32_to_e4m3(__bfloat162float(x) / s);
+  }
+};
+
+template <> struct Cache<kCacheInt8> {
+  using T = int8_t;
+  static constexpr bool kScaled = true;
+  __device__ static float2 load2(const T* p) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+  }
+  __device__ static T from_new(__nv_bfloat16 x, float s) {
+    const float q = rintf(__bfloat162float(x) / s);
+    return static_cast<T>(fminf(fmaxf(q, -128.f), 127.f));
+  }
+};
 
 }  // namespace ct

@@ -18,25 +18,37 @@
 // second forms p = exp(s - max) / sum, rounds it to bf16 and accumulates
 // P.V in f32.
 //
+// Cache types (common.cuh, ct::Cache): bf16, or fp8 e4m3 / int8 with
+// k/v scales, per tensor or per kv head (scale_stride 0 or 1). As in the
+// TPU kernel (decode_attention.py:83-115, 203-259), the new row is
+// quantized (x / scale) and written in its cache type, cached values are
+// converted raw, k_scale folds into q (q * k_scale rounded to bf16) and
+// v_scale multiplies the f32 output before its bf16 rounding: no
+// per-element scale work on the cache.
+//
 // Bound on the H100: the bytes of the cache prefix it reads,
-// B*KVH*(len+1)*D*2 per K and V, against 3.35 TB/s; the first pass reads
-// K a second time.
+// B*KVH*(len+1)*D*sizeof(cache element) per K and V, against 3.35 TB/s;
+// the first pass reads K a second time.
 #include "common.cuh"
 
 namespace {
 
 constexpr int KC = 32, THREADS = 256, WARPS = THREADS / 32, MAX_HPW = 2;
 
-template <int D>
+template <int D, int KIND>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
               const __nv_bfloat16* __restrict__ new_k,  // (B, KVH, D)
               const __nv_bfloat16* __restrict__ new_v,
-              __nv_bfloat16* __restrict__ cache_k,      // (L, B, KVH, S_pad, D)
-              __nv_bfloat16* __restrict__ cache_v,
+              typename ct::Cache<KIND>::T* __restrict__ cache_k,  // (L, B, KVH, S_pad, D)
+              typename ct::Cache<KIND>::T* __restrict__ cache_v,
               const int* __restrict__ lengths,          // (B,)
               __nv_bfloat16* __restrict__ out,          // (B, H, D)
-              int B, int KVH, int rep, int s_pad, int layer, float inv_sqrt_d) {
+              const float* __restrict__ k_scale,        // scaled caches only
+              const float* __restrict__ v_scale,
+              int B, int KVH, int rep, int s_pad, int layer, int scale_stride,
+              float inv_sqrt_d) {
+  using C = ct::Cache<KIND>;
   constexpr int DPL = D / 32;  // output dims per lane
   __shared__ float qs[WARPS * MAX_HPW][D];
   __shared__ float ks[KC][D + 1];
@@ -47,23 +59,28 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
   const int H = KVH * rep;
   const int len = lengths[b];
   const size_t row_off = (((size_t)layer * B + b) * KVH + kvh) * s_pad * D;
-  __nv_bfloat16* ck = cache_k + row_off;
-  __nv_bfloat16* cv = cache_v + row_off;
+  typename C::T* ck = cache_k + row_off;
+  typename C::T* cv = cache_v + row_off;
 
   if (len < 0) {  // inactive row: cache untouched, output zero
     for (int i = tid; i < rep * D; i += THREADS)
       out[((size_t)b * H + kvh * rep) * D + i] = __float2bfloat16(0.f);
     return;
   }
+  const float sk = C::kScaled ? k_scale[kvh * scale_stride] : 1.f;
+  const float sv = C::kScaled ? v_scale[kvh * scale_stride] : 1.f;
   if (len < s_pad) {
     const size_t src = ((size_t)b * KVH + kvh) * D;
     for (int d = tid; d < D; d += THREADS) {
-      ck[(size_t)len * D + d] = new_k[src + d];
-      cv[(size_t)len * D + d] = new_v[src + d];
+      ck[(size_t)len * D + d] = C::from_new(new_k[src + d], sk);
+      cv[(size_t)len * D + d] = C::from_new(new_v[src + d], sv);
     }
   }
-  for (int i = tid; i < rep * D; i += THREADS)
-    qs[i / D][i % D] = __bfloat162float(q[((size_t)b * H + kvh * rep) * D + i]);
+  for (int i = tid; i < rep * D; i += THREADS) {
+    const float qv = __bfloat162float(q[((size_t)b * H + kvh * rep) * D + i]);
+    qs[i / D][i % D] =
+        C::kScaled ? __bfloat162float(__float2bfloat16(qv * sk)) : qv;
+  }
   __syncthreads();  // the new row and q are visible to the whole block
 
   const int n_keys = min(len, s_pad - 1) + 1;
@@ -83,9 +100,8 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
       float2 kf = make_float2(0.f, 0.f), vf = make_float2(0.f, 0.f);
       if (c0 + j < n_keys) {
         const size_t off = (size_t)(c0 + j) * D + d2;
-        kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ck + off));
-        if (values)
-          vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cv + off));
+        kf = C::load2(ck + off);
+        if (values) vf = C::load2(cv + off);
       }
       ks[j][d2] = kf.x; ks[j][d2 + 1] = kf.y;
       if (values) { vs[j][d2] = vf.x; vs[j][d2 + 1] = vf.y; }
@@ -138,37 +154,79 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
     if (h >= rep) break;
     __nv_bfloat16* op = out + ((size_t)b * H + kvh * rep + h) * D;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) op[lane + 32 * e] = __float2bfloat16(acc[hi][e]);
+    for (int e = 0; e < DPL; ++e)
+      op[lane + 32 * e] = __float2bfloat16(C::kScaled ? acc[hi][e] * sv : acc[hi][e]);
   }
+}
+
+template <int D, int KIND>
+void launch_kind(dim3 grid, cudaStream_t s, const void* q, const void* new_k,
+                 const void* new_v, void* cache_k, void* cache_v,
+                 const void* lengths, void* out, const void* k_scale,
+                 const void* v_scale, int B, int KVH, int rep, int s_pad,
+                 int layer, int scale_stride, float inv_sqrt_d) {
+  using T = typename ct::Cache<KIND>::T;
+  decode_kernel<D, KIND><<<grid, THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(new_k),
+      static_cast<const __nv_bfloat16*>(new_v), static_cast<T*>(cache_k),
+      static_cast<T*>(cache_v), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), B, KVH, rep, s_pad, layer,
+      scale_stride, inv_sqrt_d);
+}
+
+template <int D>
+int launch_d(int kind, dim3 grid, cudaStream_t s, const void* q,
+             const void* new_k, const void* new_v, void* cache_k, void* cache_v,
+             const void* lengths, void* out, const void* k_scale,
+             const void* v_scale, int B, int KVH, int rep, int s_pad, int layer,
+             int scale_stride, float inv_sqrt_d) {
+  switch (kind) {
+    case ct::kCacheBF16:
+      launch_kind<D, ct::kCacheBF16>(grid, s, q, new_k, new_v, cache_k, cache_v,
+                                     lengths, out, k_scale, v_scale, B, KVH, rep,
+                                     s_pad, layer, scale_stride, inv_sqrt_d);
+      break;
+    case ct::kCacheE4M3:
+      launch_kind<D, ct::kCacheE4M3>(grid, s, q, new_k, new_v, cache_k, cache_v,
+                                     lengths, out, k_scale, v_scale, B, KVH, rep,
+                                     s_pad, layer, scale_stride, inv_sqrt_d);
+      break;
+    case ct::kCacheInt8:
+      launch_kind<D, ct::kCacheInt8>(grid, s, q, new_k, new_v, cache_k, cache_v,
+                                     lengths, out, k_scale, v_scale, B, KVH, rep,
+                                     s_pad, layer, scale_stride, inv_sqrt_d);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H, D), new_k/new_v (B, KVH, D), cache_k/cache_v (L, B, KVH, S_pad, D)
-// all bf16 and contiguous; lengths (B,) int32; out (B, H, D) bf16.
-// D in {64, 128} and rep = H / KVH <= 16.
+// q (B, H, D), new_k/new_v (B, KVH, D) bf16; cache_k/cache_v (L, B, KVH,
+// S_pad, D) of cache type `kind` (ct::CacheKind); lengths (B,) int32; out
+// (B, H, D) bf16; k_scale/v_scale f32, one value (scale_stride 0) or one per
+// kv head (scale_stride 1), read only for the e4m3 and int8 caches. All
+// contiguous. D in {64, 128} and rep = H / KVH <= 16.
 extern "C" int ct_decode_attention(const void* q, const void* new_k,
                                    const void* new_v, void* cache_k,
                                    void* cache_v, const void* lengths, void* out,
+                                   const void* k_scale, const void* v_scale,
                                    int B, int KVH, int rep, int s_pad, int D,
-                                   int layer, float inv_sqrt_d, void* stream) {
+                                   int layer, int kind, int scale_stride,
+                                   float inv_sqrt_d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rep > WARPS * MAX_HPW) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(KVH, B);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* nk = static_cast<const __nv_bfloat16*>(new_k);
-  const auto* nv = static_cast<const __nv_bfloat16*>(new_v);
-  auto* ckp = static_cast<__nv_bfloat16*>(cache_k);
-  auto* cvp = static_cast<__nv_bfloat16*>(cache_v);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* op = static_cast<__nv_bfloat16*>(out);
   if (D == 64)
-    decode_kernel<64><<<grid, THREADS, 0, s>>>(qp, nk, nv, ckp, cvp, lp, op, B, KVH,
-                                               rep, s_pad, layer, inv_sqrt_d);
-  else if (D == 128)
-    decode_kernel<128><<<grid, THREADS, 0, s>>>(qp, nk, nv, ckp, cvp, lp, op, B, KVH,
-                                                rep, s_pad, layer, inv_sqrt_d);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_d<64>(kind, grid, s, q, new_k, new_v, cache_k, cache_v, lengths,
+                        out, k_scale, v_scale, B, KVH, rep, s_pad, layer,
+                        scale_stride, inv_sqrt_d);
+  if (D == 128)
+    return launch_d<128>(kind, grid, s, q, new_k, new_v, cache_k, cache_v, lengths,
+                         out, k_scale, v_scale, B, KVH, rep, s_pad, layer,
+                         scale_stride, inv_sqrt_d);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,17 +1,23 @@
-// W8A8-int matmul for Hopper with dynamic per-token activation quantization.
+// W8A8 matmul for Hopper with dynamic per-token activation quantization,
+// int8 or fp8 e4m3.
 //
-// Replaces compressed_tensors_tpu/ops/kernels/w8a8_matmul.py:w8a8_matmul
-// (int8 weights). Pass 1 quantizes each row of x exactly as the TPU kernel
-// does: scale = max(absmax / 127.5, 1e-10), q = rint(clip(x / scale, -128,
-// 127)) (round half to even), keeping the per-row scale. Pass 2 is an int8
-// GEMM on the tensor cores (mma.sync m16n8k32, exact int32 accumulation)
-// over the checkpoint's (N, K) int8 weight, with the epilogue
-// acc * x_scale * w_scale written once in bf16.
+// Replaces compressed_tensors_tpu/ops/kernels/w8a8_matmul.py:w8a8_matmul.
+// Pass 1 quantizes each row of x exactly as the TPU kernel does:
+//   int8: scale = max(absmax / 127.5, 1e-10), q = rint(clip(x / scale,
+//         -128, 127)) (round half to even);
+//   fp8:  scale = max(absmax / 448, 1e-10), q = e4m3(clip(x / scale, -448,
+//         448)) (round to nearest even),
+// with IEEE division, keeping the per-row scale. Pass 2 is a GEMM on the
+// tensor cores over the checkpoint's (N, K) weight rows, K-major, which is
+// already the B operand of mma.sync m16n8k32: int8 x int8 with exact int32
+// sums, or e4m3 x e4m3 (the sm_89+ instruction, which assembles for
+// sm_90a) with f32 sums. The epilogue acc * x_scale * w_scale is written
+// once in bf16. Both types share the 64x64x64 tiling, double-buffered with
+// cp.async; only the mma instruction and the accumulator type differ.
 //
-// Bound on the H100: on this slice's path the lm_head runs at M = 64 rows
-// (greedy steps take the last position only), where the N*K weight bytes
-// bound it; a 64x64 tile grid gives N/64 = 500 blocks, enough to stream
-// the weight on every SM.
+// Bound on the H100: at decode (M = 64) the N*K weight bytes; at a
+// 512-row prefill chunk the int8/fp8 tensor-core operations (1979
+// TOP/s), which mma.sync at this tiling reaches only a fraction of.
 #include "common.cuh"
 
 namespace {
@@ -19,8 +25,9 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 64, THREADS = 128;
 constexpr int AS = BK + 16;  // smem row stride (bytes): conflict-free fragments
 
+template <bool FP8>
 __global__ void quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                                     int8_t* __restrict__ xq,
+                                     uint8_t* __restrict__ xq,
                                      float* __restrict__ xs, int K) {
   const int row = blockIdx.x;
   const __nv_bfloat16* xr = x + (size_t)row * K;
@@ -37,20 +44,28 @@ __global__ void quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
     if (threadIdx.x == 0) red[0] = v;
   }
   __syncthreads();
-  const float scale = fmaxf(red[0] / 127.5f, 1e-10f);
+  const float scale = fmaxf(red[0] / (FP8 ? 448.f : 127.5f), 1e-10f);
   for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    const float q = fminf(fmaxf(__bfloat162float(xr[i]) / scale, -128.f), 127.f);
-    xq[(size_t)row * K + i] = static_cast<int8_t>(rintf(q));
+    const float v = __bfloat162float(xr[i]) / scale;
+    uint8_t q;
+    if (FP8)
+      q = ct::f32_to_e4m3(fminf(fmaxf(v, -448.f), 448.f));
+    else
+      q = static_cast<uint8_t>(static_cast<int8_t>(
+          rintf(fminf(fmaxf(v, -128.f), 127.f))));
+    xq[(size_t)row * K + i] = q;
   }
   if (threadIdx.x == 0) xs[row] = scale;
 }
 
+template <bool FP8>
 __global__ void __launch_bounds__(THREADS)
-w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                 const int8_t* __restrict__ w, const float* __restrict__ ws,
+w8a8_gemm_kernel(const uint8_t* __restrict__ xq, const float* __restrict__ xs,
+                 const uint8_t* __restrict__ w, const float* __restrict__ ws,
                  __nv_bfloat16* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) int8_t as[2][BM][AS];
-  __shared__ __align__(16) int8_t bs[2][BN][AS];
+  using Acc = typename std::conditional<FP8, float, int>::type;
+  __shared__ __align__(16) uint8_t as[2][BM][AS];
+  __shared__ __align__(16) uint8_t bs[2][BN][AS];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -73,7 +88,7 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     ct::cp_async_commit();
   };
 
-  int acc[2][4][4];
+  Acc acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -112,7 +127,12 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) ct::mma_s8_16832(acc[mt][nt], a[mt], b[nt]);
+        for (int nt = 0; nt < 4; ++nt) {
+          if constexpr (FP8)
+            ct::mma_e4m3_16832(acc[mt][nt], a[mt], b[nt]);
+          else
+            ct::mma_s8_16832(acc[mt][nt], a[mt], b[nt]);
+        }
     }
     __syncthreads();
   }
@@ -137,6 +157,21 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 }
 
+template <bool FP8>
+int launch(const void* x, const void* w, const void* w_scale, void* y, void* xq,
+           void* xs, int M, int N, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_rows_kernel<FP8><<<M, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(xq),
+      static_cast<float*>(xs), K);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  w8a8_gemm_kernel<FP8><<<grid, THREADS, 0, s>>>(
+      static_cast<const uint8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const uint8_t*>(w), static_cast<const float*>(w_scale),
+      static_cast<__nv_bfloat16*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (M, K) bf16; w (N, K) int8; w_scale (N,) f32; y (M, N) bf16;
@@ -144,14 +179,12 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 extern "C" int ct_w8a8_matmul(const void* x, const void* w, const void* w_scale,
                               void* y, void* xq, void* xs, int M, int N, int K,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_rows_kernel<<<M, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                         static_cast<int8_t*>(xq),
-                                         static_cast<float*>(xs), K);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  w8a8_gemm_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w), static_cast<const float*>(w_scale),
-      static_cast<__nv_bfloat16*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, w, w_scale, y, xq, xs, M, N, K, stream);
+}
+
+// The same with w (N, K) and the xq scratch in fp8 e4m3.
+extern "C" int ct_w8a8_fp8_matmul(const void* x, const void* w,
+                                  const void* w_scale, void* y, void* xq,
+                                  void* xs, int M, int N, int K, void* stream) {
+  return launch<true>(x, w, w_scale, y, xq, xs, M, N, K, stream);
 }

@@ -42,6 +42,7 @@ from compressed_tensors_tpu_torch.models.llama import (
     init_paged_kv_cache,
     llama_forward,
     resolve_device,
+    transcode_fp8_kv_to_int8,
 )
 
 __all__ = ["ServingEngine", "Request", "Completion"]
@@ -83,6 +84,10 @@ class ServingEngine:
     :param steps_per_sync: decode steps per host round trip; a slot that
         finishes mid-burst wastes at most steps_per_sync-1 token
         computations (its extra tokens are truncated on the host)
+    :param cache_dtype: KV cache dtype (default the compute dtype); fp8
+        e4m3 or int8 caches hold K/V divided by the layers'
+        ``k_scale``/``v_scale``. Under ``fp8_transcode="always"`` an fp8
+        cache becomes int8 with rescaled scales, as in the JAX engine.
     :param paged: a page pool with per-slot page tables (page 0 is the null
         page), with sha256 prefix caching and newest-first preemption
     :param num_pages: pool size (default: full residency plus the null page)
@@ -111,12 +116,8 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "ServingEngine(mesh=...) is not ported yet (ROADMAP A12)")
-        if cache_dtype is not None and cache_dtype != dtype:
-            raise NotImplementedError(
-                "quantized KV caches (cache_dtype other than the compute "
-                "dtype, and transcode_fp8_kv_to_int8) are not ported yet "
-                "(ROADMAP A8)")
         self.device = resolve_device(device)
+        params, cache_dtype = transcode_fp8_kv_to_int8(params, cache_dtype)
         self.params = params
         self.config = config
         self.max_batch = max_batch
@@ -133,7 +134,8 @@ class ServingEngine:
         if paged:
             self.cache = init_paged_kv_cache(
                 config, max_batch, max_len, num_pages=num_pages,
-                page_size=page_size, dtype=dtype, device=self.device)
+                page_size=page_size, dtype=dtype, cache_dtype=cache_dtype,
+                device=self.device)
             # host-side page allocator: free list over the pool (page 0 is
             # the null page), per-slot owned-page lists, host page tables
             self._tables = np.zeros(tuple(self.cache.tables.shape), np.int32)
@@ -150,7 +152,8 @@ class ServingEngine:
             self._cached_free: "OrderedDict[int, bytes]" = OrderedDict()
         else:
             self.cache = init_kv_cache(config, max_batch, max_len,
-                                       dtype=dtype, device=self.device)
+                                       dtype=dtype, cache_dtype=cache_dtype,
+                                       device=self.device)
         self.prefix_cache_hits = 0  # pages reused across requests
         self.tokens = torch.zeros((max_batch,), dtype=torch.int32,
                                   device=self.device)

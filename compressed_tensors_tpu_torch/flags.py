@@ -1,7 +1,7 @@
 """Runtime behaviour flags, resolved from the environment once at import.
 
-Counterpart of ``compressed_tensors_tpu/flags.py`` with the two flags the
-W4A16 decode path reads. Programmatic control:
+Counterpart of ``compressed_tensors_tpu/flags.py`` with the flags the
+ported paths read. Programmatic control:
 
 - ``set_flags(decode_attn="block")`` -- process-wide override
 - ``with flag_overrides(w4_act="bf16"): ...`` -- scoped override
@@ -24,6 +24,12 @@ class _Flags:
     # decode attention on the dense cache: "auto" (flash decode when the
     # cache's S_pad >= 512, the block kernel below) | "block" | "flash"
     decode_attn: str = "auto"
+    # fp8 checkpoints on chips without native fp8: "always" re-grids fp8
+    # weights to int8 at load (prepare_for_kernels) and fp8 KV caches to
+    # int8 (transcode_fp8_kv_to_int8); "never" keeps fp8; "auto" keeps fp8
+    # here, since the H100 has fp8 tensor cores (and the CPU runs fp8 as
+    # the JAX package does off the TPU)
+    fp8_transcode: str = "auto"
 
 
 def _from_env() -> _Flags:
@@ -31,6 +37,7 @@ def _from_env() -> _Flags:
     return _Flags(
         w4_act=env("CT_TORCH_W4_ACT", "auto"),
         decode_attn=env("CT_TORCH_DECODE_ATTN", "auto"),
+        fp8_transcode=env("CT_TORCH_FP8_TRANSCODE", "auto"),
     )
 
 

@@ -6,7 +6,9 @@ paged KV caches, non-MoE, non-MLA path. Every linear is a
 ``QuantizedTensor`` through ``quantized_matmul``, so weights stay
 compressed on the device. The dense KV cache is (L, B, KVH, S_pad, D) and
 the paged pool (L, NP, KVH, page, D), in the cache dtype -- no lane padding
-of D and no head packing -- and both are updated in place.
+of D and no head packing -- and both are updated in place. A cache of fp8
+e4m3 or int8 holds K/V divided by the checkpoint's per-layer
+``k_scale``/``v_scale`` (per tensor, or per kv head).
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ from compressed_tensors_tpu_torch.ops.kernels.prefill_attention import (
 )
 from compressed_tensors_tpu_torch.ops.linear import (
     QuantizedTensor,
+    _transcode_fp8_enabled,
     from_compressed_state,
     materialize_weight,
     prepare_for_kernels,
     quantized_matmul,
 )
+from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = [
     "LlamaConfig",
@@ -48,7 +52,11 @@ __all__ = [
     "llama_forward",
     "load_llama_params",
     "resolve_device",
+    "transcode_fp8_kv_to_int8",
 ]
+
+# |x| above which a cast to fp8 e4m3 overflows (448 plus half an ulp)
+_E4M3_OVERFLOW = 464.0
 
 
 def resolve_device(device) -> torch.device:
@@ -60,6 +68,13 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return device
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    """A zeroed cache buffer (fp8 ones zeroed through their byte view)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    byte_view(out).zero_()
+    return out
 
 
 @dataclasses.dataclass
@@ -82,8 +97,8 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
              s_pad, config.head_dim)
     cd = cache_dtype or dtype
     return KVCache(
-        k=torch.zeros(shape, dtype=cd, device=device),
-        v=torch.zeros(shape, dtype=cd, device=device),
+        k=_zeros(shape, cd, device),
+        v=_zeros(shape, cd, device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
@@ -123,8 +138,8 @@ def init_paged_kv_cache(config: LlamaConfig, batch: int, max_len: int,
              page_size, config.head_dim)
     cd = cache_dtype or dtype
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=cd, device=device),
-        v=torch.zeros(shape, dtype=cd, device=device),
+        k=_zeros(shape, cd, device),
+        v=_zeros(shape, cd, device),
         tables=torch.zeros((batch, p_max), dtype=torch.int32, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
@@ -170,6 +185,11 @@ def _quantize_to_cache(x, scale, cache_dtype, head_axis=2):
     if scale is None or cache_dtype == x.dtype:
         return x.to(cache_dtype)
     scaled = x.to(torch.float32) / _cache_scale(scale, x.ndim, head_axis)
+    if cache_dtype == torch.float8_e4m3fn:
+        # an overflow casts to NaN, as in XLA and ml_dtypes (newer PyTorch
+        # versions saturate): no silent clip
+        scaled = torch.where(scaled.abs() > _E4M3_OVERFLOW,
+                             torch.full_like(scaled, float("nan")), scaled)
     if cache_dtype.is_floating_point:
         return scaled.to(cache_dtype)
     return torch.round(scaled).clamp(-128, 127).to(cache_dtype)
@@ -181,6 +201,37 @@ def _dequantize_from_cache(x, scale, dtype, head_axis=1):
         return x.to(dtype)
     return (x.to(torch.float32) * _cache_scale(scale, x.ndim, head_axis)).to(
         dtype)
+
+
+def transcode_fp8_kv_to_int8(params: dict, cache_dtype):
+    """Serve an fp8-KV checkpoint with an int8 cache instead, where the
+    ``fp8_transcode`` flag asks for it (the JAX package's workaround for
+    chips without fp8 conversion; the H100 has it, so "auto" keeps fp8).
+
+    The checkpoint scale s maps x onto the fp8 lattice (max 448) as x / s;
+    the int8 cache stores x / (s * 448 / 127), so the same range covers the
+    int8 lattice (max 127).
+
+    :return: (params, cache_dtype): copies with rescaled per-layer
+        k_scale/v_scale and torch.int8 when the transcode applies, the
+        arguments unchanged otherwise
+    """
+    if cache_dtype is None or not (cache_dtype.is_floating_point
+                                   and cache_dtype.itemsize == 1):
+        return params, cache_dtype
+    if not _transcode_fp8_enabled():
+        return params, cache_dtype
+    ratio = 448.0 / 127.0
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        new_layer = dict(layer)
+        for key in ("k_scale", "v_scale"):
+            if layer.get(key) is not None:
+                new_layer[key] = (layer[key].to(torch.float32)
+                                  * ratio).to(layer[key].dtype)
+        out["layers"].append(new_layer)
+    return out, torch.int8
 
 
 def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
@@ -232,8 +283,8 @@ def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
         idx = tables.to(torch.int64)
 
         def gather(pool):
-            return pool[layer_idx][idx].permute(0, 2, 1, 3, 4).reshape(
-                B, KVH, P * page, D)
+            return byte_view(pool[layer_idx])[idx].permute(
+                0, 2, 1, 3, 4).reshape(B, KVH, P * page, D).view(pool.dtype)
 
         dense_k, dense_v = gather(kv_k_all), gather(kv_v_all)
         out = _attention_dense_tail(
@@ -241,7 +292,7 @@ def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
             positions, fresh_prefill, k_scale, v_scale, use_kernels)
         flat = idx.reshape(-1)
         for pool, dense in ((kv_k_all, dense_k), (kv_v_all, dense_v)):
-            pool[layer_idx][flat] = dense.reshape(
+            byte_view(pool[layer_idx])[flat] = byte_view(dense).reshape(
                 B, KVH, P, page, D).permute(0, 2, 1, 3, 4).reshape(
                     B * P, KVH, page, D)
         return out, kv_k_all, kv_v_all
@@ -283,18 +334,19 @@ def _attention_dense_tail(layer: dict, x, q, k, v, cache_k_l, cache_v_l,
     k_q = _quantize_to_cache(k, k_scale, cache_dtype)
     v_q = _quantize_to_cache(v, v_scale, cache_dtype)
     rows = torch.nonzero(cache_lens >= 0).reshape(-1)
+    ck_b, cv_b = byte_view(cache_k_l), byte_view(cache_v_l)
     if fresh_prefill:
         # active rows are at offset 0
-        cache_k_l[rows, :, :S] = k_q[rows].transpose(1, 2)
-        cache_v_l[rows, :, :S] = v_q[rows].transpose(1, 2)
+        ck_b[rows, :, :S] = byte_view(k_q)[rows].transpose(1, 2)
+        cv_b[rows, :, :S] = byte_view(v_q)[rows].transpose(1, 2)
     else:
         # per-row offset, clamped so the update fits (as
         # dynamic_update_slice clamps in the JAX package)
         start = cache_lens[rows].to(torch.int64).clamp(0, T - S)
         pos = start[:, None] + torch.arange(S, device=x.device)
         r = rows[:, None].expand_as(pos)
-        cache_k_l[r, :, pos] = k_q[rows]
-        cache_v_l[r, :, pos] = v_q[rows]
+        ck_b[r, :, pos] = byte_view(k_q)[rows]
+        cv_b[r, :, pos] = byte_view(v_q)[rows]
 
     if S > 1 and fresh_prefill:
         # fresh prefill attends over the S new (cache-rounded) keys only

@@ -49,7 +49,8 @@ LLAMA3_8B = LlamaConfig(
 
 def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
                   dtype, device) -> QuantizedTensor:
-    """Random compressed weight for `shape` (dense, pack-quantized or int8)."""
+    """Random compressed weight for `shape` (dense, pack-quantized, int8 or
+    fp8 e4m3)."""
     n, k = shape
     args = scheme.weights
     if args is None:
@@ -64,6 +65,17 @@ def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
             weight=torch.from_numpy(wq).to(device),
             scale=torch.from_numpy(scale).to(device), shape=shape,
             scheme=scheme, format=CompressionFormat.int_quantized.value)
+    if args.num_bits == 8 and args.type == "float":
+        # N(0, 100^2) clipped inside the e4m3 range (an overflow would cast
+        # to NaN), cast on the device with PyTorch's round to nearest even
+        w = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device)
+        wq = (w * 100).clamp_(-440, 440).to(torch.float8_e4m3fn)
+        del w
+        scale = rng.uniform(size=(n, 1)).astype(np.float32) * 2e-4 + 1e-4
+        return QuantizedTensor(
+            weight=wq, scale=torch.from_numpy(scale).to(device), shape=shape,
+            scheme=scheme, format=CompressionFormat.float_quantized.value)
     if args.type != "int":
         raise NotImplementedError(f"synthetic {args.type} weights")
     g = args.group_size or k
@@ -152,7 +164,8 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
     """Write unfused Llama params as a compressed-tensors checkpoint:
     ``model.safetensors`` plus ``config.json`` with its
     ``quantization_config`` (one config group per distinct scheme, the
-    lm_head's targeting ``lm_head``)."""
+    lm_head's targeting ``lm_head``). Per-layer ``k_scale``/``v_scale``
+    are written under ``model.layers.{i}.self_attn.``."""
     os.makedirs(path, exist_ok=True)
     tensors: dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed_tokens"],
@@ -167,6 +180,9 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
             linears[f"{p}.mlp.{proj}"] = layer[proj]
         for norm in ("input_layernorm", "post_attention_layernorm"):
             tensors[f"{p}.{norm}.weight"] = layer[norm]
+        for sname in ("k_scale", "v_scale"):
+            if layer.get(sname) is not None:
+                tensors[f"{p}.self_attn.{sname}"] = layer[sname]
     if isinstance(params["lm_head"], QuantizedTensor):
         linears["lm_head"] = params["lm_head"]
 

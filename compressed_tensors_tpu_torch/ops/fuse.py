@@ -17,6 +17,7 @@ from compressed_tensors_tpu_torch.ops.linear import (
     QuantizedTensor,
     prepare_for_kernels,
 )
+from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = ["fuse_quantized_tensors", "fuse_llama_layers"]
 
@@ -25,7 +26,7 @@ def _concat_field(tensors, field):
     vals = [getattr(t, field) for t in tensors]
     if any(v is None for v in vals):
         return None
-    return torch.cat(vals, dim=0)
+    return torch.cat([byte_view(v) for v in vals], dim=0).view(vals[0].dtype)
 
 
 def fuse_quantized_tensors(

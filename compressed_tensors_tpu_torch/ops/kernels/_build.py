@@ -34,13 +34,11 @@ _SIGNATURES = {
     "ct_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ct_w4a16_a8b_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ct_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ct_w8a8_fp8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "ct_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _F, _P],
-    "ct_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _P],
-    "ct_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _F, _P],
+    "ct_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ct_flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ct_paged_decode": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
 _lib = None

@@ -14,14 +14,20 @@ The cache tensors are updated in place, by the kernel and by the plain
 version alike; the function returns them for the JAX package's (out,
 cache_k, cache_v) contract.
 
+A quantized cache (fp8 e4m3 or int8, with k/v scales per tensor or per kv
+head) follows the TPU kernel's arithmetic: the new row is written as x /
+scale in the cache type, cached values are converted raw, k_scale folds
+into q (rounded to q's dtype) and v_scale multiplies the f32 output.
+
 Bound on the H100: the bytes of the cache prefix each row reads,
-2 * B*KVH*(len+1)*D*2 per step and layer, against 3.35 TB/s. The model
-runs it for caches with S_pad < 512 under ``decode_attn="auto"``, as the
-JAX package does; ``flash_decode.py`` serves the larger ones.
+2 * B*KVH*(len+1)*D*itemsize per step and layer, against 3.35 TB/s. The
+model runs it for caches with S_pad < 512 under ``decode_attn="auto"``, as
+the JAX package does; ``flash_decode.py`` serves the larger ones.
 
 ``decode_attention`` launches the kernel for CUDA tensors and uses
-``decode_attention_plain`` only for CPU tensors. Quantized (fp8/int8)
-caches with k/v scales have no CUDA kernel yet (ROADMAP A8).
+``decode_attention_plain`` only for CPU tensors. Launches on a bf16 cache
+count in ``decode_attention.launches``, on an fp8 or int8 cache in
+``decode_attention.scaled_launches``.
 """
 
 from __future__ import annotations
@@ -31,8 +37,12 @@ import math
 import torch
 
 from compressed_tensors_tpu_torch.ops.kernels import _build
+from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = ["decode_attention", "decode_attention_plain"]
+
+# cache element type -> ct::CacheKind of csrc/common.cuh
+_CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
 
 
 def _layer_views(cache_k, cache_v, layer):
@@ -60,49 +70,89 @@ def check_decode_operands(name, q, new_k, new_v, cache_k, cache_v,
             or cache_k.shape[-3] != KVH):
         raise ValueError(f"{name} shape mismatch")
     for t in (q, new_k, new_v, cache_k, cache_v):
-        if (t.dtype != torch.bfloat16 or t.device != q.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} operands must be contiguous bf16 on "
-                             "one device")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous on one "
+                             "device")
+    if any(t.dtype != torch.bfloat16 for t in (q, new_k, new_v)):
+        raise ValueError(f"{name} takes bf16 q and new k/v")
+    if cache_k.dtype not in _CACHE_KINDS or cache_v.dtype != cache_k.dtype:
+        raise NotImplementedError(
+            f"{name} kernel serves bf16, fp8 e4m3 and int8 caches, got "
+            f"{cache_k.dtype}")
     if (lengths.dtype != torch.int32 or lengths.device != q.device
             or tuple(lengths.shape) != (B,)):
         raise ValueError("lengths must be (B,) int32 on q's device")
     return B, H, D, KVH, rep
 
 
+def kernel_scales(name, q, cache_k, k_scale, v_scale, per_head=False):
+    """The cache kind and scale operands of a decode kernel launch:
+    (kind, k_scale, v_scale, scale_stride, scaled). A bf16 cache ignores
+    scales (the TPU kernels take them only for a cache of another dtype
+    than q); an fp8 or int8 cache needs them, per tensor (stride 0) or, if
+    ``per_head``, one per kv head (stride 1), as f32 on q's device."""
+    kind = _CACHE_KINDS[cache_k.dtype]
+    if kind == 0:
+        return kind, None, None, 0, False
+    if k_scale is None or v_scale is None:
+        raise NotImplementedError(
+            f"{name} on a {cache_k.dtype} cache needs k/v scales")
+    kvh = cache_k.shape[-3]
+    ks, vs = (s.reshape(-1).to(device=q.device, dtype=torch.float32)
+              .contiguous() for s in (k_scale, v_scale))
+    sizes = (1, kvh) if per_head else (1,)
+    if ks.numel() != vs.numel() or ks.numel() not in sizes:
+        raise NotImplementedError(
+            f"{name} kernel takes k/v scales of {' or '.join(map(str, sizes))}"
+            f" values, got {ks.numel()} and {vs.numel()}")
+    return kind, ks, vs, int(ks.numel() > 1), True
+
+
 def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, *,
                            layer=None, k_scale=None, v_scale=None):
-    """Plain PyTorch version: in-place row write, then masked softmax
-    attention in f32 with probabilities cast to q's dtype before P.V (the
-    TPU kernel's numerics). Outputs of inactive rows are zero."""
-    from compressed_tensors_tpu_torch.models.llama import (
-        _dequantize_from_cache,
-        _quantize_to_cache,
-    )
+    """Plain PyTorch version: the in-place row write (the new K/V in the
+    cache's representation), then masked softmax attention in f32 with the
+    normalized probabilities cast to q's dtype before P.V, the TPU kernel's
+    numerics. On a cache of another dtype than q with k/v scales, the
+    scales fold as in the TPU kernel: cached values are converted raw,
+    q * k_scale is rounded to q's dtype and v_scale multiplies the f32
+    output, by kv head for per-head scales. Outputs of inactive rows are
+    zero."""
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
 
     ck, cv = _layer_views(cache_k, cache_v, layer)
     B, H, D = q.shape
     KVH, S_pad = ck.shape[1], ck.shape[2]
     rep = H // KVH
+    cd = q.dtype
     lengths = lengths.to(torch.int64)
     rows = torch.nonzero((lengths >= 0) & (lengths < S_pad)).reshape(-1)
-    ck[rows, :, lengths[rows]] = _quantize_to_cache(
-        new_k[rows], k_scale, ck.dtype, head_axis=1)
-    cv[rows, :, lengths[rows]] = _quantize_to_cache(
-        new_v[rows], v_scale, cv.dtype, head_axis=1)
+    for cache, new, scale in ((ck, new_k, k_scale), (cv, new_v, v_scale)):
+        byte_view(cache)[rows, :, lengths[rows]] = byte_view(
+            _quantize_to_cache(new[rows], scale, cache.dtype, head_axis=1))
 
-    keys = _dequantize_from_cache(ck, k_scale, q.dtype).to(torch.float32)
-    values = _dequantize_from_cache(cv, v_scale, q.dtype).to(torch.float32)
+    folded = k_scale is not None and ck.dtype != cd
+
+    def head_scales(scale):  # (1, KVH, 1, 1) f32, per tensor or per head
+        return scale.reshape(-1).to(torch.float32).expand(KVH).reshape(
+            1, KVH, 1, 1)
+
     qg = q.reshape(B, KVH, rep, D).to(torch.float32)
+    if folded:
+        qg = (qg * head_scales(k_scale)).to(cd).to(torch.float32)
+    keys, values = (c.to(cd).to(torch.float32) for c in (ck, cv))
     scores = torch.einsum("bkrd,bksd->bkrs", qg, keys) * (1.0 / math.sqrt(D))
     pos = torch.arange(S_pad, device=q.device)
     mask = pos[None, :] <= lengths[:, None]                  # (B, S_pad)
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).to(torch.float32)
-    out = torch.einsum("bkrs,bksd->bkrd", probs, values).reshape(B, H, D)
+    probs = torch.softmax(scores, dim=-1).to(cd).to(torch.float32)
+    out = torch.einsum("bkrs,bksd->bkrd", probs, values)
+    if folded:
+        out = out * head_scales(v_scale)
+    out = out.reshape(B, H, D)
     out = torch.where((lengths >= 0)[:, None, None], out,
                       torch.zeros_like(out))
-    return out.to(q.dtype), cache_k, cache_v
+    return out.to(cd), cache_k, cache_v
 
 
 def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
@@ -119,12 +169,10 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         return decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
                                       lengths, layer=layer, k_scale=k_scale,
                                       v_scale=v_scale)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "decode_attention on a quantized cache (k/v scales) has no CUDA "
-            "kernel yet (ROADMAP A8)")
     B, H, D, KVH, rep = check_decode_operands(
         "decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
+    kind, ks, vs, stride, scaled = kernel_scales(
+        "decode_attention", q, cache_k, k_scale, v_scale, per_head=True)
     if cache_k.dim() == 4:
         cache_shape5 = (1, *cache_k.shape)
         layer = 0
@@ -141,11 +189,17 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         err = lib.ct_decode_attention(
             q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, KVH, rep, S_pad, D, layer,
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), ks.data_ptr() if scaled else None,
+            vs.data_ptr() if scaled else None, B, KVH, rep, S_pad, D, layer,
+            kind, stride, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    if scaled:
+        decode_attention.scaled_launches += 1
+    else:
+        decode_attention.launches += 1
     return out, cache_k, cache_v
 
 
 decode_attention.launches = 0
+decode_attention.scaled_launches = 0

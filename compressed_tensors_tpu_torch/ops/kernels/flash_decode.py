@@ -15,13 +15,18 @@ The cache is (L, B, KVH, S_pad, D) with S_pad a multiple of the chunk (64),
 updated in place; the function returns it for the JAX package's (out,
 cache_k, cache_v) contract.
 
-Bound on the H100: the live cache bytes, 2 * sum(len + 1) * KVH * D * 2 per
-layer, against 3.35 TB/s.
+A quantized cache (fp8 e4m3 or int8, with per-tensor k/v scales) follows
+the TPU kernel's arithmetic: the new row is written as x / scale in the
+cache type, cached values are converted raw, k_scale folds into q (rounded
+to q's dtype) and v_scale multiplies the normalized f32 output.
+
+Bound on the H100: the live cache bytes, 2 * sum(len + 1) * KVH * D *
+itemsize per layer, against 3.35 TB/s.
 
 ``flash_decode_attention`` launches the kernel for CUDA tensors and uses
-``flash_decode_attention_plain`` only for CPU tensors. Quantized (fp8/int8)
-caches with per-tensor k/v scales are implemented by the plain version; on
-CUDA they raise until the scaled-cache kernels are ported (ROADMAP A8).
+``flash_decode_attention_plain`` only for CPU tensors. Launches on a bf16
+cache count in ``flash_decode_attention.launches``, on an fp8 or int8
+cache in ``flash_decode_attention.scaled_launches``.
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ import math
 import torch
 
 from compressed_tensors_tpu_torch.ops.kernels import _build
+from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     check_decode_operands,
+    kernel_scales,
 )
 
 __all__ = ["flash_decode_attention", "flash_decode_attention_plain"]
@@ -91,8 +98,8 @@ def flash_decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths,
     out = attend_plain(q, nk_c, nv_c, ck, cv, lengths, k_scale, v_scale)
     lengths = lengths.to(torch.int64)
     rows = torch.nonzero((lengths >= 0) & (lengths < ck.shape[2])).reshape(-1)
-    ck[rows, :, lengths[rows]] = nk_c[rows]
-    cv[rows, :, lengths[rows]] = nv_c[rows]
+    byte_view(ck)[rows, :, lengths[rows]] = byte_view(nk_c[rows])
+    byte_view(cv)[rows, :, lengths[rows]] = byte_view(nv_c[rows])
     return out, cache_k, cache_v
 
 
@@ -109,12 +116,10 @@ def flash_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         return flash_decode_attention_plain(
             q, new_k, new_v, cache_k, cache_v, lengths, layer=layer,
             k_scale=k_scale, v_scale=v_scale)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "flash_decode_attention on a quantized cache (k/v scales) has no "
-            "CUDA kernel yet (ROADMAP A8)")
     B, H, D, KVH, rep = check_decode_operands(
         "flash_decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
+    kind, ks, vs, _, scaled = kernel_scales(
+        "flash_decode_attention", q, cache_k, k_scale, v_scale)
     if cache_k.dim() != 5 or cache_k.shape[1] != B:
         raise ValueError("flash_decode_attention needs the (L, B, KVH, S_pad, "
                          "D) cache")
@@ -130,11 +135,17 @@ def flash_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         err = lib.ct_flash_decode(
             q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, KVH, rep, S_pad, CHUNK, D, layer,
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), ks.data_ptr() if scaled else None,
+            vs.data_ptr() if scaled else None, B, KVH, rep, S_pad, CHUNK, D,
+            layer, kind, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_decode_attention")
-    flash_decode_attention.launches += 1
+    if scaled:
+        flash_decode_attention.scaled_launches += 1
+    else:
+        flash_decode_attention.launches += 1
     return out, cache_k, cache_v
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.scaled_launches = 0

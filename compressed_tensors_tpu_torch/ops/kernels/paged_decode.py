@@ -14,13 +14,16 @@ writes no pool byte for it, not even page 0. The caller guarantees that
 The pools are updated in place and returned for the JAX package's (out,
 pool_k, pool_v) contract.
 
-Bound on the H100: the live cache bytes, 2 * sum(len + 1) * KVH * D * 2 per
-layer, against 3.35 TB/s.
+Pools of fp8 e4m3 or int8 with per-tensor k/v scales take the flash
+decode kernel's scaled arithmetic.
+
+Bound on the H100: the live cache bytes, 2 * sum(len + 1) * KVH * D *
+itemsize per layer, against 3.35 TB/s.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and uses
-``paged_decode_attention_plain`` only for CPU tensors. Quantized pools with
-per-tensor k/v scales are implemented by the plain version; on CUDA they
-raise until the scaled-cache kernels are ported (ROADMAP A8).
+``paged_decode_attention_plain`` only for CPU tensors. Launches on a bf16
+pool count in ``paged_decode_attention.launches``, on an fp8 or int8 pool
+in ``paged_decode_attention.scaled_launches``.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ import math
 import torch
 
 from compressed_tensors_tpu_torch.ops.kernels import _build
+from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     check_decode_operands,
+    kernel_scales,
 )
 from compressed_tensors_tpu_torch.ops.kernels.flash_decode import attend_plain
 
@@ -52,7 +57,8 @@ def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
     idx = tables.to(torch.int64)
 
     def gather(pool):
-        return pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * page, D)
+        return byte_view(pool)[idx].permute(0, 2, 1, 3, 4).reshape(
+            B, KVH, P * page, D).view(pool.dtype)
 
     nk_c = _quantize_to_cache(new_k, k_scale, pk.dtype, head_axis=1)
     nv_c = _quantize_to_cache(new_v, v_scale, pv.dtype, head_axis=1)
@@ -62,8 +68,8 @@ def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
     rows = torch.nonzero((lengths >= 0) & (lengths < P * page)).reshape(-1)
     pids = idx[rows, lengths[rows] // page]
     offs = lengths[rows] % page
-    pk[pids, :, offs] = nk_c[rows]
-    pv[pids, :, offs] = nv_c[rows]
+    byte_view(pk)[pids, :, offs] = byte_view(nk_c[rows])
+    byte_view(pv)[pids, :, offs] = byte_view(nv_c[rows])
     return out, pool_k, pool_v
 
 
@@ -81,12 +87,10 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         return paged_decode_attention_plain(
             q, new_k, new_v, pool_k, pool_v, tables, lengths, layer=layer,
             k_scale=k_scale, v_scale=v_scale)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "paged_decode_attention on a quantized pool (k/v scales) has no "
-            "CUDA kernel yet (ROADMAP A8)")
     B, H, D, KVH, rep = check_decode_operands(
         "paged_decode_attention", q, new_k, new_v, pool_k, pool_v, lengths)
+    kind, ks, vs, _, scaled = kernel_scales(
+        "paged_decode_attention", q, pool_k, k_scale, v_scale)
     if pool_k.dim() != 5:
         raise ValueError("paged_decode_attention needs the (L, NP, KVH, page, "
                          "D) pool")
@@ -105,12 +109,18 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         err = lib.ct_paged_decode(
             q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
             pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, KVH, rep, NP,
-            tables.shape[1], page, D, layer, 1.0 / math.sqrt(D),
+            lengths.data_ptr(), out.data_ptr(),
+            ks.data_ptr() if scaled else None,
+            vs.data_ptr() if scaled else None, B, KVH, rep, NP,
+            tables.shape[1], page, D, layer, kind, 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if scaled:
+        paged_decode_attention.scaled_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out, pool_k, pool_v
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.scaled_launches = 0

@@ -2,7 +2,7 @@
 matmul dispatch.
 
 Counterpart of ``compressed_tensors_tpu/ops/linear.py`` for the
-run-compressed W4A16 / W8A8-int path. Weights stay compressed on the
+run-compressed W4A16 and W8A8 (int8 and fp8) paths. Weights stay compressed on the
 device and are dequantized inside the hand-written kernels
 (``ops/kernels/``). ``use_kernels=False`` selects the JAX package's
 non-kernel path (dequantize the weight, one plain matmul), which the
@@ -153,7 +153,10 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
     """Build this port's kernel layout beside the checkpoint layout.
 
     - W8A8 (int8 or fp8 weights, channel/tensor scales, dynamic symmetric
-      acts): the checkpoint's (N, K) weight and an (N,) f32 scale.
+      acts): the checkpoint's (N, K) weight and an (N,) f32 scale. Under
+      ``fp8_transcode`` fp8 weights are re-gridded to int8 here, as the
+      JAX package does: per output channel w * 127 / absmax, rounded, with
+      the scale times absmax / 127.
     - W4A16 pack-quantized group: the checkpoint's (N, K/8) int32 words
       (column-permuted for actorder checkpoints) and (K/g, N) f32 scales /
       zero points.
@@ -174,8 +177,18 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
         w_scale = qt.scale.to(torch.float32).reshape(-1)
         if w_scale.numel() == 1 and n > 1:  # per-tensor -> per-channel
             w_scale = w_scale.expand(n)
+        weight = qt.weight
+        if weight.dtype == torch.float8_e4m3fn and _transcode_fp8_enabled():
+            wf = weight.to(torch.float32)
+            absmax = wf.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+            # tensor divisors: CUDA divides by a Python scalar as a
+            # multiply by its reciprocal, not an IEEE division
+            weight = torch.round(
+                wf * (torch.full_like(absmax, 127.0) / absmax)).to(torch.int8)
+            w_scale = w_scale * (absmax / torch.full_like(absmax, 127.0)
+                                 ).reshape(-1)
         return dataclasses.replace(
-            qt, kernel_packed=qt.weight.contiguous(),
+            qt, kernel_packed=weight.contiguous(),
             kernel_scales=w_scale.contiguous(), kernel_meta=("w8a8", n, k))
 
     if qt.format in (CompressionFormat.nvfp4_pack_quantized.value,
@@ -212,6 +225,16 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
         kernel_perm=kernel_perm,
         kernel_meta=("w4a16", n, k, args.group_size),
     )
+
+
+def _transcode_fp8_enabled() -> bool:
+    """Whether fp8 weights and KV caches are re-gridded to int8 (see
+    flags.fp8_transcode): "always" yes, "never" and "auto" no."""
+    from compressed_tensors_tpu_torch.flags import FLAGS
+
+    if FLAGS.fp8_transcode not in ("auto", "always", "never"):
+        raise ValueError(f"fp8_transcode={FLAGS.fp8_transcode!r}")
+    return FLAGS.fp8_transcode == "always"
 
 
 def _w4b8_mode(m_rows: int, n: int, k: int) -> str:

@@ -19,6 +19,7 @@ __all__ = [
     "parse_dtype",
     "serialize_dtype",
     "SAFETENSORS_DTYPES",
+    "byte_view",
 ]
 
 # canonical names -> torch dtype; names are torch's, so `torch.<name>`
@@ -91,3 +92,12 @@ class _TensorDTypeAnnotation:
 
 
 TensorDType = Annotated[torch.dtype, _TensorDTypeAnnotation]
+
+
+def byte_view(t: torch.Tensor) -> torch.Tensor:
+    """fp8 tensors as same-size uint8 views, for pure data movement (index
+    writes, gathers, concatenation: CUDA lacks some of these for fp8);
+    other dtypes as they are."""
+    if t.dtype.is_floating_point and t.dtype.itemsize == 1:
+        return t.view(torch.uint8)
+    return t

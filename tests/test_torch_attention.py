@@ -4,6 +4,7 @@ Pallas kernels in interpret mode (the model-level decode step with the JAX
 head-packed cache is in test_torch_llama.py)."""
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -34,7 +35,20 @@ from compressed_tensors_tpu_torch.ops.kernels.prefill_attention import (
     prefill_attention,
 )
 
+from torch_port_utils import raw_bytes, to_torch
+
 ATOL = 1e-5
+
+
+def _cache_values(rng, shape, cache):
+    """Cache contents: f32 normals, int8 values, or fp8 e4m3 values of up
+    to +-240 (numpy, ml_dtypes for fp8)."""
+    if cache == "int8":
+        return rng.integers(-128, 128, shape).astype(np.int8)
+    if cache == "fp8":
+        return rng.uniform(-240, 240, shape).astype(np.float32).astype(
+            ml_dtypes.float8_e4m3fn)
+    return rng.standard_normal(shape).astype(np.float32)
 
 
 @pytest.mark.parametrize("S", [40, 130])
@@ -92,25 +106,71 @@ def test_decode_attention_matches_jax():
         for _ in range(KVH))
 
 
+@pytest.mark.parametrize("scales", ["tensor", "head"])
+@pytest.mark.parametrize("cache", ["fp8", "int8"])
+def test_decode_attention_scaled_cache_matches_jax(cache, scales):
+    """The block kernel on an fp8 or int8 cache with per-tensor or per-head
+    k/v scales: the new row quantized in place bit for bit, the output of
+    the folded arithmetic (k_scale on q, v_scale on the output)."""
+    rng = np.random.default_rng(1)
+    L, B, H, KVH, S_pad, D, Dp = 2, 4, 8, 2, 64, 32, 128
+    layer = 1
+    lengths = np.asarray([5, -1, 63, 0], np.int32)
+
+    def lanes(a):  # zero-pad the head dim to the TPU's 128 lanes
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, Dp - D)])
+
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    nk = rng.standard_normal((B, KVH, D)).astype(np.float32)
+    nv = rng.standard_normal((B, KVH, D)).astype(np.float32)
+    ck = _cache_values(rng, (L, B, KVH, S_pad, D), cache)
+    cv = _cache_values(rng, (L, B, KVH, S_pad, D), cache)
+    if scales == "tensor":
+        ks, vs = (np.asarray([s], np.float32) for s in (0.02, 0.03))
+    else:  # attn_head: (KVH, 1, 1)
+        ks = np.asarray([0.02, 0.015], np.float32).reshape(KVH, 1, 1)
+        vs = np.asarray([0.03, 0.01], np.float32).reshape(KVH, 1, 1)
+
+    out_j, ck_j, cv_j = j_decode(
+        jnp.asarray(lanes(q)), jnp.asarray(lanes(nk)), jnp.asarray(lanes(nv)),
+        jnp.asarray(lanes(ck)), jnp.asarray(lanes(cv)), jnp.asarray(lengths),
+        kvh=KVH, rep=H // KVH, d=Dp, true_d=D, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), layer=layer)
+    tck, tcv = to_torch(ck.copy()), to_torch(cv.copy())
+    out_t, _, _ = decode_attention(
+        torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv),
+        tck, tcv, torch.from_numpy(lengths), layer=layer,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+
+    active = lengths >= 0
+    np.testing.assert_allclose(out_t.numpy()[active],
+                               np.asarray(out_j)[active][..., :D],
+                               atol=ATOL * np.abs(out_t.numpy()).max(),
+                               rtol=0)
+    for got, want, before in ((tck, ck_j, ck), (tcv, cv_j, cv)):
+        np.testing.assert_array_equal(raw_bytes(got),
+                                      raw_bytes(want)[..., :D])
+        changed = np.argwhere((raw_bytes(got) != raw_bytes(before)).any(-1))
+        assert set(map(tuple, changed[:, [0, 1, 3]].tolist())) == {
+            (layer, b, int(lengths[b])) for b in np.flatnonzero(active)}
+
+
 # flash and paged decode: 2 layers, 4 rows (one inactive), 8 query / 2 KV
 # heads of D = 128, 64-position chunks (the port's fixed chunk) or pages
 FL, FB, FH, FKVH, FD, CH = 2, 4, 8, 2, 128, 64
 F_LENGTHS = np.asarray([0, 70, -1, 127], np.int32)
 
 
-def _decode_inputs(rng, cache_shape, scaled):
-    """q, new k/v and a cache (f32, or int8 with per-tensor scales)."""
+def _decode_inputs(rng, cache_shape, cache):
+    """q, new k/v and a cache (f32, or int8 / fp8 with per-tensor
+    scales)."""
     q = rng.standard_normal((FB, FH, FD)).astype(np.float32)
     nk = rng.standard_normal((FB, FKVH, FD)).astype(np.float32)
     nv = rng.standard_normal((FB, FKVH, FD)).astype(np.float32)
-    if scaled:
-        ck = rng.integers(-128, 128, cache_shape).astype(np.int8)
-        cv = rng.integers(-128, 128, cache_shape).astype(np.int8)
-        scales = (np.asarray([0.02], np.float32), np.asarray([0.03], np.float32))
-    else:
-        ck = rng.standard_normal(cache_shape).astype(np.float32)
-        cv = rng.standard_normal(cache_shape).astype(np.float32)
-        scales = (None, None)
+    ck = _cache_values(rng, cache_shape, cache)
+    cv = _cache_values(rng, cache_shape, cache)
+    scales = ((np.asarray([0.02], np.float32), np.asarray([0.03], np.float32))
+              if cache != "f32" else (None, None))
     return q, nk, nv, ck, cv, scales
 
 
@@ -119,25 +179,32 @@ def _jx(a):
 
 
 def _th(a):
-    return None if a is None else torch.from_numpy(a.copy())
+    return None if a is None else to_torch(a.copy())
 
 
-def _check_decode(out_t, cache_t, out_j, cache_j, original, rows_changed):
+def _check_decode(out_t, cache_t, out_j, cache_j, original, rows_changed,
+                  cache):
     active = F_LENGTHS >= 0
+    # scaled caches give outputs of up to ~7: the same relative limit
+    atol = ATOL if cache == "f32" else ATOL * np.abs(out_t.numpy()).max()
     np.testing.assert_allclose(out_t.numpy()[active], np.asarray(out_j)[active],
-                               atol=ATOL, rtol=0)
+                               atol=atol, rtol=0)
     assert not out_t.numpy()[~active].any()  # inactive rows: zeros
     for got, want, before in zip(cache_t, cache_j, original):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-        changed = np.argwhere((got.numpy() != before).any(-1))
+        np.testing.assert_array_equal(raw_bytes(got), raw_bytes(want))
+        changed = np.argwhere((raw_bytes(got) != raw_bytes(before)).any(-1))
         assert set(map(tuple, changed.tolist())) == set(rows_changed)
 
 
-@pytest.mark.parametrize("scaled", [False, True], ids=["f32", "int8-scales"])
-def test_flash_decode_matches_jax(scaled):
+CACHES = ["f32", "int8", "fp8"]
+CACHE_IDS = ["f32", "int8-scales", "fp8-scales"]
+
+
+@pytest.mark.parametrize("cache", CACHES, ids=CACHE_IDS)
+def test_flash_decode_matches_jax(cache):
     rng = np.random.default_rng(5)
     shape = (FL, FB, FKVH, 128, FD)
-    q, nk, nv, ck, cv, (ks, vs) = _decode_inputs(rng, shape, scaled)
+    q, nk, nv, ck, cv, (ks, vs) = _decode_inputs(rng, shape, cache)
     layer = 1
     out_j, ck_j, cv_j = j_flash(
         jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(ck),
@@ -151,15 +218,16 @@ def test_flash_decode_matches_jax(scaled):
     assert ck_t is tck and cv_t is tcv  # updated in place
     written = [(layer, b, h, int(F_LENGTHS[b])) for b in range(FB)
                for h in range(FKVH) if F_LENGTHS[b] >= 0]
-    _check_decode(out_t, (tck, tcv), out_j, (ck_j, cv_j), (ck, cv), written)
+    _check_decode(out_t, (tck, tcv), out_j, (ck_j, cv_j), (ck, cv), written,
+                  cache)
 
 
-@pytest.mark.parametrize("scaled", [False, True], ids=["f32", "int8-scales"])
-def test_paged_decode_matches_jax(scaled):
+@pytest.mark.parametrize("cache", CACHES, ids=CACHE_IDS)
+def test_paged_decode_matches_jax(cache):
     rng = np.random.default_rng(6)
     NP, P = 10, 2
     shape = (FL, NP, FKVH, CH, FD)
-    q, nk, nv, pk, pv, (ks, vs) = _decode_inputs(rng, shape, scaled)
+    q, nk, nv, pk, pv, (ks, vs) = _decode_inputs(rng, shape, cache)
     # shuffled pages; the inactive row points at the null page 0
     tables = rng.permutation(np.arange(1, NP))[:FB * P].reshape(FB, P)
     tables = tables.astype(np.int32)
@@ -179,5 +247,7 @@ def test_paged_decode_matches_jax(scaled):
     written = [(layer, int(tables[b, F_LENGTHS[b] // CH]), h,
                 int(F_LENGTHS[b] % CH)) for b in range(FB)
                for h in range(FKVH) if F_LENGTHS[b] >= 0]
-    _check_decode(out_t, (tpk, tpv), out_j, (pk_j, pv_j), (pk, pv), written)
-    assert np.array_equal(tpk.numpy()[:, 0], pk[:, 0])  # null page untouched
+    _check_decode(out_t, (tpk, tpv), out_j, (pk_j, pv_j), (pk, pv), written,
+                  cache)
+    assert np.array_equal(raw_bytes(tpk)[:, 0],
+                          raw_bytes(pk)[:, 0])  # null page untouched

@@ -175,3 +175,108 @@ def test_paged_decode_in_place_and_null_page(dev):
         q, nk, nv, dense_k[None].contiguous(), dense_v[None].contiguous(),
         lengths_d, layer=0)
     assert torch.equal(out_p[[0, 2, 3]], out_d[[0, 2, 3]])
+
+
+def test_w8a8_fp8_matmul(dev):
+    rng = np.random.default_rng(1)
+    m, n, k = 33, 200, 256
+    x = _bf16(rng, m, k, device=dev)
+    w = torch.from_numpy(rng.uniform(-440, 440, (n, k)).astype(np.float32)).to(
+        dev).to(torch.float8_e4m3fn)
+    s = torch.from_numpy(rng.uniform(1e-4, 3e-4, n).astype(np.float32)).to(dev)
+    xq = torch.empty((m, k), dtype=torch.float8_e4m3fn, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    before = w8.w8a8_matmul.fp8_launches
+    got = w8.w8a8_matmul(x, w, s, n=n, k=k, xq=xq, xs=xs)
+    assert w8.w8a8_matmul.fp8_launches == before + 1
+    # the quantization pass bit for bit
+    xq_p, xs_p = w8.quantize_rows_plain(x, w.dtype)
+    assert torch.equal(xq.view(torch.uint8), xq_p.view(torch.uint8))
+    assert torch.equal(xs, xs_p)
+    # f32 sums of exact e4m3 products: the f32 plain result up to bf16
+    # rounding (2^-8 relative) and f32 summation order
+    want = w8.w8a8_matmul_plain(x, w, s, n=n, k=k, out_dtype=torch.float32)
+    err = (got.float() - want).abs()
+    assert bool((err <= 2**-8 * want.abs() + 1e-4 * want.abs().max()).all())
+
+
+def _quantized_cache(rng, dtype, *shape, device):
+    if dtype == torch.int8:
+        return torch.from_numpy(rng.integers(-128, 128, shape).astype(
+            np.int8)).to(device)
+    return torch.from_numpy(rng.uniform(-240, 240, shape).astype(
+        np.float32)).to(device).to(dtype)
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.int8],
+                         ids=["fp8", "int8"])
+def test_scaled_cache_decode_kernels(dev, dtype):
+    """Block (per-tensor and per-head scales), flash and paged decode on an
+    fp8 or int8 cache: cache bytes equal to the plain version's, outputs
+    within TOL, inactive rows and the null page untouched, dense and paged
+    equal bit for bit."""
+    rng = np.random.default_rng(3)
+    q, nk, nv = _decode_operands(rng, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    per_tensor = (torch.tensor([0.02], **f32), torch.tensor([0.03], **f32))
+    per_head = (torch.tensor([0.02, 0.015], **f32).reshape(2, 1, 1),
+                torch.tensor([0.03, 0.01], **f32).reshape(2, 1, 1))
+    lengths = torch.tensor([10, -1, 63, 0], dtype=torch.int32, device=dev)
+    for ks, vs in (per_tensor, per_head):
+        ck, cv = (_quantized_cache(rng, dtype, 2, 4, 2, 64, 128, device=dev)
+                  for _ in range(2))
+        ck_p, cv_p = ck.clone(), cv.clone()
+        before = da.decode_attention.scaled_launches
+        out, _, _ = da.decode_attention(q, nk, nv, ck, cv, lengths, layer=1,
+                                        k_scale=ks, v_scale=vs)
+        assert da.decode_attention.scaled_launches == before + 1
+        want, _, _ = da.decode_attention_plain(q, nk, nv, ck_p, cv_p, lengths,
+                                               layer=1, k_scale=ks, v_scale=vs)
+        _close(out[[0, 2, 3]], want[[0, 2, 3]])
+        assert _same_bytes(ck, ck_p) and _same_bytes(cv, cv_p)
+
+    ks, vs = per_tensor
+    lengths = torch.tensor([0, -1, 100, 191], dtype=torch.int32, device=dev)
+    ck, cv = (_quantized_cache(rng, dtype, 2, 4, 2, 192, 128, device=dev)
+              for _ in range(2))
+    ck0, ck_p, cv_p = ck.clone(), ck.clone(), cv.clone()
+    before = fd.flash_decode_attention.scaled_launches
+    out, _, _ = fd.flash_decode_attention(q, nk, nv, ck, cv, lengths, layer=1,
+                                          k_scale=ks, v_scale=vs)
+    assert fd.flash_decode_attention.scaled_launches == before + 1
+    want, _, _ = fd.flash_decode_attention_plain(
+        q, nk, nv, ck_p, cv_p, lengths, layer=1, k_scale=ks, v_scale=vs)
+    _close(out[[0, 2, 3]], want[[0, 2, 3]])
+    assert not out[1].any()
+    assert _same_bytes(ck, ck_p) and _same_bytes(cv, cv_p)
+    assert _same_bytes(ck[:, 1], ck0[:, 1]) and _same_bytes(ck[0], ck0[0])
+
+    pk, pv = (_quantized_cache(rng, dtype, 2, 9, 2, 64, 128, device=dev)
+              for _ in range(2))
+    pk0, pv0 = pk.clone(), pv.clone()
+    tables = torch.tensor([[3, 7], [0, 0], [5, 1], [8, 2]], dtype=torch.int32,
+                          device=dev)
+    lengths = torch.tensor([5, -1, 64, 127], dtype=torch.int32, device=dev)
+    pk_p, pv_p = pk.clone(), pv.clone()
+    before = pd.paged_decode_attention.scaled_launches
+    out_p, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables, lengths,
+                                            layer=0, k_scale=ks, v_scale=vs)
+    assert pd.paged_decode_attention.scaled_launches == before + 1
+    want, _, _ = pd.paged_decode_attention_plain(
+        q, nk, nv, pk_p, pv_p, tables, lengths, layer=0, k_scale=ks,
+        v_scale=vs)
+    _close(out_p[[0, 2, 3]], want[[0, 2, 3]])
+    assert _same_bytes(pk, pk_p) and _same_bytes(pv, pv_p)
+    assert _same_bytes(pk[:, 0], pk0[:, 0])  # the null page is untouched
+    # the same contents on the dense layout give the same bits
+    dense_k, dense_v = (p[0].view(torch.uint8)[tables.long()].permute(
+        0, 2, 1, 3, 4).reshape(4, 2, 128, 128).view(dtype)[None].contiguous()
+        for p in (pk0, pv0))
+    out_d, _, _ = fd.flash_decode_attention(q, nk, nv, dense_k, dense_v,
+                                            lengths, layer=0, k_scale=ks,
+                                            v_scale=vs)
+    assert torch.equal(out_p[[0, 2, 3]], out_d[[0, 2, 3]])

@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither JAX nor the JAX package, and importing
-any of its modules builds no kernel."""
+"""The PyTorch port imports neither JAX, ml_dtypes (absent where the
+kernels run) nor the JAX package, and importing any of its modules builds
+no kernel."""
 
 import subprocess
 import sys
@@ -18,11 +19,13 @@ def test_port_imports_no_jax_and_builds_nothing():
             pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        for mod in ("ops.kernels.w4a16_matmul", "ops.kernels.flash_decode",
-                    "ops.kernels.paged_decode", "engine.serving"):
+        for mod in ("ops.kernels.w4a16_matmul", "ops.kernels.w8a8_matmul",
+                    "ops.kernels.flash_decode", "ops.kernels.paged_decode",
+                    "engine.serving", "engine.generate"):
             assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
+                     or m == "ml_dtypes" or m.startswith("ml_dtypes.")
                      or m == "compressed_tensors_tpu"
                      or m.startswith("compressed_tensors_tpu."))
         assert not bad, bad

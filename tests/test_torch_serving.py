@@ -7,7 +7,8 @@ completions must be equal token for token, with the same finish reasons,
 prefix-cache hits and preemptions: dense (flash decode at S_pad 512, the
 block kernel below), paged, a one-token prefill chunk at the end of the
 cache, an oversubscribed pool that preempts, a shared prompt prefix, decode
-bursts and EOS."""
+bursts and EOS. A tiny FP8_DYNAMIC checkpoint with k/v scales runs through
+both engines with an fp8 KV cache, dense and paged."""
 
 import pathlib
 
@@ -24,10 +25,15 @@ from compressed_tensors_tpu.models import llama as jl
 from testing_utils import make_tiny_llama_checkpoint
 
 from compressed_tensors_tpu_torch.engine import Request, ServingEngine
+from compressed_tensors_tpu_torch.flags import flag_overrides
 from compressed_tensors_tpu_torch.models import llama as tl
 from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
 
-from torch_port_utils import TORCH_TINY_CONFIG, w4a16_config
+from torch_port_utils import (
+    TORCH_TINY_CONFIG,
+    fp8_dynamic_config,
+    w4a16_config,
+)
 
 
 @pytest.fixture(scope="module")
@@ -71,13 +77,16 @@ SCENARIOS = {
 }
 
 
-def _run_both(models, settings, batches, max_new, eos=None):
+def _run_both(models, settings, batches, max_new, eos=None, cache=None):
     """Submit each batch of prompts, run to completion, next batch; returns
     both engines' completions keyed by request id, and the engines."""
     jp, jc, tp, tc = models
-    j_eng = JEngine(jp, jc, dtype=jnp.float32, use_kernels=False, **settings)
+    j_eng = JEngine(jp, jc, dtype=jnp.float32, use_kernels=False,
+                    cache_dtype=None if cache is None else jnp.dtype(cache),
+                    **settings)
     t_eng = ServingEngine(tp, tc, dtype=torch.float32, device="cpu",
-                          **settings)
+                          cache_dtype=None if cache is None
+                          else getattr(torch, cache), **settings)
     got, want = {}, {}
     rid = 0
     for prompts in batches:
@@ -143,14 +152,47 @@ def test_eos_mid_burst_matches_jax(models):
     assert got[0] == (free[0][0][:3], "stop")
 
 
+@pytest.fixture(scope="module")
+def fp8_models(tmp_path_factory):
+    path, _ = make_tiny_llama_checkpoint(
+        pathlib.Path(tmp_path_factory.mktemp("fp8")),
+        np.random.default_rng(0), fp8_dynamic_config(),
+        model_config=TORCH_TINY_CONFIG, kv_scales=True)
+    jp, jc, _ = jl.load_llama_params(path, dtype=jnp.float32,
+                                     use_kernels=False)
+    tp, tc, _ = tl.load_llama_params(path, dtype=torch.float32, device="cpu")
+    return jp, jc, fuse_llama_layers(tp), tc
+
+
+@pytest.mark.parametrize("name", ["dense-flash", "paged"])
+def test_fp8_kv_cache_completions_match_jax(fp8_models, name):
+    """FP8 W8A8 weights, per-tensor k/v scales and an fp8 cache: flash
+    decode over the dense cache (S_pad 512) and paged decode over the
+    pool, through the scaled-cache kernels' plain versions."""
+    settings, lengths, max_new = SCENARIOS[name]
+    got, want, t_eng, j_eng = _run_both(
+        fp8_models, settings, [_prompts(len(name) + 1, lengths)], max_new,
+        cache="float8_e4m3fn")
+    assert t_eng.cache.k.dtype == torch.float8_e4m3fn
+    _assert_same(got, want, t_eng, j_eng)
+
+
 def test_engine_defaults_to_cuda_and_names_unported_options(models,
                                                             monkeypatch):
     _, _, tp, tc = models
     with pytest.raises(NotImplementedError, match="A12"):
         ServingEngine(tp, tc, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ServingEngine(tp, tc, dtype=torch.float32,
-                      cache_dtype=torch.float8_e4m3fn, device="cpu")
+    # quantized KV caches are served: fp8 as it is, int8 under the transcode
+    for paged in (False, True):
+        eng = ServingEngine(tp, tc, dtype=torch.float32, max_len=64,
+                            cache_dtype=torch.float8_e4m3fn, paged=paged,
+                            device="cpu")
+        assert eng.cache.k.dtype == torch.float8_e4m3fn
+        with flag_overrides(fp8_transcode="always"):
+            eng = ServingEngine(tp, tc, dtype=torch.float32, max_len=64,
+                                cache_dtype=torch.float8_e4m3fn, paged=paged,
+                                device="cpu")
+        assert eng.cache.k.dtype == eng.cache.v.dtype == torch.int8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(tp, tc)

@@ -39,6 +39,36 @@ def w4a16_config(symmetric=True, group_size=128):
     }
 
 
+def fp8_dynamic_config():
+    """FP8_DYNAMIC: per-channel fp8 e4m3 weights, dynamic per-token fp8
+    activations, bf16 lm_head."""
+    return {
+        "config_groups": {"group_0": {
+            "targets": ["Linear"],
+            "weights": {"num_bits": 8, "type": "float", "symmetric": True,
+                        "strategy": "channel"},
+            "input_activations": {"num_bits": 8, "type": "float",
+                                  "symmetric": True, "strategy": "token",
+                                  "dynamic": True}}},
+        "format": "float-quantized",
+        "ignore": ["lm_head"],
+        "quant_method": "compressed-tensors",
+        "quantization_status": "frozen",
+    }
+
+
+def raw_bytes(t) -> np.ndarray:
+    """A torch tensor or JAX array as numpy, 1-byte floats as their uint8
+    bits (for bit-for-bit cache comparisons)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype.is_floating_point and t.dtype.itemsize == 1:
+            t = t.view(torch.uint8)
+        return t.numpy()
+    a = np.asarray(t)
+    return a.view(np.uint8) if a.dtype.name.startswith("float8") else a
+
+
 _VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
           "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
