@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
-the shapes of the main paths. Then it drives two paths end to end:
+the shapes of the main paths. Then it drives five paths end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
   (W8A8-int lm_head, random weights from a seed), written, loaded with
@@ -26,7 +26,17 @@ the shapes of the main paths. Then it drives two paths end to end:
   through the dense and the paged engine with an fp8 cache, equal token for
   token, ``greedy_generate`` at batch 64 through the scaled block decode
   kernel, and one request's first-token logits against the non-kernel
-  path.
+  path;
+- Llama-3-8B NVFP4A16 built on the card (E2M1 weights in groups of 16
+  with e4m3 scales and one global scale per fused group, W8A8-int
+  lm_head): the fp4 kernel held against its plain version (NVFP4 and
+  MXFP4) at the 8B linear shapes, the same requests through the dense and
+  the paged engine, equal token for token, ``greedy_generate`` at batch
+  64, and the first-token logits against the non-kernel path by depth;
+- Llama-3-8B W8A16 g128 (pack-quantized, W8A8-int lm_head): the
+  grouped-int8 kernel held against its plain version (W8A16 and W4A16
+  under ``w4_layout="e8"``), ``greedy_generate`` at batch 64, the requests
+  through the paged engine, and the logits by depth.
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -36,6 +46,7 @@ any failure raises and exits non-zero. Without a CUDA device, or outside
 the repository, it exits non-zero without a result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -85,11 +96,15 @@ A8B_REL, A8B_ABS = 2**-8, 1e-4
 # depth was refuted that way. So the kernel path is held to that
 # sensitivity: at one layer (full width) within TOL_FP8_DEPTH1, where a
 # wrong layout, scale or cache read moves the logits by O(1); at full
-# depth within FP8_FLOOR_RATIO times the non-kernel path's own spread
+# depth within FLOOR_RATIO times the non-kernel path's own spread
 # under that perturbation.
 TOL_FP8_DEPTH1 = 0.25
-FP8_FLOOR_RATIO = 3.0
-FP8_DEPTHS = (1, 2, 4, 8, 16, 32)
+FLOOR_RATIO = 3.0
+# the NVFP4 and W8A16 models (phases 7-8) at one layer: max|kernel -
+# non-kernel| of the first-token logits over max|ref|. Four H100 runs
+# read 1.42-1.65%; the limit leaves 1.8x room over that.
+TOL_WNA16_DEPTH1 = 3e-2
+DEPTHS = (1, 2, 4, 8, 16, 32)
 KV_SCALE = 0.03            # k_scale = v_scale of every layer, bench.py:320
 
 # serving at Llama-3-8B width (phase 5)
@@ -185,6 +200,8 @@ COUNTERS = {
     "paged_decode_attention_scaled": ("paged_decode",
                                       "paged_decode_attention",
                                       "scaled_launches"),
+    "w4a16_fp4_matmul": ("w4a16_matmul", "w4a16_fp4_matmul", "launches"),
+    "w4_e8_matmul": ("w4a16_matmul", "w4_e8_matmul", "launches"),
 }
 
 
@@ -856,16 +873,257 @@ def serve_requests(params, config, requests, name, **kw):
     return dict(outs=outs, counts=counts, wall=wall, hits=hits, **timing)
 
 
-def phase_serving():
-    """The ServingEngine at Llama-3-8B W4A16 width: the same requests
-    through the dense engine (flash decode at S_pad 1024), the paged engine
-    and the paged engine with prefix caching."""
+def check_first_token_logits(params, config, requests, label):
+    """One request's first-token logits, kernel path against non-kernel
+    path, within TOL_E2E_8B * max|ref|."""
     import torch
 
     from compressed_tensors_tpu_torch.models.llama import (
         init_kv_cache,
         llama_forward,
     )
+
+    rid, ids, _ = probe_request(requests)
+    x = torch.tensor([ids], device="cuda")
+    pos = torch.arange(len(ids), device="cuda")[None]
+    logits = {}
+    for use_kernels in (True, False):
+        cache = init_kv_cache(config, 1, len(ids), device="cuda")
+        logits[use_kernels], _ = llama_forward(
+            params, config, x, pos, cache, fresh_prefill=True,
+            use_kernels=use_kernels, last_logit_only=True)
+    got, ref = logits[True].float(), logits[False].float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"non-finite {label} logits")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    same = int(got.argmax()) == int(ref.argmax())
+    log(f"{label} first-token logits (request {rid}, {len(ids)} prompt "
+        f"tokens) vs non-kernel path: max_abs_err={err:.5g} max|ref|="
+        f"{scale:.5g} rel={err / scale:.4g} (limit {TOL_E2E_8B}), argmax "
+        f"{'agrees' if same else 'differs'}")
+    if err > TOL_E2E_8B * scale:
+        raise AssertionError(f"{label} first-token logits disagree with "
+                             "the non-kernel path")
+
+
+def probe_request(requests):
+    """The request whose first-token logits the logits checks read: the
+    first one whose prompt fits one prefill chunk and holds the prefix."""
+    return next(r for r in requests
+                if SHARED_PREFIX <= len(r[1]) <= SERVE["prefill_chunk"])
+
+
+def first_token_logits(params, config, ids, depth, use_kernels, label,
+                       cache_dtype=None):
+    """f32 first-token logits of the prompt ``ids`` through the first
+    ``depth`` layers (full width), the KV cache checked for NaN."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.llama import (
+        init_kv_cache,
+        llama_forward,
+    )
+
+    n = len(ids)
+    cfg = dataclasses.replace(config, num_hidden_layers=depth)
+    cache = init_kv_cache(cfg, 1, n, cache_dtype=cache_dtype, device="cuda")
+    logits, cache = llama_forward(
+        dict(params, layers=params["layers"][:depth]), cfg,
+        torch.tensor([ids], device="cuda"),
+        torch.arange(n, device="cuda")[None], cache, fresh_prefill=True,
+        use_kernels=use_kernels, last_logit_only=True)
+    nans = int(cache.k.float().isnan().sum() + cache.v.float().isnan().sum())
+    if nans:  # an fp8 cache overflows to NaN
+        raise AssertionError(f"{label} KV cache: {nans} NaN values")
+    logits = logits.float().reshape(-1)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"non-finite {label} logits at depth {depth}")
+    return logits
+
+
+def rel_rms(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def logits_by_depth(params, config, requests, label, cache_dtype=None,
+                    fault=None):
+    """One request's first-token logits through the first d layers (full
+    width) for each d in DEPTHS: the kernel path, the non-kernel path, and
+    the non-kernel path with one bf16 ulp up on 64 embedding values of one
+    prompt token (that path's own spread). Returns ``(sweep, faulty)``:
+    sweep is {d: (relative RMS error kernel vs non-kernel, relative RMS of
+    the perturbed non-kernel logits, max|kernel - non-kernel| /
+    max|non-kernel|)}; faulty is the same for the kernel path run inside
+    the context manager ``fault`` (a planted fault), or {} without one."""
+    rid, ids, _ = probe_request(requests)
+    n = len(ids)
+
+    def logits(depth, use_kernels):
+        return first_token_logits(params, config, ids, depth, use_kernels,
+                                  label, cache_dtype)
+
+    emb, tok = params["embed_tokens"], ids[n // 3]
+    row = emb[tok].clone()
+    sweep, refs = {}, {}
+    for depth in DEPTHS:
+        got = logits(depth, True)
+        ref = refs[depth] = logits(depth, False)
+        emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
+        moved = logits(depth, False)
+        emb[tok] = row
+        top = ref.abs().max().item()
+        sweep[depth] = (rel_rms(got, ref), rel_rms(moved, ref),
+                        (got - ref).abs().max().item() / top)
+        log(f"{label} first-token logits (request {rid}), {depth} of "
+            f"{config.num_hidden_layers} layers: kernel vs non-kernel path "
+            f"rel_rms={sweep[depth][0]:.4g} (max abs "
+            f"{(got - ref).abs().max().item():.4g} of max|ref| {top:.4g}, "
+            f"{sweep[depth][2]:.4g}); non-kernel path under the perturbation "
+            f"rel_rms={sweep[depth][1]:.4g}; argmax kernel "
+            f"{int(got.argmax())} reference {int(ref.argmax())}")
+    faulty = {}
+    if fault is not None:
+        with fault:
+            for depth, ref in refs.items():
+                bad = logits(depth, True)
+                faulty[depth] = (rel_rms(bad, ref), sweep[depth][1],
+                                 (bad - ref).abs().max().item()
+                                 / ref.abs().max().item())
+    return sweep, faulty
+
+
+@contextlib.contextmanager
+def rolled_group_scales(params):
+    """A planted kernel fault: the kernel scales of every fp4 and
+    grouped-int8 decoder linear rolled by one group, so that each group
+    is read with its neighbour's scale (an off-by-one group index); undone
+    on exit. The non-kernel path reads the checkpoint's scales and is not
+    touched."""
+    from compressed_tensors_tpu_torch.ops.linear import QuantizedTensor
+
+    scales = [qt.kernel_scales for layer in params["layers"]
+              for qt in layer.values()
+              if isinstance(qt, QuantizedTensor) and qt.kernel_meta
+              and qt.kernel_meta[0] in ("fp4", "w4e8")]
+    for s in scales:
+        s.copy_(s.roll(1, 0))
+    try:
+        yield
+    finally:
+        for s in scales:
+            s.copy_(s.roll(-1, 0))
+
+
+def logits_rule_failures(sweep):
+    """Phases 7-8's logits rule on a ``logits_by_depth`` sweep; returns
+    what it fails. At one layer max|kernel - non-kernel| within
+    TOL_WNA16_DEPTH1 * max|ref|; at every depth within TOL_E2E_8B *
+    max|ref|, or the relative RMS error within FLOOR_RATIO times the
+    non-kernel path's own spread under the one-ulp perturbation."""
+    out = []
+    if sweep[1][2] > TOL_WNA16_DEPTH1:
+        out.append(f"one layer: {sweep[1][2]:.4g} of max|ref| > "
+                   f"{TOL_WNA16_DEPTH1}")
+    for depth, (err, spread, top) in sweep.items():
+        if top > TOL_E2E_8B and err > FLOOR_RATIO * spread:
+            out.append(f"{depth} layers: {top:.4g} of max|ref| > "
+                       f"{TOL_E2E_8B} and rel_rms {err:.4g} > {FLOOR_RATIO} "
+                       f"x the spread {spread:.4g}")
+    return out
+
+
+def check_logits_by_depth(params, config, requests, label):
+    """Phases 7-8's logits checks.
+
+    - The rule of ``logits_rule_failures``. Its spread arm is for a random
+      model that amplifies a one-ulp bf16 difference: on the H100 the
+      NVFP4 model's logits stood 6.5% of max|ref| apart at full depth and
+      1.65% at one layer (argmax agreeing), 1.2-1.4x the perturbation
+      spread at every depth.
+    - A control that the rule must fail: the same sweep with the kernel
+      path's group scales rolled by one group (``rolled_group_scales``).
+    - At one layer, the lm_head swapped on both paths for its dequantized
+      bf16 weight: within TOL_E2E_8B * max|ref| (0.89-0.92% read on the
+      H100). The W8A8-int lm_head's non-kernel path (as the JAX
+      package's) keeps each token's activation scale in bf16 and its
+      kernel in f32, so the two heads round the same input to different
+      int8 values; the bf16 head reads the decoder layer's difference
+      alone."""
+    import torch
+
+    sweep, faulty = logits_by_depth(params, config, requests, label,
+                                    fault=rolled_group_scales(params))
+    failures = logits_rule_failures(sweep)
+    if failures:
+        raise AssertionError(f"{label} logits: {'; '.join(failures)}")
+    log(f"{label} logits: within {TOL_WNA16_DEPTH1} of max|ref| at one "
+        f"layer, and at every depth within {TOL_E2E_8B} of max|ref| or "
+        f"{FLOOR_RATIO}x the perturbation spread (rel_rms / spread: "
+        + ", ".join(f"{d}: {e / s:.3g}" for d, (e, s, _) in sweep.items())
+        + ")")
+    caught = logits_rule_failures(faulty)
+    log(f"{label} control, group scales rolled by one group in the kernel "
+        "layouts: " + ", ".join(
+            f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
+            for d, (e, _, t) in faulty.items())
+        + f"; the rule fails {len(caught)} of its {len(sweep) + 1} checks")
+    if not caught:
+        raise AssertionError(f"{label} logits rule accepted the planted "
+                             "fault (group scales rolled by one group)")
+
+    lm = params["lm_head"]
+    head = (lm.weight.to(torch.float32) * lm.scale.to(torch.float32)).to(
+        torch.bfloat16)
+    _, ids, _ = probe_request(requests)
+    got, ref = (first_token_logits(dict(params, lm_head=head), config, ids,
+                                   1, use_kernels, label)
+                for use_kernels in (True, False))
+    del head
+    torch.cuda.empty_cache()
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    log(f"{label} first-token logits at one layer through a bf16 lm_head "
+        f"(the W8A8 head dequantized): kernel vs non-kernel path max "
+        f"{err:.4g} of max|ref|, rel_rms {rel_rms(got, ref):.4g} (limit "
+        f"{TOL_E2E_8B}; {sweep[1][2]:.4g} through the W8A8 head)")
+    if err > TOL_E2E_8B:
+        raise AssertionError(f"{label} logits at one layer through a bf16 "
+                             "lm_head disagree with the non-kernel path")
+
+
+def greedy_8b(params, config, label, **kw):
+    """greedy_generate at batch 64 (128-token prompts, numpy seed 0, 32
+    new tokens) after a warm-up; its launches and wall time."""
+    import torch
+
+    from compressed_tensors_tpu_torch.engine import greedy_generate
+
+    rng = np.random.default_rng(0)
+    gids = torch.from_numpy(rng.integers(0, VOCAB8, size=(BATCH, PROMPT))).cuda()
+    greedy_generate(params, config, gids, max_new_tokens=2, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, config, gids, max_new_tokens=NEW_TOKENS,
+                          **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"{label} greedy_generate: {tuple(out.shape)} at batch {BATCH} in "
+        f"{total * 1e3:.1f} ms ({BATCH * NEW_TOKENS / total:.0f} tok/s "
+        f"end to end), kernel launches {counts}")
+    if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
+            ((out >= 0) & (out < VOCAB8)).all()):
+        raise AssertionError(f"{label} greedy_generate: ids out of range")
+    return dict(counts=counts, wall=total)
+
+
+def phase_serving():
+    """The ServingEngine at Llama-3-8B W4A16 width: the same requests
+    through the dense engine (flash decode at S_pad 1024), the paged engine
+    and the paged engine with prefix caching."""
+    import torch
+
     from compressed_tensors_tpu_torch.models.synthetic import (
         LLAMA3_8B,
         make_synthetic_llama,
@@ -882,31 +1140,7 @@ def phase_serving():
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     requests = serving_requests()
 
-    # one request's first-token logits: kernel path vs non-kernel path
-    rid, ids, _ = next(r for r in requests
-                          if SHARED_PREFIX <= len(r[1]) <= SERVE["prefill_chunk"])
-    x = torch.tensor([ids], device="cuda")
-    pos = torch.arange(len(ids), device="cuda")[None]
-    logits = {}
-    for use_kernels in (True, False):
-        cache = init_kv_cache(config, 1, len(ids), device="cuda")
-        logits[use_kernels], _ = llama_forward(
-            params, config, x, pos, cache, fresh_prefill=True,
-            use_kernels=use_kernels, last_logit_only=True)
-    got, ref = logits[True].float(), logits[False].float()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("non-finite 8B logits")
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    same = int(got.argmax()) == int(ref.argmax())
-    log(f"8B first-token logits (request {rid}, {len(ids)} prompt tokens) "
-        f"vs non-kernel path: max_abs_err={err:.5g} max|ref|={scale:.5g} "
-        f"rel={err / scale:.4g} (limit {TOL_E2E_8B}), argmax "
-        f"{'agrees' if same else 'differs'}")
-    if err > TOL_E2E_8B * scale:
-        raise AssertionError("8B first-token logits disagree with the "
-                             "non-kernel path")
-    del logits, got, ref
+    check_first_token_logits(params, config, requests, "8B W4A16")
 
     runs = {"dense": dict(paged=False),
             "paged": dict(paged=True, prefix_caching=False),
@@ -955,14 +1189,10 @@ def phase_serving():
         raise AssertionError("prefix caching changed too many completions")
     if results["paged+prefix"]["hits"] <= 0:
         raise AssertionError("prefix caching reused no page")
-    needs = {"dense": ("flash_decode_attention", "w4a16_a8b_matmul",
-                       "w4a16_matmul", "w8a8_matmul", "prefill_attention"),
-             "paged": ("paged_decode_attention", "w4a16_a8b_matmul",
-                       "w4a16_matmul", "w8a8_matmul", "prefill_attention")}
-    for name, kernels in needs.items():
-        missing = [k for k in kernels if results[name]["counts"][k] == 0]
-        if missing:
-            raise AssertionError(f"serving {name} never launched {missing}")
+    base = ("w4a16_a8b_matmul", "w4a16_matmul", "w8a8_matmul",
+            "prefill_attention")
+    check_launched(results, {"dense": base + ("flash_decode_attention",),
+                             "paged": base + ("paged_decode_attention",)})
     return results
 
 
@@ -1366,7 +1596,6 @@ def phase_fp8():
     greedy_generate at batch 64 (S_pad 192: the block decode kernel)."""
     import torch
 
-    from compressed_tensors_tpu_torch.engine import greedy_generate
     from compressed_tensors_tpu_torch.models.llama import (
         init_kv_cache,
         llama_forward,
@@ -1397,8 +1626,7 @@ def phase_fp8():
     # one request's first chunk: the range its K/V take on the fp8 lattice
     # (from a bf16 cache, which holds them unscaled), then its first-token
     # logits with an fp8 cache, kernel path against non-kernel path
-    rid, ids, _ = next(r for r in requests
-                       if SHARED_PREFIX <= len(r[1]) <= SERVE["prefill_chunk"])
+    rid, ids, _ = probe_request(requests)
     n = len(ids)
     x = torch.tensor([ids], device="cuda")
     pos = torch.arange(n, device="cuda")[None]
@@ -1410,57 +1638,19 @@ def phase_fp8():
     log(f"fp8 KV range of request {rid} ({n} tokens): largest |k|/k_scale "
         f"{k_max:.1f}, |v|/v_scale {v_max:.1f} (e4m3 overflows to NaN above "
         "464)")
-    def first_token_logits(depth, use_kernels):
-        """The request's last-position logits through the first ``depth``
-        layers (full width), with an fp8 cache."""
-        cfg = dataclasses.replace(config, num_hidden_layers=depth)
-        cache = init_kv_cache(cfg, 1, n, cache_dtype=fp8, device="cuda")
-        logits, cache = llama_forward(
-            dict(params, layers=params["layers"][:depth]), cfg, x, pos, cache,
-            fresh_prefill=True, use_kernels=use_kernels,
-            last_logit_only=True)
-        nans = int(cache.k.float().isnan().sum()
-                   + cache.v.float().isnan().sum())
-        if nans:
-            raise AssertionError(f"fp8 KV cache overflow: {nans} NaN values")
-        logits = logits.float().reshape(-1)
-        if not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"non-finite FP8 8B logits at depth {depth}")
-        return logits
-
-    def rel_rms(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    # the non-kernel path's own spread: one bf16 ulp up on 64 embedding
-    # values of one prompt token
-    emb, tok = params["embed_tokens"], ids[n // 3]
-    row = emb[tok].clone()
-    sweep = {}
-    for depth in FP8_DEPTHS:
-        got = first_token_logits(depth, True)
-        ref = first_token_logits(depth, False)
-        emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
-        moved = first_token_logits(depth, False)
-        emb[tok] = row
-        sweep[depth] = (rel_rms(got, ref), rel_rms(moved, ref))
-        log(f"FP8 8B first-token logits (request {rid}), {depth} of "
-            f"{config.num_hidden_layers} layers: kernel vs non-kernel path "
-            f"rel_rms={sweep[depth][0]:.4g} (max abs {(got - ref).abs().max().item():.4g}"
-            f" of max|ref| {ref.abs().max().item():.4g}); non-kernel path "
-            f"under the perturbation rel_rms={sweep[depth][1]:.4g}; argmax "
-            f"kernel {int(got.argmax())} reference {int(ref.argmax())}")
-    del got, ref, moved, row
+    sweep, _ = logits_by_depth(params, config, requests, "FP8 8B",
+                               cache_dtype=fp8)
     full = config.num_hidden_layers
     if sweep[1][0] > TOL_FP8_DEPTH1:
         raise AssertionError(f"FP8 8B logits at one layer disagree with the "
                              f"non-kernel path ({sweep[1][0]:.4g} > "
                              f"{TOL_FP8_DEPTH1})")
-    if sweep[full][0] > FP8_FLOOR_RATIO * sweep[full][1]:
+    if sweep[full][0] > FLOOR_RATIO * sweep[full][1]:
         raise AssertionError(f"FP8 8B logits at full depth: {sweep[full][0]:.4g}"
-                             f" > {FP8_FLOOR_RATIO} x the non-kernel path's "
+                             f" > {FLOOR_RATIO} x the non-kernel path's "
                              f"own spread {sweep[full][1]:.4g}")
     log(f"FP8 8B logits: within {TOL_FP8_DEPTH1} at one layer and within "
-        f"{FP8_FLOOR_RATIO}x the perturbation spread at {full} layers")
+        f"{FLOOR_RATIO}x the perturbation spread at {full} layers")
 
     runs = {"fp8 dense": dict(paged=False, cache_dtype=fp8),
             "fp8 paged": dict(paged=True, prefix_caching=False,
@@ -1475,33 +1665,13 @@ def phase_fp8():
         raise AssertionError(f"fp8 serving: paged and dense completions "
                              f"differ for requests {bad}")
 
-    rng = np.random.default_rng(0)
-    gids = torch.from_numpy(rng.integers(0, VOCAB8, size=(BATCH, PROMPT))).cuda()
-    greedy_generate(params, config, gids, max_new_tokens=2, cache_dtype=fp8)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    out = greedy_generate(params, config, gids, max_new_tokens=NEW_TOKENS,
-                          cache_dtype=fp8)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    counts = read_counts()
-    log(f"fp8 greedy_generate: {tuple(out.shape)} at batch {BATCH} in "
-        f"{total * 1e3:.1f} ms ({BATCH * NEW_TOKENS / total:.0f} tok/s "
-        f"end to end), kernel launches {counts}")
-    if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
-            ((out >= 0) & (out < VOCAB8)).all()):
-        raise AssertionError("fp8 greedy_generate: ids out of range")
-    results["fp8 greedy_generate"] = dict(counts=counts, wall=total)
-
+    results["fp8 greedy_generate"] = greedy_8b(params, config, "fp8",
+                                               cache_dtype=fp8)
     base = ("w8a8_matmul_fp8", "w8a8_matmul", "prefill_attention")
-    needs = {"fp8 dense": base + ("flash_decode_attention_scaled",),
-             "fp8 paged": base + ("paged_decode_attention_scaled",),
-             "fp8 greedy_generate": base + ("decode_attention_scaled",)}
-    for name, kernels in needs.items():
-        missing = [k for k in kernels if results[name]["counts"][k] == 0]
-        if missing:
-            raise AssertionError(f"{name} never launched {missing}")
+    check_launched(results, {
+        "fp8 dense": base + ("flash_decode_attention_scaled",),
+        "fp8 paged": base + ("paged_decode_attention_scaled",),
+        "fp8 greedy_generate": base + ("decode_attention_scaled",)})
     return results
 
 
@@ -1621,6 +1791,392 @@ def phase_timings_fp8():
     return rows
 
 
+# --------------------------------------------------------------------- #
+# phases 7-8: NVFP4 / MXFP4 (B8) and grouped-int8 WnA16 (B9)
+
+FP4_GROUPS = {"nvfp4": 16, "mxfp4": 32}   # format -> group size
+E8_BITS = {"w8a16": 8, "w4 e8": 4}        # weights -> bits (group 128)
+NVFP4_GROUPS = ({"q_proj": "qkv", "k_proj": "qkv", "v_proj": "qkv"},
+                {"o_proj": "o"}, {"gate_proj": "gu", "up_proj": "gu"},
+                {"down_proj": "down"})
+
+
+def fp4_operands(gen, n, k, group):
+    """(N, K/2) uint8 E2M1 codes and (K/g, N) f32 kernel scales as the
+    fp4 prepare leaves them, drawn on the card: NVFP4 (g16) e4m3 scales
+    over a global scale for max|w| = 0.1, MXFP4 (g32) powers of two."""
+    import torch
+
+    codes = torch.randint(0, 256, (n, k // 2), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    if group == 16:
+        e4m3 = (torch.rand((k // group, n), generator=gen, device="cuda")
+                * 400 + 16).to(torch.float8_e4m3fn)
+        scales = e4m3.float() / torch.full((1, 1), 2688.0 / 0.1,
+                                           device="cuda")
+    else:
+        scales = torch.exp2(torch.randint(
+            -10, -6, (k // group, n), generator=gen, device="cuda").float())
+    return codes, scales
+
+
+def e8_operands(gen, n, k, bits):
+    """(N, K) int8 values of a ``bits``-bit symmetric weight and (K/128,
+    N) f32 scales (the weights about as large as the W4A16 model's)."""
+    import torch
+
+    w8 = torch.randint(-(1 << (bits - 1)), 1 << (bits - 1), (n, k),
+                       generator=gen, device="cuda", dtype=torch.int8)
+    scales = (torch.rand((k // 128, n), generator=gen, device="cuda") * 2e-3
+              + 1e-3) / (1 << (bits - 4))
+    return w8, scales
+
+
+def wna16_ops(kernel, fmt, n, k, gen):
+    """(weight, scales, kernel(x, w, s), plain(x, w, s) in f32, dequantized
+    bf16 weight(w, s), checkpoint bytes the bound counts) for one linear of
+    B8 or B9."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.fp4_pack import (
+        unpack_fp4_from_uint8,
+    )
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    if kernel == "w4a16_fp4_matmul":
+        g = FP4_GROUPS[fmt]
+        w, s = fp4_operands(gen, n, k, g)
+        run, plain = w4.w4a16_fp4_matmul, w4.w4a16_fp4_matmul_plain
+
+        def dense(w, s):
+            return (unpack_fp4_from_uint8(w, n, k, torch.float32)
+                    * s.t().repeat_interleave(g, 1)).to(torch.bfloat16)
+
+        # codes plus one e4m3 or E8M0 byte per group
+        nbytes = n * k // 2 + n * k // g
+    else:
+        g, bits = 128, E8_BITS[fmt]
+        w, s = e8_operands(gen, n, k, bits)
+        run, plain = w4.w4_e8_matmul, w4.w4_e8_matmul_plain
+
+        def dense(w, s):
+            return (w.float() * s.t().repeat_interleave(g, 1)).to(
+                torch.bfloat16)
+
+        # the checkpoint's packed bits plus bf16 group scales (W4 under
+        # e8 reads twice that, the bound stays the packed bytes)
+        nbytes = n * k * bits // 8 + n * k // g * 2
+    kw = dict(n=n, k=k, group_size=g)
+    return (w, s, lambda x, w, s: run(x, w, s, **kw),
+            lambda x, w, s: plain(x, w, s, out_dtype=torch.float32, **kw),
+            dense, nbytes)
+
+
+def check_rule(name, got, want):
+    """A kernel output against its f32 plain result by the a8b rule:
+    every element within A8B_REL * |y| + A8B_ABS * max|y| (bf16 output
+    rounding, f32 summation order; the kernel rounds each weight exactly
+    as its plain version does). Returns max|kernel - plain|."""
+    if not (bool(got.float().isfinite().all())
+            and bool(want.isfinite().all())):
+        raise AssertionError(f"{name}: non-finite values")
+    scale = want.abs().max().item()
+    diff = (got.float() - want).abs()
+    bad = int((diff > A8B_REL * want.abs() + A8B_ABS * scale).sum())
+    err = diff.max().item()
+    log(f"parity {name}: max_abs_err={err:.6g} max|plain f32|={scale:.6g} "
+        f"rel={err / scale:.3g}; elements outside {A8B_REL:.4g}|y| + "
+        f"{A8B_ABS} max|y|: {bad} of {want.numel()}")
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at {bad} elements")
+    return err
+
+
+def parity_wna16(errs, kernel, fmts):
+    """B8 or B9 against its plain version at the four 8B linear shapes, at
+    M = 64 and 512, for each of ``fmts``; updates ``errs``."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for lin, (n, k) in W4_SHAPES_8B.items():
+        for fmt in fmts:
+            w, s, run, plain, _, _ = wna16_ops(kernel, fmt, n, k, gen)
+            for m in (BATCH, M_CHUNK):
+                x = dev_randn(gen, m, k)
+                errs[kernel] = max(errs.get(kernel, 0.0), check_rule(
+                    f"{kernel} {fmt} {lin} M={m}", run(x, w, s),
+                    plain(x, w, s)))
+            del w, s
+        torch.cuda.empty_cache()
+
+
+def timings_wna16(kernel, fmts):
+    """Device ms of B8 or B9 over the four linears of one 8B layer at
+    M = 64 and 512 for each of ``fmts``, bound, plain ms, and torch.matmul
+    on the dequantized bf16 weight. The timed calls rotate over copies of
+    the weight and its scales together, so each call reads both cold.
+    Returns {"<fmt> M=<m>": row}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {}
+    for fmt in fmts:
+        for m in (BATCH, M_CHUNK):
+            ms = plain_ms = lib = nbytes = ops = 0.0
+            for lin, (n, k) in W4_SHAPES_8B.items():
+                x = dev_randn(gen, m, k)
+                w, s, run, plain, dense, wbytes = wna16_ops(kernel, fmt, n,
+                                                            k, gen)
+                pairs = [(w.clone(), s.clone()) for _ in range(copies_for(
+                    w.numel() * w.element_size()
+                    + s.numel() * s.element_size()))]
+                t = device_ms([lambda w=w, s=s: run(x, w, s)
+                               for w, s in pairs])
+                tp = eager_ms(lambda: plain(x, w, s), iters=3)
+                del pairs
+                wd = dense(w, s)
+                wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
+                tl = device_ms([lambda wd=wd: torch.matmul(x, wd.t())
+                                for wd in wds])
+                del wds, wd, w, s
+                b = m * k * 2 + wbytes + m * n * 2
+                bm, by = bound(b, 2 * m * n * k, PEAK_BF16)
+                log(f"time {kernel} {fmt} {lin} M={m} (8B): {t:.4f} ms, "
+                    f"bound {bm:.4f} ms ({by}), plain {tp:.4f} ms, "
+                    f"torch.matmul on the dequantized bf16 weight {tl:.4f} ms")
+                ms, plain_ms, lib = ms + t, plain_ms + tp, lib + tl
+                nbytes, ops = nbytes + b, ops + 2 * m * n * k
+            bm, by = bound(nbytes, ops, PEAK_BF16)
+            rows[f"{fmt} M={m}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bm, bound_by=by,
+                library_ms=lib, shapes=f"{fmt}: qkv+o+gate_up+down of one 8B "
+                f"layer, M={m}; bound from the checkpoint's bytes; library: "
+                "torch.matmul on the dequantized bf16 weight")
+            torch.cuda.empty_cache()
+    return rows
+
+
+def card_llama(config, make_linear, gen):
+    """Llama params built on the card from ``gen``: N(0, 0.02^2) bf16
+    embeddings, unit norms, a W8A8-int lm_head (int8 weights, (V, 1) f32
+    scales in [1e-4, 3e-4], as the synthetic models draw it) and the
+    decoder linears from ``make_linear(layer_index)`` (a dict)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.config import CompressionFormat
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    H, V = config.hidden_size, config.vocab_size
+
+    def ones():
+        return torch.ones((H,), dtype=torch.bfloat16, device="cuda")
+
+    params = {"embed_tokens": (torch.randn((V, H), generator=gen,
+                                           device="cuda") * 0.02).to(
+                  torch.bfloat16),
+              "norm": ones(), "layers": []}
+    for i in range(config.num_hidden_layers):
+        params["layers"].append(dict(make_linear(i), input_layernorm=ones(),
+                                     post_attention_layernorm=ones()))
+    params["lm_head"] = prepare_for_kernels(QuantizedTensor(
+        weight=torch.randint(-127, 128, (V, H), generator=gen, device="cuda",
+                             dtype=torch.int8),
+        scale=torch.rand((V, 1), generator=gen, device="cuda") * 2e-4 + 1e-4,
+        shape=(V, H), scheme=preset_name_to_scheme("W8A8", ["lm_head"]),
+        format=CompressionFormat.int_quantized.value))
+    return params
+
+
+def linear_shapes(config):
+    """(N, K) of each decoder linear, unfused."""
+    H, I = config.hidden_size, config.intermediate_size
+    q, kv = (config.num_attention_heads * config.head_dim,
+             config.num_key_value_heads * config.head_dim)
+    return {"q_proj": (q, H), "k_proj": (kv, H), "v_proj": (kv, H),
+            "o_proj": (H, q), "gate_proj": (I, H), "up_proj": (I, H),
+            "down_proj": (H, I)}
+
+
+def nvfp4_llama(config, seed):
+    """Llama-3-8B NVFP4A16 built on the card: bf16 N(0, 0.02^2) weights,
+    one global scale per fused group (q/k/v, gate/up; the others alone)
+    from generate_gparam, group min/max -> calculate_qparams, compressed
+    by NVFP4PackedCompressor (the dense weights are dropped)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.compressors import NVFP4PackedCompressor
+    from compressed_tensors_tpu_torch.ops.linear import (
+        from_compressed_state,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.qparams import (
+        calculate_qparams,
+        generate_gparam,
+    )
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scheme = preset_name_to_scheme("NVFP4A16", ["Linear"])
+    scheme.format = "nvfp4-pack-quantized"
+    args = scheme.weights
+    shapes = linear_shapes(config)
+
+    def layer(_):
+        out = {}
+        for group in NVFP4_GROUPS:
+            ws = {name: (torch.randn(shapes[name], generator=gen,
+                                     device="cuda") * 0.02).to(torch.bfloat16)
+                  for name in group}
+            gs = generate_gparam(
+                torch.stack([w.min() for w in ws.values()]).min().float(),
+                torch.stack([w.max() for w in ws.values()]).max().float())
+            for name, w in ws.items():
+                g = w.float().reshape(w.shape[0], -1, args.group_size)
+                scale, _ = calculate_qparams(g.amin(-1), g.amax(-1), args,
+                                             global_scale=gs)
+                state = NVFP4PackedCompressor.compress(
+                    {"weight": w, "weight_scale": scale,
+                     "weight_global_scale": gs}, scheme)
+                out[name] = prepare_for_kernels(
+                    from_compressed_state(state, scheme))
+            del ws
+        return out
+
+    return card_llama(config, layer, gen)
+
+
+def w8a16_llama(config, seed):
+    """Llama-3-8B W8A16 g128 (pack-quantized) built on the card, drawn as
+    the synthetic pack-quantized models draw theirs: random int32 words
+    and bf16 group scales in [1e-3, 3e-3], here divided by 16 so that the
+    8-bit weights are about as large as the W4A16 model's; a W8A8-int
+    lm_head."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scheme = preset_name_to_scheme("W8A16", ["Linear"])
+    scheme.format = "pack-quantized"
+    g = scheme.weights.group_size
+
+    def linear(n, k):
+        words = torch.randint(-(2**31), 2**31, (n, k // 4), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        scale = (torch.rand((n, k // g), generator=gen, device="cuda")
+                 * 2e-3 + 1e-3) * 0.0625
+        return prepare_for_kernels(QuantizedTensor(
+            weight_packed=words, scale=scale.to(torch.bfloat16),
+            shape=(n, k), scheme=scheme, format=scheme.format))
+
+    return card_llama(config, lambda _: {
+        name: linear(*shape) for name, shape in linear_shapes(config).items()},
+        gen)
+
+
+def check_launched(results, needs):
+    """Every kernel in ``needs[run]`` launched during that run."""
+    for name, kernels in needs.items():
+        missing = [k for k in kernels if results[name]["counts"][k] == 0]
+        if missing:
+            raise AssertionError(f"{name} never launched {missing}")
+
+
+def phase_nvfp4(errs):
+    """Phase 7 (B8): the fp4 kernel against its plain version (NVFP4 and
+    MXFP4 at the 8B shapes), then Llama-3-8B NVFP4A16 built on the card,
+    fused: first-token logits against the non-kernel path, the serving
+    requests through the dense and paged engines (identical), and
+    greedy_generate at batch 64."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    parity_wna16(errs, "w4a16_fp4_matmul", FP4_GROUPS)
+    config = LLAMA3_8B
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(nvfp4_llama(config, seed=0))
+    torch.cuda.synchronize()
+    fused = params["layers"][0]
+    if not ("qkv_proj" in fused and "gate_up_proj" in fused):
+        raise AssertionError("NVFP4 members sharing a global scale did not "
+                             "fuse")
+    log(f"Llama-3-8B NVFP4A16 model (built on the card from seed 0, fused, "
+        f"W8A8-int lm_head): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+    check_logits_by_depth(params, config, requests, "NVFP4 8B")
+    runs = {"nvfp4 dense": dict(paged=False),
+            "nvfp4 paged": dict(paged=True, prefix_caching=False)}
+    results = {name: serve_requests(params, config, requests, name, **kw)
+               for name, kw in runs.items()}
+    dense, paged = (results[k]["outs"] for k in runs)
+    bad = [i for i in dense if paged[i] != dense[i]]
+    log(f"serving nvfp4 paged vs dense: {N_REQUESTS - len(bad)}/{N_REQUESTS} "
+        "completions identical token for token")
+    if bad:
+        raise AssertionError(f"nvfp4 serving: paged and dense completions "
+                             f"differ for requests {bad}")
+    results["nvfp4 greedy_generate"] = greedy_8b(params, config, "nvfp4")
+    base = ("w4a16_fp4_matmul", "w8a8_matmul", "prefill_attention")
+    check_launched(results, {
+        "nvfp4 dense": base + ("flash_decode_attention",),
+        "nvfp4 paged": base + ("paged_decode_attention",),
+        "nvfp4 greedy_generate": base + ("decode_attention",)})
+    return results
+
+
+def phase_w8a16(errs):
+    """Phase 8 (B9): the grouped-int8 kernel against its plain version
+    (W8A16 g128 and W4A16 under w4_layout="e8" at the 8B shapes), then
+    Llama-3-8B W8A16: first-token logits against the non-kernel path,
+    greedy_generate at batch 64 and the serving requests through the paged
+    engine."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    parity_wna16(errs, "w4_e8_matmul", E8_BITS)
+    config = LLAMA3_8B
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(w8a16_llama(config, seed=0))
+    torch.cuda.synchronize()
+    log(f"Llama-3-8B W8A16 g128 model (pack-quantized, built on the card "
+        f"from seed 0, fused, W8A8-int lm_head): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+    check_logits_by_depth(params, config, requests, "W8A16 8B")
+    results = {"w8a16 greedy_generate": greedy_8b(params, config, "w8a16"),
+               "w8a16 paged": serve_requests(params, config, requests,
+                                             "w8a16 paged", paged=True,
+                                             prefix_caching=False)}
+    base = ("w4_e8_matmul", "w8a8_matmul", "prefill_attention")
+    check_launched(results, {
+        "w8a16 greedy_generate": base + ("decode_attention",),
+        "w8a16 paged": base + ("paged_decode_attention",)})
+    return results
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -1652,23 +2208,36 @@ KERNEL_META = {
     "paged_decode_attention_scaled": (
         "compressed_tensors_tpu_torch/csrc/paged_decode.cu",
         "compressed_tensors_tpu/ops/kernels/paged_decode.py:310"),
+    "w4a16_fp4_matmul": (
+        "compressed_tensors_tpu_torch/csrc/wna16_matmul.cu",
+        "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
+    "w4_e8_matmul": ("compressed_tensors_tpu_torch/csrc/wna16_matmul.cu",
+                     "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:485"),
 }
 
 
-def kernel_report(errs, rows, fp8_rows, paths):
+# the main variant of kernels timed in several (the others go under
+# "variants"); the scaled decode kernels' main variant is the fp8 cache
+MAIN_VARIANT = {"w8a8_matmul_fp8": BATCH, "w4a16_fp4_matmul": "nvfp4 M=64",
+                "w4_e8_matmul": "w8a16 M=64"}
+
+
+def kernel_report(errs, rows, variant_rows, paths):
     """The kernels line: one entry per kernel, at the newest (8B) shapes
     where a path runs it: fp8 W8A8 at decode rows (M = 64) with the
     512-row chunk under ``variants``, the scaled decode kernels on the
-    fp8 cache with the int8 cache under ``variants``. Launches are summed
-    over the main paths' runs (``paths``: run name -> launch counts), with
-    the split by run beside them."""
+    fp8 cache with the int8 cache under ``variants``, the fp4 kernel on
+    NVFP4 at M = 64 (MXFP4 and M = 512 under ``variants``), the
+    grouped-int8 kernel on W8A16 at M = 64 (W4A16 under e8 and M = 512
+    under ``variants``). Launches are summed over the main paths' runs
+    (``paths``: run name -> launch counts), with the split by run beside
+    them."""
     by_name = {r["name"]: r for r in rows}  # later (8B) rows win
-    main = {"w8a8_matmul_fp8": BATCH}
     out = []
     for name, (source, replaces) in KERNEL_META.items():
-        if name in fp8_rows:
-            variants = fp8_rows[name]
-            key = main.get(name, "fp8")
+        if name in variant_rows:
+            variants = variant_rows[name]
+            key = MAIN_VARIANT.get(name, "fp8")
             r = variants[key]
             extra = {"variants": {str(v): dict(vr) for v, vr in
                                   variants.items() if v != key}}
@@ -1714,12 +2283,27 @@ def main() -> int:
     rows += phase_timings_8b(serving)
     fp8 = phase_fp8()
     log(f"phase 6 (FP8) done at {time.perf_counter() - t_start:.1f} s")
-    fp8_rows = phase_timings_fp8()
+    variant_rows = phase_timings_fp8()
+    log(f"FP8 timings done at {time.perf_counter() - t_start:.1f} s")
+    nvfp4 = phase_nvfp4(errs)
+    log(f"phase 7 (NVFP4) done at {time.perf_counter() - t_start:.1f} s")
+    w8a16 = phase_w8a16(errs)
+    log(f"phase 8 (W8A16) done at {time.perf_counter() - t_start:.1f} s")
+    variant_rows["w4a16_fp4_matmul"] = timings_wna16("w4a16_fp4_matmul",
+                                                     FP4_GROUPS)
+    variant_rows["w4_e8_matmul"] = timings_wna16("w4_e8_matmul", E8_BITS)
+    for name in ("w4a16_fp4_matmul", "w4_e8_matmul"):
+        for r in variant_rows[name].values():
+            log(f"kernel {name} [{r['shapes']}]: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    log(f"phases 7-8 timings done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
-    paths.update({run: res["counts"] for run, res in fp8.items()})
-    kernels = kernel_report(errs, rows, fp8_rows, paths)
+    for phase in (fp8, nvfp4, w8a16):
+        paths.update({run: res["counts"] for run, res in phase.items()})
+    kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ from compressed_tensors_tpu_torch.compressors.naive_quantized import (  # noqa: 
 from compressed_tensors_tpu_torch.compressors.pack_quantized import (  # noqa: F401
     PackedQuantizationCompressor,
 )
+from compressed_tensors_tpu_torch.compressors.nvfp4 import (  # noqa: F401
+    MXFP4PackedCompressor,
+    MXFP8QuantizationCompressor,
+    NVFP4PackedCompressor,
+)
 from compressed_tensors_tpu_torch.compressors.format import (  # noqa: F401
     COMPRESSION_FORMAT_PRIORITY,
     infer_module_format,

@@ -1,11 +1,12 @@
 """Format codecs: stateless classmethod compressors over per-module state
 dicts of torch tensors.
 
-Counterpart of ``compressed_tensors_tpu/compressors/base.py``, load side
-only: codecs are looked up in the registry by CompressionFormat value and
-called as ``decompress(state_dict, scheme)`` where keys are local names
-("weight_packed", "weight_scale", ...). The compress side belongs to the
-PTQ save path, which a later slice ports.
+Counterpart of ``compressed_tensors_tpu/compressors/base.py``: codecs are
+looked up in the registry by CompressionFormat value and called as
+``decompress(state_dict, scheme)`` where keys are local names
+("weight_packed", "weight_scale", ...). ``compress`` exists for the codecs
+that build checkpoints in the port (naive, NVFP4, MXFP4, MXFP8); the rest
+belongs to the PTQ save path, which a later slice ports.
 """
 
 from __future__ import annotations
@@ -47,6 +48,13 @@ class BaseCompressor(RegistryMixin, ABC):
         )
 
     @classmethod
+    def compress(
+        cls, state_dict: TensorStateDict, scheme: QuantizationScheme
+    ) -> TensorStateDict:
+        """Compress a per-module state dict; does not modify the input."""
+        raise NotImplementedError(f"{cls.__name__} does not implement compress")
+
+    @classmethod
     def decompress(
         cls, state_dict: TensorStateDict, scheme: QuantizationScheme
     ) -> TensorStateDict:
@@ -57,6 +65,18 @@ class BaseCompressor(RegistryMixin, ABC):
     def can_compress(cls, module_type: str, scheme: QuantizationScheme) -> bool:
         """True if this codec applies to (module type, scheme)."""
         raise NotImplementedError(f"{cls.__name__} does not implement can_compress")
+
+    @classmethod
+    def _remove_symmetric_zp(
+        cls, state_dict: TensorStateDict, scheme: QuantizationScheme
+    ) -> TensorStateDict:
+        """Drop the zero points of symmetric schemes."""
+        for prefix, args in (("input", scheme.input_activations),
+                             ("weight", scheme.weights),
+                             ("output", scheme.output_activations)):
+            if args and args.symmetric:
+                state_dict.pop(f"{prefix}_zero_point", None)
+        return state_dict
 
 
 def get_compressor(format: str | CompressionFormat) -> type[BaseCompressor]:

@@ -11,9 +11,11 @@ __all__ = [
     "infer_module_format",
 ]
 
-# priority order: more specific formats first. The MX/NVFP4 formats head
-# this list in the JAX package; they join it here with their codecs.
+# priority order: more specific formats first
 COMPRESSION_FORMAT_PRIORITY: list[CompressionFormat] = [
+    CompressionFormat.mxfp4_pack_quantized,
+    CompressionFormat.mxfp8_quantized,
+    CompressionFormat.nvfp4_pack_quantized,
     CompressionFormat.int_quantized,
     CompressionFormat.pack_quantized,
     CompressionFormat.float_quantized,

@@ -2,7 +2,7 @@
 (int8 / fp8_e4m3), plus the int-quantized / float-quantized aliases.
 
 Counterpart of ``compressed_tensors_tpu/compressors/naive_quantized.py``
-(load side).
+(the block strategy's padding waits for that strategy).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from compressed_tensors_tpu_torch.compressors.base import (
     TensorStateDict,
 )
 from compressed_tensors_tpu_torch.config import CompressionFormat
-from compressed_tensors_tpu_torch.ops.quantize import dequantize
+from compressed_tensors_tpu_torch.ops.quantize import dequantize, quantize
 from compressed_tensors_tpu_torch.quantization import (
     ActivationOrdering,
     QuantizationScheme,
@@ -39,6 +39,19 @@ class NaiveQuantizationCompressor(BaseCompressor):
                 ActivationOrdering.GROUP:
             param_names += ("weight_g_idx",)
         return param_names
+
+    @classmethod
+    def compress(
+        cls, state_dict: TensorStateDict, scheme: QuantizationScheme
+    ) -> TensorStateDict:
+        state_dict = dict(state_dict)
+        weights = scheme.weights
+        state_dict["weight"] = quantize(
+            state_dict.pop("weight"), state_dict.get("weight_scale"),
+            state_dict.get("weight_zero_point"), weights,
+            dtype=weights.storage_dtype(),
+            g_idx=state_dict.get("weight_g_idx"))
+        return cls._remove_symmetric_zp(state_dict, scheme)
 
     @classmethod
     def decompress(

@@ -1,6 +1,6 @@
 // Helpers shared by the port's hand-written Hopper kernels: tensor-core
-// mma.sync wrappers, cp.async copies, warp reductions, fp8 e4m3
-// conversions and the KV cache element types.
+// mma.sync wrappers, cp.async copies, the split-K reduction, warp
+// reductions, fp8 e4m3 conversions and the KV cache element types.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -94,6 +94,18 @@ __device__ __forceinline__ uint8_t f32_to_e4m3(float x) {
     r = f >> 20;
   }
   return static_cast<uint8_t>(r | (sign >> 24));
+}
+
+// y = bf16(sum over splits of the f32 partials), the second pass of the
+// split-K matmuls
+static __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
+                                            __nv_bfloat16* __restrict__ y,
+                                            int splits, size_t count) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * count + i];
+  y[i] = __float2bfloat16(s);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -18,7 +18,8 @@
 // prefill (M = B*S) it is bound by bf16 tensor-core operations.
 //
 // The second entry point, ct_w4a16_a8b_matmul, is the int8-activation mode
-// "a8b" (see its note below).
+// "a8b" (see its note below). Mode "fp4" and w4_e8_matmul are in
+// wna16_matmul.cu.
 #include "common.cuh"
 
 namespace {
@@ -359,17 +360,6 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 }
 
-// y = bf16(sum over splits of the f32 partials)
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     __nv_bfloat16* __restrict__ y,
-                                     int splits, size_t count) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * count + i];
-  y[i] = __float2bfloat16(s);
-}
-
 }  // namespace
 
 // x (M, K) bf16; w (N, K/8) int32; scales/zp (K/group, N) f32 (zp may be
@@ -390,7 +380,7 @@ extern "C" int ct_w4a16_matmul(const void* x, const void* w, const void* scales,
       tiles_per_split);
   if (splits > 1) {
     const size_t count = (size_t)M * N;
-    splitk_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
+    ct::splitk_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
         static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(y),
         splits, count);
   }

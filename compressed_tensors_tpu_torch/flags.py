@@ -18,6 +18,13 @@ __all__ = ["FLAGS", "set_flags", "flag_overrides"]
 
 @dataclasses.dataclass
 class _Flags:
+    # W4A16 kernel weight layout: "auto" or "b8" keep the checkpoint's
+    # int4 words (the int4b / a8b kernels); "e8" expands symmetric 4-bit
+    # weights to signed int8 (the w4_e8 kernel); "packed" is the JAX
+    # package's int32 8-plane layout (ROADMAP B10, not ported: its matmul
+    # raises, as the JAX dispatch does). Asymmetric weights under "e8"
+    # fall through to "packed", as in the JAX package.
+    w4_layout: str = "auto"
     # W4A16 activation precision: "auto" (int8 acts at >= 256 rows with N
     # and K >= 4096, bf16 otherwise) | "bf16" | "int8"
     w4_act: str = "auto"
@@ -35,6 +42,7 @@ class _Flags:
 def _from_env() -> _Flags:
     env = os.environ.get
     return _Flags(
+        w4_layout=env("CT_TORCH_W4_LAYOUT", "auto"),
         w4_act=env("CT_TORCH_W4_ACT", "auto"),
         decode_attn=env("CT_TORCH_DECODE_ATTN", "auto"),
         fp8_transcode=env("CT_TORCH_FP8_TRANSCODE", "auto"),

@@ -22,7 +22,7 @@ __all__ = ["params_from_numpy"]
 
 # fields of a linear in checkpoint layout
 _LINEAR_FIELDS = ("weight", "weight_packed", "scale", "zero_point", "bias",
-                  "g_idx")
+                  "g_idx", "global_scale", "input_global_scale")
 # numpy extension dtypes (ml_dtypes) -> same-size integer view + torch dtype
 _VIEW_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16),
                 "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
@@ -70,7 +70,8 @@ def params_from_numpy(tree: dict, device="cuda",
     Each linear is a dict of its checkpoint-layout fields: ``format``,
     ``shape``, ``scheme`` (``QuantizationScheme.model_dump()``) and the
     arrays ``weight_packed`` / ``weight``, ``scale``, ``zero_point``,
-    ``bias``, ``g_idx`` (absent or None when unused). Every other array
+    ``bias``, ``g_idx``, ``global_scale``, ``input_global_scale`` (absent
+    or None when unused). Every other array
     (embeddings, norms, k/v scales) carries over as it is.
     """
     return _convert(tree, resolve_device(device), use_kernels)

@@ -149,12 +149,16 @@ def _checkpoint_state(qt: QuantizedTensor) -> dict[str, torch.Tensor]:
     state = {}
     if qt.weight_packed is not None:
         state["weight_packed"] = qt.weight_packed
-        state["weight_shape"] = torch.tensor(qt.shape, dtype=torch.int32)
+        if qt.format == CompressionFormat.pack_quantized.value:
+            state["weight_shape"] = torch.tensor(qt.shape, dtype=torch.int32)
     if qt.weight is not None:
         state["weight"] = qt.weight
     for local, field in (("weight_scale", "scale"),
                          ("weight_zero_point", "zero_point"),
-                         ("weight_g_idx", "g_idx"), ("bias", "bias")):
+                         ("weight_g_idx", "g_idx"),
+                         ("weight_global_scale", "global_scale"),
+                         ("input_global_scale", "input_global_scale"),
+                         ("bias", "bias")):
         if getattr(qt, field) is not None:
             state[local] = getattr(qt, field)
     return state

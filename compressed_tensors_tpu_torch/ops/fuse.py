@@ -2,9 +2,13 @@
 into single quantized matmuls.
 
 Counterpart of ``compressed_tensors_tpu/ops/fuse.py``. Fusion needs equal
-schemes, formats and input widths; otherwise the layer stays unfused. The
-checkpoint-layout leaves concatenate along output features and the kernel
-layout is rebuilt from them.
+schemes, formats and input widths, and NVFP4 members need bit-equal global
+scales; otherwise the layer stays unfused. The checkpoint-layout leaves
+concatenate along output features and the kernel layout is rebuilt from
+them. (The JAX package fuses NVFP4 members with unequal global scales and
+keeps the first one's, which its non-kernel path then applies to every
+member: ROADMAP C. Checkpoints made for fused loading share one global
+scale across q/k/v and across gate/up.)
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ def fuse_quantized_tensors(
     """Concatenate QuantizedTensors along output features (dim 0).
 
     Returns None if fusion is unsupported for these tensors (mismatched
-    schemes/formats/K, actorder, mixed bias presence).
+    schemes/formats/K or global scales, actorder, mixed bias presence).
     """
     first = tensors[0]
     if any(t.format != first.format or t.scheme != first.scheme
@@ -43,6 +47,11 @@ def fuse_quantized_tensors(
         return None
     if any(t.g_idx is not None for t in tensors):
         return None
+    for field in ("global_scale", "input_global_scale"):
+        vals = [getattr(t, field) for t in tensors]
+        if any(v is not None for v in vals) and not all(
+                v is not None and torch.equal(v, vals[0]) for v in vals):
+            return None
     has_bias = [t.bias is not None for t in tensors]
     if any(has_bias) and not all(has_bias):
         return None

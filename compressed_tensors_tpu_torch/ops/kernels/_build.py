@@ -24,8 +24,9 @@ __all__ = ["build", "load", "check"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("w4a16_matmul.cu", "w8a8_matmul.cu", "prefill_attention.cu",
-           "decode_attention.cu", "paged_decode.cu", "errors.cu")
+SOURCES = ("w4a16_matmul.cu", "wna16_matmul.cu", "w8a8_matmul.cu",
+           "prefill_attention.cu", "decode_attention.cu", "paged_decode.cu",
+           "errors.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -33,6 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ct_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ct_w4a16_a8b_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_w4a16_fp4_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "ct_w4_e8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     "ct_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_w8a8_fp8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

@@ -23,19 +23,38 @@ clip to +-127), then int8 tensor-core group dots sum exactly in int32, each
 group is scaled in f32 and the row's x scale is applied once. Bound: the
 2*M*N*K int8 operations at prefill chunks.
 
-Each wrapper launches its kernel for CUDA tensors and uses
-``w4a16_matmul_plain`` only for CPU tensors.
+Two more wrappers run the layouts without int4 words, on one templated
+kernel of ``csrc/wna16_matmul.cu``:
+
+- ``w4a16_fp4_matmul`` replaces mode ``fp4`` of the same TPU function
+  (NVFP4 / MXFP4). It keeps the checkpoint's (N, K/2) uint8 E2M1 codes
+  (low nibble = even column) and (K/g, N) f32 scales, g = 16 or 32. Each
+  weight becomes bf16(E2M1(code) * scale), as the TPU kernel rounds its
+  scaled tile to x's dtype, then one bf16 dot with f32 accumulation and a
+  single bf16 write. Bound: the code and scale bytes at decode, the
+  2*M*N*K bf16 operations at prefill.
+- ``w4_e8_matmul`` replaces ``w4_e8_matmul`` (the grouped-int8 kernel that
+  serves W2-W8A16 and W4A16 under ``w4_layout="e8"``). It keeps (N, K)
+  signed int8 q - zp and (K/g, N) f32 scales, g a multiple of 16; each
+  group's bf16 partial (int8 -> bf16 is exact) is scaled into an f32
+  accumulator. Bound: the int8 weight bytes at decode, the bf16
+  operations at prefill.
+
+Each wrapper launches its kernel for CUDA tensors and uses its plain
+version only for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from compressed_tensors_tpu_torch.ops.fp4_pack import unpack_fp4_from_uint8
 from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 
 __all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
-           "quantize_rows_a8b_plain"]
+           "quantize_rows_a8b_plain", "w4a16_fp4_matmul",
+           "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain"]
 
 _BK = 64
 _TILE = 64
@@ -81,15 +100,16 @@ def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
     return y.to(out_dtype or x.dtype)
 
 
-def _split_k(m: int, n: int, k: int, group_size: int) -> tuple[int, int]:
+def _split_k(m: int, n: int, k: int, unit_tiles: int) -> tuple[int, int]:
     """(splits, k-tiles per split): split K over up to 4 blocks when the
-    (M, N) tile grid leaves most SMs idle; splits cut at group bounds."""
-    tiles = k // _BK
-    per_group = group_size // _BK
+    (M, N) tile grid leaves most SMs idle; splits cut at multiples of
+    ``unit_tiles`` k-tiles (a group of the int4 kernels, one tile of the
+    grouped-weight kernels, which scale each split's part of a group)."""
+    tiles = -(-k // _BK)
+    units = -(-tiles // unit_tiles)
     blocks = -(-n // _TILE) * -(-m // _TILE)
-    want = min(4, max(1, _SMS // blocks), k // group_size)
-    groups_per_split = -(-(k // group_size) // want)
-    tiles_per_split = groups_per_split * per_group
+    want = min(4, max(1, _SMS // blocks), units)
+    tiles_per_split = -(-units // want) * unit_tiles
     return -(-tiles // tiles_per_split), tiles_per_split
 
 
@@ -132,7 +152,7 @@ def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
-    splits, tiles_per_split = _split_k(m, n, k, group_size)
+    splits, tiles_per_split = _split_k(m, n, k, group_size // _BK)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     lib = _build.load()
@@ -194,3 +214,100 @@ def w4a16_a8b_matmul(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 w4a16_a8b_matmul.launches = 0
+
+
+# ---- fp4 codes and int8-expanded weights ------------------------------ #
+
+def _group_scales(scales, group_size):
+    """(K/g, N) scales -> (N, K) f32, one per weight."""
+    return scales.to(torch.float32).t().repeat_interleave(group_size, dim=1)
+
+
+def w4a16_fp4_matmul_plain(x, codes, scales, *, n, k, group_size,
+                           out_dtype=None):
+    """Plain version of mode fp4: each weight rounded to x's compute type
+    (bf16 for bf16 x, else f32) as bf16(E2M1(code) * scale), then one f32
+    matmul, cast to ``out_dtype`` (x's dtype by default)."""
+    w = unpack_fp4_from_uint8(codes, n, k, dtype=torch.float32) * \
+        _group_scales(scales, group_size)
+    w = w.to(torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
+    y = x.to(torch.float32) @ w.to(torch.float32).t()
+    return y.to(out_dtype or x.dtype)
+
+
+def w4_e8_matmul_plain(x, w8, scales, *, n, k, group_size, out_dtype=None):
+    """Plain version of the grouped-int8 matmul: the (N, K) int8 values
+    times their group scales in f32, one f32 matmul, cast to
+    ``out_dtype`` (x's dtype by default)."""
+    w = w8.to(torch.float32) * _group_scales(scales, group_size)
+    return (x.to(torch.float32) @ w.t()).to(out_dtype or x.dtype)
+
+
+def _launch_wna16(wrapper, x, w, scales, n, k, group_size, w_dtype, w_cols,
+                  k_align):
+    """Check the operands of a grouped-weight entry point, launch it, count
+    the launch on ``wrapper`` and return y (M, N) bf16."""
+    entry = wrapper.__name__
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}) bf16, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if group_size % 16 or k % group_size or k % k_align:
+        raise NotImplementedError(
+            f"{entry} needs a group size that is a multiple of 16 and "
+            f"divides K, and K a multiple of {k_align}; got K={k}, "
+            f"group_size={group_size}")
+    if (w.dtype != w_dtype or tuple(w.shape) != (n, w_cols)
+            or scales.dtype != torch.float32
+            or tuple(scales.shape) != (k // group_size, n)):
+        raise ValueError(f"{entry}: weight must be ({n}, {w_cols}) "
+                         f"{w_dtype} and scales ({k // group_size}, {n}) f32")
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in (x, w, scales)):
+        raise ValueError(f"{entry} operands must be contiguous, 16-byte "
+                         "aligned and on one device")
+    m = x.shape[0]
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    splits, tiles_per_split = _split_k(m, n, k, 1)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = getattr(lib, "ct_" + entry)(
+            x.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            m, n, k, group_size, splits, tiles_per_split,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, entry)
+    wrapper.launches += 1
+    return y
+
+
+def w4a16_fp4_matmul(x: torch.Tensor, codes: torch.Tensor,
+                     scales: torch.Tensor, *, n: int, k: int,
+                     group_size: int) -> torch.Tensor:
+    """y (M, N) = x (M, K) @ W^T for NVFP4 / MXFP4 weights: (N, K/2) uint8
+    E2M1 codes, low nibble first, and (K/g, N) f32 scales."""
+    if x.device.type == "cpu":
+        return w4a16_fp4_matmul_plain(x, codes, scales, n=n, k=k,
+                                      group_size=group_size)
+    return _launch_wna16(w4a16_fp4_matmul, x, codes, scales, n, k,
+                         group_size, torch.uint8, k // 2, 32)
+
+
+w4a16_fp4_matmul.launches = 0
+
+
+def w4_e8_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
+                 *, n: int, k: int, group_size: int) -> torch.Tensor:
+    """y (M, N) = x (M, K) @ W^T for grouped int weights expanded to (N, K)
+    signed int8 q - zp, with (K/g, N) f32 scales."""
+    if x.device.type == "cpu":
+        return w4_e8_matmul_plain(x, w8, scales, n=n, k=k,
+                                  group_size=group_size)
+    return _launch_wna16(w4_e8_matmul, x, w8, scales, n, k, group_size,
+                         torch.int8, k, 16)
+
+
+w4_e8_matmul.launches = 0

@@ -2,11 +2,12 @@
 matmul dispatch.
 
 Counterpart of ``compressed_tensors_tpu/ops/linear.py`` for the
-run-compressed W4A16 and W8A8 (int8 and fp8) paths. Weights stay compressed on the
-device and are dequantized inside the hand-written kernels
-(``ops/kernels/``). ``use_kernels=False`` selects the JAX package's
-non-kernel path (dequantize the weight, one plain matmul), which the
-tests and ``chip_smoke.py`` use as the reference.
+run-compressed WnA16 (int 2-8 bit groups), NVFP4 / MXFP4, MXFP8 and W8A8
+(int8 and fp8) paths. Weights stay compressed on the device and are
+dequantized inside the hand-written kernels (``ops/kernels/``).
+``use_kernels=False`` selects the JAX package's non-kernel path
+(dequantize the weight, one plain matmul), which the tests and
+``chip_smoke.py`` use as the reference.
 """
 
 from __future__ import annotations
@@ -17,8 +18,14 @@ from typing import Any, Optional
 import torch
 
 from compressed_tensors_tpu_torch.config import CompressionFormat
-from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import w4a16_matmul
+from compressed_tensors_tpu_torch.ops.fp4_pack import unpack_fp4_from_uint8
+from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+    w4_e8_matmul,
+    w4a16_fp4_matmul,
+    w4a16_matmul,
+)
 from compressed_tensors_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul
+from compressed_tensors_tpu_torch.ops.mx import decompress_mx_scale
 from compressed_tensors_tpu_torch.ops.pack import (
     pack_to_int32,
     unpack_from_int32,
@@ -42,6 +49,8 @@ __all__ = [
 
 _W8_STRATEGIES = (QuantizationStrategy.CHANNEL.value,
                   QuantizationStrategy.TENSOR.value)
+_FP4_FORMATS = (CompressionFormat.nvfp4_pack_quantized.value,
+                CompressionFormat.mxfp4_pack_quantized.value)
 
 
 @dataclasses.dataclass
@@ -54,16 +63,24 @@ class QuantizedTensor:
     """
 
     weight: Optional[torch.Tensor] = None          # dense / naive repr
-    weight_packed: Optional[torch.Tensor] = None   # int32 packed repr
+    weight_packed: Optional[torch.Tensor] = None   # int32 / uint8 packed
     scale: Optional[torch.Tensor] = None
     zero_point: Optional[torch.Tensor] = None
     g_idx: Optional[torch.Tensor] = None
+    global_scale: Optional[torch.Tensor] = None    # NVFP4, f32 (1,)
+    input_global_scale: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
 
-    # kernel layout: ("w4a16", n, k, group_size): packed (N, K/8) int32,
-    # scales / zp (K/g, N) f32; ("w8a8", n, k): weight (N, K) int8/fp8,
-    # scales (N,) f32. Kinds the JAX package serves with a kernel this port
-    # has not written yet carry only kernel_meta.
+    # kernel layout, by kind (kernel_meta[0]):
+    # ("w4a16", n, k, group_size): packed (N, K/8) int32, scales / zp
+    #   (K/g, N) f32;
+    # ("w4e8", n, k, group_size): (N, K) int8 q - zp, scales (K/g, N) f32;
+    # ("fp4", n, k, group_size): the checkpoint's (N, K/2) uint8 E2M1
+    #   codes, scales (K/g, N) f32 (NVFP4: e4m3 / global; MXFP4: 2^e);
+    # ("w8a8", n, k): weight (N, K) int8/fp8, scales (N,) f32;
+    # ("w4packed", n, k, group_size): the JAX package's int32 8-plane
+    #   layout (ROADMAP B10), which neither package's dispatch can run:
+    #   meta only.
     kernel_packed: Optional[torch.Tensor] = None
     kernel_scales: Optional[torch.Tensor] = None
     kernel_zp: Optional[torch.Tensor] = None
@@ -90,7 +107,9 @@ def from_compressed_state(
     weight_packed = state.get("weight_packed")
     if fmt is None:
         if weight_packed is not None:
-            fmt = CompressionFormat.pack_quantized.value
+            fmt = (CompressionFormat.pack_quantized.value
+                   if weight_packed.dtype == torch.int32
+                   else CompressionFormat.nvfp4_pack_quantized.value)
         elif weight is not None and (not weight.dtype.is_floating_point
                                      or weight.dtype.itemsize == 1):
             fmt = CompressionFormat.naive_quantized.value
@@ -101,6 +120,8 @@ def from_compressed_state(
         shape = tuple(int(v) for v in state["weight_shape"])
     elif weight is not None:
         shape = tuple(weight.shape)
+    elif weight_packed is not None and fmt in _FP4_FORMATS:
+        shape = (*weight_packed.shape[:-1], weight_packed.shape[-1] * 2)
     elif weight_packed is not None:
         shape = tuple(weight_packed.shape)
     else:
@@ -111,6 +132,8 @@ def from_compressed_state(
         scale=state.get("weight_scale"),
         zero_point=state.get("weight_zero_point"),
         g_idx=state.get("weight_g_idx"),
+        global_scale=state.get("weight_global_scale"),
+        input_global_scale=state.get("input_global_scale"),
         bias=state.get("bias"),
         format=fmt,
         shape=shape,
@@ -141,10 +164,23 @@ def materialize_weight(qt: QuantizedTensor, dtype=torch.bfloat16
         return dequantize(unpacked, qt.scale,
                           _unpacked_zero_point(qt, args.num_bits), args,
                           g_idx=qt.g_idx, dtype=dtype)
+    if fmt in _FP4_FORMATS:
+        m, half = qt.weight_packed.shape
+        values = unpack_fp4_from_uint8(qt.weight_packed, m, half * 2,
+                                       dtype=dtype)
+        scale = qt.scale
+        if scale.dtype == torch.uint8:  # MX E8M0
+            scale = decompress_mx_scale(scale)
+        return dequantize(values, scale.to(dtype), None, args,
+                          global_scale=qt.global_scale, dtype=dtype)
     if fmt in (CompressionFormat.naive_quantized.value,
                CompressionFormat.int_quantized.value,
-               CompressionFormat.float_quantized.value):
-        return dequantize(qt.weight, qt.scale, qt.zero_point, args,
+               CompressionFormat.float_quantized.value,
+               CompressionFormat.mxfp8_quantized.value):
+        scale = qt.scale
+        if scale is not None and scale.dtype == torch.uint8:  # MXFP8 E8M0
+            scale = decompress_mx_scale(scale).to(dtype)
+        return dequantize(qt.weight, scale, qt.zero_point, args,
                           g_idx=qt.g_idx, dtype=dtype)
     raise NotImplementedError(f"materialize_weight for format {fmt}")
 
@@ -157,13 +193,20 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
       ``fp8_transcode`` fp8 weights are re-gridded to int8 here, as the
       JAX package does: per output channel w * 127 / absmax, rounded, with
       the scale times absmax / 127.
-    - W4A16 pack-quantized group: the checkpoint's (N, K/8) int32 words
-      (column-permuted for actorder checkpoints) and (K/g, N) f32 scales /
-      zero points.
-    - Other WnA16 group widths and FP4 formats, which the JAX package
-      serves with kernels not ported yet (ROADMAP B9, B8), get only a
-      ``kernel_meta`` marker.
-    Everything else keeps the checkpoint representation.
+    - NVFP4 / MXFP4: the checkpoint's (N, K/2) E2M1 codes and (K/g, N)
+      f32 scales with the global scale divided in (``_prepare_fp4``).
+    - W4A16 pack-quantized group, ``w4_layout`` "auto"/"b8": the
+      checkpoint's (N, K/8) int32 words and (K/g, N) f32 scales / zero
+      points.
+    - Other WnA16 widths (2-8 bit), and symmetric W4A16 under
+      ``w4_layout="e8"``: (N, K) signed int8 q - zp (zero points folded
+      in; 8-bit asymmetric stays on the non-kernel path) and (K/g, N) f32
+      scales.
+    - W4A16 under ``w4_layout="packed"`` (or asymmetric under "e8"): only
+      a ``kernel_meta`` marker of ROADMAP B10, whose matmul raises.
+    Group layouts of actorder checkpoints are column-permuted, and x is
+    gathered by the same permutation at the matmul. Everything else keeps
+    the checkpoint representation.
     """
     args = qt.scheme.weights if qt.scheme is not None else None
     acts = qt.scheme.input_activations if qt.scheme is not None else None
@@ -191,9 +234,13 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
             qt, kernel_packed=weight.contiguous(),
             kernel_scales=w_scale.contiguous(), kernel_meta=("w8a8", n, k))
 
-    if qt.format in (CompressionFormat.nvfp4_pack_quantized.value,
-                     CompressionFormat.mxfp4_pack_quantized.value):
-        return dataclasses.replace(qt, kernel_meta=("fp4",))
+    if (qt.format in _FP4_FORMATS and args is not None
+            and args.num_bits == 4
+            and args.strategy in (QuantizationStrategy.GROUP.value,
+                                  QuantizationStrategy.TENSOR_GROUP.value)
+            and len(qt.shape) == 2 and qt.weight_packed is not None
+            and qt.shape[1] % (args.group_size or 1) == 0):
+        return _prepare_fp4(qt, args.group_size)
 
     if (qt.format != CompressionFormat.pack_quantized.value or args is None
             or args.num_bits not in range(2, 9)
@@ -201,20 +248,30 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
             or len(qt.shape) != 2 or qt.shape[1] % args.group_size != 0):
         return qt
     n, k = qt.shape
-    if args.num_bits != 4:
-        if qt.zero_point is not None and args.num_bits >= 8:
-            return qt  # the JAX package has no kernel for 8-bit asym either
-        return dataclasses.replace(qt, kernel_meta=("w4e8",))
-
-    packed = qt.weight_packed
-    kernel_perm = None
+    meta = (n, k, args.group_size)
+    order = None
     if qt.g_idx is not None:
         # actorder: permute columns so quant groups are contiguous; the
         # matmul gathers x by the same permutation
         order = torch.argsort(qt.g_idx.to(torch.int64), stable=True)
+
+    if args.num_bits != 4:
+        if qt.zero_point is not None and args.num_bits >= 8:
+            return qt  # 8-bit q - zp does not fit int8: the JAX package
+            #            keeps it on the non-kernel path too
+        return _prepare_e8(qt, order)
+    layout = _w4_layout()
+    if layout == "packed" or (layout == "e8" and qt.zero_point is not None):
+        # asymmetric weights under "e8" fall through to "packed", as in the
+        # JAX package
+        return dataclasses.replace(qt, kernel_meta=("w4packed", *meta))
+    if layout == "e8":
+        return _prepare_e8(qt, order)
+
+    packed = qt.weight_packed
+    if order is not None:
         packed = pack_to_int32(
             unpack_from_int32(packed, 4, qt.shape).index_select(1, order), 4)
-        kernel_perm = order
     zp = _unpacked_zero_point(qt, 4)
     return dataclasses.replace(
         qt,
@@ -222,9 +279,59 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
         kernel_scales=qt.scale.to(torch.float32).t().contiguous(),
         kernel_zp=(zp.to(torch.float32).t().contiguous()
                    if zp is not None else None),
-        kernel_perm=kernel_perm,
-        kernel_meta=("w4a16", n, k, args.group_size),
+        kernel_perm=order,
+        kernel_meta=("w4a16", *meta),
     )
+
+
+def _prepare_e8(qt: QuantizedTensor, order) -> QuantizedTensor:
+    """Grouped-int8 kernel layout: (N, K) signed int8 holding q - zp
+    (columns in ``order`` for actorder checkpoints) and (K/g, N) f32
+    scales."""
+    args = qt.scheme.weights
+    n, k = qt.shape
+    q = unpack_from_int32(qt.weight_packed, args.num_bits, qt.shape)
+    if order is not None:
+        q = q.index_select(1, order)
+    zp = _unpacked_zero_point(qt, args.num_bits)
+    if zp is not None:  # |q - zp| <= 127 below 8 bits
+        q = (q.to(torch.int16) - zp.to(torch.int16).repeat_interleave(
+            args.group_size, dim=1)).to(torch.int8)
+    return dataclasses.replace(
+        qt, kernel_packed=q.contiguous(),
+        kernel_scales=qt.scale.to(torch.float32).t().contiguous(),
+        kernel_perm=order, kernel_meta=("w4e8", n, k, args.group_size))
+
+
+def _prepare_fp4(qt: QuantizedTensor, group_size: int) -> QuantizedTensor:
+    """NVFP4 / MXFP4 kernel layout: the checkpoint's (N, K/2) codes as they
+    are, and (K/g, N) f32 scales: f32(e4m3 scale) / f32(global scale) for
+    NVFP4, the E8M0 power of two for MXFP4 (as the JAX prepare computes
+    them)."""
+    n, k = qt.shape
+    scale = qt.scale
+    if scale.dtype == torch.uint8:  # MX E8M0
+        scale = decompress_mx_scale(scale)
+    scale = scale.to(torch.float32)
+    if qt.global_scale is not None:
+        # a (1, 1) tensor on the scale's device: CUDA divides by a 0-dim
+        # CPU tensor as a multiply by its reciprocal
+        scale = scale / qt.global_scale.to(device=scale.device,
+                                           dtype=torch.float32).reshape(1, 1)
+    return dataclasses.replace(
+        qt, kernel_packed=qt.weight_packed.contiguous(),
+        kernel_scales=scale.t().contiguous(),
+        kernel_meta=("fp4", n, k, group_size))
+
+
+def _w4_layout() -> str:
+    """The 4-bit kernel layout (see flags.w4_layout): "b8" (the int4
+    words; also for "auto"), "e8" or "packed"."""
+    from compressed_tensors_tpu_torch.flags import FLAGS
+
+    if FLAGS.w4_layout not in ("auto", "b8", "e8", "packed"):
+        raise ValueError(f"w4_layout={FLAGS.w4_layout!r}")
+    return "b8" if FLAGS.w4_layout == "auto" else FLAGS.w4_layout
 
 
 def _transcode_fp8_enabled() -> bool:
@@ -283,10 +390,11 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                      use_kernels: bool = True) -> torch.Tensor:
     """y = x @ W^T (+ bias) with W in compressed form.
 
-    With ``use_kernels`` and a kernel layout, the W4A16 and W8A8 kernels
-    run (their plain versions for CPU tensors); otherwise the non-kernel
-    path of the JAX package: W8A8-int / fp8 dynamic products, or dequantize
-    then one plain matmul.
+    With ``use_kernels`` and a kernel layout, the W4A16, fp4, grouped-int8
+    and W8A8 kernels run (their plain versions for CPU tensors); otherwise
+    the non-kernel path of the JAX package: W8A8-int / fp8 dynamic
+    products, or dequantize then one plain matmul (NVFP4 with activations
+    included: neither package quantizes fp4 activations).
     """
     scheme = qt.scheme
     input_args = scheme.input_activations if scheme is not None else None
@@ -301,26 +409,28 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                     and input_args.type == "float")
 
     kind = qt.kernel_meta[0] if qt.kernel_meta is not None else None
-    if use_kernels and kind in ("fp4", "w4e8") and x.is_cuda:
-        item = "B8 (fp4 matmul)" if kind == "fp4" else "B9 (w4_e8_matmul)"
+    if use_kernels and kind == "w4packed":
         raise NotImplementedError(
-            f"{qt.format} {weights_args.num_bits}-bit weights have no CUDA "
-            f"kernel yet (ROADMAP {item})")
+            "w4_layout='packed' runs the int32 8-plane W4A16 modes, which "
+            "are not ported (ROADMAP B10); the JAX dispatch cannot run that "
+            "layout either")
     lead = x.shape[:-1]
-    if use_kernels and kind in ("w4a16", "w8a8"):
+    if use_kernels and kind in ("w4a16", "w4e8", "fp4", "w8a8"):
         if qt.kernel_perm is not None:
             x = x.index_select(-1, qt.kernel_perm)
-        k = qt.kernel_meta[2]
+        n, k = qt.kernel_meta[1:3]
         x2 = x.reshape(-1, k).contiguous()
         if kind == "w8a8":
-            n = qt.kernel_meta[1]
             out = w8a8_matmul(x2, qt.kernel_packed, qt.kernel_scales, n=n, k=k)
-        else:
-            _, n, _, group_size = qt.kernel_meta
+        elif kind == "w4a16":
             out = w4a16_matmul(x2, qt.kernel_packed,
                                qt.kernel_scales, qt.kernel_zp, n=n, k=k,
-                               group_size=group_size,
+                               group_size=qt.kernel_meta[3],
                                mode=_w4b8_mode(x2.shape[0], n, k))
+        else:
+            matmul = w4a16_fp4_matmul if kind == "fp4" else w4_e8_matmul
+            out = matmul(x2, qt.kernel_packed, qt.kernel_scales, n=n, k=k,
+                         group_size=qt.kernel_meta[3])
         out = out.reshape(*lead, n)
     elif use_int8_path:
         out = _int8_dynamic_matmul(x, qt, input_args)

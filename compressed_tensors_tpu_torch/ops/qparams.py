@@ -1,9 +1,12 @@
 """Quantization-parameter math used on the run-compressed path: ranges,
-scale/zero-point calculation and dynamic (per-call) scales.
+scale/zero-point calculation, dynamic (per-call) scales and NVFP4 global
+scales.
 
 Counterpart of ``compressed_tensors_tpu/ops/qparams.py``, with the same
-numerics (zero always representable, eps flooring of zero scales). The MX
-and global-scale branches wait for the FP4/MX slice.
+numerics (zero always representable, eps flooring of zero scales, the
+NVFP4 global-scale product, MX E8M0 scales). Divisions take a tensor
+divisor: CUDA divides by a Python scalar as a multiply by its reciprocal,
+which is not the IEEE division the JAX package does.
 """
 
 from __future__ import annotations
@@ -12,8 +15,15 @@ import math
 
 import torch
 
+from compressed_tensors_tpu_torch.ops.mx import (
+    generate_mx_scales,
+    maybe_convert_from_mx_exp,
+    should_generate_mx_scales,
+)
 from compressed_tensors_tpu_torch.quantization.quant_args import (
+    FP4_E2M1_DATA,
     FP8_E4M3_DATA,
+    FloatArgs,
     QuantizationArgs,
     QuantizationStrategy,
     QuantizationType,
@@ -24,6 +34,7 @@ __all__ = [
     "calculate_range",
     "calculate_qparams",
     "compute_dynamic_scales_and_zp",
+    "generate_gparam",
 ]
 
 
@@ -34,6 +45,8 @@ def calculate_range(args: QuantizationArgs) -> tuple[float, float]:
         return (-bit_range / 2, bit_range / 2 - 1)
     if args.type == QuantizationType.FLOAT.value and args.num_bits == 8:
         return (FP8_E4M3_DATA.min, FP8_E4M3_DATA.max)
+    if args.type == QuantizationType.FLOAT.value and args.num_bits == 4:
+        return (FP4_E2M1_DATA.min, FP4_E2M1_DATA.max)
     raise NotImplementedError(
         f"range of {args.type} with {args.num_bits} bits")
 
@@ -51,9 +64,12 @@ def calculate_qparams(
     min_vals: torch.Tensor,
     max_vals: torch.Tensor,
     quantization_args: QuantizationArgs,
+    global_scale: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scales and zero points from observed min/max; zero points are in
-    args.zp_dtype."""
+    args.zp_dtype. MX args give power-of-two scales; a ``global_scale``
+    (NVFP4) multiplies the local scales before they round to
+    args.scale_dtype."""
     min_vals = torch.minimum(min_vals, torch.zeros_like(min_vals))
     max_vals = torch.maximum(max_vals, torch.zeros_like(max_vals))
 
@@ -62,15 +78,28 @@ def calculate_qparams(
 
     if quantization_args.symmetric:
         max_val_pos = torch.maximum(min_vals.abs(), max_vals.abs())
-        scales = max_val_pos / (float(bit_range) / 2)
+        if should_generate_mx_scales(quantization_args):
+            scales = generate_mx_scales(max_val_pos,
+                                        num_bits=quantization_args.num_bits)
+        else:
+            scales = max_val_pos / torch.full_like(max_val_pos,
+                                                   float(bit_range) / 2)
         zero_points = torch.zeros_like(scales)
     else:
-        scales = (max_vals - min_vals) / float(bit_range)
+        if (quantization_args.num_bits == 4
+                and quantization_args.type == QuantizationType.FLOAT.value):
+            raise NotImplementedError(
+                "Asymmetric Quantization is not supported for FP4")
+        scales = (max_vals - min_vals) / torch.full_like(max_vals,
+                                                         float(bit_range))
         zero_points = (bit_min - min_vals / scales).clamp(bit_min, bit_max)
 
+    if global_scale is not None:
+        scales = global_scale * scales
     if quantization_args.scale_dtype is not None:
         scales = round_to_quantized_type_dtype(
             scales, dtype=quantization_args.scale_dtype)
+    scales = maybe_convert_from_mx_exp(quantization_args, scales)
 
     eps = _get_dtype_eps(quantization_args.scale_dtype
                          if quantization_args.scale_dtype is not None
@@ -87,7 +116,8 @@ def calculate_qparams(
 
 
 def compute_dynamic_scales_and_zp(
-    value: torch.Tensor, args: QuantizationArgs
+    value: torch.Tensor, args: QuantizationArgs,
+    global_scale: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic scale/zp: TOKEN reduces every dim except (0, 1) -- so a 2D
     input reduces to one scale, as in the JAX package --, TENSOR reduces
@@ -113,4 +143,27 @@ def compute_dynamic_scales_and_zp(
     else:
         min_val = value.amin(dim=reduce_dims, keepdim=keep_dims)
         max_val = value.amax(dim=reduce_dims, keepdim=keep_dims)
-    return calculate_qparams(min_val, max_val, args)
+    return calculate_qparams(min_val, max_val, args,
+                             global_scale=global_scale)
+
+
+def generate_gparam(
+    updated_min_val: torch.Tensor,
+    updated_max_val: torch.Tensor,
+    scale_data: type[FloatArgs] = FP8_E4M3_DATA,
+    quant_data: type[FloatArgs] = FP4_E2M1_DATA,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """NVFP4 global scale = fp8 max * fp4 max / max|x|, NaN and inf -> 1,
+    as a (1,) tensor of ``dtype``."""
+    min_vals = torch.minimum(updated_min_val, torch.zeros_like(updated_min_val))
+    max_vals = torch.maximum(updated_max_val, torch.zeros_like(updated_max_val))
+    max_val_pos = torch.maximum(min_vals.abs(), max_vals.abs())
+    tiny_dtype = (max_val_pos.dtype if max_val_pos.dtype in (
+        torch.float32, torch.float64) else torch.float32)
+    max_val_pos = max_val_pos.clamp_min(torch.finfo(tiny_dtype).tiny)
+    global_scale = torch.full_like(
+        max_val_pos, scale_data.max * quant_data.max) / max_val_pos
+    global_scale = torch.nan_to_num(global_scale, nan=1.0, posinf=1.0,
+                                    neginf=1.0)
+    return global_scale.to(dtype).reshape([1])

@@ -1,9 +1,12 @@
 """Quantize / dequantize: the QDQ math the run-compressed path needs.
 
 Counterpart of ``compressed_tensors_tpu/ops/quantize.py`` for the tensor,
-channel, token and group strategies of int and fp8 quantization (the
-block and fp4 branches wait for their slices). Same operation order as the
-JAX package, so f32 results agree to the last bit on the CPU.
+channel, token, group and tensor-group strategies of int, fp8 and fp4
+quantization, with NVFP4's global scale (the block strategy waits for its
+slice). Same operation order as the JAX package, so f32 results agree to
+the last bit on the CPU. The global scale divides the local scales in f32,
+as JAX's promotion of a bf16 scale against the f32 global scale does
+(PyTorch would keep bf16 against a 0-dim tensor).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import math
 
 import torch
 
+from compressed_tensors_tpu_torch.ops.fp4 import cast_to_fp4
 from compressed_tensors_tpu_torch.ops.qparams import calculate_range
 from compressed_tensors_tpu_torch.quantization.quant_args import (
     QuantizationArgs,
@@ -26,12 +30,23 @@ def _round_to_grid(x, args: QuantizationArgs, q_min, q_max):
     x = x.clamp(q_min, q_max)
     if args.type == QuantizationType.FLOAT.value and args.num_bits == 8:
         return x.to(torch.float8_e4m3fn).to(x.dtype)
+    if args.type == QuantizationType.FLOAT.value and args.num_bits == 4:
+        return cast_to_fp4(x)
     if args.type == QuantizationType.INT.value:
         return torch.round(x)
     raise NotImplementedError(f"{args.type} with {args.num_bits} bits")
 
 
-def _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype):
+def _over_global(scale, global_scale):
+    """scale / global_scale in f32 (the NVFP4 local scale)."""
+    if global_scale is None:
+        return scale
+    return scale.to(torch.float32) / global_scale.to(torch.float32)
+
+
+def _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype,
+                 global_scale):
+    scale = _over_global(scale, global_scale)
     scaled = x / scale.to(x.dtype)
     if zero_point is not None:
         scaled = scaled + zero_point.to(x.dtype)
@@ -39,7 +54,8 @@ def _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype):
     return q.to(dtype) if dtype is not None else q
 
 
-def _dequantize_op(x_q, scale, zero_point, dtype):
+def _dequantize_op(x_q, scale, zero_point, dtype, global_scale):
+    scale = _over_global(scale, global_scale)
     # narrow float scales compute in f32 (no fp8 arithmetic)
     compute = torch.float32 if scale.dtype.itemsize == 1 else scale.dtype
     dq = x_q.to(compute)
@@ -49,16 +65,19 @@ def _dequantize_op(x_q, scale, zero_point, dtype):
     return dq.to(dtype) if dtype is not None else dq
 
 
-def _apply(x, scale, zero_point, q_min, q_max, args, dtype, do_quantize):
+def _apply(x, scale, zero_point, q_min, q_max, args, dtype, do_quantize,
+           global_scale):
     if do_quantize:
-        return _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype)
-    return _dequantize_op(x, scale, zero_point, dtype)
+        return _quantize_op(x, scale, zero_point, q_min, q_max, args, dtype,
+                            global_scale)
+    return _dequantize_op(x, scale, zero_point, dtype, global_scale)
 
 
 def _process_group(x, scale, zero_point, args, q_min, q_max, dtype,
-                   do_quantize, g_idx):
-    """Group strategy: optional activation-order permutation, reshape the
-    last dim into (groups, group_size), apply, restore."""
+                   do_quantize, g_idx, global_scale):
+    """Group and tensor-group strategies: optional activation-order
+    permutation, reshape the last dim into (groups, group_size), apply,
+    restore."""
     group_size = args.group_size
     output_dtype = dtype if dtype is not None else x.dtype
     columns = x.shape[-1]
@@ -79,7 +98,7 @@ def _process_group(x, scale, zero_point, args, q_min, q_max, dtype,
     x = x.reshape(*x.shape[:-1], num_groups, group_size)
     out = _apply(x, scale[..., None],
                  zero_point[..., None] if zero_point is not None else None,
-                 q_min, q_max, args, dtype, do_quantize)
+                 q_min, q_max, args, dtype, do_quantize, global_scale)
     out = out.reshape(*out.shape[:-2], num_groups * group_size).to(
         output_dtype)
     if perm is not None:
@@ -87,27 +106,30 @@ def _process_group(x, scale, zero_point, args, q_min, q_max, dtype,
     return out
 
 
-def _process(x, scale, zero_point, args, g_idx, dtype, do_quantize):
+def _process(x, scale, zero_point, args, g_idx, dtype, do_quantize,
+             global_scale):
     q_min, q_max = calculate_range(args)
-    if args.strategy == QuantizationStrategy.GROUP.value:
+    if args.strategy in (QuantizationStrategy.GROUP.value,
+                         QuantizationStrategy.TENSOR_GROUP.value):
         return _process_group(x, scale, zero_point, args, q_min, q_max,
-                              dtype, do_quantize, g_idx)
+                              dtype, do_quantize, g_idx, global_scale)
     if args.strategy in (QuantizationStrategy.TENSOR.value,
                          QuantizationStrategy.CHANNEL.value,
                          QuantizationStrategy.TOKEN.value):
         return _apply(x, scale, zero_point, q_min, q_max, args, dtype,
-                      do_quantize)
+                      do_quantize, global_scale)
     raise NotImplementedError(f"{args.strategy} strategy")
 
 
 def quantize(x, scale, zero_point, args: QuantizationArgs, dtype=None,
-             g_idx=None) -> torch.Tensor:
+             g_idx=None, global_scale=None) -> torch.Tensor:
     """Quantize x per the strategy in args."""
-    return _process(x, scale, zero_point, args, g_idx, dtype, True)
+    return _process(x, scale, zero_point, args, g_idx, dtype, True,
+                    global_scale)
 
 
 def dequantize(x_q, scale, zero_point=None, args: QuantizationArgs = None,
-               dtype=None, g_idx=None) -> torch.Tensor:
+               dtype=None, g_idx=None, global_scale=None) -> torch.Tensor:
     """Dequantize x_q. Without args the strategy follows from the scale's
     shape: 0/1-D tensor, (rows, 1) channel, (rows, groups) group."""
     if args is None:
@@ -126,4 +148,5 @@ def dequantize(x_q, scale, zero_point=None, args: QuantizationArgs = None,
         dtype = scale.dtype
         if dtype.itemsize == 1 or not dtype.is_floating_point:
             dtype = torch.float32
-    return _process(x_q, scale, zero_point, args, g_idx, dtype, False)
+    return _process(x_q, scale, zero_point, args, g_idx, dtype, False,
+                    global_scale)

@@ -34,7 +34,7 @@ from compressed_tensors_tpu_torch.utils.safetensors_io import (
     save_safetensors,
 )
 
-from torch_port_utils import to_numpy
+from torch_port_utils import to_numpy, to_torch
 
 
 @pytest.mark.parametrize("packed_dim", [0, 1])
@@ -61,9 +61,26 @@ def test_pack_unpack_bit_exact(num_bits, packed_dim):
 
 
 def _packed_state(rng, preset, n=64, k=256):
-    """A pack-quantized / int-quantized module state in numpy."""
+    """A pack-quantized / int-quantized module state in numpy; FP4 and MX
+    states as the JAX package compresses a random weight."""
     scheme = j_preset(preset, ["Linear"])
     args = scheme.weights
+    if preset in FP_FORMATS:
+        from compressed_tensors_tpu.ops.qparams import (
+            calculate_qparams,
+            generate_gparam,
+        )
+
+        w = jnp.asarray((rng.normal(size=(n, k)) * 0.05).astype(np.float32))
+        state = {"weight": w}
+        if preset.startswith("NVFP4"):
+            state["weight_global_scale"] = generate_gparam(w.min(), w.max())
+        g = w.reshape(n, -1, args.group_size)
+        state["weight_scale"] = calculate_qparams(
+            g.min(-1), g.max(-1), args,
+            global_scale=state.get("weight_global_scale"))[0]
+        return {key: np.asarray(v) for key, v in j_codec(
+            FP_FORMATS[preset]).compress(state, scheme).items()}
     if preset == "W8A8":
         return {"weight": rng.integers(-128, 128, size=(n, k)).astype(np.int8),
                 "weight_scale": rng.uniform(0.001, 0.01, (n, 1)).astype(
@@ -84,9 +101,15 @@ def _packed_state(rng, preset, n=64, k=256):
     return state
 
 
+FP_FORMATS = {"NVFP4A16": "nvfp4-pack-quantized",
+              "MXFP4A16": "mxfp4-pack-quantized",
+              "MXFP8A16": "mxfp8-quantized"}
+
+
 @pytest.mark.parametrize("preset,fmt", [
     ("W4A16", "pack-quantized"), ("W4A16_ASYM", "pack-quantized"),
     ("W8A16", "pack-quantized"), ("W8A8", "int-quantized"),
+    *FP_FORMATS.items(),
 ])
 def test_decompress_matches(preset, fmt):
     state = _packed_state(np.random.default_rng(0), preset)
@@ -94,7 +117,7 @@ def test_decompress_matches(preset, fmt):
         {k: jnp.asarray(v) for k, v in state.items()},
         j_preset(preset, ["Linear"]))
     got = t_codec(fmt).decompress(
-        {k: torch.from_numpy(np.array(v)) for k, v in state.items()},
+        {k: to_torch(v) for k, v in state.items()},
         t_preset(preset, ["Linear"]))
     np.testing.assert_array_equal(to_numpy(got["weight"]),
                                   to_numpy(want["weight"]))

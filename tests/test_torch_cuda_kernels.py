@@ -88,6 +88,60 @@ def test_w4a16_a8b_matmul(dev, m, asym):
         w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=g, mode="a8b"), got)
 
 
+def _within_a8b_rule(got, want):
+    """Each element within 2^-8 * |y| (bf16 output rounding) plus 1e-4 *
+    max|y| (f32 summation order) of the f32 plain result."""
+    err = (got.float() - want).abs()
+    return bool((err <= 2**-8 * want.abs() + 1e-4 * want.abs().max()).all())
+
+
+# (M, N, K, group): decode rows, K split over blocks, ragged K, prefill rows
+WNA16_CASES = [(5, 192, 384, 16), (5, 192, 384, 32), (7, 100, 96, 32),
+               (300, 136, 256, 16)]
+
+
+@pytest.mark.parametrize("m,n,k,g", WNA16_CASES)
+def test_w4a16_fp4_matmul(dev, m, n, k, g):
+    rng = np.random.default_rng(m + g)
+    codes = torch.from_numpy(rng.integers(0, 256, (n, k // 2)).astype(
+        np.uint8)).to(dev)
+    # NVFP4-like e4m3 scales over a global scale, or E8M0 powers of two
+    s = (rng.uniform(1e-3, 3e-3, (k // g, n)) if g == 16 else
+         2.0 ** rng.integers(-9, -6, (k // g, n)))
+    s = torch.from_numpy(s.astype(np.float32)).to(dev)
+    x = _bf16(rng, m, k, device=dev)
+    before = w4.w4a16_fp4_matmul.launches
+    got = w4.w4a16_fp4_matmul(x, codes, s, n=n, k=k, group_size=g)
+    assert w4.w4a16_fp4_matmul.launches == before + 1
+    assert _within_a8b_rule(got, w4.w4a16_fp4_matmul_plain(
+        x, codes, s, n=n, k=k, group_size=g, out_dtype=torch.float32))
+    # no rows: nothing is launched and nothing counted
+    assert w4.w4a16_fp4_matmul(x[:0], codes, s, n=n, k=k,
+                               group_size=g).shape == (0, n)
+    assert w4.w4a16_fp4_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("m,n,k,g", WNA16_CASES + [(9, 64, 256, 128)])
+def test_w4_e8_matmul(dev, m, n, k, g):
+    rng = np.random.default_rng(m + g + 1)
+    w8 = torch.from_numpy(rng.integers(-128, 128, (n, k)).astype(
+        np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-4, 3e-4, (k // g, n)).astype(
+        np.float32)).to(dev)
+    x = _bf16(rng, m, k, device=dev)
+    before = w4.w4_e8_matmul.launches
+    got = w4.w4_e8_matmul(x, w8, s, n=n, k=k, group_size=g)
+    assert w4.w4_e8_matmul.launches == before + 1
+    assert _within_a8b_rule(got, w4.w4_e8_matmul_plain(
+        x, w8, s, n=n, k=k, group_size=g, out_dtype=torch.float32))
+    assert w4.w4_e8_matmul(x[:0], w8, s, n=n, k=k,
+                           group_size=g).shape == (0, n)
+    assert w4.w4_e8_matmul.launches == before + 1
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        w4.w4_e8_matmul(x[:, :24], w8[:, :24].contiguous(),
+                        s[:1].contiguous(), n=n, k=24, group_size=24)
+
+
 def test_w8a8_matmul(dev):
     rng = np.random.default_rng(0)
     n, k = 200, 256

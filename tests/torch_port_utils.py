@@ -39,6 +39,90 @@ def w4a16_config(symmetric=True, group_size=128):
     }
 
 
+def preset_config(preset, fmt):
+    """A checkpoint quantization config: ``preset`` on every Linear but the
+    lm_head, stored in format ``fmt``."""
+    return {"config_groups": {preset: ["Linear"]}, "format": fmt,
+            "ignore": ["lm_head"], "quant_method": "compressed-tensors",
+            "quantization_status": "compressed"}
+
+
+def make_tiny_fp4_checkpoint(tmp_path, rng, preset="NVFP4A16",
+                             fmt="nvfp4-pack-quantized",
+                             model_config=None, fused_global=False):
+    """A random tiny Llama checkpoint in an FP4 format, quantized and
+    compressed by the JAX package. NVFP4 global scales are per tensor, or
+    with ``fused_global`` one per fused group (q/k/v, gate/up), as
+    checkpoints made for fused loading carry them. Returns the directory.
+    (``testing_utils.make_tiny_llama_checkpoint`` computes no global
+    scale.)"""
+    import json
+    import os
+
+    import jax.numpy as jnp
+
+    from compressed_tensors_tpu.compressors import (
+        ModelCompressor,
+        module_graph_from_names,
+    )
+    from compressed_tensors_tpu.ops import calculate_qparams
+    from compressed_tensors_tpu.ops.qparams import generate_gparam
+    from compressed_tensors_tpu.quantization import preset_name_to_scheme
+
+    cfg = dict(model_config or TORCH_TINY_CONFIG)
+    H, I, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    NH, KVH, D = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
+                  cfg["head_dim"])
+    shapes = {"model.embed_tokens": (V, H)}
+    extra = {"model.norm.weight": np.ones(H, np.float32)}
+    fused = []
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        attn = {f"{p}.self_attn.{n}_proj": (rows, H) for n, rows in
+                (("q", NH * D), ("k", KVH * D), ("v", KVH * D))}
+        mlp = {f"{p}.mlp.{n}_proj": (I, H) for n in ("gate", "up")}
+        shapes.update(attn)
+        shapes[f"{p}.self_attn.o_proj"] = (H, NH * D)
+        shapes.update(mlp)
+        shapes[f"{p}.mlp.down_proj"] = (H, I)
+        fused += [list(attn), list(mlp)]
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            extra[f"{p}.{norm}.weight"] = np.ones(H, np.float32)
+    shapes["lm_head"] = (V, H)
+    weights = {name: (rng.normal(size=shape) * 0.05).astype(np.float32)
+               for name, shape in shapes.items()}
+    groups = {name: [name] for name in shapes}
+    if fused_global:
+        groups.update({name: members for members in fused
+                       for name in members})
+
+    args = preset_name_to_scheme(preset, ["Linear"]).weights
+    states = {}
+    for name, w in weights.items():
+        states[name] = {"weight": jnp.asarray(w)}
+        if name in ("model.embed_tokens", "lm_head"):
+            continue
+        global_scale = None
+        if preset.startswith("NVFP4"):
+            members = np.concatenate([weights[m] for m in groups[name]])
+            global_scale = generate_gparam(jnp.asarray(members.min()),
+                                           jnp.asarray(members.max()))
+            states[name]["weight_global_scale"] = global_scale
+        g = w.reshape(w.shape[0], -1, args.group_size)
+        states[name]["weight_scale"], _ = calculate_qparams(
+            jnp.asarray(g.min(-1)), jnp.asarray(g.max(-1)), args,
+            global_scale=global_scale)
+
+    save_dir = str(tmp_path / "tiny_fp4")
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    mc = ModelCompressor.from_compression_config(preset_config(preset, fmt))
+    mc.save_checkpoint(save_dir, states, module_graph_from_names(list(shapes)),
+                       extra_tensors=extra)
+    return save_dir
+
+
 def fp8_dynamic_config():
     """FP8_DYNAMIC: per-channel fp8 e4m3 weights, dynamic per-token fp8
     activations, bf16 lm_head."""
@@ -94,7 +178,7 @@ def to_numpy(t) -> np.ndarray:
 
 
 _LINEAR_FIELDS = ("weight", "weight_packed", "scale", "zero_point", "bias",
-                  "g_idx")
+                  "g_idx", "global_scale", "input_global_scale")
 
 
 def jax_params_to_numpy(params):
