@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
-the shapes of the main paths. Then it drives five paths end to end:
+the shapes of the main paths. Then it drives seven paths end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
   (W8A8-int lm_head, random weights from a seed), written, loaded with
@@ -36,7 +36,17 @@ the shapes of the main paths. Then it drives five paths end to end:
 - Llama-3-8B W8A16 g128 (pack-quantized, W8A8-int lm_head): the
   grouped-int8 kernel held against its plain version (W8A16 and W4A16
   under ``w4_layout="e8"``), ``greedy_generate`` at batch 64, the requests
-  through the paged engine, and the logits by depth.
+  through the paged engine, and the logits by depth;
+- Qwen2.5-7B-Instruct-AWQ kind (W4A16 with zero points, a bf16 qkv bias)
+  and Qwen3-8B W4A16 (per-head q/k norms) at full width, built on the card,
+  under ``w4_layout="packed"``: the int32 8-plane kernel held against its
+  plain version in modes int4, a8 and mat at both models' shapes, the
+  attention kernels at 7 query heads per kv head, the logits by depth
+  (Qwen3's mode a8 against its plain a8 path, since int8 activations are
+  no part of the non-kernel path), Qwen2.5's requests dense and paged in
+  mode int4 (equal token for token)
+  and once more under ``w4_layout="auto"`` (counted against them), and
+  ``greedy_generate`` at batch 64 in modes mat (Qwen2.5) and a8 (Qwen3).
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -202,6 +212,12 @@ COUNTERS = {
                                       "scaled_launches"),
     "w4a16_fp4_matmul": ("w4a16_matmul", "w4a16_fp4_matmul", "launches"),
     "w4_e8_matmul": ("w4a16_matmul", "w4_e8_matmul", "launches"),
+    "w4a16_planes_int4": ("w4a16_matmul", "w4a16_planes_matmul",
+                          "int4_launches"),
+    "w4a16_planes_a8": ("w4a16_matmul", "w4a16_planes_matmul",
+                        "a8_launches"),
+    "w4a16_planes_mat": ("w4a16_matmul", "w4a16_planes_matmul",
+                         "mat_launches"),
 }
 
 
@@ -480,8 +496,8 @@ def serving_tables(rng, inactive=()):
 
 def check_serving_decode(errs, rng, q, nk, nv, make, label, ks=None,
                          vs=None):
-    """Flash decode on the dense engine's (32, 64, 8, 1024, 128) cache and
-    paged decode on the paged engine's pool against their plain versions,
+    """Flash decode on the dense engine's (32, 64, KVH, 1024, 128) cache
+    and paged decode on the paged engine's pool against their plain versions,
     with three rows inactive (released to the null page): outputs within
     TOL_KERNEL, inactive rows zero, the caches updated in place, their
     bytes equal to the plain version's and changed at the step's positions
@@ -495,6 +511,7 @@ def check_serving_decode(errs, rng, q, nk, nv, make, label, ks=None,
     )
     from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
+    kvh = nk.shape[1]
     inactive = (3, 17, 40)
     lens_np, lengths = serving_lengths(rng, BATCH, inactive)
     active = lengths >= 0
@@ -504,14 +521,14 @@ def check_serving_decode(errs, rng, q, nk, nv, make, label, ks=None,
     scales = dict(layer=layer, k_scale=ks, v_scale=vs)
     cases = {
         "flash_decode_attention": (
-            (L8, BATCH, KVH8, SERVE["max_len"], D8),
+            (L8, BATCH, kvh, SERVE["max_len"], D8),
             lambda k, v: fd.flash_decode_attention(q, nk, nv, k, v, lengths,
                                                    **scales),
             lambda k, v: fd.flash_decode_attention_plain(
                 q, nk, nv, k, v, lengths, **scales),
             lambda b: (b, int(lens_np[b]))),
         "paged_decode_attention": (
-            (L8, num_pages, KVH8, page, D8),
+            (L8, num_pages, kvh, page, D8),
             lambda k, v: pd.paged_decode_attention(q, nk, nv, k, v, tables_d,
                                                    lengths, **scales),
             lambda k, v: pd.paged_decode_attention_plain(
@@ -536,7 +553,7 @@ def check_serving_decode(errs, rng, q, nk, nv, make, label, ks=None,
                 and torch.equal(byte_view(cv), byte_view(cv_p))):
             raise AssertionError(f"{name} {label} write differs from plain")
         expect = [(layer, at(b)[0], h, at(b)[1]) for b in range(BATCH)
-                  for h in range(KVH8) if b not in inactive]
+                  for h in range(kvh) if b not in inactive]
         check_written(name, ck, ck0, expect)
         check_written(name, cv, cv0, expect)
         del ck, cv, ck0, cv0, ck_p, cv_p
@@ -865,7 +882,8 @@ def serve_requests(params, config, requests, name, **kw):
     if sorted(outs) != list(range(N_REQUESTS)) or any(
             len(outs[i]) != new for i, _, new in requests):
         raise AssertionError(f"serving {name}: completions missing")
-    if not all(0 <= t < VOCAB8 for o in outs.values() for t in o):
+    if not all(0 <= t < config.vocab_size for o in outs.values()
+               for t in o):
         raise AssertionError(f"serving {name}: token ids out of range")
     hits = engine.prefix_cache_hits
     del engine._prefill_chunk, engine._decode, engine  # frees its cache
@@ -947,7 +965,7 @@ def rel_rms(a, b):
 
 
 def logits_by_depth(params, config, requests, label, cache_dtype=None,
-                    fault=None):
+                    fault=None, depths=DEPTHS):
     """One request's first-token logits through the first d layers (full
     width) for each d in DEPTHS: the kernel path, the non-kernel path, and
     the non-kernel path with one bf16 ulp up on 64 embedding values of one
@@ -966,7 +984,7 @@ def logits_by_depth(params, config, requests, label, cache_dtype=None,
     emb, tok = params["embed_tokens"], ids[n // 3]
     row = emb[tok].clone()
     sweep, refs = {}, {}
-    for depth in DEPTHS:
+    for depth in depths:
         got = logits(depth, True)
         ref = refs[depth] = logits(depth, False)
         emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
@@ -995,17 +1013,17 @@ def logits_by_depth(params, config, requests, label, cache_dtype=None,
 
 @contextlib.contextmanager
 def rolled_group_scales(params):
-    """A planted kernel fault: the kernel scales of every fp4 and
-    grouped-int8 decoder linear rolled by one group, so that each group
-    is read with its neighbour's scale (an off-by-one group index); undone
-    on exit. The non-kernel path reads the checkpoint's scales and is not
+    """A planted kernel fault: the kernel scales of every fp4, grouped-int8
+    and int32 plane-layout decoder linear rolled by one group, so that each
+    group is read with its neighbour's scale (an off-by-one group index);
+    undone on exit. The non-kernel path reads the checkpoint's scales and is not
     touched."""
     from compressed_tensors_tpu_torch.ops.linear import QuantizedTensor
 
     scales = [qt.kernel_scales for layer in params["layers"]
               for qt in layer.values()
               if isinstance(qt, QuantizedTensor) and qt.kernel_meta
-              and qt.kernel_meta[0] in ("fp4", "w4e8")]
+              and qt.kernel_meta[0] in ("fp4", "w4e8", "w4packed")]
     for s in scales:
         s.copy_(s.roll(1, 0))
     try:
@@ -1033,7 +1051,7 @@ def logits_rule_failures(sweep):
     return out
 
 
-def check_logits_by_depth(params, config, requests, label):
+def check_logits_by_depth(params, config, requests, label, depths=DEPTHS):
     """Phases 7-8's logits checks.
 
     - The rule of ``logits_rule_failures``. Its spread arm is for a random
@@ -1049,18 +1067,22 @@ def check_logits_by_depth(params, config, requests, label):
       package's) keeps each token's activation scale in bf16 and its
       kernel in f32, so the two heads round the same input to different
       int8 values; the bf16 head reads the decoder layer's difference
-      alone."""
+      alone.
+
+    Returns the sweep."""
     import torch
 
     sweep, faulty = logits_by_depth(params, config, requests, label,
-                                    fault=rolled_group_scales(params))
+                                    fault=rolled_group_scales(params),
+                                    depths=depths)
     failures = logits_rule_failures(sweep)
     if failures:
         raise AssertionError(f"{label} logits: {'; '.join(failures)}")
     log(f"{label} logits: within {TOL_WNA16_DEPTH1} of max|ref| at one "
         f"layer, and at every depth within {TOL_E2E_8B} of max|ref| or "
         f"{FLOOR_RATIO}x the perturbation spread (rel_rms / spread: "
-        + ", ".join(f"{d}: {e / s:.3g}" for d, (e, s, _) in sweep.items())
+        + ", ".join(f"{d}: {e / max(s, 1e-30):.3g}"
+                    for d, (e, s, _) in sweep.items())
         + ")")
     caught = logits_rule_failures(faulty)
     log(f"{label} control, group scales rolled by one group in the kernel "
@@ -1089,6 +1111,7 @@ def check_logits_by_depth(params, config, requests, label):
     if err > TOL_E2E_8B:
         raise AssertionError(f"{label} logits at one layer through a bf16 "
                              "lm_head disagree with the non-kernel path")
+    return sweep
 
 
 def greedy_8b(params, config, label, **kw):
@@ -1113,7 +1136,7 @@ def greedy_8b(params, config, label, **kw):
         f"{total * 1e3:.1f} ms ({BATCH * NEW_TOKENS / total:.0f} tok/s "
         f"end to end), kernel launches {counts}")
     if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
-            ((out >= 0) & (out < VOCAB8)).all()):
+            ((out >= 0) & (out < config.vocab_size)).all()):
         raise AssertionError(f"{label} greedy_generate: ids out of range")
     return dict(counts=counts, wall=total)
 
@@ -2177,6 +2200,450 @@ def phase_w8a16(errs):
     return results
 
 
+# --------------------------------------------------------------------- #
+# phases 9-10: the int32 8-plane W4A16 modes (B10) on Qwen2.5-7B (AWQ
+# kind, zero points) and Qwen3-8B (GPTQ kind), w4_layout="packed"
+
+# published configs (config.json of Qwen/Qwen2.5-7B-Instruct and
+# Qwen/Qwen3-8B); model_type sets the qkv bias (qwen2) and the q/k norm
+# (qwen3) as in both packages' LlamaConfig.from_dict
+QWEN25_7B = dict(model_type="qwen2", vocab_size=152064, hidden_size=3584,
+                 intermediate_size=18944, num_hidden_layers=28,
+                 num_attention_heads=28, num_key_value_heads=4, head_dim=128,
+                 rope_theta=1e6, rms_norm_eps=1e-6,
+                 max_position_embeddings=32768, tie_word_embeddings=False)
+QWEN3_8B = dict(model_type="qwen3", vocab_size=151936, hidden_size=4096,
+                intermediate_size=12288, num_hidden_layers=36,
+                num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+                rope_theta=1e6, rms_norm_eps=1e-6,
+                max_position_embeddings=40960, tie_word_embeddings=False)
+QWEN25_DEPTHS = (1, 2, 4, 8, 16, 28)
+QWEN3_DEPTHS = (1, 2, 4, 8, 16, 36)
+QKV_BIAS_STD = 0.5   # Qwen2 q/k/v bias: about the size of the projections
+QK_NORM_STD = 0.1    # Qwen3 q/k norm weights: 1 + N(0, 0.1^2)
+
+
+def fused_shapes(config):
+    """(N, K) of each fused decoder linear."""
+    H, I = config.hidden_size, config.intermediate_size
+    q, kv = (config.num_attention_heads * config.head_dim,
+             config.num_key_value_heads * config.head_dim)
+    return {"qkv_proj": (q + 2 * kv, H), "o_proj": (H, q),
+            "gate_up_proj": (2 * I, H), "down_proj": (H, I)}
+
+
+def plane_operands(gen, n, k, asym, group=128):
+    """A W4 linear in the plane layout, drawn on the card as the W4A16
+    model is: random codes, (K/g, N) scales in [1e-3, 3e-3] (and zero
+    points in [-8, 7]), K padded to 8 groups as prepare does. Returns
+    (words, scales, zp, K_pad)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    k_pad, tk = w4.padded_k(k, group), w4.choose_k_tile(k, group)
+    u = torch.randint(0, 16, (n, k_pad), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    u[:, k:] = 8
+    words = w4.repack_w4_for_kernel(u, 4, k_pad, tk)
+    del u
+    scales = torch.rand((k_pad // group, n), generator=gen,
+                        device="cuda") * 2e-3 + 1e-3
+    scales[k // group:] = 0
+    zp = (torch.randint(-8, 8, (k_pad // group, n), generator=gen,
+                        device="cuda").float() if asym else None)
+    return words, scales, zp, k_pad
+
+
+def parity_planes(errs, config, asym, label):
+    """B10 against its plain version at the fused linear shapes of
+    ``config``, in every mode at M = 64 and 512, by the a8b rule; in mode
+    a8 the quantization pass equal to the plain one bit for bit."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for lin, (n, k) in fused_shapes(config).items():
+        words, s, zp, k_pad = plane_operands(gen, n, k, asym)
+        for m in (BATCH, M_CHUNK):
+            x = dev_randn(gen, m, k)
+            for mode in w4.PLANE_MODES:
+                name = f"w4a16_planes_{mode}"
+                kw = dict(n=n, k=k_pad, group_size=128, mode=mode)
+                scratch = {}
+                if mode == "a8":
+                    scratch = dict(
+                        xq=torch.empty((m, k), dtype=torch.int8,
+                                       device="cuda"),
+                        xs=torch.empty((m,), dtype=torch.float32,
+                                       device="cuda"))
+                got = w4.w4a16_planes_matmul(x, words, s, zp, **kw,
+                                             **scratch)
+                if mode == "a8":
+                    xq, xs = w4.quantize_rows_a8b_plain(x)
+                    if not (torch.equal(scratch["xq"], xq)
+                            and torch.equal(scratch["xs"], xs)):
+                        raise AssertionError(f"{name} {lin}: quantization "
+                                             "pass differs from plain")
+                want = w4.w4a16_planes_matmul_plain(
+                    x, words, s, zp, out_dtype=torch.float32, **kw)
+                errs[name] = max(errs.get(name, 0.0), check_rule(
+                    f"{name} {label} {lin} M={m}", got, want))
+                del got, want
+        del words, s, zp
+        torch.cuda.empty_cache()
+
+
+def parity_rep7(errs):
+    """The attention kernels at Qwen2.5-7B's 7 query heads per kv head (H
+    = 28, KVH = 4, D = 128) against their plain versions: prefill over
+    one 512-token chunk, block decode, flash and paged decode over the
+    serving engines' caches."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+        prefill_attention as pa,
+    )
+
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    H, KVH = 28, 4
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    q, k, v = (dev_randn(gen, 1, M_CHUNK, h, D8) for h in (H, KVH, KVH))
+    keep("prefill_attention", check_close(
+        "prefill_attention B=1 S=512 H=28 KVH=4 D=128",
+        pa.prefill_attention(q, k, v), pa.prefill_attention_plain(q, k, v)))
+    q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H, KVH, KVH))
+    ck, cv = (dev_randn(gen, 2, BATCH, KVH, 256, D8) for _ in range(2))
+    lengths = torch.from_numpy(rng.integers(0, 255, BATCH).astype(
+        np.int32)).cuda()
+    ck_p, cv_p = ck.clone(), cv.clone()
+    out, _, _ = da.decode_attention(q, nk, nv, ck, cv, lengths, layer=1)
+    want, _, _ = da.decode_attention_plain(q, nk, nv, ck_p, cv_p, lengths,
+                                           layer=1)
+    keep("decode_attention", check_close("decode_attention H=28 KVH=4",
+                                         out, want))
+    if not (torch.equal(ck, ck_p) and torch.equal(cv, cv_p)):
+        raise AssertionError("decode_attention H=28 cache write differs")
+    del ck, cv, ck_p, cv_p
+    check_serving_decode(errs, rng, q, nk, nv,
+                         lambda shape: dev_randn(gen, *shape),
+                         "bf16 cache, H=28 KVH=4")
+
+
+def qwen_llama(config, seed, asym):
+    """A Qwen model at full width built on the card as ``w8a16_llama``
+    draws its model, as W4A16 g128 pack-quantized with bf16 group scales
+    in [1e-3, 3e-3]: with ``asym`` (W4A16_ASYM, the AWQ kind) random int32
+    words and zero points in [-8, 7] packed along dim 0; symmetric (the
+    GPTQ kind) codes q uniform in [-7, 7]; the qkv bias (qwen2) in bf16
+    N(0, QKV_BIAS_STD^2), the q/k norm weights (qwen3) 1 + N(0,
+    QK_NORM_STD^2); a W8A8-int lm_head. Each linear is prepared in the
+    layout the ``w4_layout`` flag names.
+
+    Symmetric codes leave out -8: random words give q a mean of -0.5 (a
+    tenth of its spread), which over K = 4096 inputs turns every linear's
+    output toward the all-ones direction; on the H100 such a random
+    Qwen3-8B kept one argmax at every depth, and group scales rolled by
+    one group moved its logits by 1-4% (against 75% for Qwen2.5, whose zero
+    points cancel that mean), too little for the control."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scheme = preset_name_to_scheme("W4A16_ASYM" if asym else "W4A16",
+                                   ["Linear"])
+    scheme.format = "pack-quantized"
+    g = scheme.weights.group_size
+
+    def linear(n, k, bias):
+        words = (torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen,
+                               device="cuda", dtype=torch.int32) if asym
+                 else pack_to_int32(torch.randint(
+                     -7, 8, (n, k), generator=gen, device="cuda",
+                     dtype=torch.int8), 4))
+        scale = torch.rand((n, k // g), generator=gen, device="cuda") \
+            * 2e-3 + 1e-3
+        zp = (pack_to_int32(torch.randint(
+            -8, 8, (n, k // g), generator=gen, device="cuda",
+            dtype=torch.int8), 4, packed_dim=0) if asym else None)
+        b = ((torch.randn((n,), generator=gen, device="cuda") * QKV_BIAS_STD)
+             .to(torch.bfloat16) if bias else None)
+        return prepare_for_kernels(QuantizedTensor(
+            weight_packed=words, scale=scale.to(torch.bfloat16),
+            zero_point=zp, bias=b, shape=(n, k), scheme=scheme,
+            format=scheme.format))
+
+    def layer(_):
+        out = {name: linear(*shape, bias=config.attention_bias
+                            and name in ("q_proj", "k_proj", "v_proj"))
+               for name, shape in linear_shapes(config).items()}
+        if config.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                out[name] = (1 + QK_NORM_STD * torch.randn(
+                    (config.head_dim,), generator=gen, device="cuda")).to(
+                        torch.bfloat16)
+        return out
+
+    return card_llama(config, layer, gen)
+
+
+def reprepared(params, w4_layout):
+    """The same checkpoint fields with every decoder linear's kernel layout
+    rebuilt under ``w4_layout``."""
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+
+    return dict(params, layers=[
+        {name: (prepare_for_kernels(qt, w4_layout=w4_layout)
+                if isinstance(qt, QuantizedTensor) else qt)
+         for name, qt in layer.items()} for layer in params["layers"]])
+
+
+def build_qwen(spec, seed, asym, label):
+    """``qwen_llama`` under w4_layout="packed", fused; checks that every
+    decoder linear took the plane layout."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    config = LlamaConfig.from_dict(spec)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with flag_overrides(w4_layout="packed"):
+        params = fuse_llama_layers(qwen_llama(config, seed, asym))
+    torch.cuda.synchronize()
+    kinds = {qt.kernel_meta[0] for layer in params["layers"]
+             for qt in layer.values() if hasattr(qt, "kernel_meta")}
+    if kinds != {"w4packed"} or "qkv_proj" not in params["layers"][0]:
+        raise AssertionError(f"{label}: decoder linears prepared as {kinds}")
+    log(f"{label} model (built on the card from seed {seed}, "
+        f"w4_layout=\"packed\", fused, W8A8-int lm_head): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return params, config
+
+
+def phase_qwen25(errs):
+    """Phase 9: B10 against its plain version at Qwen2.5-7B shapes (zero
+    points) and the attention kernels at 7 query heads per kv head; then
+    Qwen2.5-7B-Instruct-AWQ kind (W4A16 asymmetric g128, bf16 qkv bias)
+    under w4_layout="packed": first-token logits by depth in modes int4
+    (with the rolled-scales control) and mat, the serving requests dense
+    and paged in mode int4 (identical), greedy_generate at batch 64 in
+    mode mat, and the requests once more under w4_layout="auto" (B1
+    int4b), whose completions are counted against the packed ones."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+
+    parity_planes(errs, LlamaConfig.from_dict(QWEN25_7B), True, "qwen2.5")
+    parity_rep7(errs)
+    params, config = build_qwen(QWEN25_7B, 0, True, "Qwen2.5-7B AWQ-kind")
+    requests = serving_requests()
+    results = {}
+    with flag_overrides(w4_mode="int4"):
+        check_logits_by_depth(params, config, requests, "Qwen2.5 int4",
+                              depths=QWEN25_DEPTHS)
+        for name, kw in (("qwen2.5 dense", dict(paged=False)),
+                         ("qwen2.5 paged", dict(paged=True,
+                                                prefix_caching=False))):
+            results[name] = serve_requests(params, config, requests, name,
+                                           **kw)
+    dense, paged = (results[k]["outs"] for k in ("qwen2.5 dense",
+                                                 "qwen2.5 paged"))
+    bad = [i for i in dense if paged[i] != dense[i]]
+    log(f"serving qwen2.5 paged vs dense: {N_REQUESTS - len(bad)}/"
+        f"{N_REQUESTS} completions identical token for token")
+    if bad:
+        raise AssertionError(f"qwen2.5 serving: paged and dense completions "
+                             f"differ for requests {bad}")
+    with flag_overrides(w4_mode="mat"):
+        sweep, _ = logits_by_depth(params, config, requests, "Qwen2.5 mat",
+                                   depths=QWEN25_DEPTHS)
+        failures = logits_rule_failures(sweep)
+        if failures:
+            raise AssertionError(f"Qwen2.5 mat logits: {'; '.join(failures)}")
+        results["qwen2.5 greedy_generate"] = greedy_8b(params, config,
+                                                       "qwen2.5 mat")
+    auto = reprepared(params, "auto")
+    del params
+    torch.cuda.empty_cache()
+    results["qwen2.5 dense auto"] = serve_requests(
+        auto, config, requests, "qwen2.5 dense, w4_layout=auto", paged=False)
+    same = sum(results["qwen2.5 dense auto"]["outs"][i] == dense[i]
+               for i in dense)
+    log(f"serving qwen2.5 dense under w4_layout=\"auto\" (int4b) vs "
+        f"\"packed\" (B10 int4): {same}/{N_REQUESTS} completions identical "
+        "(recorded, not a limit)")
+    del auto
+    base = ("w8a8_matmul", "prefill_attention")
+    check_launched(results, {
+        "qwen2.5 dense": base + ("w4a16_planes_int4", "flash_decode_attention"),
+        "qwen2.5 paged": base + ("w4a16_planes_int4", "paged_decode_attention"),
+        "qwen2.5 greedy_generate": base + ("w4a16_planes_mat",
+                                           "decode_attention"),
+        "qwen2.5 dense auto": base + ("w4a16_matmul",)})
+    results["qwen2.5 dense auto"]["identical"] = same
+    return results
+
+
+@contextlib.contextmanager
+def plain_planes():
+    """Every plane-layout matmul of the model through the plane kernel's
+    plain version on the card, in the same mode; undone on exit."""
+    from compressed_tensors_tpu_torch.ops import linear
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    kernel = linear.w4a16_planes_matmul
+    linear.w4a16_planes_matmul = w4.w4a16_planes_matmul_plain
+    try:
+        yield
+    finally:
+        linear.w4a16_planes_matmul = kernel
+
+
+def check_a8_by_depth(params, config, requests, spreads, depths):
+    """Mode a8 rounds every linear's input to int8 per row (absmax / 127),
+    which the non-kernel path does not: on the H100 that alone moved the
+    random Qwen3-8B's first-token logits 4.6% of max|ref| at one layer
+    and 4-6% relative RMS at every depth, about 4x the one-ulp spread. So
+    a8 is held by the logits rule against the same arithmetic: the model
+    with every plane matmul through its plain version in mode a8
+    (``plain_planes``), with the non-kernel path's one-ulp ``spreads``
+    ({depth: relative RMS}). The distance to the non-kernel path is
+    printed beside it."""
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+
+    rid, ids, _ = probe_request(requests)
+    sweep = {}
+    for depth in depths:
+        with flag_overrides(w4_mode="a8"):
+            got = first_token_logits(params, config, ids, depth, True,
+                                     "Qwen3 a8")
+            with plain_planes():
+                ref = first_token_logits(params, config, ids, depth, True,
+                                         "Qwen3 a8 plain")
+        nk = first_token_logits(params, config, ids, depth, False, "Qwen3")
+        top = ref.abs().max().item()
+        sweep[depth] = (rel_rms(got, ref), spreads[depth],
+                        (got - ref).abs().max().item() / top)
+        log(f"Qwen3 a8 first-token logits (request {rid}), {depth} of "
+            f"{config.num_hidden_layers} layers: kernel vs the plain a8 "
+            f"path rel_rms={sweep[depth][0]:.4g} (max {sweep[depth][2]:.4g} "
+            f"of max|ref|); vs the non-kernel path rel_rms="
+            f"{rel_rms(got, nk):.4g} (max "
+            f"{(got - nk).abs().max().item() / nk.abs().max().item():.4g} of "
+            f"max|ref|); argmax kernel {int(got.argmax())} plain "
+            f"{int(ref.argmax())} non-kernel {int(nk.argmax())}")
+    failures = logits_rule_failures(sweep)
+    if failures:
+        raise AssertionError(f"Qwen3 a8 logits against the plain a8 path: "
+                             f"{'; '.join(failures)}")
+
+
+def phase_qwen3(errs):
+    """Phase 10: B10 against its plain version at Qwen3-8B shapes
+    (symmetric), then Qwen3-8B W4A16 g128 (the GPTQ kind, q/k norms)
+    under w4_layout="packed": first-token logits by depth in mode int4
+    against the non-kernel path (with the rolled-scales control), in mode
+    a8 against the plain a8 path (``check_a8_by_depth``), and
+    greedy_generate at batch 64 in mode a8."""
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+
+    parity_planes(errs, LlamaConfig.from_dict(QWEN3_8B), False, "qwen3")
+    params, config = build_qwen(QWEN3_8B, 0, False, "Qwen3-8B W4A16")
+    requests = serving_requests()
+    with flag_overrides(w4_mode="int4"):
+        sweep = check_logits_by_depth(params, config, requests, "Qwen3 int4",
+                                      depths=QWEN3_DEPTHS)
+    check_a8_by_depth(params, config, requests,
+                      {d: spread for d, (_, spread, _) in sweep.items()},
+                      QWEN3_DEPTHS)
+    with flag_overrides(w4_mode="a8"):
+        results = {"qwen3 greedy_generate": greedy_8b(params, config,
+                                                      "qwen3 a8")}
+    check_launched(results, {"qwen3 greedy_generate": (
+        "w4a16_planes_a8", "w8a8_matmul", "prefill_attention",
+        "decode_attention")})
+    return results
+
+
+def timings_planes():
+    """Device ms of B10 over the four fused linears of one Qwen2.5-7B
+    layer (zero points) at M = 64 and 512 in each mode, bound, plain ms,
+    and torch.matmul on the dequantized bf16 weight. The timed calls
+    rotate over copies of the words, scales and zero points together.
+    Returns {kernel name: {"M=<m>": row}}."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {f"w4a16_planes_{mode}": {} for mode in w4.PLANE_MODES}
+    sums = {}
+    for lin, (n, k) in fused_shapes(LlamaConfig.from_dict(QWEN25_7B)).items():
+        words, s, zp, k_pad = plane_operands(gen, n, k, True)
+        # the checkpoint: 4-bit codes, bf16 group scales, 4-bit zero points
+        ckpt = n * k // 2 + n * k // 128 * 2 + n * k // 128 // 2
+        copies = [(words.clone(), s.clone(), zp.clone()) for _ in range(
+            copies_for(words.numel() * 4 + 2 * s.numel() * 4))]
+        wd = ((w4._plane_codes(words, 128).float() - 8
+               - zp.repeat_interleave(128, 0)) * s.repeat_interleave(128, 0)
+              )[:k].t().to(torch.bfloat16).contiguous()
+        wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
+        for m in (BATCH, M_CHUNK):
+            x = dev_randn(gen, m, k)
+            tl = device_ms([lambda wd=wd: torch.matmul(x, wd.t())
+                            for wd in wds])
+            for mode in w4.PLANE_MODES:
+                kw = dict(n=n, k=k_pad, group_size=128, mode=mode)
+                t = device_ms([lambda c=c: w4.w4a16_planes_matmul(
+                    x, *c, **kw) for c in copies])
+                tp = eager_ms(lambda: w4.w4a16_planes_matmul_plain(
+                    x, words, s, zp, **kw), iters=3)
+                peak = PEAK_INT8 if mode == "a8" else PEAK_BF16
+                b = m * k * 2 + ckpt + m * n * 2
+                bm, by = bound(b, 2 * m * n * k, peak)
+                log(f"time w4a16_planes_{mode} qwen2.5 {lin} M={m}: "
+                    f"{t:.4f} ms, bound {bm:.4f} ms ({by}), plain {tp:.4f} "
+                    f"ms, torch.matmul on the dequantized bf16 weight "
+                    f"{tl:.4f} ms")
+                acc = sums.setdefault((mode, m), [0.0] * 5)
+                for i, v in enumerate((t, tp, tl, b, 2 * m * n * k)):
+                    acc[i] += v
+        del copies, wds, wd, words, s, zp
+        torch.cuda.empty_cache()
+    for (mode, m), (t, tp, tl, b, ops) in sums.items():
+        bm, by = bound(b, ops, PEAK_INT8 if mode == "a8" else PEAK_BF16)
+        rows[f"w4a16_planes_{mode}"][f"M={m}"] = dict(
+            ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
+            shapes=f"qkv+o+gate_up+down of one Qwen2.5-7B layer (zero "
+            f"points), M={m}; bound from the checkpoint's bytes; library: "
+            "torch.matmul on the dequantized bf16 weight")
+    return rows
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -2213,13 +2680,18 @@ KERNEL_META = {
         "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
     "w4_e8_matmul": ("compressed_tensors_tpu_torch/csrc/wna16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:485"),
+    **{f"w4a16_planes_{mode}": (
+        "compressed_tensors_tpu_torch/csrc/w4a16_planes.cu",
+        "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541")
+       for mode in ("int4", "a8", "mat")},
 }
 
 
 # the main variant of kernels timed in several (the others go under
 # "variants"); the scaled decode kernels' main variant is the fp8 cache
 MAIN_VARIANT = {"w8a8_matmul_fp8": BATCH, "w4a16_fp4_matmul": "nvfp4 M=64",
-                "w4_e8_matmul": "w8a16 M=64"}
+                "w4_e8_matmul": "w8a16 M=64", "w4a16_planes_int4": "M=64",
+                "w4a16_planes_a8": "M=64", "w4a16_planes_mat": "M=64"}
 
 
 def kernel_report(errs, rows, variant_rows, paths):
@@ -2229,7 +2701,8 @@ def kernel_report(errs, rows, variant_rows, paths):
     fp8 cache with the int8 cache under ``variants``, the fp4 kernel on
     NVFP4 at M = 64 (MXFP4 and M = 512 under ``variants``), the
     grouped-int8 kernel on W8A16 at M = 64 (W4A16 under e8 and M = 512
-    under ``variants``). Launches are summed over the main paths' runs
+    under ``variants``), each plane-layout mode at Qwen2.5-7B shapes at
+    M = 64 (M = 512 under ``variants``). Launches are summed over the main paths' runs
     (``paths``: run name -> launch counts), with the split by run beside
     them."""
     by_name = {r["name"]: r for r in rows}  # later (8B) rows win
@@ -2298,10 +2771,21 @@ def main() -> int:
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
     log(f"phases 7-8 timings done at {time.perf_counter() - t_start:.1f} s")
+    qwen25 = phase_qwen25(errs)
+    log(f"phase 9 (Qwen2.5-7B) done at {time.perf_counter() - t_start:.1f} s")
+    qwen3 = phase_qwen3(errs)
+    log(f"phase 10 (Qwen3-8B) done at {time.perf_counter() - t_start:.1f} s")
+    variant_rows.update(timings_planes())
+    for name in ("w4a16_planes_int4", "w4a16_planes_a8", "w4a16_planes_mat"):
+        for r in variant_rows[name].values():
+            log(f"kernel {name} [{r['shapes']}]: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    log(f"phases 9-10 timings done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
-    for phase in (fp8, nvfp4, w8a16):
+    for phase in (fp8, nvfp4, w8a16, qwen25, qwen3):
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")

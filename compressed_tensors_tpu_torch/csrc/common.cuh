@@ -1,6 +1,7 @@
 // Helpers shared by the port's hand-written Hopper kernels: tensor-core
 // mma.sync wrappers, cp.async copies, the split-K reduction, warp
-// reductions, fp8 e4m3 conversions and the KV cache element types.
+// reductions, the int8 row quantizer of the a8b / a8 modes, fp8 e4m3
+// conversions and the KV cache element types.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -116,6 +117,36 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Per-row int8 quantization of bf16 x (one block per row), the activation
+// pass of modes a8b and a8: scale = max(absmax, 1e-8) / 127 and q =
+// clip(rint(x / scale), -127, 127), with IEEE division and round half to
+// even, as the TPU kernel quantizes (w4a16_matmul.py:579-590).
+static __global__ void quantize_rows_a8b_kernel(const __nv_bfloat16* __restrict__ x,
+                                                int8_t* __restrict__ xq,
+                                                float* __restrict__ xs, int K) {
+  const int row = blockIdx.x;
+  const __nv_bfloat16* xr = x + (size_t)row * K;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
+  __shared__ float red[32];
+  amax = warp_max(amax);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
+    v = warp_max(v);
+    if (threadIdx.x == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float scale = fmaxf(red[0], 1e-8f) / 127.f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    const float q = rintf(__bfloat162float(xr[i]) / scale);
+    xq[(size_t)row * K + i] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  }
+  if (threadIdx.x == 0) xs[row] = scale;
 }
 
 // KV cache element types of the decode kernels. A bf16 cache holds the

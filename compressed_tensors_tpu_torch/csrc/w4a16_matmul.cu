@@ -19,7 +19,8 @@
 //
 // The second entry point, ct_w4a16_a8b_matmul, is the int8-activation mode
 // "a8b" (see its note below). Mode "fp4" and w4_e8_matmul are in
-// wna16_matmul.cu.
+// wna16_matmul.cu, the plane-layout modes int4 / a8 / mat in
+// w4a16_planes.cu.
 #include "common.cuh"
 
 namespace {
@@ -176,10 +177,9 @@ w4a16_kernel(const __nv_bfloat16* __restrict__ x,
 // ---- mode a8b: int8 activations --------------------------------------- //
 // Replaces the same TPU function's mode "a8b" (w4a16_matmul.py:579-590 and
 // the kernel body :258-290). Pass 1 quantizes each row of x as the TPU
-// kernel does: scale = max(absmax, 1e-8) / 127, q = clip(rint(x / scale),
-// -127, 127) with IEEE division and round half to even. Pass 2 decodes the
-// nibbles to exact int8 values q - zp = u - (8 + zp) in shared memory and
-// runs mma.sync s8.s8 -> s32 over each quant group; at the group's end the
+// kernel does (ct::quantize_rows_a8b_kernel, common.cuh). Pass 2 decodes
+// the nibbles to exact int8 values q - zp = u - (8 + zp) in shared memory
+// and runs mma.sync s8.s8 -> s32 over each quant group; at the group's end the
 // exact integer sums are scaled by the group's f32 scale into an f32
 // accumulator, the row's x scale is applied once, and y is written once in
 // bf16. The TPU kernel dots the offset nibbles u and subtracts
@@ -188,32 +188,6 @@ w4a16_kernel(const __nv_bfloat16* __restrict__ x,
 //
 // Bound on the H100: at prefill chunks (M = 512 rows and more) the
 // 2*M*N*K int8 tensor-core operations.
-
-__global__ void quantize_rows_a8b_kernel(const __nv_bfloat16* __restrict__ x,
-                                         int8_t* __restrict__ xq,
-                                         float* __restrict__ xs, int K) {
-  const int row = blockIdx.x;
-  const __nv_bfloat16* xr = x + (size_t)row * K;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
-    amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
-  __shared__ float red[32];
-  amax = ct::warp_max(amax);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
-    v = ct::warp_max(v);
-    if (threadIdx.x == 0) red[0] = v;
-  }
-  __syncthreads();
-  const float scale = fmaxf(red[0], 1e-8f) / 127.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    const float q = rintf(__bfloat162float(xr[i]) / scale);
-    xq[(size_t)row * K + i] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
-  }
-  if (threadIdx.x == 0) xs[row] = scale;
-}
 
 constexpr int AS8 = BK + 16;  // int8 smem row stride (bytes)
 
@@ -395,7 +369,7 @@ extern "C" int ct_w4a16_a8b_matmul(const void* x, const void* w,
                                    void* xq, void* xs, int M, int N, int K,
                                    int group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_rows_a8b_kernel<<<M, 256, 0, s>>>(
+  ct::quantize_rows_a8b_kernel<<<M, 256, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
       static_cast<float*>(xs), K);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);

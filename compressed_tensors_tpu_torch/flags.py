@@ -21,13 +21,17 @@ class _Flags:
     # W4A16 kernel weight layout: "auto" or "b8" keep the checkpoint's
     # int4 words (the int4b / a8b kernels); "e8" expands symmetric 4-bit
     # weights to signed int8 (the w4_e8 kernel); "packed" is the JAX
-    # package's int32 8-plane layout (ROADMAP B10, not ported: its matmul
-    # raises, as the JAX dispatch does). Asymmetric weights under "e8"
-    # fall through to "packed", as in the JAX package.
+    # package's int32 8-plane layout, run by the plane kernel in the mode
+    # ``w4_mode`` names. Asymmetric weights under "e8" fall through to
+    # "packed", as in the JAX package.
     w4_layout: str = "auto"
     # W4A16 activation precision: "auto" (int8 acts at >= 256 rows with N
     # and K >= 4096, bf16 otherwise) | "bf16" | "int8"
     w4_act: str = "auto"
+    # decode mode of the "packed" layout: "int4" (bf16 plane dots, the
+    # offset as a rank-8 correction) | "a8" (int8 activations, int8 plane
+    # dots) | "mat" (each plane's scaled bf16 tile, one deep dot)
+    w4_mode: str = "int4"
     # decode attention on the dense cache: "auto" (flash decode when the
     # cache's S_pad >= 512, the block kernel below) | "block" | "flash"
     decode_attn: str = "auto"
@@ -44,6 +48,7 @@ def _from_env() -> _Flags:
     return _Flags(
         w4_layout=env("CT_TORCH_W4_LAYOUT", "auto"),
         w4_act=env("CT_TORCH_W4_ACT", "auto"),
+        w4_mode=env("CT_TORCH_W4_MODE", "int4"),
         decode_attn=env("CT_TORCH_DECODE_ATTN", "auto"),
         fp8_transcode=env("CT_TORCH_FP8_TRANSCODE", "auto"),
     )

@@ -71,7 +71,8 @@ def params_from_numpy(tree: dict, device="cuda",
     ``shape``, ``scheme`` (``QuantizationScheme.model_dump()``) and the
     arrays ``weight_packed`` / ``weight``, ``scale``, ``zero_point``,
     ``bias``, ``g_idx``, ``global_scale``, ``input_global_scale`` (absent
-    or None when unused). Every other array
-    (embeddings, norms, k/v scales) carries over as it is.
+    or None when unused; the Qwen2 qkv biases ride in ``bias``). Every
+    other array (embeddings, norms with the Qwen3 per-head ``q_norm`` /
+    ``k_norm``, k/v scales) carries over as it is.
     """
     return _convert(tree, resolve_device(device), use_kernels)

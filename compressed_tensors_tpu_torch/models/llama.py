@@ -2,7 +2,8 @@
 compressed, in PyTorch.
 
 Counterpart of ``compressed_tensors_tpu/models/llama.py`` for the dense and
-paged KV caches, non-MoE, non-MLA path. Every linear is a
+paged KV caches, non-MoE, non-MLA path, with the Qwen2 qkv bias and the
+Qwen3 per-head q/k RMSNorm. Every linear is a
 ``QuantizedTensor`` through ``quantized_matmul``, so weights stay
 compressed on the device. The dense KV cache is (L, B, KVH, S_pad, D) and
 the paged pool (L, NP, KVH, page, D), in the cache dtype -- no lane padding
@@ -251,6 +252,11 @@ def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
         q = quantized_matmul(x, layer["q_proj"], use_kernels).reshape(B, S, H, D)
         k = quantized_matmul(x, layer["k_proj"], use_kernels).reshape(B, S, KVH, D)
         v = quantized_matmul(x, layer["v_proj"], use_kernels).reshape(B, S, KVH, D)
+    # Qwen3-style per-head q/k RMSNorm (over head_dim, before RoPE)
+    if "q_norm" in layer:
+        q = rms_norm(q, layer["q_norm"], config.rms_norm_eps)
+    if "k_norm" in layer:
+        k = rms_norm(k, layer["k_norm"], config.rms_norm_eps)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
 
@@ -475,13 +481,13 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
 
     device = resolve_device(device)
     config = LlamaConfig.from_pretrained(path)
-    if config.is_moe or config.is_mla or config.qk_norm:
+    if config.is_moe or config.is_mla:
         raise NotImplementedError(
-            "MoE, MLA and Qwen3 q/k-norm checkpoints are not ported yet "
-            "(ROADMAP A10)")
+            "MoE and MLA checkpoints are not ported yet (ROADMAP A10)")
     mc = ModelCompressor.from_pretrained(path)
     reader = CheckpointReader(path)
     module_names = reader.module_names()
+    tensor_names = set(reader.tensor_names())
     schemes = (mc.resolve_schemes(module_graph_from_names(module_names))
                if mc is not None else {})
 
@@ -516,6 +522,11 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
         for sname in ("k_scale", "v_scale"):
             if sname in attn_state:
                 layer[sname] = attn_state[sname].to(device)
+        # Qwen3-style per-head q/k norms
+        for nname in ("q_norm", "k_norm"):
+            full = f"{prefix}.self_attn.{nname}.weight"
+            if full in tensor_names:
+                layer[nname] = _tensor(full).to(dtype)
         params["layers"].append(layer)
     params["norm"] = _tensor("model.norm.weight").to(dtype)
     params["lm_head"] = (_get_qt("lm_head") if "lm_head" in module_names

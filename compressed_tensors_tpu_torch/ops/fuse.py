@@ -4,8 +4,9 @@ into single quantized matmuls.
 Counterpart of ``compressed_tensors_tpu/ops/fuse.py``. Fusion needs equal
 schemes, formats and input widths, and NVFP4 members need bit-equal global
 scales; otherwise the layer stays unfused. The checkpoint-layout leaves
-concatenate along output features and the kernel layout is rebuilt from
-them. (The JAX package fuses NVFP4 members with unequal global scales and
+(the Qwen2 qkv biases with them) concatenate along output features and
+the kernel layout is rebuilt from them, in the members' 4-bit layout.
+(The JAX package fuses NVFP4 members with unequal global scales and
 keeps the first one's, which its non-kernel path then applies to every
 member: ROADMAP C. Checkpoints made for fused loading share one global
 scale across q/k/v and across gate/up.)
@@ -24,6 +25,9 @@ from compressed_tensors_tpu_torch.ops.linear import (
 from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = ["fuse_quantized_tensors", "fuse_llama_layers"]
+
+# the w4_layout that rebuilds each 4-bit kernel kind
+_W4_LAYOUTS = {"w4a16": "b8", "w4e8": "e8", "w4packed": "packed"}
 
 
 def _concat_field(tensors, field):
@@ -68,7 +72,8 @@ def fuse_quantized_tensors(
         shape=(sum(t.shape[0] for t in tensors), first.shape[1]),
     )
     if all(t.kernel_meta is not None for t in tensors):
-        fused = prepare_for_kernels(fused)
+        fused = prepare_for_kernels(
+            fused, w4_layout=_W4_LAYOUTS.get(first.kernel_meta[0]))
     return fused
 
 

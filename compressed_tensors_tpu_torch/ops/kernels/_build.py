@@ -24,7 +24,8 @@ __all__ = ["build", "load", "check"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("w4a16_matmul.cu", "wna16_matmul.cu", "w8a8_matmul.cu",
+SOURCES = ("w4a16_matmul.cu", "w4a16_planes.cu", "wna16_matmul.cu",
+           "w8a8_matmul.cu",
            "prefill_attention.cu", "decode_attention.cu", "paged_decode.cu",
            "errors.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -36,6 +37,9 @@ _SIGNATURES = {
     "ct_w4a16_a8b_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ct_w4a16_fp4_matmul": [_P] * 5 + [_I] * 6 + [_P],
     "ct_w4_e8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "ct_w4a16_planes_int4": [_P] * 6 + [_I] * 7 + [_P],
+    "ct_w4a16_planes_mat": [_P] * 6 + [_I] * 7 + [_P],
+    "ct_w4a16_planes_a8": [_P] * 8 + [_I] * 7 + [_P],
     "ct_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_w8a8_fp8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

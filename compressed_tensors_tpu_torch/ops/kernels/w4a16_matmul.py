@@ -40,6 +40,30 @@ kernel of ``csrc/wna16_matmul.cu``:
   accumulator. Bound: the int8 weight bytes at decode, the bf16
   operations at prefill.
 
+``w4a16_planes_matmul`` replaces modes ``int4``, ``a8`` and ``mat`` of the
+same TPU function, which run on its int32 8-plane layout
+(``w4_layout="packed"``). The layout is the JAX package's:
+``repack_w4_for_kernel`` turns the (N, K_pad) offset codes u = q + 8 into
+(K_pad/8, N) int32 words, K_pad a multiple of the k-tile TK = 8 * group,
+word (t*g + r, n) holding in nibble plane j the code of k-position
+t*8g + j*g + r, so each plane of a k-tile is one quant group. Scales and
+zero points are (K_pad/g, N) f32, padded groups at scale 0 (code 8). The
+three modes, one C entry point each in ``csrc/w4a16_planes.cu``:
+
+- ``int4``: per plane, x_j . u_j with x in bf16 and u exact, f32 sums,
+  times s_j; the affine offset is subtracted as the rank-8 correction
+  sum_j sum(x_j) * (8 + zp_j) * s_j.
+- ``a8``: x quantized per row to int8 as in ``a8b``; exact int32 plane
+  dots times s_j, the same correction on the int8 row sums, everything
+  times the row's scale.
+- ``mat``: each plane's scaled tile bf16(u_j * s_j) and one deep dot; the
+  offset is left out of the tile and subtracted as the same correction,
+  so the tile rounds u*s as the TPU kernel does, not (u - 8 - zp)*s.
+
+Bound: the checkpoint bytes at decode rows (codes, bf16 scales, 4-bit zero
+points), the 2*M*N*K bf16 (``int4``, ``mat``) or int8 (``a8``) operations
+at prefill rows.
+
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors.
 """
@@ -47,6 +71,7 @@ version only for CPU tensors.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from compressed_tensors_tpu_torch.ops.fp4_pack import unpack_fp4_from_uint8
 from compressed_tensors_tpu_torch.ops.kernels import _build
@@ -54,7 +79,10 @@ from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 
 __all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
            "quantize_rows_a8b_plain", "w4a16_fp4_matmul",
-           "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain"]
+           "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain",
+           "choose_k_tile", "padded_k", "retile_groups",
+           "repack_w4_for_kernel", "w4a16_planes_matmul",
+           "w4a16_planes_matmul_plain", "PLANE_MODES"]
 
 _BK = 64
 _TILE = 64
@@ -311,3 +339,176 @@ def w4_e8_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
 
 
 w4_e8_matmul.launches = 0
+
+
+# ---- the int32 8-plane layout (w4_layout="packed") --------------------- #
+
+PLANES = 8  # nibbles per int32 word: one quant group each per k-tile
+PLANE_MODES = ("int4", "a8", "mat")
+
+
+def choose_k_tile(k: int, group_size: int) -> int:
+    """TK = 8 * group_size: one quant group per nibble plane."""
+    return PLANES * group_size
+
+
+def padded_k(k: int, group_size: int) -> int:
+    """K rounded up to a multiple of the k-tile."""
+    tk = choose_k_tile(k, group_size)
+    return -(-k // tk) * tk
+
+
+def retile_groups(scales_t: torch.Tensor, k: int, tk: int,
+                  group_size: int) -> torch.Tensor:
+    """(K_pad/g, N) scales or zero points as the kernel reads them: tile
+    t's rows are its 8 groups, which the (K_pad/g, N) order already is.
+    K must already be padded to a multiple of ``tk``."""
+    if scales_t.shape[0] != (k // tk) * PLANES:
+        raise ValueError(f"expected {(k // tk) * PLANES} group rows for "
+                         f"K={k}, got {scales_t.shape[0]}")
+    return scales_t
+
+
+def repack_w4_for_kernel(unpacked_u: torch.Tensor, num_bits: int, k: int,
+                         tk: int) -> torch.Tensor:
+    """Offset codes u = q + 8 (N, K) in [0, 15] -> the (K/8, N) int32 plane
+    layout; K must already be padded to a multiple of ``tk``."""
+    if num_bits != 4:
+        raise ValueError(f"the plane layout holds 4-bit codes, got "
+                         f"{num_bits} bits")
+    n = unpacked_u.shape[0]
+    v = unpacked_u.t().to(torch.int64).reshape(k // tk, PLANES,
+                                               tk // PLANES, n)
+    shifts = 4 * torch.arange(PLANES, dtype=torch.int64,
+                              device=v.device).reshape(1, PLANES, 1, 1)
+    words = (v << shifts).sum(dim=1)  # (T, g, N) in [0, 2^32)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).reshape(k // 8, n)
+
+
+def _plane_codes(words: torch.Tensor, group_size: int) -> torch.Tensor:
+    """(K/8, N) int32 plane words -> (K, N) int32 offset codes u, in k
+    order."""
+    rows, n = words.shape
+    w = words.reshape(rows // group_size, 1, group_size, n)
+    shifts = 4 * torch.arange(PLANES, dtype=torch.int32,
+                              device=words.device).reshape(1, PLANES, 1, 1)
+    return ((w >> shifts) & 0xF).reshape(rows * 8, n)
+
+
+def w4a16_planes_matmul_plain(x, words, scales, zp, *, n, k, group_size,
+                              mode="int4", out_dtype=None):
+    """Plain version of the plane modes: what the TPU kernel computes in
+    ``mode``, accumulated in f32 and cast once to ``out_dtype`` (x's dtype
+    by default). ``k`` is K_pad; x (M, K_orig) is zero-padded to it."""
+    if mode not in PLANE_MODES:
+        raise ValueError(f"unknown plane mode {mode!r}")
+    g, groups = group_size, k // group_size
+    m = x.shape[0]
+    compute = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    if mode == "a8":
+        xq, x_scale = quantize_rows_a8b_plain(x)
+        xf = xq.to(torch.float32)  # exact int8 values
+    else:
+        xf = x.to(compute).to(torch.float32)
+    xg = F.pad(xf, (0, k - x.shape[1])).reshape(m, groups, g)
+    u = _plane_codes(words, g).to(torch.float32).reshape(groups, g, n)
+    s = scales.to(torch.float32)
+    off = (8.0 + zp.to(torch.float32)) * s if zp is not None else 8.0 * s
+    corr = xg.sum(dim=-1) @ off  # the rank-8 correction, all tiles
+    if mode == "mat":
+        w = (u * s[:, None, :]).to(compute).to(torch.float32)
+        y = xg.reshape(m, k) @ w.reshape(k, n) - corr
+    else:
+        part = torch.einsum("mgr,grn->mgn", xg, u)  # exact for int8 x
+        y = (part * s).sum(dim=1) - corr
+        if mode == "a8":
+            y = y * x_scale[:, None]
+    return y.to(out_dtype or x.dtype)
+
+
+def w4a16_planes_matmul(x: torch.Tensor, words: torch.Tensor,
+                        scales: torch.Tensor, zp: torch.Tensor | None, *,
+                        n: int, k: int, group_size: int, mode: str = "int4",
+                        xq: torch.Tensor | None = None,
+                        xs: torch.Tensor | None = None) -> torch.Tensor:
+    """y (M, N) = x (M, K_orig) @ W^T for W in the int32 plane layout:
+    (k/8, N) int32 words, k = K_pad >= K_orig, and (k/g, N) f32 scales and
+    optional zero points. ``mode`` is "int4", "a8" or "mat"; each counts
+    its launches on ``<mode>_launches``.
+
+    :param xq: mode a8 only: optional (M, K_orig) int8 buffer for the
+        kernel's quantized rows
+    :param xs: mode a8 only: optional (M,) f32 buffer for their scales
+    """
+    if x.device.type == "cpu":
+        return w4a16_planes_matmul_plain(x, words, scales, zp, n=n, k=k,
+                                         group_size=group_size, mode=mode)
+    if mode not in PLANE_MODES:
+        raise ValueError(f"unknown plane mode {mode!r}")
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(f"x must be (M, K) bf16, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    m, kx = x.shape
+    tk = choose_k_tile(k, group_size)
+    if (group_size % 32 or group_size > 128 or k % tk or kx > k or kx % 16
+            or n % 4):
+        raise NotImplementedError(
+            f"w4a16_planes_matmul needs a group size that is a multiple of "
+            f"32 up to 128, K_pad a multiple of 8 groups, K <= K_pad with K "
+            f"a multiple of 16, and N a multiple of 4; got K={kx}, "
+            f"K_pad={k}, N={n}, group_size={group_size}")
+    if (words.dtype != torch.int32 or tuple(words.shape) != (k // 8, n)
+            or scales.dtype != torch.float32
+            or tuple(scales.shape) != (k // group_size, n)
+            or (zp is not None and (zp.dtype != torch.float32
+                                    or zp.shape != scales.shape))):
+        raise ValueError(f"w4a16_planes_matmul: words must be ({k // 8}, "
+                         f"{n}) int32, scales and zero points "
+                         f"({k // group_size}, {n}) f32")
+    tensors = [x, words, scales] + ([zp] if zp is not None else [])
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in tensors):
+        raise ValueError("w4a16_planes_matmul operands must be contiguous, "
+                         "16-byte aligned and on one device")
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return y
+    unit = tk // _BK
+    splits, tiles_per_split = _split_k(m, n, k, unit)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    common = (y.data_ptr(),
+              partial.data_ptr() if partial is not None else None)
+    sizes = (m, n, kx, k, group_size, splits, tiles_per_split // unit)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        operands = (x.data_ptr(), words.data_ptr(), scales.data_ptr(),
+                    zp.data_ptr() if zp is not None else None)
+        if mode == "a8":
+            if xq is None:
+                xq = torch.empty((m, kx), dtype=torch.int8, device=x.device)
+            if xs is None:
+                xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+            if (xq.dtype != torch.int8 or tuple(xq.shape) != (m, kx)
+                    or xs.dtype != torch.float32 or tuple(xs.shape) != (m,)
+                    or not (xq.is_contiguous() and xs.is_contiguous())
+                    or xq.device != x.device or xs.device != x.device):
+                raise ValueError("a8 scratch must be (M, K) int8 and (M,) "
+                                 "f32, contiguous on x's device")
+            err = lib.ct_w4a16_planes_a8(*operands, *common, xq.data_ptr(),
+                                         xs.data_ptr(), *sizes, stream)
+        else:
+            err = getattr(lib, f"ct_w4a16_planes_{mode}")(
+                *operands, *common, *sizes, stream)
+    _build.check(err, f"w4a16_planes_matmul[{mode}]")
+    counter = f"{mode}_launches"
+    setattr(w4a16_planes_matmul, counter,
+            getattr(w4a16_planes_matmul, counter) + 1)
+    return y
+
+
+w4a16_planes_matmul.int4_launches = 0
+w4a16_planes_matmul.a8_launches = 0
+w4a16_planes_matmul.mat_launches = 0

@@ -16,13 +16,20 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from compressed_tensors_tpu_torch.config import CompressionFormat
 from compressed_tensors_tpu_torch.ops.fp4_pack import unpack_fp4_from_uint8
 from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+    PLANE_MODES,
+    choose_k_tile,
+    padded_k,
+    repack_w4_for_kernel,
+    retile_groups,
     w4_e8_matmul,
     w4a16_fp4_matmul,
     w4a16_matmul,
+    w4a16_planes_matmul,
 )
 from compressed_tensors_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul
 from compressed_tensors_tpu_torch.ops.mx import decompress_mx_scale
@@ -79,8 +86,8 @@ class QuantizedTensor:
     #   codes, scales (K/g, N) f32 (NVFP4: e4m3 / global; MXFP4: 2^e);
     # ("w8a8", n, k): weight (N, K) int8/fp8, scales (N,) f32;
     # ("w4packed", n, k, group_size): the JAX package's int32 8-plane
-    #   layout (ROADMAP B10), which neither package's dispatch can run:
-    #   meta only.
+    #   layout, (K_pad/8, N) int32 words and (K_pad/g, N) f32 scales / zp,
+    #   K_pad a multiple of 8 groups (padded groups: code 8, scale 0).
     kernel_packed: Optional[torch.Tensor] = None
     kernel_scales: Optional[torch.Tensor] = None
     kernel_zp: Optional[torch.Tensor] = None
@@ -185,8 +192,11 @@ def materialize_weight(qt: QuantizedTensor, dtype=torch.bfloat16
     raise NotImplementedError(f"materialize_weight for format {fmt}")
 
 
-def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
+def prepare_for_kernels(qt: QuantizedTensor,
+                        w4_layout: str | None = None) -> QuantizedTensor:
     """Build this port's kernel layout beside the checkpoint layout.
+
+    ``w4_layout`` picks the 4-bit layout; the ``w4_layout`` flag by default.
 
     - W8A8 (int8 or fp8 weights, channel/tensor scales, dynamic symmetric
       acts): the checkpoint's (N, K) weight and an (N,) f32 scale. Under
@@ -202,8 +212,9 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
       ``w4_layout="e8"``: (N, K) signed int8 q - zp (zero points folded
       in; 8-bit asymmetric stays on the non-kernel path) and (K/g, N) f32
       scales.
-    - W4A16 under ``w4_layout="packed"`` (or asymmetric under "e8"): only
-      a ``kernel_meta`` marker of ROADMAP B10, whose matmul raises.
+    - W4A16 under ``w4_layout="packed"`` (or asymmetric under "e8"): the
+      JAX package's int32 8-plane layout (``_prepare_packed``), run in the
+      mode ``w4_mode`` names.
     Group layouts of actorder checkpoints are column-permuted, and x is
     gathered by the same permutation at the matmul. Everything else keeps
     the checkpoint representation.
@@ -260,11 +271,11 @@ def prepare_for_kernels(qt: QuantizedTensor) -> QuantizedTensor:
             return qt  # 8-bit q - zp does not fit int8: the JAX package
             #            keeps it on the non-kernel path too
         return _prepare_e8(qt, order)
-    layout = _w4_layout()
+    layout = _w4_layout(w4_layout)
     if layout == "packed" or (layout == "e8" and qt.zero_point is not None):
         # asymmetric weights under "e8" fall through to "packed", as in the
         # JAX package
-        return dataclasses.replace(qt, kernel_meta=("w4packed", *meta))
+        return _prepare_packed(qt, order)
     if layout == "e8":
         return _prepare_e8(qt, order)
 
@@ -303,6 +314,33 @@ def _prepare_e8(qt: QuantizedTensor, order) -> QuantizedTensor:
         kernel_perm=order, kernel_meta=("w4e8", n, k, args.group_size))
 
 
+def _prepare_packed(qt: QuantizedTensor, order) -> QuantizedTensor:
+    """The int32 8-plane layout, as the JAX prepare builds it: offset codes
+    u = q + 8 (columns in ``order`` for actorder checkpoints), K padded to
+    a multiple of 8 groups with u = 8, repacked to (K_pad/8, N) words;
+    scales and zero points (K_pad/g, N) f32, padded groups at scale 0."""
+    n, k = qt.shape
+    g = qt.scheme.weights.group_size
+    k_pad, tk = padded_k(k, g), choose_k_tile(k, g)
+    u = unpack_from_int32(qt.weight_packed, 4, qt.shape).to(torch.int32) + 8
+    if order is not None:
+        u = u.index_select(1, order)
+    words = repack_w4_for_kernel(F.pad(u, (0, k_pad - k), value=8), 4,
+                                 k_pad, tk)
+    g_pad = k_pad // g - qt.scale.shape[-1]
+
+    def kernel_groups(t):  # (N, K/g) -> (K_pad/g, N) f32, zero rows padded
+        t = F.pad(t.to(torch.float32).t(), (0, 0, 0, g_pad))
+        return retile_groups(t, k_pad, tk, g).contiguous()
+
+    zp = _unpacked_zero_point(qt, 4)
+    return dataclasses.replace(
+        qt, kernel_packed=words.contiguous(),
+        kernel_scales=kernel_groups(qt.scale),
+        kernel_zp=kernel_groups(zp) if zp is not None else None,
+        kernel_perm=order, kernel_meta=("w4packed", n, k, g))
+
+
 def _prepare_fp4(qt: QuantizedTensor, group_size: int) -> QuantizedTensor:
     """NVFP4 / MXFP4 kernel layout: the checkpoint's (N, K/2) codes as they
     are, and (K/g, N) f32 scales: f32(e4m3 scale) / f32(global scale) for
@@ -324,14 +362,24 @@ def _prepare_fp4(qt: QuantizedTensor, group_size: int) -> QuantizedTensor:
         kernel_meta=("fp4", n, k, group_size))
 
 
-def _w4_layout() -> str:
-    """The 4-bit kernel layout (see flags.w4_layout): "b8" (the int4
-    words; also for "auto"), "e8" or "packed"."""
+def _w4_layout(layout: str | None = None) -> str:
+    """The 4-bit kernel layout (``layout``, else flags.w4_layout): "b8"
+    (the int4 words; also for "auto"), "e8" or "packed"."""
     from compressed_tensors_tpu_torch.flags import FLAGS
 
-    if FLAGS.w4_layout not in ("auto", "b8", "e8", "packed"):
-        raise ValueError(f"w4_layout={FLAGS.w4_layout!r}")
-    return "b8" if FLAGS.w4_layout == "auto" else FLAGS.w4_layout
+    layout = layout or FLAGS.w4_layout
+    if layout not in ("auto", "b8", "e8", "packed"):
+        raise ValueError(f"w4_layout={layout!r}")
+    return "b8" if layout == "auto" else layout
+
+
+def _w4_mode() -> str:
+    """The plane layout's decode mode (see flags.w4_mode)."""
+    from compressed_tensors_tpu_torch.flags import FLAGS
+
+    if FLAGS.w4_mode not in PLANE_MODES:
+        raise ValueError(f"w4_mode={FLAGS.w4_mode!r}")
+    return FLAGS.w4_mode
 
 
 def _transcode_fp8_enabled() -> bool:
@@ -390,8 +438,9 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                      use_kernels: bool = True) -> torch.Tensor:
     """y = x @ W^T (+ bias) with W in compressed form.
 
-    With ``use_kernels`` and a kernel layout, the W4A16, fp4, grouped-int8
-    and W8A8 kernels run (their plain versions for CPU tensors); otherwise
+    With ``use_kernels`` and a kernel layout, the W4A16 (int4 words or the
+    plane layout in ``w4_mode``), fp4, grouped-int8 and W8A8 kernels run
+    (their plain versions for CPU tensors); otherwise
     the non-kernel path of the JAX package: W8A8-int / fp8 dynamic
     products, or dequantize then one plain matmul (NVFP4 with activations
     included: neither package quantizes fp4 activations).
@@ -409,13 +458,8 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                     and input_args.type == "float")
 
     kind = qt.kernel_meta[0] if qt.kernel_meta is not None else None
-    if use_kernels and kind == "w4packed":
-        raise NotImplementedError(
-            "w4_layout='packed' runs the int32 8-plane W4A16 modes, which "
-            "are not ported (ROADMAP B10); the JAX dispatch cannot run that "
-            "layout either")
     lead = x.shape[:-1]
-    if use_kernels and kind in ("w4a16", "w4e8", "fp4", "w8a8"):
+    if use_kernels and kind in ("w4a16", "w4packed", "w4e8", "fp4", "w8a8"):
         if qt.kernel_perm is not None:
             x = x.index_select(-1, qt.kernel_perm)
         n, k = qt.kernel_meta[1:3]
@@ -427,6 +471,11 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
                                qt.kernel_scales, qt.kernel_zp, n=n, k=k,
                                group_size=qt.kernel_meta[3],
                                mode=_w4b8_mode(x2.shape[0], n, k))
+        elif kind == "w4packed":
+            out = w4a16_planes_matmul(
+                x2, qt.kernel_packed, qt.kernel_scales, qt.kernel_zp, n=n,
+                k=qt.kernel_packed.shape[0] * 8,
+                group_size=qt.kernel_meta[3], mode=_w4_mode())
         else:
             matmul = w4a16_fp4_matmul if kind == "fp4" else w4_e8_matmul
             out = matmul(x2, qt.kernel_packed, qt.kernel_scales, n=n, k=k,

@@ -334,3 +334,82 @@ def test_scaled_cache_decode_kernels(dev, dtype):
                                             lengths, layer=0, k_scale=ks,
                                             v_scale=vs)
     assert torch.equal(out_p[[0, 2, 3]], out_d[[0, 2, 3]])
+
+
+# (M, N, K, group, zero points): padded K (448 -> 512) and K split over
+# blocks at decode rows, ragged N, prefill rows with K split 4 ways
+PLANE_CASES = [(5, 192, 448, 32, False), (70, 200, 1024, 128, True),
+               (300, 64, 2048, 64, True)]
+
+
+@pytest.mark.parametrize("mode", w4.PLANE_MODES)
+@pytest.mark.parametrize("m,n,k,g,asym", PLANE_CASES)
+def test_w4a16_planes_matmul(dev, mode, m, n, k, g, asym):
+    rng = np.random.default_rng(m + g)
+    k_pad, tk = w4.padded_k(k, g), w4.choose_k_tile(k, g)
+    u = np.pad(rng.integers(0, 16, (n, k)), ((0, 0), (0, k_pad - k)),
+               constant_values=8)
+    words = w4.repack_w4_for_kernel(torch.from_numpy(u), 4, k_pad, tk).to(dev)
+    s = rng.uniform(1e-3, 3e-3, (k_pad // g, n)).astype(np.float32)
+    s[k // g:] = 0
+    s = torch.from_numpy(s).to(dev)
+    zp = (torch.from_numpy(rng.integers(-8, 8, (k_pad // g, n)).astype(
+        np.float32)).to(dev) if asym else None)
+    x = _bf16(rng, m, k, device=dev)
+    counter = f"{mode}_launches"
+    before = getattr(w4.w4a16_planes_matmul, counter)
+    scratch = {}
+    if mode == "a8":
+        scratch = dict(xq=torch.empty((m, k), dtype=torch.int8, device=dev),
+                       xs=torch.empty((m,), dtype=torch.float32, device=dev))
+    got = w4.w4a16_planes_matmul(x, words, s, zp, n=n, k=k_pad, group_size=g,
+                                 mode=mode, **scratch)
+    assert getattr(w4.w4a16_planes_matmul, counter) == before + 1
+    if mode == "a8":  # the quantization pass bit for bit
+        xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+        assert torch.equal(scratch["xq"], xq_p)
+        assert torch.equal(scratch["xs"], xs_p)
+    assert _within_a8b_rule(got, w4.w4a16_planes_matmul_plain(
+        x, words, s, zp, n=n, k=k_pad, group_size=g, mode=mode,
+        out_dtype=torch.float32))
+    # no rows: nothing is launched and nothing counted
+    assert w4.w4a16_planes_matmul(x[:0], words, s, zp, n=n, k=k_pad,
+                                  group_size=g, mode=mode).shape == (0, n)
+    assert getattr(w4.w4a16_planes_matmul, counter) == before + 1
+    with pytest.raises(NotImplementedError, match="multiple of"):
+        w4.w4a16_planes_matmul(x, words, s, zp, n=n, k=k_pad + 8,
+                               group_size=g, mode=mode)
+
+
+def test_attention_kernels_at_seven_heads_per_kv_head(dev):
+    """Qwen2.5-7B's GQA ratio (H = 28, KVH = 4, D = 128): prefill, block,
+    flash and paged decode against their plain versions."""
+    rng = np.random.default_rng(7)
+    H, KVH, D = 28, 4, 128
+    q, k, v = (_bf16(rng, 2, 70, h, D, device=dev) for h in (H, KVH, KVH))
+    _close(pa.prefill_attention(q, k, v), pa.prefill_attention_plain(q, k, v))
+
+    q, nk, nv = _decode_operands(rng, dev, H=H, KVH=KVH)
+    lengths = torch.tensor([0, -1, 100, 191], dtype=torch.int32, device=dev)
+    live = [0, 2, 3]
+    for kernel, plain in ((da.decode_attention, da.decode_attention_plain),
+                          (fd.flash_decode_attention,
+                           fd.flash_decode_attention_plain)):
+        ck, cv = (_bf16(rng, 2, 4, KVH, 192, D, device=dev) for _ in range(2))
+        ck_p, cv_p = ck.clone(), cv.clone()
+        out, _, _ = kernel(q, nk, nv, ck, cv, lengths, layer=1)
+        want, _, _ = plain(q, nk, nv, ck_p, cv_p, lengths, layer=1)
+        _close(out[live], want[live])
+        assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+
+    pk, pv = (_bf16(rng, 2, 9, KVH, 64, D, device=dev) for _ in range(2))
+    tables = torch.tensor([[3, 7, 4], [0, 0, 0], [5, 1, 6], [8, 2, 0]],
+                          dtype=torch.int32, device=dev)
+    lengths = torch.tensor([5, -1, 130, 127], dtype=torch.int32, device=dev)
+    pk_p, pv_p = pk.clone(), pv.clone()
+    out, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables, lengths,
+                                          layer=1)
+    want, _, _ = pd.paged_decode_attention_plain(q, nk, nv, pk_p, pv_p,
+                                                 tables, lengths, layer=1)
+    _close(out[live], want[live])
+    assert torch.equal(pk, pk_p) and torch.equal(pv, pv_p)

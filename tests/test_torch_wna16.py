@@ -6,7 +6,8 @@ package, in f32 on the CPU.
   version on the CPU) within 1e-5 * max|y| of the JAX Pallas kernel
   ``w4_e8_matmul`` in interpret mode, and both non-kernel paths.
 - 8-bit asymmetric weights stay on the non-kernel path in both packages;
-  ``w4_layout="packed"`` raises, naming ROADMAP B10.
+  ``w4_layout="packed"`` runs the plane layout in the port
+  (``tests/test_torch_w4_planes.py``) where the JAX dispatch raises.
 - A tiny W8A16 (g128) checkpoint loaded by both packages: the same greedy
   tokens, prefill logits within 1e-4 * max|logits|, the same
   ``ServingEngine`` completions dense and paged.
@@ -119,8 +120,10 @@ def test_e8_matmul_matches_jax_kernel(case):
 
 def test_w8a16_asym_and_packed_layout():
     """8-bit asymmetric stays on the non-kernel path in both packages;
-    w4_layout="packed" (and "e8" on asymmetric W4) is ROADMAP B10, whose
-    matmul raises in both packages."""
+    w4_layout="packed" (and "e8" on asymmetric W4) prepares the int32
+    8-plane layout, which the port's dispatch runs in ``w4_mode`` (the
+    plane kernel's plain version here), while the JAX dispatch raises
+    there (ROADMAP C)."""
     rng = np.random.default_rng(9)
     jqt, tqt = _both(rng, 8, 32, False, n=16, k=64)
     assert j_prepare(jqt).kernel_packed is None
@@ -132,10 +135,10 @@ def test_w8a16_asym_and_packed_layout():
         with flag_overrides(w4_layout=layout):
             tk = prepare_for_kernels(tqt)
         assert tk.kernel_meta == ("w4packed", 48, 256, 128)
-        with pytest.raises(NotImplementedError, match="B10"):
-            quantized_matmul(x, tk)
-        _close(quantized_matmul(x, tk, use_kernels=False),
-               j_matmul(jnp.asarray(x.numpy()), jqt, use_kernels=False), 1e-5)
+        assert tk.kernel_packed.shape == (1024 // 8, 48)  # K padded to 8g
+        want = j_matmul(jnp.asarray(x.numpy()), jqt, use_kernels=False)
+        _close(quantized_matmul(x, tk), want, 1e-5)
+        _close(quantized_matmul(x, tk, use_kernels=False), want, 1e-5)
         with j_flags(pallas_interpret=True, w4_layout=layout):
             with pytest.raises(UnboundLocalError):
                 j_matmul(jnp.asarray(x.numpy()), j_prepare(jqt),
