@@ -13,13 +13,18 @@ the shapes of the main paths. Then it drives seven paths end to end:
   32 new tokens), its first-step logits held against the non-kernel path
   (``use_kernels=False``);
 - the continuous-batching ``ServingEngine`` at full Llama-3-8B W4A16 width
-  (32 layers, random weights from a seed): 96 requests, a third of them
-  sharing a 256-token prefix, through the dense engine (flash decode), the
-  paged engine and the paged engine with prefix caching. Dense and paged
-  completions must be equal token for token, and the prefix-cached ones
-  equal them but for a few greedy near-ties after the first token (see
-  ``phase_serving``); one request's first-token logits are held against
-  the non-kernel path;
+  (32 layers, codes uniform in [-7, 7] drawn on the card from a seed): one
+  request's first-token logits by depth against the non-kernel path with
+  every W4 linear at bf16 activations, and at the serving default (a8b
+  prefill rows) against the same model with the W4 matmuls through their
+  plain versions, each with a planted-fault control that must fail every
+  check; 96 requests, a third of them sharing a 256-token prefix, through
+  the dense engine (flash decode), the paged engine and the paged engine
+  with prefix caching. Dense and paged completions must be equal token for
+  token; the cached prefix pages must equal a fresh prefill's bit for bit;
+  the prefix-cached completions are counted, and held to the prefix rule
+  (equal but for a few greedy near-ties after the first token) on the JAX
+  package's draw of the same model (see ``phase_serving``);
 - Llama-3-8B FP8 W8A8 with an FP8 KV cache (BASELINE config 3: fp8 e4m3
   per-channel weights with dynamic per-token fp8 activations, a W8A8-int
   lm_head, k_scale = v_scale = 0.03 in every layer): the same requests
@@ -84,11 +89,16 @@ TOL_KERNEL = 1e-2
 # other places, and the reference also rounds every dequantized weight to
 # bf16 (2^-9); a few such roundings compound over the layers
 TOL_E2E = 2e-2
-# the same at Llama-3-8B width (32 layers), where prefill rows go through
-# a8b and the reference keeps bf16 activations: per-token int8 rounding
-# (absmax/127) adds about 0.9% of a row's RMS to each linear's input. An
-# estimate of 1.5-3% of max|logits| from that was refuted on the H100:
-# two runs read 0.57%. The limit leaves 2.6x room over that reading.
+# the 8B and Qwen models at every depth (phases 5, 7-10): max|kernel -
+# non-kernel| of the first-token logits within this share of max|ref|,
+# unless the relative RMS error stays within FLOOR_RATIO x the one-ulp
+# spread (``logits_rule_failures``); also the limit at one layer through
+# a bf16 lm_head. Prefill rows go through a8b at 8B W4A16 width, whose
+# per-token int8 rounding adds about 0.9% of a row's RMS to each linear's
+# input and is no part of the non-kernel path: on the H100 it stood 3.17%
+# of max|ref| from that path at one layer, against 1.34% with every W4
+# linear at bf16 activations, so phase 5 holds the bf16 arm to the
+# non-kernel path and a8b to its plain version.
 TOL_E2E_8B = 1.5e-2
 # a8b against its f32 plain result, per element: bf16 output rounding
 # (2^-8 of |y|) plus f32 summation order (1e-4 of max|y|); the fp8 W8A8
@@ -363,6 +373,43 @@ def phase_device_and_build():
     path = _build.build(verbose=True)
     _build.load()
     log(f"build: {path} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resources = kernel_resources(_build.ptxas_report(REDESIGNED))
+    for name, (regs, spill) in resources.items():
+        log(f"resources {name}: {regs} registers, {spill} bytes spilled")
+    log(f"ptxas report of {', '.join(REDESIGNED)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return resources
+
+
+# the sources of the kernels redesigned for Hopper in the newest slice,
+# whose registers and spills the script reports
+REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu")
+
+
+def kernel_resources(report):
+    """ptxas's {mangled name: (registers, spill bytes)} of the redesigned
+    kernels under readable names."""
+    import re
+
+    from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+        PLANE_MODES,
+    )
+
+    out = {}
+    for mangled, value in report.items():
+        m = re.search(r"(prefill_kernel|planes_kernel)I((?:Li\d+E)+)E", mangled)
+        if not m:
+            continue
+        args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))]
+        if m.group(1) == "prefill_kernel":
+            name = f"prefill_attention<D={args[0]}>"
+        else:
+            mode, bm, g, passes = args
+            name = (f"w4a16_planes<{PLANE_MODES[mode]}, BM={bm}, g={g}, "
+                    f"passes={passes}>")
+        out[name] = value
+    return dict(sorted(out.items()))
 
 
 def phase_parity():
@@ -411,6 +458,7 @@ def phase_parity():
     errs["prefill_attention"] = check_close(
         "prefill_attention", pa.prefill_attention(q, k, v),
         pa.prefill_attention_plain(q, k, v))
+    parity_grids(errs)
 
     q, nk, nv, ck, cv, lengths = decode_inputs(rng, dev)
     ck0, cv0 = ck.clone(), cv.clone()
@@ -441,6 +489,79 @@ def phase_parity():
     log("parity decode_attention cache: in-place write at lengths[b] only, "
         "inactive rows untouched")
     return errs
+
+
+# the shape grids of tests/test_torch_cuda_kernels.py for the kernels
+# redesigned in the newest slice: B4 over ragged and whole tiles, GQA folds
+# that do not divide a tile, both head widths; B10 at every row count the
+# main paths give, N not a multiple of its 128-column tile, K_orig below
+# K_pad, with and without zero points
+PREFILL_GRID = dict(S=(65, 70, 128, 512, 1000), rep=(1, 4, 7, 8), D=(64, 128),
+                    B=(1, 3))
+PLANES_GRID = dict(M=(1, 64, 100, 512),
+                   shapes=((200, 448, 32, False), (328, 1984, 128, True)))
+
+
+def parity_grids(errs):
+    """B4 and B10 against their plain versions over ``PREFILL_GRID`` and
+    ``PLANES_GRID`` (B4 within TOL_KERNEL * max|plain| per case, B10 by the
+    a8b rule), one summary line per kernel."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        prefill_attention as pa,
+        w4a16_matmul as w4,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst, cases = 0.0, 0
+    for S, rep, D, B in itertools.product(*PREFILL_GRID.values()):
+        q, k, v = (dev_randn(gen, B, S, h, D) for h in (2 * rep, 2, 2))
+        got = pa.prefill_attention(q, k, v).float()
+        want = pa.prefill_attention_plain(q, k, v).float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not (bool(got.isfinite().all()) and rel <= TOL_KERNEL):
+            raise AssertionError(f"prefill_attention B={B} S={S} rep={rep} "
+                                 f"D={D}: {rel} of max|plain|")
+        worst, cases = max(worst, rel), cases + 1
+        errs["prefill_attention"] = max(errs["prefill_attention"],
+                                        (got - want).abs().max().item())
+    log(f"parity prefill_attention over {cases} shapes (S, rep, B, D of "
+        f"{PREFILL_GRID}): max error {worst:.4g} of max|plain| (limit "
+        f"{TOL_KERNEL})")
+    outside, cases = 0, 0
+    for (n, k, g, asym), m in itertools.product(PLANES_GRID["shapes"],
+                                                PLANES_GRID["M"]):
+        k_pad, tk = w4.padded_k(k, g), w4.choose_k_tile(k, g)
+        u = torch.randint(0, 16, (n, k_pad), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        u[:, k:] = 8
+        words = w4.repack_w4_for_kernel(u, 4, k_pad, tk)
+        s = torch.rand((k_pad // g, n), generator=gen, device="cuda") \
+            * 2e-3 + 1e-3
+        s[-(-k // g):] = 0
+        zp = (torch.randint(-8, 8, (k_pad // g, n), generator=gen,
+                            device="cuda").float() if asym else None)
+        x = dev_randn(gen, m, k)
+        for mode in w4.PLANE_MODES:
+            kw = dict(n=n, k=k_pad, group_size=g, mode=mode)
+            got = w4.w4a16_planes_matmul(x, words, s, zp, **kw).float()
+            want = w4.w4a16_planes_matmul_plain(x, words, s, zp,
+                                                out_dtype=torch.float32, **kw)
+            diff = (got - want).abs()
+            outside += int((diff > A8B_REL * want.abs()
+                            + A8B_ABS * want.abs().max()).sum())
+            cases += 1
+            name = f"w4a16_planes_{mode}"
+            errs[name] = max(errs.get(name, 0.0), diff.max().item())
+    log(f"parity w4a16_planes over {cases} cases (3 modes x M "
+        f"{PLANES_GRID['M']} x (N, K, g, zero points) "
+        f"{PLANES_GRID['shapes']}): {outside} elements outside the a8b rule")
+    if outside:
+        raise AssertionError(f"w4a16_planes: {outside} elements outside the "
+                             "a8b rule")
 
 
 def dev_randn(gen, *shape):
@@ -826,11 +947,12 @@ def serving_requests():
     return reqs
 
 
-def serve_requests(params, config, requests, name, **kw):
+def serve_requests(params, config, requests, name, keep=False, **kw):
     """The requests through one ServingEngine run (``SERVE`` settings plus
     ``kw``): the completions, the kernel launches of the run and per decode
     step, and host-clock times (prefill per chunk, synchronized; decode
-    per step, each burst ending in the trace's host copy)."""
+    per step, each burst ending in the trace's host copy); with ``keep``
+    also the engine itself, its cache as the run left it."""
     import torch
 
     from compressed_tensors_tpu_torch.engine import Request, ServingEngine
@@ -885,44 +1007,14 @@ def serve_requests(params, config, requests, name, **kw):
     if not all(0 <= t < config.vocab_size for o in outs.values()
                for t in o):
         raise AssertionError(f"serving {name}: token ids out of range")
-    hits = engine.prefix_cache_hits
-    del engine._prefill_chunk, engine._decode, engine  # frees its cache
+    out = dict(outs=outs, counts=counts, wall=wall,
+               hits=engine.prefix_cache_hits, **timing)
+    del engine._prefill_chunk, engine._decode
+    if keep:
+        out["engine"] = engine
+    del engine  # frees its cache unless kept
     torch.cuda.empty_cache()
-    return dict(outs=outs, counts=counts, wall=wall, hits=hits, **timing)
-
-
-def check_first_token_logits(params, config, requests, label):
-    """One request's first-token logits, kernel path against non-kernel
-    path, within TOL_E2E_8B * max|ref|."""
-    import torch
-
-    from compressed_tensors_tpu_torch.models.llama import (
-        init_kv_cache,
-        llama_forward,
-    )
-
-    rid, ids, _ = probe_request(requests)
-    x = torch.tensor([ids], device="cuda")
-    pos = torch.arange(len(ids), device="cuda")[None]
-    logits = {}
-    for use_kernels in (True, False):
-        cache = init_kv_cache(config, 1, len(ids), device="cuda")
-        logits[use_kernels], _ = llama_forward(
-            params, config, x, pos, cache, fresh_prefill=True,
-            use_kernels=use_kernels, last_logit_only=True)
-    got, ref = logits[True].float(), logits[False].float()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"non-finite {label} logits")
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    same = int(got.argmax()) == int(ref.argmax())
-    log(f"{label} first-token logits (request {rid}, {len(ids)} prompt "
-        f"tokens) vs non-kernel path: max_abs_err={err:.5g} max|ref|="
-        f"{scale:.5g} rel={err / scale:.4g} (limit {TOL_E2E_8B}), argmax "
-        f"{'agrees' if same else 'differs'}")
-    if err > TOL_E2E_8B * scale:
-        raise AssertionError(f"{label} first-token logits disagree with "
-                             "the non-kernel path")
+    return out
 
 
 def probe_request(requests):
@@ -965,17 +1057,22 @@ def rel_rms(a, b):
 
 
 def logits_by_depth(params, config, requests, label, cache_dtype=None,
-                    fault=None, depths=DEPTHS):
+                    fault=None, depths=DEPTHS, plain=None):
     """One request's first-token logits through the first d layers (full
-    width) for each d in DEPTHS: the kernel path, the non-kernel path, and
-    the non-kernel path with one bf16 ulp up on 64 embedding values of one
-    prompt token (that path's own spread). Returns ``(sweep, faulty)``:
-    sweep is {d: (relative RMS error kernel vs non-kernel, relative RMS of
-    the perturbed non-kernel logits, max|kernel - non-kernel| /
-    max|non-kernel|)}; faulty is the same for the kernel path run inside
-    the context manager ``fault`` (a planted fault), or {} without one."""
+    width) for each d in DEPTHS: the kernel path, the reference, and the
+    non-kernel path with one bf16 ulp up on 64 embedding values of one
+    prompt token (that path's own spread). The reference is the non-kernel
+    path, or with ``plain`` (a context manager factory) the kernel path run
+    inside it, every matmul of some kernel through that kernel's plain
+    version; the distance to the non-kernel path is printed beside it.
+    Returns ``(sweep, faulty)``: sweep is {d: (relative RMS error kernel vs
+    reference, relative RMS of the perturbed non-kernel logits,
+    max|kernel - reference| / max|reference|)}; faulty is the same for the
+    kernel path run inside the context manager ``fault`` (a planted
+    fault), or {} without one."""
     rid, ids, _ = probe_request(requests)
     n = len(ids)
+    ref_name = "non-kernel path" if plain is None else "plain path"
 
     def logits(depth, use_kernels):
         return first_token_logits(params, config, ids, depth, use_kernels,
@@ -986,20 +1083,30 @@ def logits_by_depth(params, config, requests, label, cache_dtype=None,
     sweep, refs = {}, {}
     for depth in depths:
         got = logits(depth, True)
-        ref = refs[depth] = logits(depth, False)
+        nk = logits(depth, False)
+        if plain is None:
+            ref = nk
+        else:
+            with plain():
+                ref = logits(depth, True)
+        refs[depth] = ref
         emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
         moved = logits(depth, False)
         emb[tok] = row
         top = ref.abs().max().item()
-        sweep[depth] = (rel_rms(got, ref), rel_rms(moved, ref),
+        sweep[depth] = (rel_rms(got, ref), rel_rms(moved, nk),
                         (got - ref).abs().max().item() / top)
+        versus = ("" if plain is None else
+                  f"; vs the non-kernel path rel_rms={rel_rms(got, nk):.4g} "
+                  f"(max {(got - nk).abs().max().item() / nk.abs().max().item():.4g}"
+                  f" of max|ref|), argmax {int(nk.argmax())}")
         log(f"{label} first-token logits (request {rid}), {depth} of "
-            f"{config.num_hidden_layers} layers: kernel vs non-kernel path "
+            f"{config.num_hidden_layers} layers: kernel vs {ref_name} "
             f"rel_rms={sweep[depth][0]:.4g} (max abs "
             f"{(got - ref).abs().max().item():.4g} of max|ref| {top:.4g}, "
             f"{sweep[depth][2]:.4g}); non-kernel path under the perturbation "
             f"rel_rms={sweep[depth][1]:.4g}; argmax kernel "
-            f"{int(got.argmax())} reference {int(ref.argmax())}")
+            f"{int(got.argmax())} reference {int(ref.argmax())}{versus}")
     faulty = {}
     if fault is not None:
         with fault:
@@ -1013,8 +1120,9 @@ def logits_by_depth(params, config, requests, label, cache_dtype=None,
 
 @contextlib.contextmanager
 def rolled_group_scales(params):
-    """A planted kernel fault: the kernel scales of every fp4, grouped-int8
-    and int32 plane-layout decoder linear rolled by one group, so that each
+    """A planted kernel fault: the kernel scales of every W4 (int4 words or
+    int32 planes), fp4 and grouped-int8 decoder linear rolled by one group,
+    so that each
     group is read with its neighbour's scale (an off-by-one group index);
     undone on exit. The non-kernel path reads the checkpoint's scales and is not
     touched."""
@@ -1023,7 +1131,7 @@ def rolled_group_scales(params):
     scales = [qt.kernel_scales for layer in params["layers"]
               for qt in layer.values()
               if isinstance(qt, QuantizedTensor) and qt.kernel_meta
-              and qt.kernel_meta[0] in ("fp4", "w4e8", "w4packed")]
+              and qt.kernel_meta[0] in ("w4a16", "fp4", "w4e8", "w4packed")]
     for s in scales:
         s.copy_(s.roll(1, 0))
     try:
@@ -1051,8 +1159,9 @@ def logits_rule_failures(sweep):
     return out
 
 
-def check_logits_by_depth(params, config, requests, label, depths=DEPTHS):
-    """Phases 7-8's logits checks.
+def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
+                          plain=None):
+    """The logits checks of phases 5 and 7-10.
 
     - The rule of ``logits_rule_failures``. Its spread arm is for a random
       model that amplifies a one-ulp bf16 difference: on the H100 the
@@ -1060,7 +1169,11 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS):
       1.65% at one layer (argmax agreeing), 1.2-1.4x the perturbation
       spread at every depth.
     - A control that the rule must fail: the same sweep with the kernel
-      path's group scales rolled by one group (``rolled_group_scales``).
+      path's group scales rolled by one group (``rolled_group_scales``):
+      every check of the rule must fail.
+    - With ``plain``, the reference of all of these is the kernel path
+      with the matmuls of some kernels through their plain versions
+      (``logits_by_depth``), not the non-kernel path.
     - At one layer, the lm_head swapped on both paths for its dequantized
       bf16 weight: within TOL_E2E_8B * max|ref| (0.89-0.92% read on the
       H100). The W8A8-int lm_head's non-kernel path (as the JAX
@@ -1074,7 +1187,7 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS):
 
     sweep, faulty = logits_by_depth(params, config, requests, label,
                                     fault=rolled_group_scales(params),
-                                    depths=depths)
+                                    depths=depths, plain=plain)
     failures = logits_rule_failures(sweep)
     if failures:
         raise AssertionError(f"{label} logits: {'; '.join(failures)}")
@@ -1090,22 +1203,26 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS):
             f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
             for d, (e, _, t) in faulty.items())
         + f"; the rule fails {len(caught)} of its {len(sweep) + 1} checks")
-    if not caught:
+    if len(caught) < len(sweep) + 1:
         raise AssertionError(f"{label} logits rule accepted the planted "
-                             "fault (group scales rolled by one group)")
+                             "fault (group scales rolled by one group) in "
+                             f"{len(sweep) + 1 - len(caught)} checks")
 
     lm = params["lm_head"]
     head = (lm.weight.to(torch.float32) * lm.scale.to(torch.float32)).to(
         torch.bfloat16)
     _, ids, _ = probe_request(requests)
-    got, ref = (first_token_logits(dict(params, lm_head=head), config, ids,
-                                   1, use_kernels, label)
-                for use_kernels in (True, False))
+    bf16_head = dict(params, lm_head=head)
+    got = first_token_logits(bf16_head, config, ids, 1, True, label)
+    with plain() if plain is not None else contextlib.nullcontext():
+        ref = first_token_logits(bf16_head, config, ids, 1, plain is not None,
+                                 label)
     del head
     torch.cuda.empty_cache()
     err = (got - ref).abs().max().item() / ref.abs().max().item()
     log(f"{label} first-token logits at one layer through a bf16 lm_head "
-        f"(the W8A8 head dequantized): kernel vs non-kernel path max "
+        f"(the W8A8 head dequantized): kernel vs "
+        f"{'plain' if plain is not None else 'non-kernel'} path max "
         f"{err:.4g} of max|ref|, rel_rms {rel_rms(got, ref):.4g} (limit "
         f"{TOL_E2E_8B}; {sweep[1][2]:.4g} through the W8A8 head)")
     if err > TOL_E2E_8B:
@@ -1141,12 +1258,185 @@ def greedy_8b(params, config, label, **kw):
     return dict(counts=counts, wall=total)
 
 
-def phase_serving():
-    """The ServingEngine at Llama-3-8B W4A16 width: the same requests
-    through the dense engine (flash decode at S_pad 1024), the paged engine
-    and the paged engine with prefix caching."""
+def check_prefix_caching(dense, prefix, hits, label, rule=True):
+    """Prefix-cached completions against dense ones. With prefix caching
+    the requests without the shared prefix run the same chunks as dense:
+    identical. Those with it prefill only their own tail, as one
+    continuation chunk over the cached pages: other row counts, so
+    _w4b8_mode may pick int4b where a dense chunk picks a8b or the reverse
+    (a difference of the size of the int8 rounding, about 1% of a linear's
+    input), and the non-kernel attention over the cache. That may flip a
+    greedy near-tie; stale or wrong pages would change nearly all of them.
+    With ``rule``, every first token must agree, and at least
+    SHARED_SAME_MIN of the completions in full; without it the counts are
+    recorded."""
+    def first_diff(a, b):
+        return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+
+    shared = list(range(0, N_REQUESTS, SHARE_EVERY))
+    bad = [i for i in dense if i not in shared and prefix[i] != dense[i]]
+    if bad:
+        raise AssertionError(f"{label}: prefix caching changed requests "
+                             f"{bad} that do not share the prefix")
+    differ = {i: first_diff(prefix[i], dense[i]) for i in shared
+              if prefix[i] != dense[i]}
+    limit = f"limit {SHARED_SAME_MIN}" if rule else "recorded, no limit"
+    log(f"{label} paged+prefix vs dense: the {N_REQUESTS - len(shared)} "
+        f"requests without the shared prefix identical; of the "
+        f"{len(shared)} with it, {len(shared) - len(differ)} identical "
+        f"({limit}), {sum(t == 0 for t in differ.values())} with another "
+        f"first token; first differing token of the others: {differ}")
+    if hits <= 0:
+        raise AssertionError(f"{label}: prefix caching reused no page")
+    if not rule:
+        return
+    if any(t == 0 for t in differ.values()):
+        raise AssertionError(f"{label}: prefix caching changed a first token")
+    if len(shared) - len(differ) < SHARED_SAME_MIN:
+        raise AssertionError(f"{label}: prefix caching changed too many "
+                             "completions")
+
+
+def prefix_cache_readings(params, config, requests, dense, prefix, engine,
+                          label):
+    """What prefix caching changes for the requests that share the prefix,
+    read after the prefix-cached run (``engine``, its pool as the run left
+    it). For each such request:
+
+    - its prompt prefilled afresh on a dense cache in ``prefill_chunk``
+      pieces, as the dense engine runs it: the first-token logits, and the
+      first SHARED_PREFIX positions of the cache, which must equal the
+      cached prefix pages bit for bit in every layer (k and v);
+    - its tail prefilled over the cached prefix pages as one continuation
+      chunk, as the prefix-cached engine runs it: the first-token logits.
+
+    Each recomputation must give its engine's first token. Printed for
+    each request whose first token changed: the dense top-2 margin beside
+    the change of the two tokens' logit difference and max|prefix-cached -
+    dense|, with a summary over all of them. A first token that changes
+    over equal pages is a greedy near-tie when the margin lies below that
+    change. On the H100 the pages were equal in all 32 requests and the 4
+    changed first tokens had margins of 1-4 bf16 ulps of their logits."""
     import torch
 
+    from compressed_tensors_tpu_torch.models.llama import (
+        KVCache,
+        PagedKVCache,
+        init_kv_cache,
+        llama_forward,
+    )
+    from compressed_tensors_tpu_torch.ops.linear import _w4b8_mode
+
+    chunk, page = SERVE["prefill_chunk"], engine.cache.page_size
+    n_pre = SHARED_PREFIX // page
+    pids = [engine._prefix_index[d] for d in engine._page_digests(
+        requests[0][1][:SHARED_PREFIX], page)]
+    pool_k, pool_v = engine.cache.k, engine.cache.v
+    L, _, kvh, _, hd = pool_k.shape
+
+    def pages(pool):  # (L, KVH, SHARED_PREFIX, D)
+        return pool[:, pids].permute(0, 2, 1, 3, 4).reshape(
+            L, kvh, SHARED_PREFIX, hd)
+
+    cached = (pages(pool_k), pages(pool_v))
+    table = torch.tensor(
+        [pids + list(engine._free_pages)[:engine._tables.shape[1] - n_pre]],
+        dtype=torch.int32, device="cuda")
+
+    def forward(ids, start, cache):
+        logits, _ = llama_forward(
+            params, config, torch.tensor([ids], device="cuda"),
+            torch.arange(start, start + len(ids), device="cuda")[None],
+            cache, fresh_prefill=start == 0, last_logit_only=True)
+        return logits.float().reshape(-1)
+
+    def at(i):
+        return torch.tensor([i], dtype=torch.int32, device="cuda")
+
+    rows, page_diff, unequal = [], 0.0, []
+    for rid, ids, _ in requests:
+        if rid % SHARE_EVERY:
+            continue
+        cache = init_kv_cache(config, 1, SERVE["max_len"], device="cuda")
+        for start in range(0, len(ids), chunk):
+            got_d = forward(ids[start:start + chunk], start,
+                            KVCache(k=cache.k, v=cache.v, lengths=at(start)))
+        diff = max((c[:, 0, :, :SHARED_PREFIX].float() - p.float())
+                   .abs().max().item() for c, p in zip((cache.k, cache.v),
+                                                       cached))
+        page_diff = max(page_diff, diff)
+        if diff:
+            unequal.append(rid)
+        del cache
+        got_p = forward(ids[SHARED_PREFIX:], SHARED_PREFIX, PagedKVCache(
+            k=pool_k, v=pool_v, tables=table, lengths=at(SHARED_PREFIX)))
+        top2 = got_d.topk(2)
+        a, b = int(got_d.argmax()), int(got_p.argmax())
+        rows.append(dict(
+            rid=rid, n=len(ids), a=a, b=b,
+            same=(a == dense[rid][0], b == prefix[rid][0]),
+            margin=(top2.values[0] - top2.values[1]).item(),
+            moved=((got_d[a] - got_d[b]) - (got_p[a] - got_p[b])).item(),
+            max_diff=(got_p - got_d).abs().max().item(),
+            rel=(got_p - got_d).abs().max().item()
+            / got_d.abs().max().item(),
+            mode=_w4b8_mode(len(ids) - SHARED_PREFIX, 4096, 4096)))
+    for r in rows:
+        if r["a"] != r["b"]:
+            log(f"{label} request {r['rid']} ({r['n']} prompt tokens; its "
+                f"{r['n'] - SHARED_PREFIX}-row tail {r['mode']}, the dense "
+                f"chunk a8b): first token dense {r['a']}, prefix-cached "
+                f"{r['b']}; dense top-2 margin {r['margin']:.4g}, the "
+                f"two tokens' difference moved by {r['moved']:.4g}; "
+                f"max|prefix-cached - dense| {r['max_diff']:.4g} "
+                f"({r['rel']:.4g} of max|dense|)")
+    rel = sorted(r["rel"] for r in rows)
+    margins = sorted(r["margin"] for r in rows)
+    log(f"{label} prefix readings over the {len(rows)} requests with the "
+        f"prefix: recomputed first tokens equal to the dense engine's "
+        f"{sum(r['same'][0] for r in rows)}, to the prefix-cached engine's "
+        f"{sum(r['same'][1] for r in rows)}; first tokens changed "
+        f"{sum(r['a'] != r['b'] for r in rows)}; max|prefix-cached - dense| "
+        f"/ max|dense| min {rel[0]:.4g} median {rel[len(rel) // 2]:.4g} max "
+        f"{rel[-1]:.4g}; dense top-2 margin min {margins[0]:.4g} median "
+        f"{margins[len(margins) // 2]:.4g}, below max|prefix-cached - "
+        f"dense| in {sum(r['margin'] < r['max_diff'] for r in rows)}; cached "
+        f"prefix pages against each fresh prefill's: {len(rows) - len(unequal)}"
+        f" of {len(rows)} equal bit for bit (max|diff| {page_diff:.4g})")
+    if unequal:
+        raise AssertionError(f"{label}: the cached prefix pages differ from "
+                             f"a fresh prefill's for requests {unequal}")
+    if not all(all(r["same"]) for r in rows):
+        raise AssertionError(f"{label}: a prefill over the cached pages or a "
+                             "fresh one gave another first token than its "
+                             "engine")
+
+
+def phase_serving():
+    """The ServingEngine at Llama-3-8B W4A16 width.
+
+    The model is ``w4a16_llama`` (codes uniform in [-7, 7], built on the
+    card). Its first-token logits by depth, with the rolled-scales control,
+    which must fail every check: with every W4 linear at bf16 activations
+    (int4b, the non-kernel path's arithmetic) against the non-kernel path,
+    and, as the serving default prefills the probe's rows through a8b
+    (int8 activations, no part of the non-kernel path), that path against
+    the same model with B1/B2 through their plain versions (its distance to
+    the non-kernel path printed beside it). Then the requests through the
+    dense engine (flash decode at S_pad 1024), the paged engine (identical
+    to dense) and the paged engine with prefix caching, whose completions
+    are counted and whose pages and first-token logits are read against
+    fresh dense prefills (``prefix_cache_readings``: the pages must be
+    equal). The prefix rule, whose premise is that only a few greedy
+    near-ties flip, runs where it was set: the same requests dense and
+    prefix-cached on the JAX package's draw (``make_synthetic_llama``:
+    random words), whose logits lean on one direction and leave few
+    near-ties; on the [-7, 7] model most completions with the prefix part
+    from dense after a few tokens (3 of 32 identical on the H100)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
     from compressed_tensors_tpu_torch.models.synthetic import (
         LLAMA3_8B,
         make_synthetic_llama,
@@ -1155,27 +1445,25 @@ def phase_serving():
 
     config = LLAMA3_8B
     t0 = time.perf_counter()
-    params = fuse_llama_layers(make_synthetic_llama(
-        config, "W4A16", seed=0, lm_head_preset="W8A8", device="cuda"))
+    params = fuse_llama_layers(w4a16_llama(config, 0, asym=False))
     torch.cuda.synchronize()
-    log(f"Llama-3-8B W4A16 synthetic model (seed 0, fused): built in "
-        f"{time.perf_counter() - t0:.1f} s, "
+    log(f"Llama-3-8B W4A16 model (built on the card from seed 0, codes "
+        f"uniform in [-7, 7], fused): {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     requests = serving_requests()
 
-    check_first_token_logits(params, config, requests, "8B W4A16")
+    with flag_overrides(w4_act="bf16"):
+        check_logits_by_depth(params, config, requests, "8B W4A16 bf16")
+    check_logits_by_depth(params, config, requests, "8B W4A16 a8b",
+                          plain=plain_w4)
 
     runs = {"dense": dict(paged=False),
             "paged": dict(paged=True, prefix_caching=False),
             "paged+prefix": dict(paged=True)}
-    results = {name: serve_requests(params, config, requests, name, **kw)
+    results = {name: serve_requests(params, config, requests, name,
+                                    keep=name == "paged+prefix", **kw)
                for name, kw in runs.items()}
-
     dense, paged, prefix = (results[k]["outs"] for k in runs)
-
-    def first_diff(a, b):
-        return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
-                    None)
 
     # paged and dense run the same chunks through decode kernels that
     # share one body: identical completions
@@ -1185,38 +1473,61 @@ def phase_serving():
     if bad:
         raise AssertionError(f"serving paged and dense completions differ "
                              f"for requests {bad}")
-    # with prefix caching the requests without the shared prefix run the
-    # same chunks as dense: identical. Those with it prefill only their own
-    # tail, as one continuation chunk over the cached pages: other row
-    # counts, so _w4b8_mode may pick int4b where a dense chunk picks a8b or
-    # the reverse (a difference of the size of the int8 rounding, about 1%
-    # of a linear's input), and the non-kernel attention over the cache.
-    # That may flip a greedy near-tie; stale or wrong pages would change
-    # nearly all of them. So every first token must agree, and at least
-    # SHARED_SAME_MIN of the completions in full.
-    shared = list(range(0, N_REQUESTS, SHARE_EVERY))
-    bad = [i for i in dense if i not in shared and prefix[i] != dense[i]]
-    if bad:
-        raise AssertionError(f"prefix caching changed requests {bad} that "
-                             "do not share the prefix")
-    differ = {i: first_diff(prefix[i], dense[i]) for i in shared
-              if prefix[i] != dense[i]}
-    log(f"serving paged+prefix vs dense: the {N_REQUESTS - len(shared)} "
-        f"requests without the shared prefix identical; of the "
-        f"{len(shared)} with it, {len(shared) - len(differ)} identical "
-        f"(limit {SHARED_SAME_MIN}); first differing token of the others: "
-        f"{differ}")
-    if any(t == 0 for t in differ.values()):
-        raise AssertionError("prefix caching changed a first token")
-    if len(shared) - len(differ) < SHARED_SAME_MIN:
-        raise AssertionError("prefix caching changed too many completions")
-    if results["paged+prefix"]["hits"] <= 0:
-        raise AssertionError("prefix caching reused no page")
+    check_prefix_caching(dense, prefix, results["paged+prefix"]["hits"],
+                         "serving", rule=False)
+    engine = results["paged+prefix"].pop("engine")
+    prefix_cache_readings(params, config, requests, dense, prefix, engine,
+                          "serving")
+    del params, engine
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(make_synthetic_llama(
+        config, "W4A16", seed=0, lm_head_preset="W8A8", device="cuda"))
+    torch.cuda.synchronize()
+    log(f"Llama-3-8B W4A16, the JAX package's draw (random words, seed 0, "
+        f"fused): {time.perf_counter() - t0:.1f} s")
+    for name, kw in (("dense (JAX draw)", dict(paged=False)),
+                     ("paged+prefix (JAX draw)", dict(paged=True))):
+        results[name] = serve_requests(params, config, requests, name, **kw)
+    check_prefix_caching(results["dense (JAX draw)"]["outs"],
+                         results["paged+prefix (JAX draw)"]["outs"],
+                         results["paged+prefix (JAX draw)"]["hits"],
+                         "serving (JAX draw)")
+    del params
+    torch.cuda.empty_cache()
     base = ("w4a16_a8b_matmul", "w4a16_matmul", "w8a8_matmul",
             "prefill_attention")
     check_launched(results, {"dense": base + ("flash_decode_attention",),
                              "paged": base + ("paged_decode_attention",)})
     return results
+
+
+def prefill_row(q, k, v, shapes):
+    """B4's device ms on q (B, S, H, D), k/v (B, S, KVH, D), causal, beside
+    its bound (the causal half of QK^T and P.V at the bf16 peak, or q, k, v
+    read and the output written once), its plain version and SDPA with
+    GQA."""
+    import torch.nn.functional as F
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        prefill_attention as pa,
+    )
+
+    B, S, H, D = q.shape
+    t = device_ms([lambda: pa.prefill_attention(q, k, v)] * 5)
+    tp = eager_ms(lambda: pa.prefill_attention_plain(q, k, v))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    try:
+        tl = device_ms([lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)] * 5)
+    except (RuntimeError, TypeError) as exc:
+        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+        tl = None
+    bm, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                   4 * B * H * D * (S * (S + 1) // 2), PEAK_BF16)
+    return dict(name="prefill_attention", ms=t, plain_ms=tp, bound_ms=bm,
+                bound_by=by, library_ms=tl, shapes=shapes)
 
 
 def phase_timings(errs, run_counts, per_step):
@@ -1226,7 +1537,6 @@ def phase_timings(errs, run_counts, per_step):
 
     from compressed_tensors_tpu_torch.ops.kernels import (
         decode_attention as da,
-        prefill_attention as pa,
         w4a16_matmul as w4,
         w8a8_matmul as w8,
     )
@@ -1304,23 +1614,9 @@ def phase_timings(errs, run_counts, per_step):
                                 ).to(dev, torch.bfloat16)
 
     H, KVH, D = 32, 4, 64
-    q, k_, v_ = bf(BATCH, PROMPT, H, D), bf(BATCH, PROMPT, KVH, D), bf(
-        BATCH, PROMPT, KVH, D)
-    t = device_ms([lambda: pa.prefill_attention(q, k_, v_)] * 5)
-    tp = eager_ms(lambda: pa.prefill_attention_plain(q, k_, v_))
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k_, v_))
-    try:
-        tl = device_ms([lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)] * 5)
-    except (RuntimeError, TypeError) as exc:
-        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
-        tl = None
-    pairs = PROMPT * (PROMPT + 1) // 2
-    bm, by = bound(2 * (q.numel() + k_.numel() + v_.numel() + q.numel()),
-                   4 * BATCH * H * D * pairs, PEAK_BF16)
-    rows.append(dict(name="prefill_attention", ms=t, plain_ms=tp,
-                     bound_ms=bm, bound_by=by, library_ms=tl,
-                     shapes="B=64 S=128 H=32 KVH=4 D=64 causal"))
+    rows.append(prefill_row(bf(BATCH, PROMPT, H, D), bf(BATCH, PROMPT, KVH, D),
+                            bf(BATCH, PROMPT, KVH, D),
+                            "B=64 S=128 H=32 KVH=4 D=64 causal"))
 
     # decode attention: one layer of the (22, 64, 4, 192, 64) cache; the
     # calls walk the 22 layers, as a decode step does
@@ -1360,10 +1656,8 @@ def phase_timings_8b(serving):
     """Per-kernel time at the serving path's Llama-3-8B shapes, bound,
     plain, library; the launches of each engine run beside them."""
     import torch
-    import torch.nn.functional as F
 
     from compressed_tensors_tpu_torch.ops.kernels import (
-        prefill_attention as pa,
         w4a16_matmul as w4,
         w8a8_matmul as w8,
     )
@@ -1435,23 +1729,18 @@ def phase_timings_8b(serving):
                      bound_by=by, library_ms=tl,
                      shapes="8B lm_head 64x4096 -> 128256"))
 
-    # prefill attention of one fresh 512-token chunk at D = 128
-    q, k_, v_ = (dev_randn(gen, 1, M_CHUNK, h, D8) for h in (H8, KVH8, KVH8))
-    t = device_ms([lambda: pa.prefill_attention(q, k_, v_)] * 5)
-    tp = eager_ms(lambda: pa.prefill_attention_plain(q, k_, v_))
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k_, v_))
-    try:
-        tl = device_ms([lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)] * 5)
-    except (RuntimeError, TypeError) as exc:
-        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
-        tl = None
-    pairs = M_CHUNK * (M_CHUNK + 1) // 2
-    bm, by = bound(2 * (2 * q.numel() + k_.numel() + v_.numel()),
-                   4 * H8 * D8 * pairs, PEAK_BF16)
-    rows.append(dict(name="prefill_attention", ms=t, plain_ms=tp,
-                     bound_ms=bm, bound_by=by, library_ms=tl,
-                     shapes="8B chunk B=1 S=512 H=32 KVH=8 D=128 causal"))
+    # prefill attention of one fresh 512-token chunk at D = 128, at the 8B
+    # (32 heads over 8) and the Qwen2.5-7B (28 over 4) head counts
+    prefill = {}
+    for label, (H, KVH) in (("8B", (H8, KVH8)), ("Qwen2.5-7B", (28, 4))):
+        prefill[f"{label} chunk"] = prefill_row(
+            *(dev_randn(gen, 1, M_CHUNK, h, D8) for h in (H, KVH, KVH)),
+            f"{label} chunk B=1 S=512 H={H} KVH={KVH} D=128 causal")
+    rows.append(prefill["8B chunk"])
+    r = prefill["Qwen2.5-7B chunk"]
+    log(f"kernel prefill_attention [{r['shapes']}]: {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} "
+        f"ms, library {r['library_ms']}")
 
     # flash and paged decode: one decode step's 32 layers at batch 64
     q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
@@ -1469,7 +1758,7 @@ def phase_timings_8b(serving):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}; launches "
             f"per decode step {steps}, per serving run {counts}")
-    return rows
+    return rows, prefill
 
 
 def check_w8a8_fp8(name, x, w, s, n, k):
@@ -2257,8 +2546,8 @@ def plane_operands(gen, n, k, asym, group=128):
 
 def parity_planes(errs, config, asym, label):
     """B10 against its plain version at the fused linear shapes of
-    ``config``, in every mode at M = 64 and 512, by the a8b rule; in mode
-    a8 the quantization pass equal to the plain one bit for bit."""
+    ``config``, in every mode at M = 1, 64, 100 and 512, by the a8b rule;
+    in mode a8 the quantization pass equal to the plain one bit for bit."""
     import torch
 
     from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
@@ -2266,7 +2555,7 @@ def parity_planes(errs, config, asym, label):
     gen = torch.Generator(device="cuda").manual_seed(9)
     for lin, (n, k) in fused_shapes(config).items():
         words, s, zp, k_pad = plane_operands(gen, n, k, asym)
-        for m in (BATCH, M_CHUNK):
+        for m in PLANES_GRID["M"]:
             x = dev_randn(gen, m, k)
             for mode in w4.PLANE_MODES:
                 name = f"w4a16_planes_{mode}"
@@ -2336,9 +2625,10 @@ def parity_rep7(errs):
                          "bf16 cache, H=28 KVH=4")
 
 
-def qwen_llama(config, seed, asym):
-    """A Qwen model at full width built on the card as ``w8a16_llama``
-    draws its model, as W4A16 g128 pack-quantized with bf16 group scales
+def w4a16_llama(config, seed, asym):
+    """A Llama, Qwen2 or Qwen3 model at full width built on the card as
+    ``w8a16_llama`` draws its model, as W4A16 g128 pack-quantized with
+    bf16 group scales
     in [1e-3, 3e-3]: with ``asym`` (W4A16_ASYM, the AWQ kind) random int32
     words and zero points in [-8, 7] packed along dim 0; symmetric (the
     GPTQ kind) codes q uniform in [-7, 7]; the qkv bias (qwen2) in bf16
@@ -2351,7 +2641,9 @@ def qwen_llama(config, seed, asym):
     output toward the all-ones direction; on the H100 such a random
     Qwen3-8B kept one argmax at every depth, and group scales rolled by
     one group moved its logits by 1-4% (against 75% for Qwen2.5, whose zero
-    points cancel that mean), too little for the control."""
+    points cancel that mean), too little for the control. Phase 5's
+    Llama-3-8B used to draw such words (``make_synthetic_llama``, the JAX
+    package's draw, which the CPU tests keep)."""
     import torch
 
     from compressed_tensors_tpu_torch.ops.linear import (
@@ -2416,7 +2708,7 @@ def reprepared(params, w4_layout):
 
 
 def build_qwen(spec, seed, asym, label):
-    """``qwen_llama`` under w4_layout="packed", fused; checks that every
+    """``w4a16_llama`` under w4_layout="packed", fused; checks that every
     decoder linear took the plane layout."""
     import torch
 
@@ -2428,7 +2720,7 @@ def build_qwen(spec, seed, asym, label):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with flag_overrides(w4_layout="packed"):
-        params = fuse_llama_layers(qwen_llama(config, seed, asym))
+        params = fuse_llama_layers(w4a16_llama(config, seed, asym))
     torch.cuda.synchronize()
     kinds = {qt.kernel_meta[0] for layer in params["layers"]
              for qt in layer.values() if hasattr(qt, "kernel_meta")}
@@ -2507,6 +2799,22 @@ def phase_qwen25(errs):
 
 
 @contextlib.contextmanager
+def plain_w4():
+    """Every int4-word W4 matmul of the model (B1 int4b, B2 a8b) through
+    its kernel's plain version on the card, in the mode the dispatcher
+    picks; undone on exit."""
+    from compressed_tensors_tpu_torch.ops import linear
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    kernel = linear.w4a16_matmul
+    linear.w4a16_matmul = w4.w4a16_matmul_plain
+    try:
+        yield
+    finally:
+        linear.w4a16_matmul = kernel
+
+
+@contextlib.contextmanager
 def plain_planes():
     """Every plane-layout matmul of the model through the plane kernel's
     plain version on the card, in the same mode; undone on exit."""
@@ -2521,51 +2829,12 @@ def plain_planes():
         linear.w4a16_planes_matmul = kernel
 
 
-def check_a8_by_depth(params, config, requests, spreads, depths):
-    """Mode a8 rounds every linear's input to int8 per row (absmax / 127),
-    which the non-kernel path does not: on the H100 that alone moved the
-    random Qwen3-8B's first-token logits 4.6% of max|ref| at one layer
-    and 4-6% relative RMS at every depth, about 4x the one-ulp spread. So
-    a8 is held by the logits rule against the same arithmetic: the model
-    with every plane matmul through its plain version in mode a8
-    (``plain_planes``), with the non-kernel path's one-ulp ``spreads``
-    ({depth: relative RMS}). The distance to the non-kernel path is
-    printed beside it."""
-    from compressed_tensors_tpu_torch.flags import flag_overrides
-
-    rid, ids, _ = probe_request(requests)
-    sweep = {}
-    for depth in depths:
-        with flag_overrides(w4_mode="a8"):
-            got = first_token_logits(params, config, ids, depth, True,
-                                     "Qwen3 a8")
-            with plain_planes():
-                ref = first_token_logits(params, config, ids, depth, True,
-                                         "Qwen3 a8 plain")
-        nk = first_token_logits(params, config, ids, depth, False, "Qwen3")
-        top = ref.abs().max().item()
-        sweep[depth] = (rel_rms(got, ref), spreads[depth],
-                        (got - ref).abs().max().item() / top)
-        log(f"Qwen3 a8 first-token logits (request {rid}), {depth} of "
-            f"{config.num_hidden_layers} layers: kernel vs the plain a8 "
-            f"path rel_rms={sweep[depth][0]:.4g} (max {sweep[depth][2]:.4g} "
-            f"of max|ref|); vs the non-kernel path rel_rms="
-            f"{rel_rms(got, nk):.4g} (max "
-            f"{(got - nk).abs().max().item() / nk.abs().max().item():.4g} of "
-            f"max|ref|); argmax kernel {int(got.argmax())} plain "
-            f"{int(ref.argmax())} non-kernel {int(nk.argmax())}")
-    failures = logits_rule_failures(sweep)
-    if failures:
-        raise AssertionError(f"Qwen3 a8 logits against the plain a8 path: "
-                             f"{'; '.join(failures)}")
-
-
 def phase_qwen3(errs):
     """Phase 10: B10 against its plain version at Qwen3-8B shapes
     (symmetric), then Qwen3-8B W4A16 g128 (the GPTQ kind, q/k norms)
     under w4_layout="packed": first-token logits by depth in mode int4
     against the non-kernel path (with the rolled-scales control), in mode
-    a8 against the plain a8 path (``check_a8_by_depth``), and
+    a8 against the plain a8 path, and
     greedy_generate at batch 64 in mode a8."""
     from compressed_tensors_tpu_torch.flags import flag_overrides
     from compressed_tensors_tpu_torch.models.config import LlamaConfig
@@ -2574,11 +2843,21 @@ def phase_qwen3(errs):
     params, config = build_qwen(QWEN3_8B, 0, False, "Qwen3-8B W4A16")
     requests = serving_requests()
     with flag_overrides(w4_mode="int4"):
-        sweep = check_logits_by_depth(params, config, requests, "Qwen3 int4",
-                                      depths=QWEN3_DEPTHS)
-    check_a8_by_depth(params, config, requests,
-                      {d: spread for d, (_, spread, _) in sweep.items()},
-                      QWEN3_DEPTHS)
+        check_logits_by_depth(params, config, requests, "Qwen3 int4",
+                              depths=QWEN3_DEPTHS)
+    # mode a8 rounds every linear's input to int8 per row (absmax / 127),
+    # which the non-kernel path does not: on the H100 that alone moved the
+    # random Qwen3-8B's first-token logits 4.6% of max|ref| at one layer
+    # and 4-6% relative RMS at every depth, about 4x the one-ulp spread. So
+    # a8 is held by the logits rule against the same arithmetic, every
+    # plane matmul through its plain version in mode a8
+    with flag_overrides(w4_mode="a8"):
+        sweep, _ = logits_by_depth(params, config, requests, "Qwen3 a8",
+                                   depths=QWEN3_DEPTHS, plain=plain_planes)
+    failures = logits_rule_failures(sweep)
+    if failures:
+        raise AssertionError(f"Qwen3 a8 logits against the plain a8 path: "
+                             f"{'; '.join(failures)}")
     with flag_overrides(w4_mode="a8"):
         results = {"qwen3 greedy_generate": greedy_8b(params, config,
                                                       "qwen3 a8")}
@@ -2689,22 +2968,24 @@ KERNEL_META = {
 
 # the main variant of kernels timed in several (the others go under
 # "variants"); the scaled decode kernels' main variant is the fp8 cache
-MAIN_VARIANT = {"w8a8_matmul_fp8": BATCH, "w4a16_fp4_matmul": "nvfp4 M=64",
-                "w4_e8_matmul": "w8a16 M=64", "w4a16_planes_int4": "M=64",
-                "w4a16_planes_a8": "M=64", "w4a16_planes_mat": "M=64"}
+MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
+                "w4a16_fp4_matmul": "nvfp4 M=64", "w4_e8_matmul": "w8a16 M=64",
+                "w4a16_planes_int4": "M=64", "w4a16_planes_a8": "M=64",
+                "w4a16_planes_mat": "M=64"}
 
 
 def kernel_report(errs, rows, variant_rows, paths):
     """The kernels line: one entry per kernel, at the newest (8B) shapes
-    where a path runs it: fp8 W8A8 at decode rows (M = 64) with the
+    where a path runs it: prefill attention at the 8B chunk (the Qwen2.5-7B
+    chunk and TinyLlama's prompts under ``variants``), fp8 W8A8 at decode rows (M = 64) with the
     512-row chunk under ``variants``, the scaled decode kernels on the
     fp8 cache with the int8 cache under ``variants``, the fp4 kernel on
     NVFP4 at M = 64 (MXFP4 and M = 512 under ``variants``), the
     grouped-int8 kernel on W8A16 at M = 64 (W4A16 under e8 and M = 512
     under ``variants``), each plane-layout mode at Qwen2.5-7B shapes at
-    M = 64 (M = 512 under ``variants``). Launches are summed over the main paths' runs
-    (``paths``: run name -> launch counts), with the split by run beside
-    them."""
+    M = 64 (M = 512 under ``variants``). Launches are summed over the main
+    paths' runs (``paths``: run name -> launch counts), with the split by
+    run beside them."""
     by_name = {r["name"]: r for r in rows}  # later (8B) rows win
     out = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2743,7 +3024,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phase_device_and_build()
+    resources = phase_device_and_build()
     errs = phase_parity()
     phase_parity_8b(errs)
     phase_parity_fp8(errs)
@@ -2753,10 +3034,14 @@ def main() -> int:
     log(f"phases 3-4 (TinyLlama) done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving()
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
-    rows += phase_timings_8b(serving)
+    rows_8b, prefill = phase_timings_8b(serving)
+    prefill["TinyLlama B=64 S=128"] = next(
+        r for r in rows if r["name"] == "prefill_attention")
+    rows += rows_8b
     fp8 = phase_fp8()
     log(f"phase 6 (FP8) done at {time.perf_counter() - t_start:.1f} s")
     variant_rows = phase_timings_fp8()
+    variant_rows["prefill_attention"] = prefill
     log(f"FP8 timings done at {time.perf_counter() - t_start:.1f} s")
     nvfp4 = phase_nvfp4(errs)
     log(f"phase 7 (NVFP4) done at {time.perf_counter() - t_start:.1f} s")
@@ -2789,6 +3074,9 @@ def main() -> int:
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"registers": {
+        name: {"registers": r, "spill_bytes": b}
+        for name, (r, b) in resources.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

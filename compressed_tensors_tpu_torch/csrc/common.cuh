@@ -1,5 +1,5 @@
 // Helpers shared by the port's hand-written Hopper kernels: tensor-core
-// mma.sync wrappers, cp.async copies, the split-K reduction, warp
+// mma.sync wrappers, ldmatrix, cp.async copies, the split-K reduction, warp
 // reductions, the int8 row quantizer of the a8b / a8 modes, fp8 e4m3
 // conversions and the KV cache element types.
 #pragma once
@@ -16,6 +16,33 @@ namespace ct {
 
 __device__ __forceinline__ uint32_t ld_shared_u32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, which lands in r[i] (row lane / 4, elements
+// 2 (lane % 4) and + 1); .trans hands out columns instead of rows
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// (lo, hi) rounded to a bf16 pair in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D += A * B for one 16x8x16 bf16 tile, f32 accumulate. Fragment layouts

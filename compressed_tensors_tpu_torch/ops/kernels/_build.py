@@ -19,7 +19,7 @@ import sys
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "check"]
+__all__ = ["build", "load", "check", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -97,6 +97,37 @@ def build(verbose: bool = False) -> Path:
                     *(str(obj) for _, obj, _ in jobs)], check=True)
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def ptxas_report(sources: tuple[str, ...]) -> dict[str, tuple[int, int]]:
+    """Registers and spill-store bytes of every kernel in ``sources``
+    (``csrc`` file names), from ptxas's report of a compile-only build
+    (each source by its own nvcc, all at once): {mangled name: (registers,
+    spill bytes)}."""
+    import re
+    import tempfile
+
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / src),
+             "-o", os.path.join(tmp, f"{i}.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i, src in enumerate(sources)]
+        outs = [p.communicate()[0] for p in procs]
+    report, name = {}, None
+    for line in "\n".join(outs).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), spill)
+            name = None
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -2,14 +2,16 @@
 
 Replaces ``compressed_tensors_tpu/ops/kernels/prefill_attention.py:
 prefill_attention`` with the hand-written Hopper kernel in
-``csrc/prefill_attention.cu``: one block per (query tile, kv head, batch
-row) with the group's query heads folded into its rows, K/V staged in
-32-key chunks in shared memory, an f32 online softmax per row, causal
-chunks skipped, and the S x S scores never written to device memory.
+``csrc/prefill_attention.cu``: FlashAttention-2 on bf16 tensor cores
+(``mma.sync``), one block of 4 warps per 64 folded query rows (the group's
+query heads folded position-major into the rows) and kv head, K/V in
+64-key tiles double-buffered in shared memory, the online softmax on the
+score fragments, causal tiles skipped, and the S x S scores never written
+to device memory.
 
-Bound on the H100: 4*B*H*(S^2/2)*D operations on bf16 inputs (the causal
-half of QK^T and P.V); at the slice's S = 128 the q/k/v/out bytes are of
-the same order. This first kernel runs its dot products on the CUDA cores.
+Bound on the H100: 4*B*H*(S(S+1)/2)*D operations on bf16 inputs (the
+causal half of QK^T and P.V); at S = 128 to 512 the q/k/v/out bytes are of
+the same order.
 
 ``prefill_attention`` launches the kernel for CUDA tensors and uses
 ``prefill_attention_plain`` only for CPU tensors.
@@ -59,10 +61,10 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KVH = k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    if D not in (64, 128) or H % KVH or H // KVH > 128:
+    if D not in (64, 128) or H % KVH:
         raise NotImplementedError(
-            f"prefill_attention kernel serves D in (64, 128) and H/KVH <= "
-            f"128, got D={D}, H={H}, KVH={KVH}")
+            f"prefill_attention kernel serves D in (64, 128) and H a "
+            f"multiple of KVH, got D={D}, H={H}, KVH={KVH}")
     for t in (q, k, v):
         if (t.dtype != torch.bfloat16 or t.device != q.device
                 or not t.is_contiguous()):
@@ -71,6 +73,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if tuple(k.shape) != (B, S, KVH, D) or v.shape != k.shape:
         raise ValueError("prefill_attention k/v shape mismatch")
     out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.ct_prefill_attention(

@@ -50,15 +50,17 @@ t*8g + j*g + r, so each plane of a k-tile is one quant group. Scales and
 zero points are (K_pad/g, N) f32, padded groups at scale 0 (code 8). The
 three modes, one C entry point each in ``csrc/w4a16_planes.cu``:
 
-- ``int4``: per plane, x_j . u_j with x in bf16 and u exact, f32 sums,
-  times s_j; the affine offset is subtracted as the rank-8 correction
-  sum_j sum(x_j) * (8 + zp_j) * s_j.
-- ``a8``: x quantized per row to int8 as in ``a8b``; exact int32 plane
-  dots times s_j, the same correction on the int8 row sums, everything
-  times the row's scale.
+- ``int4``: per plane, x_j . (u_j - 8 - zp_j) with x in bf16 and the
+  folded codes exact integers in [-15, 15], f32 sums, times s_j (the TPU
+  kernel dots u_j and subtracts the offset afterwards as the rank-8
+  correction sum_j sum(x_j) * (8 + zp_j) * s_j: the same value, less
+  exactly, since it cancels two large terms).
+- ``a8``: x quantized per row to int8 as in ``a8b``; exact int32 dots
+  with the same folded codes times s_j, everything times the row's scale.
 - ``mat``: each plane's scaled tile bf16(u_j * s_j) and one deep dot; the
-  offset is left out of the tile and subtracted as the same correction,
+  offset is left out of the tile and subtracted as the rank-8 correction,
   so the tile rounds u*s as the TPU kernel does, not (u - 8 - zp)*s.
+  Zero points must be integers, as a checkpoint's are.
 
 Bound: the checkpoint bytes at decode rows (codes, bf16 scales, 4-bit zero
 points), the 2*M*N*K bf16 (``int4``, ``mat``) or int8 (``a8``) operations
@@ -128,14 +130,16 @@ def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
     return y.to(out_dtype or x.dtype)
 
 
-def _split_k(m: int, n: int, k: int, unit_tiles: int) -> tuple[int, int]:
+def _split_k(m: int, n: int, k: int, unit_tiles: int, *, tile_m: int = _TILE,
+             tile_n: int = _TILE) -> tuple[int, int]:
     """(splits, k-tiles per split): split K over up to 4 blocks when the
-    (M, N) tile grid leaves most SMs idle; splits cut at multiples of
-    ``unit_tiles`` k-tiles (a group of the int4 kernels, one tile of the
-    grouped-weight kernels, which scale each split's part of a group)."""
+    (M, N) grid of ``tile_m`` x ``tile_n`` blocks leaves most SMs idle;
+    splits cut at multiples of ``unit_tiles`` k-tiles (a group of the int4
+    kernels, one tile of the grouped-weight kernels, which scale each
+    split's part of a group)."""
     tiles = -(-k // _BK)
     units = -(-tiles // unit_tiles)
-    blocks = -(-n // _TILE) * -(-m // _TILE)
+    blocks = -(-n // tile_n) * -(-m // tile_m)
     want = min(4, max(1, _SMS // blocks), units)
     tiles_per_split = -(-units // want) * unit_tiles
     return -(-tiles // tiles_per_split), tiles_per_split
@@ -398,9 +402,14 @@ def _plane_codes(words: torch.Tensor, group_size: int) -> torch.Tensor:
 
 def w4a16_planes_matmul_plain(x, words, scales, zp, *, n, k, group_size,
                               mode="int4", out_dtype=None):
-    """Plain version of the plane modes: what the TPU kernel computes in
-    ``mode``, accumulated in f32 and cast once to ``out_dtype`` (x's dtype
-    by default). ``k`` is K_pad; x (M, K_orig) is zero-padded to it."""
+    """Plain version of the plane modes, in the kernel's form, accumulated
+    in f32 and cast once to ``out_dtype`` (x's dtype by default). ``k`` is
+    K_pad; x (M, K_orig) is zero-padded to it. Modes int4 and a8 fold the
+    offset into the codes (u - 8 - zp, exact for the integer zero points
+    of a checkpoint) where the TPU kernel subtracts it afterwards as a
+    rank-8 correction: the same sum, with no cancellation of two large
+    terms. Mode mat keeps the TPU kernel's bf16(u * s) tile and its
+    correction."""
     if mode not in PLANE_MODES:
         raise ValueError(f"unknown plane mode {mode!r}")
     g, groups = group_size, k // group_size
@@ -414,14 +423,16 @@ def w4a16_planes_matmul_plain(x, words, scales, zp, *, n, k, group_size,
     xg = F.pad(xf, (0, k - x.shape[1])).reshape(m, groups, g)
     u = _plane_codes(words, g).to(torch.float32).reshape(groups, g, n)
     s = scales.to(torch.float32)
-    off = (8.0 + zp.to(torch.float32)) * s if zp is not None else 8.0 * s
-    corr = xg.sum(dim=-1) @ off  # the rank-8 correction, all tiles
+    off = 8.0 + zp.to(torch.float32) if zp is not None else 8.0
     if mode == "mat":
+        corr = xg.sum(dim=-1) @ (off * s)  # the rank-8 correction
         w = (u * s[:, None, :]).to(compute).to(torch.float32)
         y = xg.reshape(m, k) @ w.reshape(k, n) - corr
     else:
-        part = torch.einsum("mgr,grn->mgn", xg, u)  # exact for int8 x
-        y = (part * s).sum(dim=1) - corr
+        # the offset folded into the codes: u - (8 + zp), exact integers
+        v = u - (off[:, None, :] if zp is not None else off)
+        part = torch.einsum("mgr,grn->mgn", xg, v)  # exact for int8 x
+        y = (part * s).sum(dim=1)
         if mode == "a8":
             y = y * x_scale[:, None]
     return y.to(out_dtype or x.dtype)
@@ -475,7 +486,9 @@ def w4a16_planes_matmul(x: torch.Tensor, words: torch.Tensor,
     if m == 0:
         return y
     unit = tk // _BK
-    splits, tiles_per_split = _split_k(m, n, k, unit)
+    splits, tiles_per_split = _split_k(m, n, k, unit,
+                                       tile_m=128 if m > 64 else 64,
+                                       tile_n=128)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     common = (y.data_ptr(),

@@ -158,6 +158,23 @@ def test_prefill_attention(dev):
     _close(pa.prefill_attention(q, k, v), pa.prefill_attention_plain(q, k, v))
 
 
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 7, 8])
+@pytest.mark.parametrize("s", [65, 70, 128, 512, 1000])
+def test_prefill_attention_shapes(dev, s, rep, d, b):
+    """Ragged and whole tiles, GQA folds that do not divide a tile (rep 7),
+    both head widths, one and several batch rows."""
+    rng = np.random.default_rng(s * rep + d + b)
+    kvh = 2
+    q = _bf16(rng, b, s, kvh * rep, d, device=dev)
+    k, v = (_bf16(rng, b, s, kvh, d, device=dev) for _ in range(2))
+    before = pa.prefill_attention.launches
+    got = pa.prefill_attention(q, k, v)
+    assert pa.prefill_attention.launches == before + 1
+    _close(got, pa.prefill_attention_plain(q, k, v))
+
+
 def test_decode_attention_in_place(dev):
     rng = np.random.default_rng(0)
     q = _bf16(rng, 3, 8, 64, device=dev)
@@ -379,6 +396,32 @@ def test_w4a16_planes_matmul(dev, mode, m, n, k, g, asym):
     with pytest.raises(NotImplementedError, match="multiple of"):
         w4.w4a16_planes_matmul(x, words, s, zp, n=n, k=k_pad + 8,
                                group_size=g, mode=mode)
+
+
+@pytest.mark.parametrize("mode", w4.PLANE_MODES)
+@pytest.mark.parametrize("m", [1, 64, 100, 512])
+@pytest.mark.parametrize("n,k,g,asym", [(200, 448, 32, False),
+                                        (328, 1984, 128, True)])
+def test_w4a16_planes_rows(dev, mode, m, n, k, g, asym):
+    """The decode (64-row) and prefill (128-row) tiles at every row count
+    the main paths give, N not a multiple of the 128-column tile, K_orig
+    below K_pad, with and without zero points: the a8b rule."""
+    rng = np.random.default_rng(m + n)
+    k_pad, tk = w4.padded_k(k, g), w4.choose_k_tile(k, g)
+    u = np.pad(rng.integers(0, 16, (n, k)), ((0, 0), (0, k_pad - k)),
+               constant_values=8)
+    words = w4.repack_w4_for_kernel(torch.from_numpy(u), 4, k_pad, tk).to(dev)
+    s = rng.uniform(1e-3, 3e-3, (k_pad // g, n)).astype(np.float32)
+    s[-(-k // g):] = 0
+    s = torch.from_numpy(s).to(dev)
+    zp = (torch.from_numpy(rng.integers(-8, 8, (k_pad // g, n)).astype(
+        np.float32)).to(dev) if asym else None)
+    x = _bf16(rng, m, k, device=dev)
+    got = w4.w4a16_planes_matmul(x, words, s, zp, n=n, k=k_pad, group_size=g,
+                                 mode=mode)
+    assert _within_a8b_rule(got, w4.w4a16_planes_matmul_plain(
+        x, words, s, zp, n=n, k=k_pad, group_size=g, mode=mode,
+        out_dtype=torch.float32))
 
 
 def test_attention_kernels_at_seven_heads_per_kv_head(dev):

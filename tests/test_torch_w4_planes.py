@@ -38,6 +38,7 @@ from compressed_tensors_tpu_torch.ops.linear import (
     prepare_for_kernels,
     quantized_matmul,
 )
+from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
 from compressed_tensors_tpu_torch.quantization import QuantizationScheme
 
 from torch_port_utils import to_torch
@@ -204,3 +205,81 @@ def test_unknown_w4_mode_raises():
     with pytest.raises(ValueError, match="plane mode"):
         tw.w4a16_planes_matmul(x, tk.kernel_packed, tk.kernel_scales, None,
                                n=16, k=256, group_size=32, mode="int4b")
+
+
+# ---- the offset form against the folded form (Qwen2.5 packed vs auto) ---- #
+
+QWEN25_LINEARS = {"qkv_proj": (4608, 3584), "o_proj": (3584, 3584),
+                  "gate_up_proj": (37888, 3584), "down_proj": (3584, 18944)}
+
+
+def _offset_form(x, words, scales, zp, n, k, g):
+    """Mode int4 in the TPU kernel's form (w4a16_matmul.py:401-437): per
+    group x_j . u_j times s_j, minus the rank-8 correction sum(x_j) * (8 +
+    zp_j) * s_j, in f32."""
+    m = x.shape[0]
+    xg = torch.nn.functional.pad(x, (0, k - x.shape[1])).reshape(m, k // g, g)
+    u = tw._plane_codes(words, g).float().reshape(k // g, g, n)
+    part = torch.einsum("mgr,grn->mgn", xg, u)
+    return (part * scales).sum(dim=1) - xg.sum(dim=-1) @ ((8 + zp) * scales)
+
+
+def c2_errors(rng, k, n=64, rows=4, shift=0.0, g=128):
+    """One W4A16 g128 linear with zero points at real K (N cut to ``n``
+    columns), x of ``rows`` bf16 rows N(shift, 1), in f32: max|y - y64| /
+    max|y64| of B1's plain version (int4b), of B10's int4 in the offset
+    form and of its plain version (the folded form), against the f64
+    product with the dequantized weight."""
+    q = rng.integers(-8, 8, (n, k))
+    zp = rng.integers(-8, 8, (k // g, n)).astype(np.float32)
+    s = torch.from_numpy(rng.uniform(1e-3, 3e-3, (k // g, n)).astype(
+        np.float32)).to(torch.bfloat16).float()
+    x = torch.from_numpy((rng.standard_normal((rows, k)) + shift).astype(
+        np.float32)).to(torch.bfloat16).float()
+    zt = torch.from_numpy(zp)
+    w64 = ((torch.from_numpy(q).double()
+            - zt.double().t().repeat_interleave(g, 1))
+           * s.double().t().repeat_interleave(g, 1))
+    y64 = x.double() @ w64.t()
+    packed = pack_to_int32(torch.from_numpy(q.astype(np.int8)), 4)
+    b1 = tw.w4a16_matmul_plain(x, packed, s, zt, n=n, k=k, group_size=g)
+    k_pad, tk = tw.padded_k(k, g), tw.choose_k_tile(k, g)
+    u = torch.nn.functional.pad(torch.from_numpy(q + 8), (0, k_pad - k),
+                                value=8)
+    words = tw.repack_w4_for_kernel(u, 4, k_pad, tk)
+    pad = (0, 0, 0, k_pad // g - k // g)
+    sp, zpp = (torch.nn.functional.pad(t, pad) for t in (s, zt))
+    got = {"int4b": b1,
+           "offset": _offset_form(x, words, sp, zpp, n, k_pad, g),
+           "folded": tw.w4a16_planes_matmul(x, words, sp, zpp, n=n, k=k_pad,
+                                            group_size=g, mode="int4")}
+    top = y64.abs().max().item()
+    return {name: (y.double() - y64).abs().max().item() / top
+            for name, y in got.items()}
+
+
+@pytest.mark.parametrize("k", [3584, 18944])
+@pytest.mark.parametrize("shift", [0.0, 1.0], ids=["centred", "shifted"])
+def test_folded_form_within_int4b_error_of_f64(k, shift):
+    """At Qwen2.5-7B's K, in f32: the folded int4 plain version stands
+    within 2x the int4b plain version's error of the f64 product (both sum
+    exact small-integer products in f32). The TPU kernel's offset form
+    subtracts sum(x) * (8 + zp) * s from sum(x * u) * s; with x shifted
+    off zero those two terms are far larger than y, and it stands over 4x
+    further off than int4b."""
+    err = c2_errors(np.random.default_rng(int(k + 10 * shift)), k,
+                    shift=shift)
+    assert err["folded"] <= 2 * err["int4b"]
+    if shift:
+        assert err["offset"] > 4 * err["int4b"]
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=.:tests python tests/test_torch_w4_planes.py: the trace, one Qwen2.5-7B
+    # layer's fused linears (512 columns each, 4 rows)
+    rng = np.random.default_rng(0)
+    for shift in (0.0, 1.0):
+        for lin, (n_full, k) in QWEN25_LINEARS.items():
+            e = c2_errors(rng, k, n=512, shift=shift)
+            print(f"x ~ N({shift:g}, 1) {lin} (N {n_full}, K {k}): "
+                  + ", ".join(f"{name} {v:.3e}" for name, v in e.items()))
