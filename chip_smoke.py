@@ -22,9 +22,12 @@ the shapes of the main paths. Then it drives seven paths end to end:
   the dense engine (flash decode), the paged engine and the paged engine
   with prefix caching. Dense and paged completions must be equal token for
   token; the cached prefix pages must equal a fresh prefill's bit for bit;
-  the prefix-cached completions are counted, and held to the prefix rule
-  (equal but for a few greedy near-ties after the first token) on the JAX
-  package's draw of the same model (see ``phase_serving``);
+  the prefix-cached first-token logits, with every W4 linear at bf16
+  activations, are held to the depth rule against a fresh dense prefill at
+  1 and 32 layers, and a stale-pages control must fail it in every
+  request; the prefix-cached completions are counted, and held to the
+  prefix rule (equal but for a few greedy near-ties after the first token)
+  on the JAX package's draw of the same model (see ``phase_serving``);
 - Llama-3-8B FP8 W8A8 with an FP8 KV cache (BASELINE config 3: fp8 e4m3
   per-channel weights with dynamic per-token fp8 activations, a W8A8-int
   lm_head, k_scale = v_scale = 0.03 in every layer): the same requests
@@ -35,7 +38,9 @@ the shapes of the main paths. Then it drives seven paths end to end:
 - Llama-3-8B NVFP4A16 built on the card (E2M1 weights in groups of 16
   with e4m3 scales and one global scale per fused group, W8A8-int
   lm_head): the fp4 kernel held against its plain version (NVFP4 and
-  MXFP4) at the 8B linear shapes, the same requests through the dense and
+  MXFP4) at the 8B linear shapes (and, in phase 2, both kernels of
+  ``csrc/wna16_matmul.cu`` at every row count the paths give, each design
+  and K split), the same requests through the dense and
   the paged engine, equal token for token, ``greedy_generate`` at batch
   64, and the first-token logits against the non-kernel path by depth;
 - Llama-3-8B W8A16 g128 (pack-quantized, W8A8-int lm_head): the
@@ -382,9 +387,9 @@ def phase_device_and_build():
     return resources
 
 
-# the sources of the kernels redesigned for Hopper in the newest slice,
-# whose registers and spills the script reports
-REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu")
+# the sources of the kernels redesigned for Hopper, whose registers and
+# spills the script reports
+REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu", "wna16_matmul.cu")
 
 
 def kernel_resources(report):
@@ -398,6 +403,13 @@ def kernel_resources(report):
 
     out = {}
     for mangled, value in report.items():
+        m = re.search(r"wna16_(decode|prefill)_wgmma_kernelIN\w*?(Fp4|Int8)"
+                      r"(?:ILb([01])EE)?E(?:Li(\d+)E)?", mangled)
+        if m:
+            weight = {None: "fp4", "1": "int8", "0": "int8, any group"}[
+                m.group(3)]
+            out[f"wna16_{m.group(1)}<{weight}, BM={m.group(4) or 128}>"] = value
+            continue
         m = re.search(r"(prefill_kernel|planes_kernel)I((?:Li\d+E)+)E", mangled)
         if not m:
             continue
@@ -492,20 +504,27 @@ def phase_parity():
 
 
 # the shape grids of tests/test_torch_cuda_kernels.py for the kernels
-# redesigned in the newest slice: B4 over ragged and whole tiles, GQA folds
-# that do not divide a tile, both head widths; B10 at every row count the
-# main paths give, N not a multiple of its 128-column tile, K_orig below
-# K_pad, with and without zero points
+# redesigned for Hopper: B4 over ragged and whole tiles, GQA folds that do
+# not divide a tile, both head widths; B10 at every row count the main
+# paths give, N not a multiple of its 128-column tile, K_orig below K_pad,
+# with and without zero points
 PREFILL_GRID = dict(S=(65, 70, 128, 512, 1000), rep=(1, 4, 7, 8), D=(64, 128),
                     B=(1, 3))
 PLANES_GRID = dict(M=(1, 64, 100, 512),
                    shapes=((200, 448, 32, False), (328, 1984, 128, True)))
+# B8 and B9 at every row count the main paths give (decode rows 1 and 64,
+# 128-row prefill tiles above), N not a multiple of the 128-column tile,
+# fp4 K a multiple of 32 but not of the 64-deep k-tile (1056), groups 16,
+# 32 and 128, and a K split over a cluster that cuts a group (1152 / 128)
+WNA16_GRID = dict(M=(1, 64, 65, 127, 128, 300, 512),
+                  shapes=((200, 1056, 16), (328, 2048, 32), (136, 1152, 128)))
 
 
 def parity_grids(errs):
-    """B4 and B10 against their plain versions over ``PREFILL_GRID`` and
-    ``PLANES_GRID`` (B4 within TOL_KERNEL * max|plain| per case, B10 by the
-    a8b rule), one summary line per kernel."""
+    """B4, B10, B8 and B9 against their plain versions over
+    ``PREFILL_GRID``, ``PLANES_GRID`` and ``WNA16_GRID`` (B4 within
+    TOL_KERNEL * max|plain| per case, the others by the a8b rule), one
+    summary line per kernel."""
     import itertools
 
     import torch
@@ -562,6 +581,56 @@ def parity_grids(errs):
     if outside:
         raise AssertionError(f"w4a16_planes: {outside} elements outside the "
                              "a8b rule")
+    parity_grid_wna16(errs, gen)
+
+
+def parity_grid_wna16(errs, gen):
+    """B8 (fp4 codes) and B9 (int8) against their plain versions over
+    ``WNA16_GRID`` by the a8b rule, with the design and K split each case
+    ran (``wna16_plan``): both designs, splits in both, and splits that cut
+    a group in both must occur."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    outside, cases, seen = 0, 0, set()
+    for (n, k, g), m in itertools.product(WNA16_GRID["shapes"],
+                                          WNA16_GRID["M"]):
+        x = dev_randn(gen, m, k)
+        codes = torch.randint(0, 256, (n, k // 2), generator=gen,
+                              device="cuda", dtype=torch.uint8)
+        w8 = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        s = torch.rand((k // g, n), generator=gen, device="cuda") * 2e-3 \
+            + 1e-3
+        kw = dict(n=n, k=k, group_size=g)
+        for name, weight, run, plain, wt in (
+                ("w4a16_fp4_matmul", "fp4", w4.w4a16_fp4_matmul,
+                 w4.w4a16_fp4_matmul_plain, codes),
+                ("w4_e8_matmul", "int8", w4.w4_e8_matmul,
+                 w4.w4_e8_matmul_plain, w8)):
+            got = run(x, wt, s, **kw).float()
+            want = plain(x, wt, s, out_dtype=torch.float32, **kw)
+            diff = (got - want).abs()
+            outside += int((diff > A8B_REL * want.abs()
+                            + A8B_ABS * want.abs().max()).sum())
+            errs[name] = max(errs.get(name, 0.0), diff.max().item())
+            _, splits, per = w4.wna16_plan(m, n, k)
+            design = w4.wna16_design(m)
+            seen |= {design} | ({(design, "split")} if splits > 1 else set()) \
+                | ({(design, "cut")} if splits > 1 and per * 64 % g else set())
+            cases += 1
+    log(f"parity w4a16_fp4_matmul and w4_e8_matmul over {cases} cases (M "
+        f"{WNA16_GRID['M']} x (N, K, g) {WNA16_GRID['shapes']}; designs, "
+        f"cluster splits and groups cut by a split reached: {sorted(seen, key=str)}): "
+        f"{outside} elements outside the a8b rule")
+    if outside:
+        raise AssertionError(f"wna16: {outside} elements outside the a8b "
+                             "rule")
+    if len(seen) < 6:
+        raise AssertionError(f"wna16 grid reached only {seen}")
 
 
 def dev_randn(gen, *shape):
@@ -1317,7 +1386,12 @@ def prefix_cache_readings(params, config, requests, dense, prefix, engine,
     dense|, with a summary over all of them. A first token that changes
     over equal pages is a greedy near-tie when the margin lies below that
     change. On the H100 the pages were equal in all 32 requests and the 4
-    changed first tokens had margins of 1-4 bf16 ulps of their logits."""
+    changed first tokens had margins of 1-4 bf16 ulps of their logits.
+    These serving-default readings carry no limit: they mix the cache path
+    with the tail's other chunking, whose row count sends the tail to
+    int4b where the dense chunk took a8b (a difference of the size of the
+    int8 rounding). ``prefix_logits_rule`` holds the cache path alone to a
+    limit, with every W4 linear at bf16 activations."""
     import torch
 
     from compressed_tensors_tpu_torch.models.llama import (
@@ -1413,6 +1487,125 @@ def prefix_cache_readings(params, config, requests, dense, prefix, engine,
                              "engine")
 
 
+def prefix_logits_rule(params, config, requests, sweep):
+    """The prefix-caching logits rule, to be run with every W4 linear at
+    bf16 activations (``w4_act="bf16"``), so that both sides run int4b
+    whatever their row counts. For each request that shares the prefix,
+    at 1 layer and at all of them:
+
+    - prefix-cached: the SHARED_PREFIX tokens prefilled into pages of a
+      ``PagedKVCache`` (once per depth), then the tail prefilled as one
+      continuation chunk over those pages;
+    - dense: the whole prompt prefilled fresh on a dense cache in
+      ``prefill_chunk`` pieces;
+    - their first-token logits held to ``logits_rule_failures`` (one layer
+      within TOL_WNA16_DEPTH1 of max|dense|; each depth within TOL_E2E_8B
+      of max|dense| or relative RMS within FLOOR_RATIO x the one-ulp
+      spread of ``sweep``, phase 5's sweep on the same model at bf16
+      activations).
+
+    Control: the tail over pages written from the prefix rolled by one
+    position, as a stale cache entry holds them, must fail the rule in
+    every request (pages reordered would not: keys are cached after RoPE
+    and the tail sees every prefix position). Raises if a request fails
+    the rule or the control passes one."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.llama import (
+        KVCache,
+        PagedKVCache,
+        init_kv_cache,
+        init_paged_kv_cache,
+        llama_forward,
+    )
+
+    chunk, page = SERVE["prefill_chunk"], SERVE["page_size"]
+    n_pre, p_max = SHARED_PREFIX // page, SERVE["max_len"] // page
+    prefix = requests[0][1][:SHARED_PREFIX]
+    stale = prefix[-1:] + prefix[:-1]
+    # pool pages: 0 null, then the prefix's, the stale prefix's, the tail's
+    fresh_pages = list(range(1, 1 + n_pre))
+    stale_pages = list(range(1 + n_pre, 1 + 2 * n_pre))
+    tail_pages = list(range(1 + 2 * n_pre, 1 + 2 * n_pre + p_max - n_pre))
+    depths = (1, config.num_hidden_layers)
+    shared = [r for r in requests if r[0] % SHARE_EVERY == 0]
+
+    def at(i):
+        return torch.tensor([i], dtype=torch.int32, device="cuda")
+
+    def forward(p, cfg, ids, start, cache):
+        logits, _ = llama_forward(
+            p, cfg, torch.tensor([ids], device="cuda"),
+            torch.arange(start, start + len(ids), device="cuda")[None],
+            cache, fresh_prefill=start == 0, last_logit_only=True)
+        return logits.float().reshape(-1)
+
+    readings = {"cached": {}, "stale": {}}  # rid -> {depth: reading}
+    for depth in depths:
+        cfg = dataclasses.replace(config, num_hidden_layers=depth)
+        p = dict(params, layers=params["layers"][:depth])
+        pool = init_paged_kv_cache(cfg, 1, SERVE["max_len"],
+                                   num_pages=1 + 2 * n_pre + len(tail_pages),
+                                   page_size=page, device="cuda")
+
+        def paged(pages, start):
+            return PagedKVCache(k=pool.k, v=pool.v, lengths=at(start),
+                                tables=torch.tensor([pages + tail_pages],
+                                                    dtype=torch.int32,
+                                                    device="cuda"))
+
+        for pages, ids in ((fresh_pages, prefix), (stale_pages, stale)):
+            forward(p, cfg, ids, 0, paged(pages, 0))
+        spread = sweep[depth][1]
+        for rid, ids, _ in shared:
+            cache = init_kv_cache(cfg, 1, SERVE["max_len"], device="cuda")
+            for start in range(0, len(ids), chunk):
+                dense = forward(p, cfg, ids[start:start + chunk], start,
+                                KVCache(k=cache.k, v=cache.v,
+                                        lengths=at(start)))
+            del cache
+            top = dense.abs().max().item()
+            for name, pages in (("cached", fresh_pages),
+                                ("stale", stale_pages)):
+                got = forward(p, cfg, ids[SHARED_PREFIX:], SHARED_PREFIX,
+                              paged(pages, SHARED_PREFIX))
+                readings[name].setdefault(rid, {})[depth] = (
+                    rel_rms(got, dense), spread,
+                    (got - dense).abs().max().item() / top)
+        del pool
+        torch.cuda.empty_cache()
+
+    failed = {name: {rid: logits_rule_failures(r) for rid, r in
+                     readings[name].items()} for name in readings}
+    for depth in depths:
+        for name in readings:
+            tops = sorted(r[depth][2] for r in readings[name].values())
+            ratios = sorted(r[depth][0] / max(r[depth][1], 1e-30)
+                            for r in readings[name].values())
+            log(f"prefix rule (bf16 activations), {name} pages vs dense, "
+                f"{depth} layers over {len(shared)} requests: max|diff| / "
+                f"max|dense| min {tops[0]:.4g} median "
+                f"{tops[len(tops) // 2]:.4g} max {tops[-1]:.4g}; rel_rms / "
+                f"spread ({sweep[depth][1]:.4g}) min {ratios[0]:.4g} median "
+                f"{ratios[len(ratios) // 2]:.4g} max {ratios[-1]:.4g}")
+    log("prefix rule control, stale pages (the prefix rolled by one "
+        "position), checks failed by request: " + "; ".join(
+            f"{rid}: {', '.join(c.split(':')[0] for c in f) or 'none'}"
+            for rid, f in failed["stale"].items()))
+    bad = {rid: f for rid, f in failed["cached"].items() if f}
+    caught = sum(bool(f) for f in failed["stale"].values())
+    log(f"prefix rule: {len(shared) - len(bad)} of {len(shared)} requests "
+        f"within the rule (limits {TOL_WNA16_DEPTH1} at one layer, "
+        f"{TOL_E2E_8B} or {FLOOR_RATIO}x the spread at each depth); the "
+        f"stale-pages control fails it in {caught} of {len(shared)}")
+    if bad:
+        raise AssertionError(f"prefix rule: requests {sorted(bad)} fail it: "
+                             f"{bad}")
+    if caught < len(shared):
+        raise AssertionError("prefix rule accepted stale pages in "
+                             f"{len(shared) - caught} requests")
+
+
 def phase_serving():
     """The ServingEngine at Llama-3-8B W4A16 width.
 
@@ -1433,7 +1626,10 @@ def phase_serving():
     prefix-cached on the JAX package's draw (``make_synthetic_llama``:
     random words), whose logits lean on one direction and leave few
     near-ties; on the [-7, 7] model most completions with the prefix part
-    from dense after a few tokens (3 of 32 identical on the H100)."""
+    from dense after a few tokens (3 of 32 identical on the H100). On
+    that model the prefix-cached first-token logits are held instead to
+    the depth rule at bf16 activations, with a stale-pages control
+    (``prefix_logits_rule``)."""
     import torch
 
     from compressed_tensors_tpu_torch.flags import flag_overrides
@@ -1453,7 +1649,8 @@ def phase_serving():
     requests = serving_requests()
 
     with flag_overrides(w4_act="bf16"):
-        check_logits_by_depth(params, config, requests, "8B W4A16 bf16")
+        sweep = check_logits_by_depth(params, config, requests,
+                                      "8B W4A16 bf16")
     check_logits_by_depth(params, config, requests, "8B W4A16 a8b",
                           plain=plain_w4)
 
@@ -1478,7 +1675,10 @@ def phase_serving():
     engine = results["paged+prefix"].pop("engine")
     prefix_cache_readings(params, config, requests, dense, prefix, engine,
                           "serving")
-    del params, engine
+    del engine
+    with flag_overrides(w4_act="bf16"):
+        prefix_logits_rule(params, config, requests, sweep)
+    del params
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -23,8 +23,11 @@ clip to +-127), then int8 tensor-core group dots sum exactly in int32, each
 group is scaled in f32 and the row's x scale is applied once. Bound: the
 2*M*N*K int8 operations at prefill chunks.
 
-Two more wrappers run the layouts without int4 words, on one templated
-kernel of ``csrc/wna16_matmul.cu``:
+Two more wrappers run the layouts without int4 words on the ``wgmma``
+kernels of ``csrc/wna16_matmul.cu``, in the design ``wna16_plan`` picks by
+M (decode rows up to 64: y^T = W x^T with each warp's decoded weight rows
+as the register A operand; prefill rows: 128 x 128 tiles over a decoded
+bf16 tile), K split over the blocks of a cluster:
 
 - ``w4a16_fp4_matmul`` replaces mode ``fp4`` of the same TPU function
   (NVFP4 / MXFP4). It keeps the checkpoint's (N, K/2) uint8 E2M1 codes
@@ -36,7 +39,7 @@ kernel of ``csrc/wna16_matmul.cu``:
 - ``w4_e8_matmul`` replaces ``w4_e8_matmul`` (the grouped-int8 kernel that
   serves W2-W8A16 and W4A16 under ``w4_layout="e8"``). It keeps (N, K)
   signed int8 q - zp and (K/g, N) f32 scales, g a multiple of 16; each
-  group's bf16 partial (int8 -> bf16 is exact) is scaled into an f32
+  group's f32 partial (int8 -> bf16 is exact) is scaled into an f32
   accumulator. Bound: the int8 weight bytes at decode, the bf16
   operations at prefill.
 
@@ -82,7 +85,8 @@ from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 __all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
            "quantize_rows_a8b_plain", "w4a16_fp4_matmul",
            "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain",
-           "choose_k_tile", "padded_k", "retile_groups",
+           "wna16_design", "wna16_plan", "choose_k_tile", "padded_k",
+           "retile_groups",
            "repack_w4_for_kernel", "w4a16_planes_matmul",
            "w4a16_planes_matmul_plain", "PLANE_MODES"]
 
@@ -275,10 +279,53 @@ def w4_e8_matmul_plain(x, w8, scales, *, n, k, group_size, out_dtype=None):
     return (x.to(torch.float32) @ w.t()).to(out_dtype or x.dtype)
 
 
+# the grouped-weight kernels (csrc/wna16_matmul.cu): 64-deep k-tiles, 128
+# output columns a block, at most 8 blocks of a cluster sharing K
+_WNA16_BK = 64
+_WNA16_BN = 128
+_DECODE_ROWS = 64
+
+
+def wna16_design(m: int) -> str:
+    """The grouped-weight kernels' design for M rows: "decode" (M <= 64:
+    the weight bytes bound it) or "prefill" (128-row tiles: the
+    tensor-core operations bound it)."""
+    return "decode" if m <= _DECODE_ROWS else "prefill"
+
+
+def wna16_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """(rows a block, K splits, k-tiles a split) of the grouped-weight
+    kernels. Decode rows take a block of 16, 32 or 64 rows (the fewest
+    that hold M) and split K over a cluster of up to 8 blocks as far as two
+    blocks an SM allow (the split that measured fastest at every 8B linear
+    on the H100); prefill rows take 128 and one block an SM, and the split
+    with the least estimated time, the number of waves of blocks times a
+    block's k-tiles plus 4 for its pipeline's fill and its epilogue (the
+    fewer splits on a tie). The split is then as many blocks as its
+    k-tiles per block leave none empty."""
+    tiles = -(-k // _WNA16_BK)
+    if wna16_design(m) == "decode":
+        bm = next(b for b in (16, 32, 64) if m <= b)
+        blocks = -(-n // _WNA16_BN)
+        split = max(s for s in (1, 2, 4, 8)
+                    if s == 1 or (s <= tiles and blocks * s <= 2 * _SMS))
+    else:
+        bm = 128
+        blocks = -(-n // _WNA16_BN) * -(-m // bm)
+
+        def cost(s):
+            return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
+
+        split = min((s for s in (1, 2, 4, 8) if s <= tiles), key=cost)
+    per = -(-tiles // split)
+    return bm, -(-tiles // per), per
+
+
 def _launch_wna16(wrapper, x, w, scales, n, k, group_size, w_dtype, w_cols,
                   k_align):
-    """Check the operands of a grouped-weight entry point, launch it, count
-    the launch on ``wrapper`` and return y (M, N) bf16."""
+    """Check the operands of a grouped-weight entry point, launch it with
+    the design and split of ``wna16_plan``, count the launch on
+    ``wrapper`` and return y (M, N) bf16."""
     entry = wrapper.__name__
     if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be (M, {k}) bf16, got {tuple(x.shape)} "
@@ -293,6 +340,10 @@ def _launch_wna16(wrapper, x, w, scales, n, k, group_size, w_dtype, w_cols,
             or tuple(scales.shape) != (k // group_size, n)):
         raise ValueError(f"{entry}: weight must be ({n}, {w_cols}) "
                          f"{w_dtype} and scales ({k // group_size}, {n}) f32")
+    if x.shape[0] * k >= 2**31 or n * w_cols >= 2**31:
+        raise NotImplementedError(f"{entry} indexes x and the weight with "
+                                  "32-bit offsets: M*K and the weight's "
+                                  "elements must stay below 2^31")
     if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
            for t in (x, w, scales)):
         raise ValueError(f"{entry} operands must be contiguous, 16-byte "
@@ -301,15 +352,12 @@ def _launch_wna16(wrapper, x, w, scales, n, k, group_size, w_dtype, w_cols,
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
-    splits, tiles_per_split = _split_k(m, n, k, 1)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
+    bm, splits, tiles_per_split = wna16_plan(m, n, k)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = getattr(lib, "ct_" + entry)(
             x.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            m, n, k, group_size, splits, tiles_per_split,
+            m, n, k, group_size, bm, splits, tiles_per_split,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, entry)
     wrapper.launches += 1

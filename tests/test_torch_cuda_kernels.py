@@ -95,9 +95,34 @@ def _within_a8b_rule(got, want):
     return bool((err <= 2**-8 * want.abs() + 1e-4 * want.abs().max()).all())
 
 
-# (M, N, K, group): decode rows, K split over blocks, ragged K, prefill rows
+# (M, N, K, group) of the grouped-weight kernels: every row count the main
+# paths give (1, 64: decode rows; 65, 127, 128, 300, 512: 128-row prefill
+# tiles), N not a multiple of the 128-column tile (and odd), fp4 K a
+# multiple of 32 but not of the 64-deep k-tile, groups 16, 32, 48 and 128,
+# K split over a cluster at both designs, splits that cut a group
 WNA16_CASES = [(5, 192, 384, 16), (5, 192, 384, 32), (7, 100, 96, 32),
-               (300, 136, 256, 16)]
+               (300, 136, 256, 16), (1, 192, 384, 16), (64, 200, 96, 32),
+               (33, 128, 256, 16), (3, 99, 128, 32), (65, 136, 256, 16),
+               (70, 99, 128, 32), (127, 100, 352, 32), (128, 256, 512, 128),
+               (512, 192, 384, 128), (5, 64, 1152, 128), (9, 64, 480, 48),
+               (200, 64, 2048, 32)]
+
+
+def test_wna16_cases_cover_designs_and_splits():
+    """The cases reach both designs, a cluster split in each, and a split
+    that cuts a group in each (the plan is the wrappers' own)."""
+    seen = set()
+    for m, n, k, g in WNA16_CASES:
+        bm, splits, per = w4.wna16_plan(m, n, k)
+        design = w4.wna16_design(m)
+        seen.add(design)
+        if splits > 1:
+            seen.add((design, "split"))
+            if per * 64 % g:
+                seen.add((design, "cut"))
+    assert seen >= {"decode", "prefill", ("decode", "split"),
+                    ("prefill", "split"), ("decode", "cut"),
+                    ("prefill", "cut")}
 
 
 @pytest.mark.parametrize("m,n,k,g", WNA16_CASES)
@@ -140,6 +165,11 @@ def test_w4_e8_matmul(dev, m, n, k, g):
     with pytest.raises(NotImplementedError, match="multiple of 16"):
         w4.w4_e8_matmul(x[:, :24], w8[:, :24].contiguous(),
                         s[:1].contiguous(), n=n, k=24, group_size=24)
+    # 32-bit offsets: a weight of 2^31 elements is refused before launch
+    rows = 2**31 // k + 1
+    with pytest.raises(NotImplementedError, match="32-bit offsets"):
+        w4.w4_e8_matmul(x, w8[:1].expand(rows, k), s[:, :1].expand(k // g, rows),
+                        n=rows, k=k, group_size=g)
 
 
 def test_w8a8_matmul(dev):

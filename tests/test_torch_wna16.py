@@ -218,3 +218,26 @@ def test_w8a16_serving_matches_jax(w8a16_models, paged):
     want = {c.request_id: c.output_ids for c in j_eng.run()}
     got = {c.request_id: c.output_ids for c in t_eng.run()}
     assert got == want
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 64, 65, 128, 300, 512])
+def test_wna16_plan(m):
+    """The grouped-weight kernels' launch plan at the 8B shapes and a tiny
+    one: decode rows take the fewest of 16, 32 or 64 rows that hold M,
+    prefill rows 128; a split is a cluster of 1-8 blocks that covers every
+    64-deep k-tile and leaves no block empty."""
+    from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+        wna16_design,
+        wna16_plan,
+    )
+
+    for n, k in ((6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                 (100, 96)):
+        bm, splits, per = wna16_plan(m, n, k)
+        tiles = -(-k // 64)
+        if wna16_design(m) == "decode":
+            assert m <= 64 and bm == min(b for b in (16, 32, 64) if m <= b)
+        else:
+            assert m > 64 and bm == 128
+        assert 1 <= splits <= min(8, tiles)
+        assert (splits - 1) * per < tiles <= splits * per
