@@ -389,7 +389,9 @@ def phase_device_and_build():
 
 # the sources of the kernels redesigned for Hopper, whose registers and
 # spills the script reports
-REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu", "wna16_matmul.cu")
+REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu", "wna16_matmul.cu",
+              "w8a8_matmul.cu", "paged_decode.cu")
+CACHE_NAMES = ("bf16", "e4m3", "int8")    # ct::CacheKind order
 
 
 def kernel_resources(report):
@@ -403,6 +405,26 @@ def kernel_resources(report):
 
     out = {}
     for mangled, value in report.items():
+        m = re.search(r"(w8a8_decode|w8a8_prefill|quantize_rows)_kernelILb"
+                      r"([01])E(?:Li(\d+)E)?E", mangled)
+        if m:
+            name = {"quantize_rows": "w8a8_quantize"}.get(m.group(1),
+                                                          m.group(1))
+            rows = f", BM={m.group(3)}" if m.group(3) else ""
+            out[f"{name}<{'fp8' if m.group(2) == '1' else 'int8'}{rows}>"] = \
+                value
+            continue
+        m = re.search(r"split_kernelILi(\d+)ELb([01])ELi(\d)EE", mangled)
+        if m:
+            out[f"decode_split<D={m.group(1)}, "
+                f"{'paged' if m.group(2) == '1' else 'dense'}, "
+                f"{CACHE_NAMES[int(m.group(3))]}>"] = value
+            continue
+        m = re.search(r"merge_kernelILi(\d+)ELb([01])EE", mangled)
+        if m:
+            out[f"decode_merge<D={m.group(1)}"
+                f"{', scaled' if m.group(2) == '1' else ''}>"] = value
+            continue
         m = re.search(r"wna16_(decode|prefill)_wgmma_kernelIN\w*?(Fp4|Int8)"
                       r"(?:ILb([01])EE)?E(?:Li(\d+)E)?", mangled)
         if m:
@@ -518,6 +540,17 @@ PLANES_GRID = dict(M=(1, 64, 100, 512),
 # 32 and 128, and a K split over a cluster that cuts a group (1152 / 128)
 WNA16_GRID = dict(M=(1, 64, 65, 127, 128, 300, 512),
                   shapes=((200, 1056, 16), (328, 2048, 32), (136, 1152, 128)))
+# B3 (int8 and fp8) at every row count the paths give (decode rows 1-64,
+# 128-row prefill tiles above), N not a multiple of the 128-column tile,
+# K from one 64-deep tail to 14336, 1280 (10 k-tiles) cut unevenly by a
+# cluster split
+W8A8_GRID = dict(M=(1, 16, 63, 64, 65, 128, 300, 512),
+                 shapes=((200, 64), (328, 1280), (136, 14336)))
+# B6/B7 on every cache type: lengths 0, 1, 63-65, each side of a split
+# boundary (``SPLIT_TILES`` * 64) and S_pad - 1, an inactive row; the GQA
+# folds of the models and the extremes, both head widths
+DECODE_GRID = dict(rep=(1, 4, 7, 8, 16), D=(64, 128),
+                   cache=("bf16", "fp8", "int8"), KVH=2)
 
 
 def parity_grids(errs):
@@ -550,6 +583,8 @@ def parity_grids(errs):
     log(f"parity prefill_attention over {cases} shapes (S, rep, B, D of "
         f"{PREFILL_GRID}): max error {worst:.4g} of max|plain| (limit "
         f"{TOL_KERNEL})")
+    parity_grid_w8a8(errs, gen)
+    parity_grid_decode(errs, gen)
     outside, cases = 0, 0
     for (n, k, g, asym), m in itertools.product(PLANES_GRID["shapes"],
                                                 PLANES_GRID["M"]):
@@ -631,6 +666,157 @@ def parity_grid_wna16(errs, gen):
                              "rule")
     if len(seen) < 6:
         raise AssertionError(f"wna16 grid reached only {seen}")
+
+
+def parity_grid_w8a8(errs, gen):
+    """B3, int8 and fp8, against its plain version over ``W8A8_GRID``: the
+    quantized rows and their scales equal bit for bit, every output
+    element within the a8b rule; the designs, cluster splits and uneven
+    splits (``w8a8_plan``) each case reached must cover both designs."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    outside, cases, seen = 0, 0, set()
+    for (n, k), m in itertools.product(W8A8_GRID["shapes"], W8A8_GRID["M"]):
+        x = dev_randn(gen, m, k)
+        for name, (w, s) in (
+                ("w8a8_matmul", (torch.randint(
+                    -127, 128, (n, k), generator=gen, device="cuda",
+                    dtype=torch.int8), torch.rand(
+                    (n,), generator=gen, device="cuda") * 2e-4 + 1e-4)),
+                ("w8a8_matmul_fp8", fp8_weight(gen, n, k))):
+            xq = torch.empty((m, k), dtype=w.dtype, device="cuda")
+            xs = torch.empty((m,), dtype=torch.float32, device="cuda")
+            got = w8.w8a8_matmul(x, w, s, n=n, k=k, xq=xq, xs=xs).float()
+            xq_p, xs_p = w8.quantize_rows_plain(x, w.dtype)
+            if not (torch.equal(xq.view(torch.uint8), xq_p.view(torch.uint8))
+                    and torch.equal(xs, xs_p)):
+                raise AssertionError(f"{name} M={m} N={n} K={k}: quantized "
+                                     "rows differ from plain")
+            want = w8.w8a8_matmul_plain(x, w, s, n=n, k=k,
+                                        out_dtype=torch.float32)
+            diff = (got - want).abs()
+            outside += int((diff > A8B_REL * want.abs()
+                            + A8B_ABS * want.abs().max()).sum())
+            errs[name] = max(errs.get(name, 0.0), diff.max().item())
+            cases += 1
+        bm, splits, per = w8.w8a8_plan(m, n, k)
+        design = "decode" if bm <= 64 else "prefill"
+        seen |= {design} | ({(design, "split")} if splits > 1 else set()) \
+            | ({(design, "uneven")} if splits * per != -(-k // 128) else set())
+    log(f"parity w8a8_matmul (int8 and fp8) over {cases} cases (M "
+        f"{W8A8_GRID['M']} x (N, K) {W8A8_GRID['shapes']}; designs and "
+        f"cluster splits reached: {sorted(seen, key=str)}): quantized rows "
+        f"equal bit for bit, {outside} elements outside the a8b rule")
+    if outside:
+        raise AssertionError(f"w8a8: {outside} elements outside the a8b rule")
+    if not {"decode", "prefill", ("decode", "split"),
+            ("decode", "uneven")} <= seen:
+        raise AssertionError(f"w8a8 grid reached only {seen}")
+
+
+def parity_grid_decode(errs, gen):
+    """B6 and B7 against their plain versions over ``DECODE_GRID``: one
+    batch of rows at every grid length on the slab cache and, through
+    shuffled page tables, on the pool; outputs within TOL_KERNEL of both
+    plain orders (one softmax, and the kernel's split order), inactive rows
+    zero, cache bytes equal to the plain version's and changed at the
+    step's positions only."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        flash_decode as fd,
+        paged_decode as pd,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    kvh, page = DECODE_GRID["KVH"], 64
+    rng = np.random.default_rng(13)
+    worst, cases, spans = 0.0, 0, {}
+    for rep, D, cache in itertools.product(*(DECODE_GRID[k] for k in (
+            "rep", "D", "cache"))):
+        dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+                 "int8": torch.int8}[cache]
+        span = fd.SPLIT_TILES[dtype.itemsize] * fd.CHUNK
+        spans[cache], s_pad = span, span + 192
+        lens = [0, 1, 63, 64, 65, span - 1, span, span + 1, s_pad - 1, -1]
+        B, P = len(lens), s_pad // page
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        active = lengths >= 0
+        sc = CACHE_SCALES.get(cache)
+        ks = vs = None if sc is None else torch.tensor([sc], device="cuda")
+
+        def make(shape):
+            return (dev_randn(gen, *shape) if sc is None
+                    else dev_cache(gen, shape, dtype, sc))
+
+        q, nk, nv = (dev_randn(gen, B, h, D) for h in (kvh * rep, kvh, kvh))
+        tables = rng.permutation(np.arange(1, B * P + 1)).astype(
+            np.int32).reshape(B, P)
+        tables[~active.cpu().numpy()] = 0
+        tables_d = torch.from_numpy(tables).cuda()
+        nk_c = _quantize_to_cache(nk, ks, dtype, head_axis=1)
+        nv_c = _quantize_to_cache(nv, vs, dtype, head_axis=1)
+        for name, shape, kernel, plain, view, at in (
+                ("flash_decode_attention", (2, B, kvh, s_pad, D),
+                 lambda k, v: fd.flash_decode_attention(
+                     q, nk, nv, k, v, lengths, layer=1, k_scale=ks,
+                     v_scale=vs),
+                 lambda k, v: fd.flash_decode_attention_plain(
+                     q, nk, nv, k, v, lengths, layer=1, k_scale=ks,
+                     v_scale=vs),
+                 lambda c: c[1], lambda b: (b, lens[b])),
+                ("paged_decode_attention", (2, B * P + 1, kvh, page, D),
+                 lambda k, v: pd.paged_decode_attention(
+                     q, nk, nv, k, v, tables_d, lengths, layer=1,
+                     k_scale=ks, v_scale=vs),
+                 lambda k, v: pd.paged_decode_attention_plain(
+                     q, nk, nv, k, v, tables_d, lengths, layer=1,
+                     k_scale=ks, v_scale=vs),
+                 lambda c: byte_view(c[1])[tables_d.long()].permute(
+                     0, 2, 1, 3, 4).reshape(B, kvh, s_pad, D).view(c.dtype),
+                 lambda b: (int(tables[b, lens[b] // page]),
+                            lens[b] % page))):
+            ck, cv = make(shape), make(shape)
+            ck0, cv0 = ck.clone(), cv.clone()
+            split_want = fd.attend_plain(q, nk_c, nv_c, view(ck0), view(cv0),
+                                         lengths, ks, vs, split=span).float()
+            got = kernel(ck, cv)[0].float()
+            ck_p, cv_p = ck0.clone(), cv0.clone()
+            want = plain(ck_p, cv_p)[0].float()
+            label = f"{name} rep={rep} D={D} {cache}"
+            for ref in (want, split_want):
+                rel = ((got[active] - ref[active]).abs().max()
+                       / ref[active].abs().max()).item()
+                if not (bool(got.isfinite().all()) and rel <= TOL_KERNEL):
+                    raise AssertionError(f"{label}: {rel} of max|plain|")
+                worst = max(worst, rel)
+            if got[~active].any():
+                raise AssertionError(f"{label}: inactive rows must be zero")
+            if not (torch.equal(byte_view(ck), byte_view(ck_p))
+                    and torch.equal(byte_view(cv), byte_view(cv_p))):
+                raise AssertionError(f"{label}: cache bytes differ from plain")
+            expect = [(1, *at(b)[:1], h, at(b)[1]) for b in range(B)
+                      for h in range(kvh) if lens[b] >= 0]
+            check_written(label, ck, ck0, expect)
+            check_written(label, cv, cv0, expect)
+            key = name + ("" if sc is None else "_scaled")
+            errs[key] = max(errs.get(key, 0.0),
+                            (got[active] - want[active]).abs().max().item())
+            cases += 1
+    log(f"parity flash/paged decode over {cases} cases (rep, D, cache of "
+        f"{DECODE_GRID}, lengths 0, 1, 63-65, each side of the split "
+        f"{spans} and S_pad - 1 (S_pad = split + 192), one inactive): max "
+        "error "
+        f"{worst:.4g} of max|plain| against the one-softmax and the split "
+        f"plain orders (limit {TOL_KERNEL}); cache bytes equal, written at "
+        "the step's positions only")
 
 
 def dev_randn(gen, *shape):
@@ -771,6 +957,7 @@ def time_serving_decode(rng, q, nk, nv, make, label, ks=None, vs=None,
     from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
     widen = widen or (lambda c: c)
+    H, kvh = q.shape[1], nk.shape[1]
     lens_np, lengths = serving_lengths(rng, BATCH, ())
     tables, num_pages = serving_tables(rng)
     tables_d = torch.from_numpy(tables).cuda()
@@ -782,13 +969,13 @@ def time_serving_decode(rng, q, nk, nv, make, label, ks=None, vs=None,
     suffix = "" if ks is None else "_scaled"
     rows = {}
     for name, shape in (
-            ("flash_decode_attention", (L8, BATCH, KVH8, SERVE["max_len"], D8)),
-            ("paged_decode_attention", (L8, num_pages, KVH8, page, D8))):
+            ("flash_decode_attention", (L8, BATCH, kvh, SERVE["max_len"], D8)),
+            ("paged_decode_attention", (L8, num_pages, kvh, page, D8))):
         ck, cv = make(shape), make(shape)
         live = int((lens_np + 1).sum())
-        b = (2 * live * KVH8 * D8 * ck.element_size()
+        b = (2 * live * kvh * D8 * ck.element_size()
              + (q.numel() + 2 * nk.numel()) * 2 * 2)
-        bm, by = bound(b, 4 * H8 * D8 * live, PEAK_BF16)
+        bm, by = bound(b, 4 * H * D8 * live, PEAK_BF16)
         if name == "flash_decode_attention":
             t = device_ms([lambda i=i: fd.flash_decode_attention(
                 q, nk, nv, ck, cv, lengths, layer=i, **scales)
@@ -807,7 +994,7 @@ def time_serving_decode(rng, q, nk, nv, make, label, ks=None, vs=None,
 
             def gathered(pool, i):
                 return widen(byte_view(pool[i])[tables_d.long()].permute(
-                    0, 2, 1, 3, 4).reshape(BATCH, KVH8, per_row * page, D8)
+                    0, 2, 1, 3, 4).reshape(BATCH, kvh, per_row * page, D8)
                     .view(pool.dtype))
 
             keys = [gathered(ck, i) for i in range(4)]
@@ -824,7 +1011,7 @@ def time_serving_decode(rng, q, nk, nv, make, label, ks=None, vs=None,
         torch.cuda.empty_cache()
         rows[name + suffix] = dict(
             ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
-            shapes=f"8B {label} {shape}, one layer, lengths 0-1000; library: "
+            shapes=f"{label} {shape}, one layer, lengths 0-1000; library: "
             f"SDPA over the cache in bf16 ({how})")
     return rows
 
@@ -1915,7 +2102,8 @@ def phase_timings_8b(serving):
                    for wq in wqs * 2])
     tp = eager_ms(lambda: w8.w8a8_matmul_plain(x, wqs[0], wsc, n=n, k=k),
                   iters=3)
-    xq = torch.randint(-128, 128, (BATCH, k), dtype=torch.int8, device=dev)
+    tq, tg = w8a8_parts_ms(x, wqs * 2, wsc, n, k)
+    xq, _ = w8.quantize_rows_plain(x, torch.int8)
     try:
         tl = device_ms([lambda wq=wq: torch._int_mm(xq, wq.t())
                         for wq in wqs * 2])
@@ -1925,9 +2113,14 @@ def phase_timings_8b(serving):
     del wqs
     bm, by = bound(BATCH * k * 2 + n * k + n * 4 + BATCH * n * 2,
                    2 * BATCH * n * k, PEAK_INT8)
+    log(f"time w8a8_matmul lm_head M={BATCH} (8B): {t:.4f} ms = quantize "
+        f"pass {tq:.4f} + GEMM {tg:.4f} (each alone); torch._int_mm on the "
+        f"quantized rows {tl}: GEMM alone {tg / tl if tl else 0:.3f}x, with "
+        f"the quantize pass {t / tl if tl else 0:.3f}x")
     rows.append(dict(name="w8a8_matmul", ms=t, plain_ms=tp, bound_ms=bm,
-                     bound_by=by, library_ms=tl,
-                     shapes="8B lm_head 64x4096 -> 128256"))
+                     bound_by=by, library_ms=tl, quantize_ms=tq, gemm_ms=tg,
+                     shapes="8B lm_head 64x4096 -> 128256; library: "
+                     "torch._int_mm on the quantized rows, beside gemm_ms"))
 
     # prefill attention of one fresh 512-token chunk at D = 128, at the 8B
     # (32 heads over 8) and the Qwen2.5-7B (28 over 4) head counts
@@ -1942,12 +2135,22 @@ def phase_timings_8b(serving):
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} "
         f"ms, library {r['library_ms']}")
 
-    # flash and paged decode: one decode step's 32 layers at batch 64
-    q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
-    for name, row in time_serving_decode(
-            rng, q, nk, nv, lambda shape: dev_randn(gen, *shape),
-            "bf16 cache").items():
-        rows.append(dict(name=name, **row))
+    # flash and paged decode: one decode step's 32 layers at batch 64, at
+    # the 8B (32 heads over 8) and the Qwen2.5-7B (28 over 4) head counts
+    decode = {}
+    for label, (H, KVH) in (("8B", (H8, KVH8)), ("Qwen2.5-7B", (28, 4))):
+        q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H, KVH, KVH))
+        for name, row in time_serving_decode(
+                rng, q, nk, nv, lambda shape: dev_randn(gen, *shape),
+                f"{label} bf16 cache").items():
+            decode.setdefault(name, {})[label] = row
+            if label == "8B":
+                rows.append(dict(name=name, **row))
+            else:
+                log(f"kernel {name} [{row['shapes']}]: {row['ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                    f"plain {row['plain_ms']:.4f} ms, library "
+                    f"{row['library_ms']}")
 
     for r in rows:
         counts = {run: res["counts"][r["name"]]
@@ -1958,7 +2161,39 @@ def phase_timings_8b(serving):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}; launches "
             f"per decode step {steps}, per serving run {counts}")
-    return rows, prefill
+    return rows, prefill, decode
+
+
+def w8a8_parts_ms(x, ws, s, n, k):
+    """Device ms of B3's two passes on their own at ``w8a8_plan``'s plan:
+    the row-quantize pass of x, and the GEMM from the quantized rows over
+    the weight copies ``ws`` (L2 cold). Returns (quantize ms, GEMM ms)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import _build
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    lib = _build.load()
+    m, fp8 = x.shape[0], int(ws[0].dtype == torch.float8_e4m3fn)
+    xq = torch.empty((m, k), dtype=ws[0].dtype, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    bm, splits, per = w8.w8a8_plan(m, n, k)
+
+    def quantize():
+        _build.check(lib.ct_w8a8_quantize(
+            x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, fp8,
+            torch.cuda.current_stream().cuda_stream), "w8a8 quantize")
+
+    def gemm(w):
+        _build.check(lib.ct_w8a8_gemm(
+            xq.data_ptr(), xs.data_ptr(), w.data_ptr(), s.data_ptr(),
+            y.data_ptr(), m, n, k, fp8, bm, splits, per,
+            torch.cuda.current_stream().cuda_stream), "w8a8 gemm")
+
+    tq = device_ms([quantize] * 8)
+    tg = device_ms([lambda w=w: gemm(w) for w in ws])
+    return tq, tg
 
 
 def check_w8a8_fp8(name, x, w, s, n, k):
@@ -2208,7 +2443,7 @@ def phase_timings_fp8():
 
     rows["w8a8_matmul_fp8"] = {}
     for m in (BATCH, M_CHUNK):
-        ms = plain = nbytes = ops = 0.0
+        ms = plain = nbytes = ops = quant = gemm = 0.0
         lib = 0.0
         for lin, (n, k) in W4_SHAPES_8B.items():
             x = dev_randn(gen, m, k)
@@ -2218,6 +2453,7 @@ def phase_timings_fp8():
                            for w in ws])
             tp = eager_ms(lambda: w8.w8a8_matmul_plain(x, w, s, n=n, k=k),
                           iters=3)
+            tq, tg = w8a8_parts_ms(x, ws, s, n, k)
             xq, xs = w8.quantize_rows_plain(x, w.dtype)
             try:
                 tl = device_ms([lambda w=w: torch._scaled_mm(
@@ -2230,18 +2466,26 @@ def phase_timings_fp8():
             del ws, w
             b = m * k * 2 + n * k + n * 4 + m * n * 2
             bm, by = bound(b, 2 * m * n * k, PEAK_FP8)
-            log(f"time w8a8_matmul_fp8 {lin} M={m} (8B): {t:.4f} ms, bound "
+            log(f"time w8a8_matmul_fp8 {lin} M={m} (8B): {t:.4f} ms = "
+                f"quantize pass {tq:.4f} + GEMM {tg:.4f} (each alone), bound "
                 f"{bm:.4f} ms ({by}), plain {tp:.4f} ms, torch._scaled_mm "
                 f"(row-wise scales, activations quantized beforehand) {tl}")
             ms, plain, nbytes, ops = ms + t, plain + tp, nbytes + b, \
                 ops + 2 * m * n * k
+            quant, gemm = quant + tq, gemm + tg
             lib = None if lib is None or tl is None else lib + tl
         bm, by = bound(nbytes, ops, PEAK_FP8)
+        log(f"w8a8_matmul_fp8 one 8B layer M={m}: {ms:.4f} ms = quantize "
+            f"passes {quant:.4f} + GEMMs {gemm:.4f} (each alone); "
+            f"torch._scaled_mm {lib}: GEMM alone "
+            f"{gemm / lib if lib else 0:.3f}x, with the quantize pass "
+            f"{ms / lib if lib else 0:.3f}x")
         rows["w8a8_matmul_fp8"][m] = dict(
             ms=ms, plain_ms=plain, bound_ms=bm, bound_by=by, library_ms=lib,
+            quantize_ms=quant, gemm_ms=gemm,
             shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}; library: "
             "torch._scaled_mm with row-wise scales on activations quantized "
-            "beforehand")
+            "beforehand, beside gemm_ms")
 
     q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
     for name in ("decode_attention_scaled", "flash_decode_attention_scaled",
@@ -2291,7 +2535,7 @@ def phase_timings_fp8():
         del ck, cv, keys, values
 
         for name, row in time_serving_decode(
-                rng, q, nk, nv, make, f"{cache} cache", ks, vs,
+                rng, q, nk, nv, make, f"8B {cache} cache", ks, vs,
                 widen).items():
             rows[name][cache] = row
 
@@ -3169,6 +3413,7 @@ KERNEL_META = {
 # the main variant of kernels timed in several (the others go under
 # "variants"); the scaled decode kernels' main variant is the fp8 cache
 MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
+                "flash_decode_attention": "8B", "paged_decode_attention": "8B",
                 "w4a16_fp4_matmul": "nvfp4 M=64", "w4_e8_matmul": "w8a16 M=64",
                 "w4a16_planes_int4": "M=64", "w4a16_planes_a8": "M=64",
                 "w4a16_planes_mat": "M=64"}
@@ -3234,7 +3479,7 @@ def main() -> int:
     log(f"phases 3-4 (TinyLlama) done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving()
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
-    rows_8b, prefill = phase_timings_8b(serving)
+    rows_8b, prefill, decode = phase_timings_8b(serving)
     prefill["TinyLlama B=64 S=128"] = next(
         r for r in rows if r["name"] == "prefill_attention")
     rows += rows_8b
@@ -3242,6 +3487,7 @@ def main() -> int:
     log(f"phase 6 (FP8) done at {time.perf_counter() - t_start:.1f} s")
     variant_rows = phase_timings_fp8()
     variant_rows["prefill_attention"] = prefill
+    variant_rows.update(decode)
     log(f"FP8 timings done at {time.perf_counter() - t_start:.1f} s")
     nvfp4 = phase_nvfp4(errs)
     log(f"phase 7 (NVFP4) done at {time.perf_counter() - t_start:.1f} s")

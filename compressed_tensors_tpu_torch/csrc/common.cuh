@@ -1,7 +1,8 @@
 // Helpers shared by the port's hand-written Hopper kernels: tensor-core
-// mma.sync wrappers, ldmatrix, cp.async copies, the split-K reduction, warp
-// reductions, the int8 row quantizer of the a8b / a8 modes, fp8 e4m3
-// conversions and the KV cache element types.
+// mma.sync wrappers, ldmatrix, cp.async copies, the wgmma descriptor,
+// fences and waits over 128-byte-swizzled tiles, the cluster launch, the
+// split-K reduction, warp reductions, the int8 row quantizer of the a8b /
+// a8 modes, fp8 e4m3 conversions and the KV cache element types.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +99,82 @@ __device__ __forceinline__ void mma_e4m3_16832(float* d, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- wgmma over 128-byte-swizzled K-major tiles (sm_90a) ------------- //
+
+// byte offset of 16-byte chunk c of row r in a tile of 128-byte rows: the
+// 128-byte XOR swizzle that wgmma's descriptors below read
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// wgmma operand descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle (the tile 1024-byte aligned): start address, leading
+// byte offset 16 (unused), stride 1024 bytes between 8-row groups. A k
+// step of 32 bytes inside the rows advances the start address by 32.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
+  const uint32_t addr = smem_addr(tile);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// generic-proxy shared-memory writes (cp.async, st.shared) made visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator accesses across wgmma waits
+template <int NR>
+__device__ __forceinline__ void fence_regs(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int NR>
+__device__ __forceinline__ void fence_regs(int (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// Kernel with dynamic shared memory above 48 KB: opted in once, then
+// launched as one cluster per K split (cluster dims (1, 1, grid.z)).
+template <auto Kernel, class... Args>
+int launch(size_t smem, dim3 grid, int threads, cudaStream_t s,
+           Args... args) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // f32 -> fp8 e4m3 (float8_e4m3fn) bits, round to nearest even, with no
@@ -206,6 +283,12 @@ template <> struct Cache<kCacheE4M3> {
   __device__ static T from_new(__nv_bfloat16 x, float s) {
     return f32_to_e4m3(__bfloat162float(x) / s);
   }
+  // e4m3 -> bf16 is exact (3 mantissa bits, exponents within bf16's)
+  __device__ static uint32_t widen2(uint32_t two) {
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(two), __NV_E4M3)));
+    return pack_bf16x2(f.x, f.y);
+  }
 };
 
 template <> struct Cache<kCacheInt8> {
@@ -218,6 +301,18 @@ template <> struct Cache<kCacheInt8> {
   __device__ static T from_new(__nv_bfloat16 x, float s) {
     const float q = rintf(__bfloat162float(x) / s);
     return static_cast<T>(fminf(fmaxf(q, -128.f), 127.f));
+  }
+  // int8 -> bf16 is exact: for a byte r, bf16(0x4300 | (r & 0x7f)) -
+  // bf16(0x4300 | (r & 0x80)) is its signed value (two LOP3s and a bf16x2
+  // subtract a pair)
+  __device__ static uint32_t widen2(uint32_t two) {
+    uint32_t r;
+    asm("prmt.b32 %0, %1, 0, 0x4140;\n" : "=r"(r) : "r"(two));
+    uint32_t a = (r & 0x007F007Fu) | 0x43004300u;
+    uint32_t b = (r & 0x00800080u) | 0x43004300u;
+    __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                               *reinterpret_cast<__nv_bfloat162*>(&b));
+    return *reinterpret_cast<uint32_t*>(&d);
   }
 };
 

@@ -74,6 +74,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using ct::fence_async_smem;
+using ct::fence_regs;
+using ct::launch;
+using ct::swz;
+using ct::wgmma_commit;
+using ct::wgmma_desc;
+using ct::wgmma_fence;
+using ct::wgmma_wait0;
+using ct::wgmma_wait1;
+
 constexpr int BN = 128, BK = 64, STEPS = BK / 16;
 constexpr int DECODE_STAGES = 4, PREFILL_STAGES = 5;
 
@@ -388,38 +398,7 @@ struct PrefillCfg {
   static_assert(STAGE % 1024 == 0, "swizzled tiles 1024-byte aligned");
 };
 
-// byte offset of 16-byte chunk c (8 bf16 of k) of row r in a 128-byte-row
-// tile: the 128-byte XOR swizzle
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
 // ---- prefill rows on wgmma ------------------------------------------- //
-
-// wgmma operand descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle (the tile 1024-byte aligned): start address, leading
-// byte offset 16 (unused), stride 1024 bytes between 8-row groups
-__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
-  const uint32_t addr = ct::smem_addr(tile);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// generic-proxy shared-memory writes (cp.async, st.shared) made visible to
-// the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keep the compiler from moving register accesses across wgmma waits
 
 // d (+)= A (64 x 16 in registers: this warp's rows 16 w .. + 15, the
 // mma.sync A fragment) . B (16 x 16, K-major in shared memory, db) over one
@@ -586,15 +565,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BM / 2],
   if constexpr (BM == 16) wgmma_tile_m64n16(d, a, db, scale_d);
   else if constexpr (BM == 32) wgmma_tile_m64n32(d, a, db, scale_d);
   else wgmma_tile_m64n64(d, a, db, scale_d);
-}
-
-template <int NR>
-__device__ __forceinline__ void fence_regs(float (&d)[NR]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // d (+)= A (64 x 16, K-major, da) . B (64 x 16, K-major, db) over one
@@ -966,35 +936,6 @@ wna16_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---- launch ----------------------------------------------------------- //
-
-// Kernel with dynamic shared memory above 48 KB: opted in once, then
-// launched as one cluster per K split (cluster dims (1, 1, grid.z)).
-template <auto Kernel, class... Args>
-int launch(size_t smem, dim3 grid, int threads, cudaStream_t s,
-           Args... args) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = grid.z;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, Kernel, args...);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-}
 
 template <class W, int BM>
 int launch_decode(const void* x, const void* w, const void* scales, void* y,

@@ -40,12 +40,14 @@ _SIGNATURES = {
     "ct_w4a16_planes_int4": [_P] * 6 + [_I] * 7 + [_P],
     "ct_w4a16_planes_mat": [_P] * 6 + [_I] * 7 + [_P],
     "ct_w4a16_planes_a8": [_P] * 8 + [_I] * 7 + [_P],
-    "ct_w8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "ct_w8a8_fp8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ct_w8a8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    "ct_w8a8_fp8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    "ct_w8a8_quantize": [_P] * 3 + [_I] * 3 + [_P],
+    "ct_w8a8_gemm": [_P] * 5 + [_I] * 7 + [_P],
     "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "ct_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
-    "ct_flash_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
-    "ct_paged_decode": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "ct_flash_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
+    "ct_paged_decode": [_P] * 12 + [_I] * 11 + [_F, _P],
 }
 
 _lib = None

@@ -3,12 +3,14 @@
 Replaces ``compressed_tensors_tpu/ops/kernels/flash_decode.py:
 flash_decode_attention`` with the hand-written Hopper kernel in
 ``csrc/paged_decode.cu`` (entry point ``ct_flash_decode``), which shares
-its body with the paged pool's kernel (``paged_decode.py``): one block per
-(kv head, batch row) writes the step's K/V row in place at ``lengths[b]``,
-then walks the row's keys chunk by chunk, reading only the chunks that hold
-positions 0..lengths[b], with an f32 online softmax whose unnormalized
-probabilities are rounded to q's dtype before P.V, as the TPU kernel does.
-A row with a negative length is inactive: its output is zero and its cache
+its body with the paged pool's kernel (``paged_decode.py``): the keys of
+each (kv head, batch row) split into runs of ``SPLIT_TILES`` 64-position
+tiles, one block each, streamed in the cache's own type and scored on the
+tensor cores with an f32 online softmax whose unnormalized probabilities
+are rounded to q's dtype before P.V, as the TPU kernel does; a second pass
+merges a row's splits when the cache holds more than one. The block whose split holds position lengths[b]
+writes the step's K/V row there in place and folds it from registers. A
+row with a negative length is inactive: its output is zero and its cache
 bytes are neither read nor written.
 
 The cache is (L, B, KVH, S_pad, D) with S_pad a multiple of the chunk (64),
@@ -42,20 +44,50 @@ from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     kernel_scales,
 )
 
-__all__ = ["flash_decode_attention", "flash_decode_attention_plain"]
+__all__ = ["flash_decode_attention", "flash_decode_attention_plain",
+           "split_scratch"]
 
 CHUNK = 64  # positions per chunk, as the TPU kernel's default
+# 64-position tiles a split of the kernels' keys, by cache element bytes
+SPLIT_TILES = {2: 4, 1: 8}
+
+
+def split_scratch(B, KVH, rep, D, capacity, itemsize, device):
+    """(tiles a split, splits, scratch pointers) of the flash and paged
+    decode kernels for rows of up to ``capacity`` cached positions
+    (positions 0..capacity, the new token's included) in a cache of
+    ``itemsize``-byte elements. The scratch is one f32 ``torch.empty``
+    holding the per-split unnormalized outputs (B, KVH, splits, rep, D)
+    and then their (max, sum) pairs (B, KVH, splits, rep, 2): the pointers
+    are (pairs, outputs, the tensor that keeps them alive), all None when
+    every row fits in one split (its block writes the row)."""
+    per = SPLIT_TILES[itemsize]
+    span = per * CHUNK
+    splits = (capacity + span) // span
+    if splits == 1:
+        return per, 1, (None, None, None)
+    slots = B * KVH * splits * rep
+    scratch = torch.empty(slots * (D + 2), dtype=torch.float32,
+                          device=device)
+    base = scratch.data_ptr()
+    return per, splits, (base + slots * D * 4, base, scratch)
 
 
 def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
-                 v_scale):
+                 v_scale, split=None):
     """The flash/paged decode arithmetic in plain PyTorch, as the TPU
     kernels compute it: the new token (in its cache representation) plus
     each row's cached positions 0..lengths[b]-1 of ``keys``/``values``
     (B, KVH, T, D); softmax in f32 with the unnormalized probabilities cast
     to q's dtype before P.V. Scalar cache scales fold into q and onto the
     output, so cached values only take a dtype cast. Inactive rows give
-    zeros."""
+    zeros.
+
+    With ``split`` (positions a split), the order of the CUDA kernel: the
+    new token sits at position min(lengths[b], T) after the cached ones,
+    each run of ``split`` positions takes its own softmax (max, sum and
+    unnormalized output, the probabilities cast against the run's max),
+    and the runs merge by their maxima."""
     B, H, D = q.shape
     KVH, T = keys.shape[1], keys.shape[2]
     cd = q.dtype
@@ -67,22 +99,55 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
     nkf, nvf = (t.to(cd).to(torch.float32) for t in (new_k_c, new_v_c))
     inv_sqrt_d = 1.0 / math.sqrt(D)
     lengths = lengths.to(torch.int64)
-    s_new = torch.einsum("bkrd,bkd->bkr", qg, nkf)[..., None] * inv_sqrt_d
-    s_old = torch.einsum("bkrd,bktd->bkrt", qg, kf) * inv_sqrt_d
-    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
-    s_old = s_old.masked_fill(~valid[:, None, None, :], float("-inf"))
-    s = torch.cat([s_new, s_old], dim=-1)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    pr = p.to(cd).to(torch.float32)
-    acc = (pr[..., :1] * nvf[:, :, None, :]
-           + torch.einsum("bkrt,bktd->bkrd", pr[..., 1:], vf))
-    out = acc / l.clamp_min(1e-30)
+    if split is None:
+        s_new = torch.einsum("bkrd,bkd->bkr", qg, nkf)[..., None] * inv_sqrt_d
+        s_old = torch.einsum("bkrd,bktd->bkrt", qg, kf) * inv_sqrt_d
+        valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+        s_old = s_old.masked_fill(~valid[:, None, None, :], float("-inf"))
+        s = torch.cat([s_new, s_old], dim=-1)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        pr = p.to(cd).to(torch.float32)
+        acc = (pr[..., :1] * nvf[:, :, None, :]
+               + torch.einsum("bkrt,bktd->bkrd", pr[..., 1:], vf))
+        out = acc / l.clamp_min(1e-30)
+    else:
+        out = _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd,
+                            inv_sqrt_d)
     if folded:
         out = out * v_scale.to(torch.float32).reshape(())
     out = out.reshape(B, H, D)
     out = torch.where((lengths >= 0)[:, None, None], out, torch.zeros_like(out))
     return out.to(cd)
+
+
+def _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd, inv_sqrt_d):
+    """``attend_plain``'s split order: f32 (B, KVH, rep, D) outputs."""
+    B, KVH, T, D = kf.shape
+    cached = lengths.clamp(0, T)
+    n = -(-(T + 1) // split) * split
+    pad = n - T
+    rows = torch.arange(B, device=kf.device)
+    kx = torch.cat([kf, kf.new_zeros(B, KVH, pad, D)], dim=2)
+    vx = torch.cat([vf, vf.new_zeros(B, KVH, pad, D)], dim=2)
+    kx[rows, :, cached] = nkf
+    vx[rows, :, cached] = nvf
+    s = torch.einsum("bkrd,bktd->bkrt", qg, kx) * inv_sqrt_d
+    valid = torch.arange(n, device=kf.device)[None, :] <= cached[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    s = s.reshape(*s.shape[:3], n // split, split)         # (B, KVH, R, Z, P)
+    m = s.amax(dim=-1, keepdim=True)
+    m_use = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m_use)
+    l = p.sum(dim=-1)                                        # (B, KVH, R, Z)
+    pr = p.to(cd).to(torch.float32)
+    acc = torch.einsum("bkrzp,bkzpd->bkrzd", pr,
+                       vx.reshape(B, KVH, n // split, split, D))
+    m = m.squeeze(-1)
+    top = m.amax(dim=-1, keepdim=True)
+    f = torch.exp(m - top)                                   # empty runs: 0
+    total = (f * l).sum(dim=-1)[..., None]
+    return (f[..., None] * acc).sum(dim=-2) / total.clamp_min(1e-30)
 
 
 def flash_decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths,
@@ -130,14 +195,16 @@ def flash_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
         raise ValueError(f"S_pad={S_pad} must be a multiple of the chunk "
                          f"{CHUNK}")
     out = torch.empty_like(q)
+    per, splits, (part_ml, part_o, _scratch) = split_scratch(
+        B, KVH, rep, D, S_pad, cache_k.element_size(), q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.ct_flash_decode(
             q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), ks.data_ptr() if scaled else None,
-            vs.data_ptr() if scaled else None, B, KVH, rep, S_pad, CHUNK, D,
-            layer, kind, 1.0 / math.sqrt(D),
+            vs.data_ptr() if scaled else None, part_ml, part_o, B, KVH,
+            rep, S_pad, D, layer, kind, per, splits, 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_decode_attention")
     if scaled:

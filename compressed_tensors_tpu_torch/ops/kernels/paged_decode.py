@@ -3,8 +3,9 @@
 Replaces ``compressed_tensors_tpu/ops/kernels/paged_decode.py:
 paged_decode_attention`` with the hand-written Hopper kernel in
 ``csrc/paged_decode.cu`` (entry point ``ct_paged_decode``): the flash
-decode kernel's body (``flash_decode.py``) with one indirection, chunk c of
-row b being pool page ``tables[b, c]`` (the page size is the chunk size).
+decode kernel's split body (``flash_decode.py``) with one indirection,
+position p of row b being offset p % page of pool page
+``tables[b, p // page]``.
 The pool is (L, NP, KVH, page, D): no lane padding, no head packing. Page 0
 is the null page that unallocated table entries point at. A row with a
 negative length is inactive: its output is zero and the kernel reads and
@@ -38,7 +39,10 @@ from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     check_decode_operands,
     kernel_scales,
 )
-from compressed_tensors_tpu_torch.ops.kernels.flash_decode import attend_plain
+from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+    attend_plain,
+    split_scratch,
+)
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
 
@@ -104,6 +108,9 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
             or not tables.is_contiguous()):
         raise ValueError("tables must be (B, P) contiguous int32 on q's device")
     out = torch.empty_like(q)
+    per, splits, (part_ml, part_o, _scratch) = split_scratch(
+        B, KVH, rep, D, tables.shape[1] * page, pool_k.element_size(),
+        q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.ct_paged_decode(
@@ -111,8 +118,9 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
             pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             ks.data_ptr() if scaled else None,
-            vs.data_ptr() if scaled else None, B, KVH, rep, NP,
-            tables.shape[1], page, D, layer, kind, 1.0 / math.sqrt(D),
+            vs.data_ptr() if scaled else None, part_ml, part_o, B, KVH,
+            rep, NP, tables.shape[1], page, D, layer, kind, per, splits,
+            1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode_attention")
     if scaled:

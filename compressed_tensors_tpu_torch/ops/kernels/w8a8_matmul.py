@@ -6,12 +6,15 @@ with the hand-written Hopper kernels in ``csrc/w8a8_matmul.cu``: a row
 pass quantizes x per token exactly as the TPU kernel (int8: scale =
 max(absmax / 127.5, 1e-10), q = round(clip(x / scale, -128, 127)); fp8:
 scale = max(absmax / 448, 1e-10), q = e4m3(clip(x / scale, -448, 448))),
-then a tensor-core GEMM (int8 with exact int32 sums, or e4m3 with f32
-sums) writes acc * x_scale * w_scale once in bf16.
+then a GEMM on ``wgmma`` (int8 with exact int32 sums, or e4m3 with f32
+sums) writes acc * x_scale * w_scale once in bf16. ``w8a8_plan`` picks the
+design: y^T = W x^T over 128-weight-row blocks at decode rows (M <= 64),
+with K split over a thread-block cluster when the column tiles leave SMs
+idle; 128 x 256 output tiles at prefill rows.
 
 Weight layout: the checkpoint's (N, K) int8 or fp8 rows (K-major per
-output channel, the kernel's B operand as is) and a (N,) f32 per-channel
-scale.
+output channel, the kernel's operand as is) and a (N,) f32 per-channel
+scale. K must be a multiple of 16.
 
 Bound on the H100: the N*K weight bytes at decode rows (M = 64); the 8-bit
 tensor-core operations at a 512-row prefill chunk.
@@ -28,9 +31,15 @@ import torch
 
 from compressed_tensors_tpu_torch.ops.kernels import _build
 
-__all__ = ["w8a8_matmul", "w8a8_matmul_plain", "quantize_rows_plain"]
+__all__ = ["w8a8_matmul", "w8a8_matmul_plain", "quantize_rows_plain",
+           "w8a8_plan", "check_w8a8_operands"]
 
-_BK = 64
+_K_ALIGN = 16          # K bytes a 16-byte copy: rows stay aligned
+_BK = 128              # k values a k-tile
+_DECODE_ROWS = 64      # M <= 64: y^T = W x^T over weight-row blocks
+_BW = 128              # weight rows a decode block
+_PREFILL_BN = 256      # output columns a prefill tile (PBN in the source)
+_SMS = 132             # H100 SXM
 
 
 def quantize_rows_plain(x, w_dtype):
@@ -64,6 +73,64 @@ def w8a8_matmul_plain(x, w, w_scale, *, n, k, out_dtype=None):
             ).to(out_dtype or x.dtype)
 
 
+def w8a8_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """(rows a block, K splits, k-tiles a split) of the GEMM, as
+    ``tools/w8a8_sweep.py`` measured fastest at the 8B linears on the H100.
+    Decode rows take a block of 16, 32 or 64 rows (the fewest that hold M)
+    by 128 weight rows, two blocks an SM, and split K over a cluster of up
+    to 4 blocks as far as two blocks an SM allow. Prefill rows take 128 x
+    256 tiles, one block an SM, and the split with the least estimated
+    time, the number of waves of blocks times a block's k-tiles plus 4 for
+    its pipeline's fill and its epilogue (the fewer splits on a tie). The
+    split is then as many blocks as its k-tiles per block leave none
+    empty."""
+    tiles = -(-k // _BK)
+    if m <= _DECODE_ROWS:
+        bm = next(b for b in (16, 32, 64) if m <= b)
+        blocks = -(-n // _BW)
+        split = max(s for s in (1, 2, 4)
+                    if s == 1 or (s <= tiles and blocks * s <= 2 * _SMS))
+    else:
+        bm = 128
+        blocks = -(-n // _PREFILL_BN) * -(-m // bm)
+
+        def cost(s):
+            return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
+
+        split = min((s for s in (1, 2, 4, 8) if s <= tiles), key=cost)
+    per = -(-tiles // split)
+    return bm, -(-tiles // per), per
+
+
+def check_w8a8_operands(x, w, w_scale, xq, xs, *, n: int, k: int) -> None:
+    """Raise unless the kernel can take these operands: bf16 x (M, K),
+    int8 or e4m3 W (N, K) with K a multiple of 16, a (N,) f32 scale,
+    scratch xq (M, K) in W's dtype and xs (M,) f32, all contiguous on one
+    device, and x, W, the scale and xq 16-byte aligned (the kernels move
+    them 16 bytes a copy)."""
+    if w.dtype not in (torch.int8, torch.float8_e4m3fn):
+        raise NotImplementedError(f"w8a8 kernel for {w.dtype} weights")
+    m = x.shape[0]
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}) bf16, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if k % _K_ALIGN:
+        raise NotImplementedError(f"w8a8 kernel needs K % {_K_ALIGN} == 0, "
+                                  f"got {k}")
+    if (tuple(w.shape) != (n, k) or w_scale.dtype != torch.float32
+            or w_scale.numel() != n):
+        raise ValueError("w8a8 kernel layout mismatch")
+    if (xq.dtype != w.dtype or tuple(xq.shape) != (m, k)
+            or xs.dtype != torch.float32 or xs.numel() != m):
+        raise ValueError("w8a8 scratch mismatch")
+    if any(t.device != x.device or not t.is_contiguous()
+           for t in (x, w, w_scale, xq, xs)):
+        raise ValueError("w8a8 operands must be contiguous on one device")
+    if any(t.data_ptr() % 16 for t in (x, w, w_scale, xq)):
+        raise ValueError("w8a8 operands x, w, w_scale and xq must be "
+                         "16-byte aligned")
+
+
 def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, *,
                 n: int, k: int, xq: torch.Tensor | None = None,
                 xs: torch.Tensor | None = None) -> torch.Tensor:
@@ -74,35 +141,21 @@ def w8a8_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, *,
     if x.device.type == "cpu":
         return w8a8_matmul_plain(x, w, w_scale, n=n, k=k)
     fp8 = w.dtype == torch.float8_e4m3fn
-    if w.dtype != torch.int8 and not fp8:
-        raise NotImplementedError(f"w8a8 kernel for {w.dtype} weights")
     m = x.shape[0]
-    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != k:
-        raise ValueError(f"x must be (M, {k}) bf16, got {tuple(x.shape)} "
-                         f"{x.dtype}")
-    if k % _BK:
-        raise NotImplementedError(f"w8a8 kernel needs K % {_BK} == 0, got {k}")
-    if (tuple(w.shape) != (n, k) or w_scale.dtype != torch.float32
-            or w_scale.numel() != n):
-        raise ValueError("w8a8 kernel layout mismatch")
     if xq is None:
         xq = torch.empty((m, k), dtype=w.dtype, device=x.device)
     if xs is None:
         xs = torch.empty((m,), dtype=torch.float32, device=x.device)
-    if (xq.dtype != w.dtype or tuple(xq.shape) != (m, k)
-            or xs.dtype != torch.float32 or xs.numel() != m):
-        raise ValueError("w8a8 scratch mismatch")
-    if any(t.device != x.device or not t.is_contiguous()
-           for t in (x, w, w_scale, xq, xs)):
-        raise ValueError("w8a8 operands must be contiguous on one device")
+    check_w8a8_operands(x, w, w_scale, xq, xs, n=n, k=k)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
+    bm, splits, per = w8a8_plan(m, n, k)
     lib = _build.load()
     fn = lib.ct_w8a8_fp8_matmul if fp8 else lib.ct_w8a8_matmul
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
-                 xq.data_ptr(), xs.data_ptr(), m, n, k,
+                 xq.data_ptr(), xs.data_ptr(), m, n, k, bm, splits, per,
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "w8a8_matmul")
     if fp8:

@@ -26,7 +26,11 @@ from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
 )
 from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+    CHUNK,
+    SPLIT_TILES,
+    attend_plain,
     flash_decode_attention,
+    split_scratch,
 )
 from compressed_tensors_tpu_torch.ops.kernels.paged_decode import (
     paged_decode_attention,
@@ -251,3 +255,109 @@ def test_paged_decode_matches_jax(cache):
                   cache)
     assert np.array_equal(raw_bytes(tpk)[:, 0],
                           raw_bytes(pk)[:, 0])  # null page untouched
+
+
+# the CUDA kernels' split order (``attend_plain(split=...)``): runs of 64
+# and 128 positions, lengths on each side of a run boundary, an inactive row
+SPLIT_LENGTHS = np.asarray([63, 64, -1, 65], np.int32)
+
+
+def _split_out(q, nk, nv, keys, values, lengths, ks, vs, split):
+    """attend_plain in the split order over (B, KVH, T, D) views, the new
+    row quantized to the cache type first."""
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
+
+    dtype = keys.dtype
+    nk_c = _quantize_to_cache(torch.from_numpy(nk), ks, dtype, head_axis=1)
+    nv_c = _quantize_to_cache(torch.from_numpy(nv), vs, dtype, head_axis=1)
+    return attend_plain(torch.from_numpy(q), nk_c, nv_c, keys, values,
+                        torch.from_numpy(lengths), ks, vs, split=split)
+
+
+@pytest.mark.parametrize("split", [64, 128])
+@pytest.mark.parametrize("cache", CACHES, ids=CACHE_IDS)
+def test_flash_decode_split_order_matches_jax(cache, split):
+    rng = np.random.default_rng(7)
+    shape = (FL, FB, FKVH, 128, FD)
+    q, nk, nv, ck, cv, (ks, vs) = _decode_inputs(rng, shape, cache)
+    layer = 1
+    out_j, _, _ = j_flash(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.asarray(SPLIT_LENGTHS), kvh=FKVH,
+        rep=FH // FKVH, d=FD, k_scale=_jx(ks), v_scale=_jx(vs), layer=layer,
+        chunk=CH)
+    got = _split_out(q, nk, nv, _th(ck)[layer], _th(cv)[layer],
+                     SPLIT_LENGTHS, _th(ks), _th(vs), split)
+    active = SPLIT_LENGTHS >= 0
+    atol = ATOL if cache == "f32" else ATOL * np.abs(got.numpy()).max()
+    np.testing.assert_allclose(got.numpy()[active],
+                               np.asarray(out_j)[active], atol=atol, rtol=0)
+    assert not got.numpy()[~active].any()
+
+
+@pytest.mark.parametrize("split", [64, 128])
+@pytest.mark.parametrize("cache", CACHES, ids=CACHE_IDS)
+def test_paged_decode_split_order_matches_jax(cache, split):
+    rng = np.random.default_rng(8)
+    NP, P = 10, 2
+    q, nk, nv, pk, pv, (ks, vs) = _decode_inputs(rng, (FL, NP, FKVH, CH, FD),
+                                                 cache)
+    tables = rng.permutation(np.arange(1, NP))[:FB * P].reshape(FB, P)
+    tables = tables.astype(np.int32)
+    tables[2] = 0
+    layer = 1
+    out_j, _, _ = j_paged(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(pk),
+        jnp.asarray(pv), jnp.asarray(tables), jnp.asarray(SPLIT_LENGTHS),
+        kvh=FKVH, rep=FH // FKVH, d=FD, k_scale=_jx(ks), v_scale=_jx(vs),
+        layer=layer)
+
+    def gather(pool):  # the rows' pages as (B, KVH, P * page, D)
+        return _th(pool)[layer][torch.from_numpy(tables).long()].permute(
+            0, 2, 1, 3, 4).reshape(FB, FKVH, P * CH, FD)
+
+    got = _split_out(q, nk, nv, gather(pk), gather(pv), SPLIT_LENGTHS,
+                     _th(ks), _th(vs), split)
+    active = SPLIT_LENGTHS >= 0
+    atol = ATOL if cache == "f32" else ATOL * np.abs(got.numpy()).max()
+    np.testing.assert_allclose(got.numpy()[active],
+                               np.asarray(out_j)[active], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("itemsize", [2, 1])
+def test_split_scratch_layout(itemsize):
+    """The decode kernels' scratch: none when every row fits one split (the
+    merge pass is not launched); else one f32 allocation, the unnormalized
+    outputs first and the (max, sum) pairs after them."""
+    B, KVH, rep, D = 3, 2, 4, 64
+    span = SPLIT_TILES[itemsize] * CHUNK
+    per, splits, ptrs = split_scratch(B, KVH, rep, D, span - 1, itemsize,
+                                      "cpu")
+    assert (per, splits, ptrs) == (SPLIT_TILES[itemsize], 1,
+                                   (None, None, None))
+    per, splits, (ml, o, keep) = split_scratch(B, KVH, rep, D, span, itemsize,
+                                               "cpu")
+    slots = B * KVH * splits * rep
+    assert splits == 2 and keep.dtype == torch.float32
+    assert keep.numel() == slots * (D + 2) and o == keep.data_ptr()
+    assert ml == o + slots * D * 4 and ml % 8 == 0
+
+
+@pytest.mark.parametrize("lengths", [(0, 1, 127, -1), (128, 200, 64, 129)])
+@pytest.mark.parametrize("split", [16, 64, 128])
+def test_split_order_equals_one_softmax(split, lengths):
+    """Every split of the positions (lengths past the cache included: the
+    new token follows all T cached positions) gives the one-softmax result
+    up to f32 rounding."""
+    rng = np.random.default_rng(split)
+    B, H, KVH, T, D = 4, 8, 2, 128, 32
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    q, nk, nv = f32(B, H, D), f32(B, KVH, D), f32(B, KVH, D)
+    keys, values = f32(B, KVH, T, D), f32(B, KVH, T, D)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    want = attend_plain(q, nk, nv, keys, values, lens, None, None)
+    got = attend_plain(q, nk, nv, keys, values, lens, None, None, split=split)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)

@@ -5,6 +5,8 @@ Marked ``cuda``: they skip without an NVIDIA GPU. On a machine with one:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -486,3 +488,221 @@ def test_attention_kernels_at_seven_heads_per_kv_head(dev):
                                                  tables, lengths, layer=1)
     _close(out[live], want[live])
     assert torch.equal(pk, pk_p) and torch.equal(pv, pv_p)
+
+
+# B3 (int8 and fp8): every row count the main paths give (decode rows
+# 1-64, 128-row prefill tiles above), N not a multiple of the 128-column
+# tile, K from one 64-deep tail to 14336, 1280 (10 k-tiles) cut unevenly by a
+# cluster split
+W8A8_M = [1, 16, 63, 64, 65, 128, 300, 512]
+W8A8_NK = [(200, 64), (328, 1280), (136, 14336)]
+
+
+def test_w8a8_cases_cover_designs_and_splits():
+    """The cases reach both designs, a cluster split at decode rows, and a
+    split that leaves its last block fewer k-tiles (the plan is the
+    wrapper's own)."""
+    seen = set()
+    for m, (n, k) in itertools.product(W8A8_M, W8A8_NK):
+        bm, splits, per = w8.w8a8_plan(m, n, k)
+        design = "decode" if bm <= 64 else "prefill"
+        seen.add(design)
+        if splits > 1:
+            seen.add((design, "split"))
+            if splits * per != -(-k // 128):
+                seen.add((design, "uneven"))
+    assert seen >= {"decode", "prefill", ("decode", "split"),
+                    ("decode", "uneven")}
+
+
+def _misaligned_w8a8_operands(device):
+    """x as a contiguous (4, 64) view 2 bytes into its storage, and the
+    other operands as the kernel wants them."""
+    n, k = 32, 64
+    x = torch.zeros(4 * k + 1, dtype=torch.bfloat16, device=device)[1:]
+    x = x.view(4, k)
+    w = torch.zeros((n, k), dtype=torch.int8, device=device)
+    s = torch.ones(n, dtype=torch.float32, device=device)
+    return x, w, s, n, k
+
+
+def test_w8a8_operand_check_refuses_misaligned_views():
+    """The kernels move x, W, the scale and xq 16 bytes a copy: a view at
+    an odd offset is refused before launch (runs on the CPU)."""
+    x, w, s, n, k = _misaligned_w8a8_operands("cpu")
+    assert x.is_contiguous() and x.data_ptr() % 16
+    xq = torch.empty((4, k), dtype=torch.int8)
+    xs = torch.empty(4, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        w8.check_w8a8_operands(x, w, s, xq, xs, n=n, k=k)
+    w8.check_w8a8_operands(x.clone(), w, s, xq, xs, n=n, k=k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        w8.check_w8a8_operands(x.clone(), w, s,
+                               torch.empty(4 * k + 1, dtype=torch.int8)[1:]
+                               .view(4, k), xs, n=n, k=k)
+
+
+def test_w8a8_matmul_refuses_misaligned_views(dev):
+    x, w, s, n, k = _misaligned_w8a8_operands(dev)
+    before = w8.w8a8_matmul.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        w8.w8a8_matmul(x, w, s, n=n, k=k)
+    assert w8.w8a8_matmul.launches == before
+
+
+@pytest.mark.parametrize("weight", ["int8", "fp8"])
+@pytest.mark.parametrize("n,k", W8A8_NK)
+@pytest.mark.parametrize("m", W8A8_M)
+def test_w8a8_matmul_shapes(dev, m, n, k, weight):
+    rng = np.random.default_rng(m + k)
+    x = _bf16(rng, m, k, device=dev)
+    if weight == "int8":
+        w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(
+            np.int8)).to(dev)
+    else:
+        w = torch.from_numpy(np.clip(rng.standard_normal((n, k)) * 100, -440,
+                                     440).astype(np.float32)).to(dev).to(
+            torch.float8_e4m3fn)
+    s = torch.from_numpy(rng.uniform(1e-4, 3e-4, n).astype(np.float32)).to(dev)
+    xq = torch.empty((m, k), dtype=w.dtype, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    counter = "fp8_launches" if weight == "fp8" else "launches"
+    before = getattr(w8.w8a8_matmul, counter)
+    got = w8.w8a8_matmul(x, w, s, n=n, k=k, xq=xq, xs=xs)
+    assert getattr(w8.w8a8_matmul, counter) == before + 1
+    xq_p, xs_p = w8.quantize_rows_plain(x, w.dtype)
+    assert torch.equal(xq.view(torch.uint8), xq_p.view(torch.uint8))
+    assert torch.equal(xs, xs_p)
+    assert _within_a8b_rule(got, w8.w8a8_matmul_plain(
+        x, w, s, n=n, k=k, out_dtype=torch.float32))
+
+
+# B6/B7 on every cache type: lengths 0, 1, 63-65, each side of a split
+# boundary and S_pad - 1, an inactive row; GQA folds 1-16, both head widths
+def _split_span(dtype):
+    return fd.SPLIT_TILES[torch.empty(0, dtype=dtype).element_size()] * 64
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.int8], ids=["bf16", "fp8", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 7, 8, 16])
+def test_flash_and_paged_decode_grid(dev, rep, d, cache):
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
+
+    rng = np.random.default_rng(rep * d)
+    kvh, page = 2, 64
+    span = _split_span(cache)
+    s_pad = span + 192
+    lens = [0, 1, 63, 64, 65, span - 1, span, span + 1, s_pad - 1, -1]
+    B, P = len(lens), s_pad // page
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = [b for b in range(B) if lens[b] >= 0]
+    q, nk, nv = _decode_operands(rng, dev, B=B, H=kvh * rep, KVH=kvh, D=d)
+    scaled = cache != torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=dev)
+    ks = torch.tensor([0.02], **f32) if scaled else None
+    vs = torch.tensor([0.03], **f32) if scaled else None
+
+    def make(*shape):
+        if scaled:
+            return _quantized_cache(rng, cache, *shape, device=dev)
+        return _bf16(rng, *shape, device=dev)
+
+    nk_c = _quantize_to_cache(nk, ks, cache, head_axis=1)
+    nv_c = _quantize_to_cache(nv, vs, cache, head_axis=1)
+    counter = "scaled_launches" if scaled else "launches"
+
+    # the slab
+    ck, cv = make(2, B, kvh, s_pad, d), make(2, B, kvh, s_pad, d)
+    ck0, cv0 = ck.clone(), cv.clone()
+    before = getattr(fd.flash_decode_attention, counter)
+    out, _, _ = fd.flash_decode_attention(q, nk, nv, ck, cv, lengths,
+                                          layer=1, k_scale=ks, v_scale=vs)
+    assert getattr(fd.flash_decode_attention, counter) == before + 1
+    ck_p, cv_p = ck0.clone(), cv0.clone()
+    want, _, _ = fd.flash_decode_attention_plain(
+        q, nk, nv, ck_p, cv_p, lengths, layer=1, k_scale=ks, v_scale=vs)
+    split = fd.attend_plain(q, nk_c, nv_c, ck0[1], cv0[1], lengths, ks, vs,
+                            split=span)
+    _close(out[live], want[live])
+    _close(out[live], split[live])
+    assert not out[B - 1].any()
+    assert _same_bytes(ck, ck_p) and _same_bytes(cv, cv_p)
+    changed = torch.nonzero((ck.view(torch.uint8) != ck0.view(torch.uint8))
+                            .any(-1)).tolist()
+    assert sorted(map(tuple, changed)) == sorted(
+        (1, b, h, lens[b]) for b in live for h in range(kvh))
+
+    # the pool through shuffled page tables (the inactive row on page 0)
+    tables = rng.permutation(np.arange(1, B * P + 1)).astype(np.int32)
+    tables = tables.reshape(B, P)
+    tables[B - 1] = 0
+    tables_d = torch.from_numpy(tables).to(dev)
+    pk, pv = make(2, B * P + 1, kvh, page, d), make(2, B * P + 1, kvh, page, d)
+    pk0 = pk.clone()
+    pk_p, pv_p = pk.clone(), pv.clone()
+    before = getattr(pd.paged_decode_attention, counter)
+    out_p, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d,
+                                            lengths, layer=1, k_scale=ks,
+                                            v_scale=vs)
+    assert getattr(pd.paged_decode_attention, counter) == before + 1
+    want, _, _ = pd.paged_decode_attention_plain(
+        q, nk, nv, pk_p, pv_p, tables_d, lengths, layer=1, k_scale=ks,
+        v_scale=vs)
+    _close(out_p[live], want[live])
+    assert not out_p[B - 1].any()
+    assert _same_bytes(pk, pk_p) and _same_bytes(pv, pv_p)
+    changed = torch.nonzero((pk.view(torch.uint8) != pk0.view(torch.uint8))
+                            .any(-1)).tolist()
+    assert sorted(map(tuple, changed)) == sorted(
+        (1, int(tables[b, lens[b] // page]), h, lens[b] % page)
+        for b in live for h in range(kvh))
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn],
+                         ids=["bf16", "fp8"])
+@pytest.mark.parametrize("page", [16, 32])
+def test_paged_decode_pages_smaller_than_a_tile(dev, page, cache):
+    """Pool pages of 16 and 32 positions: a 64-position tile spans several
+    pages, each row found through its own table entry; dense and paged
+    layouts of the same contents give the same bits."""
+    rng = np.random.default_rng(page)
+    B, kvh, rep, d = 4, 2, 4, 128
+    span = _split_span(cache)
+    s_pad = span + 128
+    P = s_pad // page
+    lens = [5, span + 3, -1, s_pad - 1]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = [0, 1, 3]
+    q, nk, nv = _decode_operands(rng, dev, B=B, H=kvh * rep, KVH=kvh, D=d)
+    scaled = cache != torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=dev)
+    ks = torch.tensor([0.02], **f32) if scaled else None
+    vs = torch.tensor([0.03], **f32) if scaled else None
+
+    def make(*shape):
+        if scaled:
+            return _quantized_cache(rng, cache, *shape, device=dev)
+        return _bf16(rng, *shape, device=dev)
+
+    tables = rng.permutation(np.arange(1, B * P + 1)).astype(np.int32)
+    tables = tables.reshape(B, P)
+    tables[2] = 0
+    tables_d = torch.from_numpy(tables).to(dev)
+    pk, pv = make(1, B * P + 1, kvh, page, d), make(1, B * P + 1, kvh, page, d)
+    pk0, pv0 = pk.clone(), pv.clone()
+    pk_p, pv_p = pk.clone(), pv.clone()
+    out, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d, lengths,
+                                          k_scale=ks, v_scale=vs)
+    want, _, _ = pd.paged_decode_attention_plain(
+        q, nk, nv, pk_p, pv_p, tables_d, lengths, k_scale=ks, v_scale=vs)
+    _close(out[live], want[live])
+    assert not out[2].any()
+    assert _same_bytes(pk, pk_p) and _same_bytes(pv, pv_p)
+    dense_k, dense_v = (p[0].view(torch.uint8)[tables_d.long()].permute(
+        0, 2, 1, 3, 4).reshape(B, kvh, s_pad, -1).view(cache)[None]
+        .contiguous() for p in (pk0, pv0))
+    out_d, _, _ = fd.flash_decode_attention(q, nk, nv, dense_k, dense_v,
+                                            lengths, k_scale=ks, v_scale=vs)
+    assert torch.equal(out[live], out_d[live])
