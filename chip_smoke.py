@@ -272,6 +272,39 @@ def check_close(name, got, want, tol=TOL_KERNEL):
 # --------------------------------------------------------------------- #
 # inputs at the main path's shapes
 
+def a8b_case(x, w, s, zp, n, k, group=128):
+    """One a8b case against its plain version: (max|kernel - plain f32|,
+    elements outside the a8b rule for the kernel, for the int4b control,
+    max|plain f32|); raises if the kernel's quantization pass differs from
+    the plain one."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    m = x.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    kw = dict(n=n, k=k, group_size=group)
+    got = w4.w4a16_a8b_matmul(x, w, s, zp, xq=xq, xs=xs, **kw)
+    xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+    if not (torch.equal(xq, xq_p) and torch.equal(xs, xs_p)):
+        raise AssertionError(
+            f"a8b M={m} N={n} K={k} g={group}: quantization pass differs "
+            f"from plain in {int((xq != xq_p).sum())} of {xq.numel()} "
+            f"values and {int((xs != xs_p).sum())} of {m} scales")
+    want = w4.w4a16_matmul_plain(x, w, s, zp, mode="a8b",
+                                 out_dtype=torch.float32, **kw)
+    scale = want.abs().max().item()
+    slack = A8B_REL * want.abs() + A8B_ABS * scale
+
+    def outside(y):
+        return int(((y.float() - want).abs() > slack).sum())
+
+    control = outside(w4.w4a16_matmul(x, w, s, zp, mode="int4b", **kw))
+    return (got.float() - want).abs().max().item(), outside(got), control, \
+        scale
+
+
 def check_a8b(name, x, w, s, zp, n, k):
     """a8b against its plain version, tighter than TOL_KERNEL: at these
     shapes the int8 rounding of x itself moves y by about 1% of max|y|, as
@@ -280,38 +313,12 @@ def check_a8b(name, x, w, s, zp, n, k):
     plain f32 result within A8B_REL * |y| + A8B_ABS * max|y|. The int4b
     output on the same operands (bf16 activations, no int8 rounding) is a
     control that must fail the same check. Returns max|kernel - plain|."""
-    import torch
-
-    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
-
-    m = x.shape[0]
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
-    got = w4.w4a16_a8b_matmul(x, w, s, zp, n=n, k=k, group_size=128, xq=xq,
-                              xs=xs)
-    xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
-    if not (torch.equal(xq, xq_p) and torch.equal(xs, xs_p)):
-        raise AssertionError(
-            f"{name}: quantization pass differs from plain in "
-            f"{int((xq != xq_p).sum())} of {xq.numel()} values and "
-            f"{int((xs != xs_p).sum())} of {m} scales")
-    want = w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=128,
-                                 mode="a8b", out_dtype=torch.float32)
-    scale = want.abs().max().item()
-    slack = A8B_REL * want.abs() + A8B_ABS * scale
-
-    def outside(y):
-        return int(((y.float() - want).abs() > slack).sum())
-
-    bad = outside(got)
-    control = outside(w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=128,
-                                      mode="int4b"))
-    err = (got.float() - want).abs().max().item()
+    err, bad, control, scale = a8b_case(x, w, s, zp, n, k)
     log(f"parity {name}: quantization pass equal bit for bit; "
         f"max_abs_err={err:.6g} max|plain f32|={scale:.6g} "
         f"rel={err / scale:.3g}; elements outside {A8B_REL:.4g}|y| + "
         f"{A8B_ABS} max|y|: kernel {bad}, int4b control {control} of "
-        f"{want.numel()}")
+        f"{x.shape[0] * n}")
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version at {bad} elements")
@@ -390,7 +397,8 @@ def phase_device_and_build():
 # the sources of the kernels redesigned for Hopper, whose registers and
 # spills the script reports
 REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu", "wna16_matmul.cu",
-              "w8a8_matmul.cu", "paged_decode.cu")
+              "w8a8_matmul.cu", "paged_decode.cu", "w4a16_matmul.cu",
+              "decode_attention.cu")
 CACHE_NAMES = ("bf16", "e4m3", "int8")    # ct::CacheKind order
 
 
@@ -413,6 +421,16 @@ def kernel_resources(report):
             rows = f", BM={m.group(3)}" if m.group(3) else ""
             out[f"{name}<{'fp8' if m.group(2) == '1' else 'int8'}{rows}>"] = \
                 value
+            continue
+        m = re.search(r"w4a8_kernelILb([01])ELb([01])EE", mangled)
+        if m:
+            out[f"w4a16_a8b<{'group % 128 = 64' if m.group(1) == '1' else 'group % 128 = 0'}"
+                f"{', 4-byte scale copies' if m.group(2) == '0' else ''}>"] = value
+            continue
+        m = re.search(r"block_decode_kernelILi(\d+)ELi(\d)ELb([01])EE", mangled)
+        if m:
+            out[f"block_decode<D={m.group(1)}, {CACHE_NAMES[int(m.group(2))]}, "
+                f"{'scores' if m.group(3) == '1' else 'recompute'}>"] = value
             continue
         m = re.search(r"split_kernelILi(\d+)ELb([01])ELi(\d)EE", mangled)
         if m:
@@ -546,11 +564,29 @@ WNA16_GRID = dict(M=(1, 64, 65, 127, 128, 300, 512),
 # cluster split
 W8A8_GRID = dict(M=(1, 16, 63, 64, 65, 128, 300, 512),
                  shapes=((200, 64), (328, 1280), (136, 14336)))
+# B2 (a8b) at every row count the paths give (decode rows under
+# w4_act="int8", ragged serving chunks of 256-512 rows, 1024), N not a
+# multiple of the 128-column tile (198 also not of 4: 4-byte scale copies
+# and a scalar store), K 4096 and 14336 and 1344 (10.5 k-tiles, cut unevenly
+# by a split), groups 64 and 128 and channel-wise (1344: an odd multiple of
+# 64), with and without zero points
+A8B_GRID = dict(M=(1, 64, 65, 256, 300, 512, 1024),
+                shapes=((200, 4096, 64, False), (328, 14336, 128, True),
+                        (198, 1344, 1344, True), (136, 1344, 1344, False)))
 # B6/B7 on every cache type: lengths 0, 1, 63-65, each side of a split
 # boundary (``SPLIT_TILES`` * 64) and S_pad - 1, an inactive row; the GQA
 # folds of the models and the extremes, both head widths
 DECODE_GRID = dict(rep=(1, 4, 7, 8, 16), D=(64, 128),
                    cache=("bf16", "fp8", "int8"), KVH=2)
+# B5 (block decode) on every cache type with per-tensor and per-kv-head
+# scales: the GQA folds and both head widths as above, S_pad 64, 192 and
+# 511 (form "scores") and 700 (form "recompute": its scores do not fit in
+# shared memory, decode_attn="block" only), lengths 0, 1, 63-65 (past a
+# 64-position cache: a full row, nothing written), S_pad - 1, an inactive
+# row
+BLOCK_DECODE_GRID = dict(rep=(1, 4, 7, 8, 16), D=(64, 128),
+                         cache=("bf16", "fp8", "int8"),
+                         S_pad=(64, 192, 511, 700), KVH=2)
 
 
 def parity_grids(errs):
@@ -584,7 +620,9 @@ def parity_grids(errs):
         f"{PREFILL_GRID}): max error {worst:.4g} of max|plain| (limit "
         f"{TOL_KERNEL})")
     parity_grid_w8a8(errs, gen)
+    parity_grid_a8b(errs, gen)
     parity_grid_decode(errs, gen)
+    parity_grid_block_decode(errs, gen)
     outside, cases = 0, 0
     for (n, k, g, asym), m in itertools.product(PLANES_GRID["shapes"],
                                                 PLANES_GRID["M"]):
@@ -718,6 +756,48 @@ def parity_grid_w8a8(errs, gen):
         raise AssertionError(f"w8a8 grid reached only {seen}")
 
 
+def parity_grid_a8b(errs, gen):
+    """B2 (mode a8b) against its plain version over ``A8B_GRID``: the
+    quantized rows and their scales equal bit for bit, every output element
+    within the a8b rule, and the int4b control on the same operands outside
+    it; the K splits each case ran (``a8b_plan``) must include an uneven
+    one."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    worst, cases, bad, seen = 0.0, 0, 0, set()
+    for (n, k, g, asym), m in itertools.product(A8B_GRID["shapes"],
+                                                A8B_GRID["M"]):
+        w = torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        s = torch.rand((k // g, n), generator=gen, device="cuda") * 2e-3 \
+            + 1e-3
+        zp = (torch.randint(-8, 8, (k // g, n), generator=gen,
+                            device="cuda").float() if asym else None)
+        x = dev_randn(gen, m, k)
+        err, out, control, scale = a8b_case(x, w, s, zp, n, k, g)
+        if out or not control:
+            raise AssertionError(
+                f"a8b M={m} N={n} K={k} g={g} zero points {asym}: {out} "
+                f"elements outside the a8b rule, int4b control {control}")
+        errs["w4a16_a8b_matmul"] = max(errs.get("w4a16_a8b_matmul", 0.0), err)
+        worst, cases = max(worst, err / scale), cases + 1
+        splits, per = w4.a8b_plan(m, n, k)
+        seen |= {"split"} if splits > 1 else set()
+        seen |= {"uneven"} if splits * per * 128 > -(-k // 128) * 128 else set()
+        bad += out
+    log(f"parity w4a16_a8b_matmul over {cases} cases (M {A8B_GRID['M']} x "
+        f"(N, K, g, zero points) {A8B_GRID['shapes']}; K splits reached: "
+        f"{sorted(seen)}): quantized rows equal bit for bit, {bad} elements "
+        f"outside the a8b rule (max error {worst:.4g} of max|plain|), the "
+        "int4b control outside it in every case")
+    if seen != {"split", "uneven"}:
+        raise AssertionError(f"a8b grid reached only {seen}")
+
+
 def parity_grid_decode(errs, gen):
     """B6 and B7 against their plain versions over ``DECODE_GRID``: one
     batch of rows at every grid length on the slab cache and, through
@@ -817,6 +897,76 @@ def parity_grid_decode(errs, gen):
         f"{worst:.4g} of max|plain| against the one-softmax and the split "
         f"plain orders (limit {TOL_KERNEL}); cache bytes equal, written at "
         "the step's positions only")
+
+
+def parity_grid_block_decode(errs, gen):
+    """B5 against its plain version over ``BLOCK_DECODE_GRID``: outputs
+    within TOL_KERNEL of max|plain| in every case, inactive rows zero, cache
+    bytes equal to the plain version's and changed at lengths[b] only (rows
+    below S_pad); both forms of ``block_decode_form`` must run."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    kvh = BLOCK_DECODE_GRID["KVH"]
+    worst, cases, forms = 0.0, 0, set()
+    for rep, D, cache, s_pad in itertools.product(*(BLOCK_DECODE_GRID[k] for k
+                                                    in ("rep", "D", "cache",
+                                                        "S_pad"))):
+        dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+                 "int8": torch.int8}[cache]
+        lens = [0, 1, 63, 64, 65, s_pad - 1, -1]
+        B = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        active = lengths >= 0
+        sc = CACHE_SCALES.get(cache)
+        scale_sets = [(None, None)] if sc is None else [
+            (torch.tensor([sc], device="cuda"),) * 2,
+            (torch.tensor([sc, 0.8 * sc], device="cuda").reshape(kvh, 1, 1),
+             torch.tensor([sc, 1.25 * sc], device="cuda").reshape(kvh, 1, 1))]
+        q, nk, nv = (dev_randn(gen, B, h, D) for h in (kvh * rep, kvh, kvh))
+        for ks, vs in scale_sets:
+            shape = (2, B, kvh, s_pad, D)
+            ck, cv = ((dev_randn(gen, *shape) if sc is None
+                       else dev_cache(gen, shape, dtype, sc)) for _ in range(2))
+            ck0, cv0 = ck.clone(), cv.clone()
+            got = da.decode_attention(q, nk, nv, ck, cv, lengths, layer=1,
+                                      k_scale=ks, v_scale=vs)[0].float()
+            ck_p, cv_p = ck0.clone(), cv0.clone()
+            want = da.decode_attention_plain(q, nk, nv, ck_p, cv_p, lengths,
+                                             layer=1, k_scale=ks,
+                                             v_scale=vs)[0].float()
+            label = (f"decode_attention rep={rep} D={D} {cache} S_pad={s_pad}"
+                     + ("" if ks is None else f" {ks.numel()} scale(s)"))
+            err = (got[active] - want[active]).abs().max().item()
+            rel = err / want[active].abs().max().item()
+            if not (bool(got.isfinite().all()) and rel <= TOL_KERNEL):
+                raise AssertionError(f"{label}: {rel} of max|plain|")
+            if got[~active].any():
+                raise AssertionError(f"{label}: inactive rows must be zero")
+            if not (torch.equal(byte_view(ck), byte_view(ck_p))
+                    and torch.equal(byte_view(cv), byte_view(cv_p))):
+                raise AssertionError(f"{label}: cache bytes differ from plain")
+            expect = [(1, b, h, lens[b]) for b in range(B) for h in range(kvh)
+                      if 0 <= lens[b] < s_pad]
+            check_written(label, ck, ck0, expect)
+            check_written(label, cv, cv0, expect)
+            key = "decode_attention" + ("" if sc is None else "_scaled")
+            errs[key] = max(errs.get(key, 0.0), err)
+            worst, cases = max(worst, rel), cases + 1
+            forms.add(da.block_decode_form(s_pad))
+    log(f"parity decode_attention over {cases} cases (rep, D, cache, S_pad "
+        f"of {BLOCK_DECODE_GRID}, per-tensor and per-head scales, lengths 0, "
+        f"1, 63-65, S_pad - 1, one inactive; forms {sorted(forms)}): max "
+        f"error {worst:.4g} of max|plain| (limit {TOL_KERNEL}); cache bytes "
+        "equal, written at lengths[b] only")
+    if forms != {"scores", "recompute"}:
+        raise AssertionError(f"block decode grid ran only {forms}")
 
 
 def dev_randn(gen, *shape):
@@ -2054,11 +2204,15 @@ def phase_timings_8b(serving):
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
 
-    # W4A16 at the 8B widths: int4b at decode (M = 64), a8b at a prefill
-    # chunk (M = 512); each row sums the four linears of one layer
+    # W4A16 at the 8B widths: int4b at decode (M = 64), a8b at prefill
+    # chunks (M = 512, and 256, the least rows that select it); each row
+    # sums the four linears of one layer, a8b with its two passes timed
+    # apart beside it
+    a8b = {}
     for name, m, mode in (("w4a16_matmul", BATCH, "int4b"),
-                          ("w4a16_a8b_matmul", M_CHUNK, "a8b")):
-        ms = plain = lib = nbytes = ops = 0.0
+                          ("w4a16_a8b_matmul", M_CHUNK, "a8b"),
+                          ("w4a16_a8b_matmul", 256, "a8b")):
+        ms = plain = lib = nbytes = ops = quant = gemm = 0.0
         for lin, (n, k) in W4_SHAPES_8B.items():
             x, w, s, _ = w4_inputs(rng, n, k, m, dev)
             ws = [w.clone() for _ in range(copies_for(n * k // 2))]
@@ -2067,6 +2221,11 @@ def phase_timings_8b(serving):
                 for w in ws])
             tp = eager_ms(lambda: w4.w4a16_matmul_plain(
                 x, w, s, None, n=n, k=k, group_size=128, mode=mode), iters=3)
+            parts = ""
+            if mode == "a8b":
+                tq, tg = a8b_parts_ms(x, ws, s, n, k)
+                quant, gemm = quant + tq, gemm + tg
+                parts = f" = quantize pass {tq:.4f} + GEMM {tg:.4f} (each alone)"
             del ws
             wd = w4._dequantized_weight(w, s, None, n, k, 128).to(
                 torch.bfloat16)
@@ -2077,18 +2236,27 @@ def phase_timings_8b(serving):
             b = m * k * 2 + n * k // 2 + (k // 128) * n * 4 + m * n * 2
             peak = PEAK_INT8 if mode == "a8b" else PEAK_BF16
             bm, by = bound(b, 2 * m * n * k, peak)
-            log(f"time {name} {lin} M={m} (8B): {t:.4f} ms, bound {bm:.4f} "
-                f"ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
+            log(f"time {name} {lin} M={m} (8B): {t:.4f} ms{parts}, bound "
+                f"{bm:.4f} ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
                 f"dequantized bf16 weight {tl:.4f} ms")
             ms, plain, lib = ms + t, plain + tp, lib + tl
             nbytes, ops = nbytes + b, ops + 2 * m * n * k
         bm, by = bound(nbytes, ops, PEAK_INT8 if mode == "a8b" else PEAK_BF16)
-        rows.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bm,
-                         bound_by=by, library_ms=lib,
-                         shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}"
-                         + ("; library: torch.matmul on the dequantized bf16 "
-                            "weight, the nearest single call" if mode == "a8b"
-                            else "")))
+        row = dict(name=name, ms=ms, plain_ms=plain, bound_ms=bm,
+                   bound_by=by, library_ms=lib,
+                   shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}"
+                   + ("; library: torch.matmul on the dequantized bf16 "
+                      "weight, the nearest single call" if mode == "a8b"
+                      else ""))
+        if mode == "a8b":
+            row.update(quantize_ms=quant, gemm_ms=gemm)
+            log(f"w4a16_a8b_matmul one 8B layer M={m}: {ms:.4f} ms = "
+                f"quantize passes {quant:.4f} + GEMMs {gemm:.4f} (each "
+                f"alone); torch.matmul {lib:.4f}: {ms / lib:.3f}x, GEMM alone "
+                f"{gemm / lib:.3f}x")
+            a8b[f"M={m}"] = row
+        else:
+            rows.append(row)
 
     # W8A8: the 8B lm_head at M = 64 (525 MB of weight: two copies)
     n, k = VOCAB8, 4096
@@ -2152,7 +2320,7 @@ def phase_timings_8b(serving):
                     f"plain {row['plain_ms']:.4f} ms, library "
                     f"{row['library_ms']}")
 
-    for r in rows:
+    for r in rows + list(a8b.values()):
         counts = {run: res["counts"][r["name"]]
                   for run, res in serving.items()}
         steps = {run: res.get("per_step", {}).get(r["name"])
@@ -2161,7 +2329,40 @@ def phase_timings_8b(serving):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}; launches "
             f"per decode step {steps}, per serving run {counts}")
-    return rows, prefill, decode
+    return rows, prefill, decode, a8b
+
+
+def a8b_parts_ms(x, ws, s, n, k, group=128):
+    """Device ms of B2's two passes on their own at ``a8b_plan``'s plan:
+    the row-quantize pass of x, and the GEMM from the quantized rows over
+    the packed weight copies ``ws`` (L2 cold). Returns (quantize ms, GEMM
+    ms)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import _build
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    lib = _build.load()
+    m = x.shape[0]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    splits, per = w4.a8b_plan(m, n, k)
+
+    def quantize():
+        _build.check(lib.ct_w4a16_a8b_quantize(
+            x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
+            torch.cuda.current_stream().cuda_stream), "a8b quantize")
+
+    def gemm(w):
+        _build.check(lib.ct_w4a16_a8b_gemm(
+            xq.data_ptr(), xs.data_ptr(), w.data_ptr(), s.data_ptr(), None,
+            y.data_ptr(), m, n, k, group, splits, per,
+            torch.cuda.current_stream().cuda_stream), "a8b gemm")
+
+    tq = device_ms([quantize] * 8)
+    tg = device_ms([lambda w=w: gemm(w) for w in ws])
+    return tq, tg
 
 
 def w8a8_parts_ms(x, ws, s, n, k):
@@ -2424,17 +2625,13 @@ def phase_fp8():
 
 def phase_timings_fp8():
     """Per-kernel time of the FP8 path's kernels at Llama-3-8B shapes:
-    fp8 W8A8 (the four linears of one layer at M = 64 and 512), and the
-    scaled block, flash and paged decode on fp8 and int8 caches (one
-    layer, rotating over the 32); bound, plain, library. Returns
-    {kernel name: {cache or M: row}}."""
+    fp8 W8A8 (the four linears of one layer at M = 64 and 512), the block
+    decode on bf16, fp8 and int8 caches, and the scaled flash and paged
+    decode on fp8 and int8 caches (one layer, rotating over the 32);
+    bound, plain, library. Returns {kernel name: {cache or M: row}}."""
     import torch
-    import torch.nn.functional as F
 
-    from compressed_tensors_tpu_torch.ops.kernels import (
-        decode_attention as da,
-        w8a8_matmul as w8,
-    )
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(6)
@@ -2488,6 +2685,12 @@ def phase_timings_fp8():
             "beforehand, beside gemm_ms")
 
     q, nk, nv = (dev_randn(gen, BATCH, h, D8) for h in (H8, KVH8, KVH8))
+    # block decode: greedy_generate's (32, 64, 8, 192, 128) cache at
+    # lengths 128-159, in bf16 too
+    lens_np = rng.integers(PROMPT, PROMPT + NEW_TOKENS, BATCH).astype(np.int32)
+    rows["decode_attention"] = {"8B bf16": block_decode_row(
+        q, nk, nv, lambda shape: dev_randn(gen, *shape), lens_np, None,
+        None, lambda c: c, "8B bf16 cache")}
     for name in ("decode_attention_scaled", "flash_decode_attention_scaled",
                  "paged_decode_attention_scaled"):
         rows[name] = {}
@@ -2501,38 +2704,8 @@ def phase_timings_fp8():
         def widen(c, sc=sc):  # the cache dequantized to bf16
             return (c.float() * sc).to(torch.bfloat16)
 
-        # block decode: greedy_generate's (32, 64, 8, 192, 128) cache at
-        # lengths 128-159
-        s_pad = 192
-        lens_np = rng.integers(PROMPT, PROMPT + NEW_TOKENS, BATCH).astype(
-            np.int32)
-        lengths = torch.from_numpy(lens_np).to(dev)
-        ck, cv = (make((L8, BATCH, KVH8, s_pad, D8)) for _ in range(2))
-        t = device_ms([lambda i=i: da.decode_attention(
-            q, nk, nv, ck, cv, lengths, layer=i, k_scale=ks, v_scale=vs)
-            for i in range(L8)])
-        tp = eager_ms(lambda: da.decode_attention_plain(
-            q, nk, nv, ck, cv, lengths, layer=0, k_scale=ks, v_scale=vs))
-        mask = (torch.arange(s_pad, device=dev)[None, :]
-                <= lengths[:, None])[:, None, None, :]
-        keys = [widen(ck[i]) for i in range(4)] * (L8 // 4)
-        values = [widen(cv[i]) for i in range(4)] * (L8 // 4)
-        try:
-            tl = device_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
-                q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)
-                for k, v in zip(keys, values)])
-        except (RuntimeError, TypeError) as exc:
-            log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
-            tl = None
-        live = int((lens_np + 1).sum())
-        bm, by = bound(2 * live * KVH8 * D8
-                       + (q.numel() + 2 * nk.numel()) * 2 * 2,
-                       4 * H8 * D8 * live, PEAK_BF16)
-        rows["decode_attention_scaled"][cache] = dict(
-            ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
-            shapes=f"8B {cache} cache (32, 64, 8, 192, 128), one layer, "
-            "lengths 128-159; library: SDPA over the cache in bf16")
-        del ck, cv, keys, values
+        rows["decode_attention_scaled"][cache] = block_decode_row(
+            q, nk, nv, make, lens_np, ks, vs, widen, f"8B {cache} cache")
 
         for name, row in time_serving_decode(
                 rng, q, nk, nv, make, f"8B {cache} cache", ks, vs,
@@ -2545,6 +2718,48 @@ def phase_timings_fp8():
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
     return rows
+
+
+def block_decode_row(q, nk, nv, make, lens_np, ks, vs, widen, label):
+    """B5's device ms on one layer of greedy_generate's 8B cache (32, 64, 8,
+    192, 128) made by ``make`` at lengths ``lens_np``, the calls walking the
+    32 layers, beside its bound (the live cache bytes once, q, the new rows
+    and the output), its plain version and SDPA with GQA over the cache
+    widened to bf16 (``widen``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+    )
+
+    s_pad = 192
+    lengths = torch.from_numpy(lens_np).to(q.device)
+    ck, cv = (make((L8, BATCH, KVH8, s_pad, D8)) for _ in range(2))
+    t = device_ms([lambda i=i: da.decode_attention(
+        q, nk, nv, ck, cv, lengths, layer=i, k_scale=ks, v_scale=vs)
+        for i in range(L8)])
+    tp = eager_ms(lambda: da.decode_attention_plain(
+        q, nk, nv, ck, cv, lengths, layer=0, k_scale=ks, v_scale=vs))
+    mask = (torch.arange(s_pad, device=q.device)[None, :]
+            <= lengths[:, None])[:, None, None, :]
+    keys = [widen(ck[i]) for i in range(4)] * (L8 // 4)
+    values = [widen(cv[i]) for i in range(4)] * (L8 // 4)
+    try:
+        tl = device_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)
+            for k, v in zip(keys, values)])
+    except (RuntimeError, TypeError) as exc:
+        log(f"scaled_dot_product_attention with GQA unavailable: {exc}")
+        tl = None
+    live = int((lens_np + 1).sum())
+    bm, by = bound(2 * live * KVH8 * D8 * ck.element_size()
+                   + (q.numel() + 2 * nk.numel()) * 2 * 2,
+                   4 * H8 * D8 * live, PEAK_BF16)
+    del ck, cv, keys, values
+    return dict(ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
+                shapes=f"{label} (32, 64, 8, 192, 128), one layer, lengths "
+                "128-159; library: SDPA over the cache in bf16")
 
 
 # --------------------------------------------------------------------- #
@@ -3413,6 +3628,8 @@ KERNEL_META = {
 # the main variant of kernels timed in several (the others go under
 # "variants"); the scaled decode kernels' main variant is the fp8 cache
 MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
+                "w4a16_a8b_matmul": f"M={M_CHUNK}",
+                "decode_attention": "TinyLlama",
                 "flash_decode_attention": "8B", "paged_decode_attention": "8B",
                 "w4a16_fp4_matmul": "nvfp4 M=64", "w4_e8_matmul": "w8a16 M=64",
                 "w4a16_planes_int4": "M=64", "w4a16_planes_a8": "M=64",
@@ -3479,7 +3696,7 @@ def main() -> int:
     log(f"phases 3-4 (TinyLlama) done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving()
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
-    rows_8b, prefill, decode = phase_timings_8b(serving)
+    rows_8b, prefill, decode, a8b = phase_timings_8b(serving)
     prefill["TinyLlama B=64 S=128"] = next(
         r for r in rows if r["name"] == "prefill_attention")
     rows += rows_8b
@@ -3488,6 +3705,9 @@ def main() -> int:
     variant_rows = phase_timings_fp8()
     variant_rows["prefill_attention"] = prefill
     variant_rows.update(decode)
+    variant_rows["w4a16_a8b_matmul"] = a8b
+    variant_rows["decode_attention"]["TinyLlama"] = next(
+        r for r in rows if r["name"] == "decode_attention")
     log(f"FP8 timings done at {time.perf_counter() - t_start:.1f} s")
     nvfp4 = phase_nvfp4(errs)
     log(f"phase 7 (NVFP4) done at {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,8 @@
 // mma.sync wrappers, ldmatrix, cp.async copies, the wgmma descriptor,
 // fences and waits over 128-byte-swizzled tiles, the cluster launch, the
 // split-K reduction, warp reductions, the int8 row quantizer of the a8b /
-// a8 modes, fp8 e4m3 conversions and the KV cache element types.
+// a8 modes, fp8 e4m3 conversions, the KV cache element types and the
+// decode-attention fragments of the block, flash and paged decode kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,6 +79,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+// 4-byte global -> shared copy; src_bytes == 0 writes a 0
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const uint32_t s = smem_addr(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(gmem), "r"(src_bytes));
 }
 
@@ -223,34 +232,89 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Per-row int8 quantization of bf16 x (one block per row), the activation
-// pass of modes a8b and a8: scale = max(absmax, 1e-8) / 127 and q =
-// clip(rint(x / scale), -127, 127), with IEEE division and round half to
-// even, as the TPU kernel quantizes (w4a16_matmul.py:579-590).
-static __global__ void quantize_rows_a8b_kernel(const __nv_bfloat16* __restrict__ x,
-                                                int8_t* __restrict__ xq,
-                                                float* __restrict__ xs, int K) {
-  const int row = blockIdx.x;
+// Per-row int8 quantization of bf16 x, the activation pass of modes a8b
+// and a8: scale = max(absmax, 1e-8) / 127 and q = clip(rint(x / scale),
+// -127, 127), with IEEE division and round half to even, as the TPU kernel
+// quantizes (w4a16_matmul.py:579-590). One block of A8B_QTHREADS a row
+// reads the row once in 16-byte loads and keeps up to A8B_QHELD of them a
+// thread (K <= 16384) in registers between the absmax and the codes
+// (longer rows read the rest again), 8 codes a store; a row that is not
+// 16-byte aligned takes 2-byte loads and reads itself twice.
+constexpr int A8B_QTHREADS = 256, A8B_QHELD = 8;
+
+__device__ __forceinline__ float absmax_bf16x8(uint4 u, float a) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    a = fmaxf(a, fmaxf(fabsf(f.x), fabsf(f.y)));
+  }
+  return a;
+}
+
+__device__ __forceinline__ int8_t quantize_a8b(float x, float scale) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(x / scale), -127.f), 127.f));
+}
+
+__device__ __forceinline__ uint2 quantize_a8b_x8(uint4 u, float scale) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  uint32_t q[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    q[j >> 1] |= (static_cast<uint32_t>(static_cast<uint8_t>(quantize_a8b(f.x, scale)))
+                  | static_cast<uint32_t>(static_cast<uint8_t>(quantize_a8b(f.y, scale))) << 8)
+                 << (16 * (j & 1));
+  }
+  return make_uint2(q[0], q[1]);
+}
+
+static __global__ void __launch_bounds__(A8B_QTHREADS)
+quantize_rows_a8b_kernel(const __nv_bfloat16* __restrict__ x,
+                         int8_t* __restrict__ xq, float* __restrict__ xs,
+                         int K) {
+  const int row = blockIdx.x, tid = threadIdx.x;
   const __nv_bfloat16* xr = x + (size_t)row * K;
+  int8_t* qr = xq + (size_t)row * K;
+  const bool vec = !(K & 7) && !(reinterpret_cast<uintptr_t>(xr) & 15) &&
+                   !(reinterpret_cast<uintptr_t>(qr) & 7);
+  const int nch = vec ? K / 8 : 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(xr);
+  uint4 v[A8B_QHELD];
   float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
-    amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
-  __shared__ float red[32];
+#pragma unroll
+  for (int i = 0; i < A8B_QHELD; ++i) {
+    const int c = tid + i * A8B_QTHREADS;
+    if (c < nch) {
+      v[i] = xv[c];
+      amax = absmax_bf16x8(v[i], amax);
+    }
+  }
+  for (int c = tid + A8B_QHELD * A8B_QTHREADS; c < nch; c += A8B_QTHREADS)
+    amax = absmax_bf16x8(xv[c], amax);
+  if (!vec)
+    for (int i = tid; i < K; i += A8B_QTHREADS)
+      amax = fmaxf(amax, fabsf(__bfloat162float(xr[i])));
+  __shared__ float red[A8B_QTHREADS / 32];
   amax = warp_max(amax);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  if ((tid & 31) == 0) red[tid >> 5] = amax;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    float v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
-    v = warp_max(v);
-    if (threadIdx.x == 0) red[0] = v;
+  float m = red[0];
+#pragma unroll
+  for (int i = 1; i < A8B_QTHREADS / 32; ++i) m = fmaxf(m, red[i]);
+  const float scale = fmaxf(m, 1e-8f) / 127.f;
+  uint2* out = reinterpret_cast<uint2*>(qr);
+#pragma unroll
+  for (int i = 0; i < A8B_QHELD; ++i) {
+    const int c = tid + i * A8B_QTHREADS;
+    if (c < nch) out[c] = quantize_a8b_x8(v[i], scale);
   }
-  __syncthreads();
-  const float scale = fmaxf(red[0], 1e-8f) / 127.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    const float q = rintf(__bfloat162float(xr[i]) / scale);
-    xq[(size_t)row * K + i] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
-  }
-  if (threadIdx.x == 0) xs[row] = scale;
+  for (int c = tid + A8B_QHELD * A8B_QTHREADS; c < nch; c += A8B_QTHREADS)
+    out[c] = quantize_a8b_x8(xv[c], scale);
+  if (!vec)
+    for (int i = tid; i < K; i += A8B_QTHREADS)
+      qr[i] = quantize_a8b(__bfloat162float(xr[i]), scale);
+  if (tid == 0) xs[row] = scale;
 }
 
 // KV cache element types of the decode kernels. A bf16 cache holds the
@@ -315,5 +379,124 @@ template <> struct Cache<kCacheInt8> {
     return *reinterpret_cast<uint32_t*>(&d);
   }
 };
+
+// ---- decode attention on mma.sync (block decode, flash / paged decode) //
+// The query heads of a kv group, padded to 16, are the A rows of mma.sync
+// m16n8k16 bf16. A tile holds cached positions as rows of the cache's own
+// bytes (bf16, e4m3 or int8) at a stride of RB bytes; a warp takes 16
+// positions of it: S = Q K^T with K by ldmatrix, P V with V by
+// ldmatrix.trans. 8-bit tiles reach the mma through b16 ldmatrix and are
+// widened to bf16 in registers (exact): a K register holds bytes 4t ..
+// 4t + 3 of a row, fed as k indices 2t, 2t + 1, 2t + 8, 2t + 9 (q is
+// staged in that order, decode_q_col); a V register from ldmatrix.trans
+// holds two positions of two columns, split by a byte permute into an even
+// and an odd output column (decode_o_col).
+
+// bytes 0 and 2 (even) or 1 and 3 (odd) of a register into its low half
+__device__ __forceinline__ uint32_t bytes02(uint32_t r) { return __byte_perm(r, 0, 0x0020); }
+__device__ __forceinline__ uint32_t bytes13(uint32_t r) { return __byte_perm(r, 0, 0x0031); }
+
+// the column of q's element d in its staged bf16 row
+template <bool RAW>
+__device__ __forceinline__ int decode_q_col(int d) {
+  const int e = d & 15;
+  return RAW ? (d & ~15) + (e & 2) * 4 + (e >> 2) * 2 + (e & 1) : d;
+}
+
+// the output column of o[i][e & 1] (rows g for e < 2, g + 8 above)
+template <bool RAW>
+__device__ __forceinline__ int decode_o_col(int i, int e, int t) {
+  return RAW ? 32 * (i >> 2) + 16 * ((i >> 1) & 1) + 4 * t + (i & 1) + 2 * (e & 1)
+             : i * 8 + 2 * t + (e & 1);
+}
+
+// the Q fragments of the 16 staged rows (row stride RS bf16)
+template <int D>
+__device__ __forceinline__ void decode_q_frags(uint32_t (&qf)[D / 16][4],
+                                               const __nv_bfloat16* qs, int RS,
+                                               int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], qs + ((mi & 1) * 8 + (lane & 7)) * RS + (mi >> 1) * 8 + kk * 16);
+}
+
+// s[j] += q . k of rows g, g + 8 and positions r0 + 8 j + 2 t, + 1 of
+// the K tile at `tile` (row stride RB bytes)
+template <int D, int KIND>
+__device__ __forceinline__ void decode_score16(float (&s)[2][4],
+                                               const uint32_t (&qf)[D / 16][4],
+                                               const unsigned char* tile, int RB,
+                                               int r0, int lane) {
+  using C = Cache<KIND>;
+  const int mi = lane >> 3;
+  if constexpr (KIND != kCacheBF16) {
+    // matrices: positions 0-7 / 8-15 of the warp's 16 by bytes 32 c .. + 15
+    // / + 16 .. + 31; a lane's register holds bytes 4t .. 4t + 3 of its row
+    const unsigned char* kbase = tile + (r0 + (mi & 1) * 8 + (lane & 7)) * RB + (mi >> 1) * 16;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) {
+      uint32_t r[4];
+      ldmatrix_x4(r, kbase + c * 32);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t bf[2] = {C::widen2(r[2 * h + j] & 0xffffu),
+                                  C::widen2(r[2 * h + j] >> 16)};
+          mma_bf16_16816(s[j], qf[2 * c + h], bf);
+        }
+      }
+    }
+  } else {
+    const unsigned char* kbase = tile + (r0 + (mi >> 1) * 8 + (lane & 7)) * RB + (mi & 1) * 16;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, kbase + kk * 32);
+      mma_bf16_16816(s[0], qf[kk], bf);
+      mma_bf16_16816(s[1], qf[kk], bf + 2);
+    }
+  }
+}
+
+// o += P . V over positions r0 .. r0 + 15 of the V tile at `tile` (row
+// stride RB bytes); pf: P as the bf16 A fragment of those positions. On
+// 8-bit tiles o[4c + 2h + u] holds columns 32 c + 16 h + 2n + u.
+template <int D, int KIND>
+__device__ __forceinline__ void decode_pv16(float (&o)[D / 8][4], const uint32_t (&pf)[4],
+                                            const unsigned char* tile, int RB, int r0,
+                                            int lane) {
+  using C = Cache<KIND>;
+  const int mi = lane >> 3;
+  const unsigned char* vbase = tile + (r0 + (mi & 1) * 8 + (lane & 7)) * RB + (mi >> 1) * 16;
+  if constexpr (KIND != kCacheBF16) {
+    // transposed matrices as for K: a lane's register holds elements 2g,
+    // 2g + 1 of positions 2t, 2t + 1. Bytes 0, 2 are output column 2g,
+    // bytes 1, 3 column 2g + 1.
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vbase + c * 32);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t ev[2] = {C::widen2(bytes02(r[2 * h])),
+                                C::widen2(bytes02(r[2 * h + 1]))};
+        const uint32_t od[2] = {C::widen2(bytes13(r[2 * h])),
+                                C::widen2(bytes13(r[2 * h + 1]))};
+        mma_bf16_16816(o[4 * c + 2 * h], pf, ev);
+        mma_bf16_16816(o[4 * c + 2 * h + 1], pf, od);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D / 8; i += 2) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, vbase + i * 16);
+      mma_bf16_16816(o[i], pf, bf);
+      mma_bf16_16816(o[i + 1], pf, bf + 2);
+    }
+  }
+}
 
 }  // namespace ct

@@ -73,10 +73,6 @@ struct Cfg {
   static constexpr size_t SMEM = MAIN > MERGE ? MAIN : MERGE;
 };
 
-// bytes 0 and 2 (even) or 1 and 3 (odd) of a register into its low half
-__device__ __forceinline__ uint32_t bytes02(uint32_t r) { return __byte_perm(r, 0, 0x0020); }
-__device__ __forceinline__ uint32_t bytes13(uint32_t r) { return __byte_perm(r, 0, 0x0031); }
-
 // three blocks an SM: at most 168 registers (e4m3's widening took 182 and
 // two blocks an SM unbounded; no spill at three)
 template <int D, bool PAGED, int KIND>
@@ -148,9 +144,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
     }
   }
   // q of the group's heads (k_scale folded, rounded to bf16), rows past rep
-  // 0. An 8-bit K fragment comes as 4 consecutive bytes a lane (elements 4t
-  // .. 4t + 3 of a 16-element step), which the mma takes as its k indices
-  // 2t, 2t + 1, 2t + 8, 2t + 9: q's elements sit in that order.
+  // 0, in the order of an 8-bit K fragment's k indices (ct::decode_q_col)
   for (int i = tid; i < QROWS * D; i += THREADS) {
     const int h = i / D, d = i % D;
     float qv = 0.f;
@@ -158,9 +152,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
       qv = __bfloat162float(q[((size_t)b * H + kvh * rep + h) * D + d]);
       if (C::kScaled) qv = __bfloat162float(__float2bfloat16(qv * sk));
     }
-    const int e = d & 15;
-    const int col = G::kRaw ? (d & ~15) + (e & 2) * 4 + (e >> 2) * 2 + (e & 1) : d;
-    qs[h * RS + col] = __float2bfloat16(qv);
+    qs[h * RS + ct::decode_q_col<G::kRaw>(d)] = __float2bfloat16(qv);
   }
 
   // tile tt's copies into stage st: cached positions only (positions past
@@ -197,7 +189,6 @@ split_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
   };
 
   // Q fragments (16 rows x D)
-  const int mi = lane >> 3;
   const int g = lane >> 2, t = lane & 3;
   uint32_t qf[D / 16][4];
   float o[D / 8][4];
@@ -220,12 +211,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
     __syncthreads();  // tile tt visible; every warp is done with tile tt - 1
     if (tt + NST - 1 < t1) load_tile((st + NST - 1) % NST, tt + NST - 1);
     ct::cp_async_commit();
-    if (tt == t0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ct::ldmatrix_x4(qf[kk], qs + ((mi & 1) * 8 + (lane & 7)) * RS + (mi >> 1) * 8 +
-                                    kk * 16);
-    }
+    if (tt == t0) ct::decode_q_frags<D>(qf, qs, RS, lane);
 
     // this warp's 16 positions of the tile
     const int w0 = tt * TILE + warp * 16;
@@ -235,37 +221,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if constexpr (G::kRaw) {
-      // matrices: positions 0-7 / 8-15 of the warp's 16 by bytes 32 c .. + 15
-      // / + 16 .. + 31; a lane's register holds bytes 4t .. 4t + 3 of its row
-      const unsigned char* kbase =
-          base + (warp * 16 + (mi & 1) * 8 + (lane & 7)) * RB + (mi >> 1) * 16;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        uint32_t r[4];
-        ct::ldmatrix_x4(r, kbase + c * 32);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const uint32_t bf[2] = {C::widen2(r[2 * h + j] & 0xffffu),
-                                    C::widen2(r[2 * h + j] >> 16)};
-            ct::mma_bf16_16816(s[j], qf[2 * c + h], bf);
-          }
-        }
-      }
-    } else {
-      const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(base);
-      const __nv_bfloat16* kbase =
-          kb + (warp * 16 + (mi >> 1) * 8 + (lane & 7)) * RS + (mi & 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bf[4];
-        ct::ldmatrix_x4(bf, kbase + kk * 16);
-        ct::mma_bf16_16816(s[0], qf[kk], bf);
-        ct::mma_bf16_16816(s[1], qf[kk], bf + 2);
-      }
-    }
+    ct::decode_score16<D, KIND>(s, qf, base, RB, warp * 16, lane);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int pos = w0 + j * 8 + 2 * t;
@@ -311,39 +267,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
       pf[2 * j] = ct::pack_bf16x2(p0_, p1_);
       pf[2 * j + 1] = ct::pack_bf16x2(p2_, p3_);
     }
-    if constexpr (G::kRaw) {
-      // transposed matrices as for K: a lane's register holds elements 2g,
-      // 2g + 1 of positions 2t, 2t + 1. Bytes 0, 2 are output column 2g, bytes
-      // 1, 3 column 2g + 1: o[4c + 2h + u] holds columns 32 c + 16 h + 2n + u.
-      const unsigned char* vbase = base + G::TILE_BYTES +
-                                   (warp * 16 + (mi & 1) * 8 + (lane & 7)) * RB +
-                                   (mi >> 1) * 16;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        uint32_t r[4];
-        ct::ldmatrix_x4_trans(r, vbase + c * 32);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t ev[2] = {C::widen2(bytes02(r[2 * h])),
-                                  C::widen2(bytes02(r[2 * h + 1]))};
-          const uint32_t od[2] = {C::widen2(bytes13(r[2 * h])),
-                                  C::widen2(bytes13(r[2 * h + 1]))};
-          ct::mma_bf16_16816(o[4 * c + 2 * h], pf, ev);
-          ct::mma_bf16_16816(o[4 * c + 2 * h + 1], pf, od);
-        }
-      }
-    } else {
-      const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(base + G::TILE_BYTES);
-      const __nv_bfloat16* vbase =
-          vb + (warp * 16 + (mi & 1) * 8 + (lane & 7)) * RS + (mi >> 1) * 8;
-#pragma unroll
-      for (int i = 0; i < D / 8; i += 2) {
-        uint32_t bf[4];
-        ct::ldmatrix_x4_trans(bf, vbase + i * 8);
-        ct::mma_bf16_16816(o[i], pf, bf);
-        ct::mma_bf16_16816(o[i + 1], pf, bf + 2);
-      }
-    }
+    ct::decode_pv16<D, KIND>(o, pf, base + G::TILE_BYTES, RB, warp * 16, lane);
   }
 
   // merge the 4 warps' states in shared memory (the ring is free)

@@ -469,7 +469,7 @@ extern "C" int ct_w4a16_planes_a8(const void* x, const void* w,
                                   int N, int Kx, int K, int g, int splits,
                                   int tiles_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ct::quantize_rows_a8b_kernel<<<M, 256, 0, s>>>(
+  ct::quantize_rows_a8b_kernel<<<M, ct::A8B_QTHREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
       static_cast<float*>(xs), Kx);
   return launch_planes<kA8>(xq, xs, w, scales, zp, y, partial, M, N, Kx, K, g,

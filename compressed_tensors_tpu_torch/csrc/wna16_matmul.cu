@@ -74,6 +74,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using ct::cp_async4;
 using ct::fence_async_smem;
 using ct::fence_regs;
 using ct::launch;
@@ -91,13 +92,6 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t d;
   asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
   return d;
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          int src_bytes) {
-  const uint32_t s = ct::smem_addr(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
 }
 
 // Eight E2M1 codes (byte j holds the codes of two adjacent k, the even one

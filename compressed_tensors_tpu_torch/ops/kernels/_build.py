@@ -34,7 +34,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ct_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ct_w4a16_a8b_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ct_w4a16_a8b_matmul": [_P] * 7 + [_I] * 6 + [_P],
+    "ct_w4a16_a8b_quantize": [_P] * 3 + [_I] * 2 + [_P],
+    "ct_w4a16_a8b_gemm": [_P] * 6 + [_I] * 6 + [_P],
     "ct_w4a16_fp4_matmul": [_P] * 4 + [_I] * 7 + [_P],
     "ct_w4_e8_matmul": [_P] * 4 + [_I] * 7 + [_P],
     "ct_w4a16_planes_int4": [_P] * 6 + [_I] * 7 + [_P],
@@ -45,7 +47,7 @@ _SIGNATURES = {
     "ct_w8a8_quantize": [_P] * 3 + [_I] * 3 + [_P],
     "ct_w8a8_gemm": [_P] * 5 + [_I] * 7 + [_P],
     "ct_prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "ct_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ct_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     "ct_flash_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
     "ct_paged_decode": [_P] * 12 + [_I] * 11 + [_F, _P],
 }

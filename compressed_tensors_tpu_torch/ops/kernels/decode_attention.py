@@ -5,10 +5,14 @@ decode_attention`` with the hand-written Hopper kernel in
 ``csrc/decode_attention.cu``: one block per (kv head, batch row) writes the
 step's K/V row in place at ``lengths[b]`` (rows with a negative length are
 left untouched), then attends the group's query heads over positions
-0..lengths[b] in f32, with the normalized probabilities rounded to q's
-dtype before P.V as in the TPU kernel. The cache is (L, B, KVH, S_pad, D):
-no lane padding of D and no head packing, which the TPU layout needed for
-Mosaic's (8, 128) tiles.
+0..lengths[b] on the tensor cores, with the probabilities normalized by
+each head's exact max and sum and rounded to q's dtype before P.V as in
+the TPU kernel. ``block_decode_form`` picks how: up to ``SCORE_POSITIONS``
+positions the scores stay in shared memory and K and V are read once
+("scores"); longer rows recompute the scores in a second pass over K
+("recompute"). The cache is (L, B, KVH, S_pad, D): no lane padding of D
+and no head packing, which the TPU layout needed for Mosaic's (8, 128)
+tiles.
 
 The cache tensors are updated in place, by the kernel and by the plain
 version alike; the function returns them for the JAX package's (out,
@@ -39,10 +43,22 @@ import torch
 from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "block_decode_form", "SCORE_POSITIONS"]
 
 # cache element type -> ct::CacheKind of csrc/common.cuh
 _CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
+# the longest cache whose f32 scores (16 heads) the kernel keeps in shared
+# memory: every cache that decode_attn="auto" sends here (S_pad < 512)
+SCORE_POSITIONS = 512
+
+
+def block_decode_form(s_pad: int) -> str:
+    """The block decode kernel's form for a cache of ``s_pad`` positions:
+    "scores" (the scores in shared memory, K and V each read once) up to
+    ``SCORE_POSITIONS``, else "recompute" (the scores formed again in a
+    second pass over K)."""
+    return "scores" if s_pad <= SCORE_POSITIONS else "recompute"
 
 
 def _layer_views(cache_k, cache_v, layer):
@@ -191,7 +207,8 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), ks.data_ptr() if scaled else None,
             vs.data_ptr() if scaled else None, B, KVH, rep, S_pad, D, layer,
-            kind, stride, 1.0 / math.sqrt(D),
+            kind, stride, int(block_decode_form(S_pad) == "scores"),
+            1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     if scaled:

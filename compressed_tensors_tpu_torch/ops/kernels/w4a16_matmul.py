@@ -19,9 +19,11 @@ more SMs (see the source note in the .cu file).
 Mode ``a8b`` (int8 activations, the TPU kernel's mode for prefill row
 counts) is the second entry point of the same source, launched by
 ``w4a16_a8b_matmul``: a row pass quantizes x per token (absmax / 127,
-clip to +-127), then int8 tensor-core group dots sum exactly in int32, each
-group is scaled in f32 and the row's x scale is applied once. Bound: the
-2*M*N*K int8 operations at prefill chunks.
+clip to +-127, one read of the row), then a GEMM on ``wgmma`` over 128 x
+128 tiles decodes each k-tile of the packed words once a block into exact
+int8 values, sums each group exactly in int32, scales it in f32 and
+applies the row's x scale once; K is split over a cluster by ``a8b_plan``.
+Bound: the 2*M*N*K int8 operations at prefill chunks.
 
 Two more wrappers run the layouts without int4 words on the ``wgmma``
 kernels of ``csrc/wna16_matmul.cu``, in the design ``wna16_plan`` picks by
@@ -83,6 +85,7 @@ from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 
 __all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
+           "a8b_plan",
            "quantize_rows_a8b_plain", "w4a16_fp4_matmul",
            "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain",
            "wna16_design", "wna16_plan", "choose_k_tile", "padded_k",
@@ -147,6 +150,28 @@ def _split_k(m: int, n: int, k: int, unit_tiles: int, *, tile_m: int = _TILE,
     want = min(4, max(1, _SMS // blocks), units)
     tiles_per_split = -(-units // want) * unit_tiles
     return -(-tiles // tiles_per_split), tiles_per_split
+
+
+# mode a8b's GEMM (csrc/w4a16_matmul.cu, namespace a8b): 128 x 128 tiles,
+# 128-deep k-tiles, at most 8 blocks of a cluster sharing K
+_A8B_BM = _A8B_BN = _A8B_BK = 128
+
+
+def a8b_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(K splits, k-tiles a split) of mode a8b's GEMM: the split with the
+    least estimated time, the number of waves of 128 x 128 blocks (one an
+    SM) times a block's 128-deep k-tiles plus 4 for its pipeline's fill
+    and its epilogue, the fewer splits on a tie; then as many blocks as
+    its k-tiles per block leave none empty."""
+    tiles = -(-k // _A8B_BK)
+    blocks = -(-n // _A8B_BN) * -(-m // _A8B_BM)
+
+    def cost(s):
+        return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
+
+    split = min((s for s in (1, 2, 4, 8) if s <= tiles), key=cost)
+    per = -(-tiles // split)
+    return -(-tiles // per), per
 
 
 def _check(x, w_packed, scales, zp, n, k, group_size):
@@ -237,12 +262,17 @@ def w4a16_a8b_matmul(x: torch.Tensor, w_packed: torch.Tensor,
             or xq.device != x.device or xs.device != x.device):
         raise ValueError("a8b scratch must be (M, K) int8 and (M,) f32, "
                          "contiguous on x's device")
+    if w_packed.data_ptr() % 16 or xq.data_ptr() % 16:
+        raise ValueError("a8b kernel copies the packed weight and the "
+                         "quantized rows 16 bytes at a time: both must be "
+                         "16-byte aligned")
+    splits, per = a8b_plan(m, n, k)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.ct_w4a16_a8b_matmul(
             x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
             zp.data_ptr() if zp is not None else None, y.data_ptr(),
-            xq.data_ptr(), xs.data_ptr(), m, n, k, group_size,
+            xq.data_ptr(), xs.data_ptr(), m, n, k, group_size, splits, per,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "w4a16_a8b_matmul")
     w4a16_a8b_matmul.launches += 1

@@ -23,6 +23,8 @@ from compressed_tensors_tpu.ops.kernels.prefill_attention import (
 )
 
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
+    SCORE_POSITIONS,
+    block_decode_form,
     decode_attention,
 )
 from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
@@ -322,6 +324,16 @@ def test_paged_decode_split_order_matches_jax(cache, split):
     atol = ATOL if cache == "f32" else ATOL * np.abs(got.numpy()).max()
     np.testing.assert_allclose(got.numpy()[active],
                                np.asarray(out_j)[active], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("s_pad", [1, 64, 192, 511, 512, 513, 700, 2048])
+def test_block_decode_form(s_pad):
+    """The block decode kernel keeps the scores in shared memory up to
+    SCORE_POSITIONS positions (every cache decode_attn="auto" sends it:
+    S_pad < 512) and recomputes them in a second pass over K above."""
+    form = block_decode_form(s_pad)
+    assert form == ("scores" if s_pad <= SCORE_POSITIONS else "recompute")
+    assert SCORE_POSITIONS >= 511
 
 
 @pytest.mark.parametrize("itemsize", [2, 1])

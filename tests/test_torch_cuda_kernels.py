@@ -706,3 +706,83 @@ def test_paged_decode_pages_smaller_than_a_tile(dev, page, cache):
     out_d, _, _ = fd.flash_decode_attention(q, nk, nv, dense_k, dense_v,
                                             lengths, k_scale=ks, v_scale=vs)
     assert torch.equal(out[live], out_d[live])
+
+
+# B2 (a8b): decode rows, ragged chunks, N not a multiple of the 128-column
+# tile (198 not of 4 either), groups 64 and 128 and channel-wise (1344: an
+# odd multiple of 64, 10.5 k-tiles cut unevenly by a cluster split), with
+# and without zero points
+A8B_CASES = [(m, n, k, g, asym) for m in (1, 64, 65, 256, 300)
+             for n, k, g, asym in ((200, 1024, 64, False),
+                                   (328, 2048, 128, True),
+                                   (198, 1344, 1344, True),
+                                   (136, 1344, 1344, False))]
+
+
+@pytest.mark.parametrize("m,n,k,g,asym", A8B_CASES)
+def test_a8b_grid(dev, m, n, k, g, asym):
+    rng = np.random.default_rng(m + n)
+    w = torch.from_numpy(rng.integers(-2**31, 2**31, (n, k // 8),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 3e-3, (k // g, n)).astype(
+        np.float32)).to(dev)
+    zp = (torch.from_numpy(rng.integers(-8, 8, (k // g, n)).astype(
+        np.float32)).to(dev) if asym else None)
+    x = _bf16(rng, m, k, device=dev)
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    kw = dict(n=n, k=k, group_size=g)
+    got = w4.w4a16_a8b_matmul(x, w, s, zp, xq=xq, xs=xs, **kw)
+    xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+    assert torch.equal(xq, xq_p) and torch.equal(xs, xs_p)
+    want = w4.w4a16_matmul_plain(x, w, s, zp, mode="a8b",
+                                 out_dtype=torch.float32, **kw)
+    assert _within_a8b_rule(got, want)
+    # the int4b control (no int8 rounding of x) falls outside the rule
+    assert not _within_a8b_rule(
+        w4.w4a16_matmul(x, w, s, zp, mode="int4b", **kw), want)
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.int8], ids=["bf16", "fp8", "int8"])
+@pytest.mark.parametrize("s_pad", [64, 192, 511, 700])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 7, 16])
+def test_block_decode_grid(dev, rep, d, s_pad, cache):
+    """B5 in both forms (S_pad 700: "recompute"), per-tensor and per-head
+    scales: outputs within TOL, inactive rows zero, cache bytes equal to
+    the plain version's and written at lengths[b] only."""
+    rng = np.random.default_rng(rep * d + s_pad)
+    kvh = 2
+    lens = [0, 1, 63, 64, 65, s_pad - 1, -1]
+    B = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = [b for b in range(B) if lens[b] >= 0]
+    q, nk, nv = _decode_operands(rng, dev, B=B, H=kvh * rep, KVH=kvh, D=d)
+    scaled = cache != torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=dev)
+    scales = [(None, None)] if not scaled else [
+        (torch.tensor([0.02], **f32), torch.tensor([0.03], **f32)),
+        (torch.tensor([0.02, 0.015], **f32).reshape(2, 1, 1),
+         torch.tensor([0.03, 0.01], **f32).reshape(2, 1, 1))]
+    counter = "scaled_launches" if scaled else "launches"
+    for ks, vs in scales:
+        shape = (2, B, kvh, s_pad, d)
+        ck, cv = ((_quantized_cache(rng, cache, *shape, device=dev) if scaled
+                   else _bf16(rng, *shape, device=dev)) for _ in range(2))
+        ck0 = ck.clone()
+        ck_p, cv_p = ck.clone(), cv.clone()
+        before = getattr(da.decode_attention, counter)
+        out, _, _ = da.decode_attention(q, nk, nv, ck, cv, lengths, layer=1,
+                                        k_scale=ks, v_scale=vs)
+        assert getattr(da.decode_attention, counter) == before + 1
+        want, _, _ = da.decode_attention_plain(
+            q, nk, nv, ck_p, cv_p, lengths, layer=1, k_scale=ks, v_scale=vs)
+        _close(out[live], want[live])
+        assert not out[B - 1].any()
+        assert _same_bytes(ck, ck_p) and _same_bytes(cv, cv_p)
+        changed = torch.nonzero((ck.view(torch.uint8) != ck0.view(torch.uint8))
+                                .any(-1)).tolist()
+        assert sorted(map(tuple, changed)) == sorted(
+            (1, b, h, lens[b]) for b in live for h in range(kvh)
+            if lens[b] < s_pad)

@@ -30,6 +30,7 @@ from compressed_tensors_tpu.quantization import (
 from compressed_tensors_tpu_torch.flags import flag_overrides
 from compressed_tensors_tpu_torch.ops.fuse import fuse_quantized_tensors
 from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+    a8b_plan,
     w4a16_a8b_matmul,
 )
 from compressed_tensors_tpu_torch.ops.linear import (
@@ -165,6 +166,41 @@ def test_a8b_matches_jax_kernel_and_dispatch(preset):
     with flag_overrides(w4_act="int8"):
         got = quantized_matmul(torch.from_numpy(x), tk)
     _close(got, want)
+
+
+# (M, N, K): the 8B linears at the chunk sizes that select a8b, decode
+# rows under w4_act="int8", ragged N and K (10.5 k-tiles)
+A8B_PLAN_CASES = [(m, n, k) for m in (1, 64, 256, 300, 512, 1024)
+                  for n, k in ((6144, 4096), (4096, 4096), (28672, 4096),
+                               (4096, 14336), (200, 4096), (198, 1344))]
+
+
+@pytest.mark.parametrize("m,n,k", A8B_PLAN_CASES)
+def test_a8b_plan_covers_k(m, n, k):
+    """a8b's K split: a cluster of 1-8 blocks, every block at least one
+    128-deep k-tile and together all of them, no split cheaper by the
+    plan's own estimate (waves of 128 x 128 blocks on 132 SMs times a
+    block's k-tiles plus 4)."""
+    tiles = -(-k // 128)
+    splits, per = a8b_plan(m, n, k)
+    assert 1 <= splits <= 8 and (splits - 1) * per < tiles <= splits * per
+    blocks = -(-n // 128) * -(-m // 128)
+
+    def cost(s):
+        return -(-blocks * s // 132) * (-(-tiles // s) + 4)
+
+    assert cost(-(-tiles // per)) <= min(cost(s) for s in (1, 2, 4, 8)
+                                         if s <= tiles)
+
+
+def test_a8b_plan_at_the_8b_chunk():
+    """At a 512-row chunk of the 8B linears only qkv (192 tiles: 1.5 waves)
+    splits K; at 256 rows the long down_proj (64 tiles) splits too."""
+    shapes = {"qkv": (6144, 4096), "o": (4096, 4096),
+              "gate_up": (28672, 4096), "down": (4096, 14336)}
+    assert {name: a8b_plan(512, n, k)[0] for name, (n, k) in
+            shapes.items()} == {"qkv": 2, "o": 1, "gate_up": 1, "down": 1}
+    assert a8b_plan(256, 4096, 14336)[0] > 1
 
 
 def test_fused_projections_match_members():
