@@ -5,7 +5,10 @@
 
 Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
-the shapes of the main paths. Then it drives seven paths end to end:
+the shapes of the main paths (the W4A16 ``int4b`` kernel also over a grid
+of row counts, widths, depths, groups and K splits that reaches both of
+its designs at every split, by the a8b rule). Then it drives seven paths
+end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
   (W8A8-int lm_head, random weights from a seed), written, loaded with
@@ -327,6 +330,40 @@ def check_a8b(name, x, w, s, zp, n, k):
     return err
 
 
+def int4b_case(x, w, s, zp, n, k, group=128):
+    """One int4b case (mode ``int4b`` of ``w4a16_matmul``) against its plain
+    f32 version: (max|kernel - plain f32|, elements outside the a8b rule,
+    max|plain f32|). Exact integer weights and f32 sums leave the bf16
+    output rounding and the f32 summation order, which the rule allows."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    kw = dict(n=n, k=k, group_size=group)
+    got = w4.w4a16_matmul(x, w, s, zp, **kw).float()
+    want = w4.w4a16_matmul_plain(x, w, s, zp, out_dtype=torch.float32, **kw)
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"int4b M={x.shape[0]} N={n} K={k} g={group}: "
+                             "non-finite output")
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    bad = int((diff > A8B_REL * want.abs() + A8B_ABS * scale).sum())
+    return diff.max().item(), bad, scale
+
+
+def check_int4b(name, x, w, s, zp, n, k, group=128):
+    """int4b against its plain f32 version by the a8b rule (every element
+    within A8B_REL * |y| + A8B_ABS * max|y|); returns max|kernel - plain|."""
+    err, bad, scale = int4b_case(x, w, s, zp, n, k, group)
+    log(f"parity {name}: max_abs_err={err:.6g} max|plain f32|={scale:.6g} "
+        f"rel={err / scale:.3g}; elements outside {A8B_REL:.4g}|y| + "
+        f"{A8B_ABS} max|y|: {bad} of {x.shape[0] * n}")
+    if bad:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at {bad} elements")
+    return err
+
+
 def w4_inputs(rng, n, k, m, device, group=128, asym=False):
     import torch
 
@@ -386,12 +423,16 @@ def phase_device_and_build():
     _build.load()
     log(f"build: {path} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    resources = kernel_resources(_build.ptxas_report(REDESIGNED))
+    serialized = {}
+    resources = kernel_resources(_build.ptxas_report(REDESIGNED, serialized))
+    serialized = kernel_resources(serialized)
     for name, (regs, spill) in resources.items():
-        log(f"resources {name}: {regs} registers, {spill} bytes spilled")
+        log(f"resources {name}: {regs} registers, {spill} bytes spilled"
+            + (f", wgmmas serialized ({', '.join(serialized[name])})"
+               if name in serialized else ""))
     log(f"ptxas report of {', '.join(REDESIGNED)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    return resources
+    return resources, serialized
 
 
 # the sources of the kernels redesigned for Hopper, whose registers and
@@ -421,6 +462,12 @@ def kernel_resources(report):
             rows = f", BM={m.group(3)}" if m.group(3) else ""
             out[f"{name}<{'fp8' if m.group(2) == '1' else 'int8'}{rows}>"] = \
                 value
+            continue
+        m = re.search(r"int4b3(?:dec13decode_kernelILi(\d)EE|pre14prefill_kernel)",
+                      mangled)
+        if m:
+            out["w4a16_int4b_prefill<128 x 192>" if m.group(1) is None else
+                f"w4a16_int4b_decode<BM={16 * int(m.group(1))}>"] = value
             continue
         m = re.search(r"w4a8_kernelILb([01])ELb([01])EE", mangled)
         if m:
@@ -471,7 +518,6 @@ def phase_parity():
     from compressed_tensors_tpu_torch.ops.kernels import (
         decode_attention as da,
         prefill_attention as pa,
-        w4a16_matmul as w4,
         w8a8_matmul as w8,
     )
 
@@ -482,14 +528,11 @@ def phase_parity():
     for name, (n, k) in W4_SHAPES.items():
         for m in (BATCH, BATCH * PROMPT):
             x, w, s, _ = w4_inputs(rng, n, k, m, dev)
-            got = w4.w4a16_matmul(x, w, s, None, n=n, k=k, group_size=128)
-            want = w4.w4a16_matmul_plain(x, w, s, None, n=n, k=k,
-                                         group_size=128)
-            e = max(e, check_close(f"w4a16 {name} M={m}", got, want))
+            e = max(e, check_int4b(f"w4a16 {name} M={m}", x, w, s, None, n,
+                                   k))
     x, w, s, zp = w4_inputs(rng, 2048, 2048, BATCH, dev, asym=True)
-    got = w4.w4a16_matmul(x, w, s, zp, n=2048, k=2048, group_size=128)
-    want = w4.w4a16_matmul_plain(x, w, s, zp, n=2048, k=2048, group_size=128)
-    errs["w4a16_matmul"] = max(e, check_close("w4a16 zero-point", got, want))
+    errs["w4a16_matmul"] = max(e, check_int4b("w4a16 zero-point", x, w, s,
+                                              zp, 2048, 2048))
 
     x = torch.from_numpy(rng.standard_normal((BATCH, 2048), dtype=np.float32)
                          ).to(dev, torch.bfloat16)
@@ -573,6 +616,19 @@ W8A8_GRID = dict(M=(1, 16, 63, 64, 65, 128, 300, 512),
 A8B_GRID = dict(M=(1, 64, 65, 256, 300, 512, 1024),
                 shapes=((200, 4096, 64, False), (328, 14336, 128, True),
                         (198, 1344, 1344, True), (136, 1344, 1344, False)))
+# B1 (int4b) at every row count the paths give (decode rows 1, 7 and 64;
+# 128-row prefill tiles from 65, serving chunks of 255 and 512 rows), N not
+# a multiple of either design's column tile (200) and the TinyLlama and 8B
+# widths, K an odd multiple of 64 (1344) and 14336, groups 64, 128 and
+# channel-wise, with and without zero points; one 8192-row TinyLlama
+# prefill; and N = 200 with K of 1-13 k-tiles at a decode and a prefill
+# row count, which reach every K split the plan can choose in each design
+INT4B_GRID = dict(M=(1, 7, 64, 65, 255, 512),
+                  shapes=((200, 1344, 64, True), (200, 1344, 1344, False),
+                          (2560, 2048, 128, False), (11264, 2048, 128, True),
+                          (4096, 14336, 128, False), (6144, 4096, 4096, True)),
+                  prefill=(8192, 11264, 2048, 128, False),
+                  splits=((7, 65), (200, 64, True), range(1, 14)))
 # B6/B7 on every cache type: lengths 0, 1, 63-65, each side of a split
 # boundary (``SPLIT_TILES`` * 64) and S_pad - 1, an inactive row; the GQA
 # folds of the models and the extremes, both head widths
@@ -592,8 +648,8 @@ BLOCK_DECODE_GRID = dict(rep=(1, 4, 7, 8, 16), D=(64, 128),
 def parity_grids(errs):
     """B4, B10, B8 and B9 against their plain versions over
     ``PREFILL_GRID``, ``PLANES_GRID`` and ``WNA16_GRID`` (B4 within
-    TOL_KERNEL * max|plain| per case, the others by the a8b rule), one
-    summary line per kernel."""
+    TOL_KERNEL * max|plain| per case, the others by the a8b rule), and the
+    grids of B1, B2, B3 and B5-B7, one summary line per kernel."""
     import itertools
 
     import torch
@@ -620,6 +676,7 @@ def parity_grids(errs):
         f"{PREFILL_GRID}): max error {worst:.4g} of max|plain| (limit "
         f"{TOL_KERNEL})")
     parity_grid_w8a8(errs, gen)
+    parity_grid_int4b(errs, gen)
     parity_grid_a8b(errs, gen)
     parity_grid_decode(errs, gen)
     parity_grid_block_decode(errs, gen)
@@ -796,6 +853,54 @@ def parity_grid_a8b(errs, gen):
         "int4b control outside it in every case")
     if seen != {"split", "uneven"}:
         raise AssertionError(f"a8b grid reached only {seen}")
+
+
+def parity_grid_int4b(errs, gen):
+    """B1 (mode int4b) against its plain f32 version over ``INT4B_GRID`` by
+    the a8b rule, each case through the design and K split ``int4b_plan``
+    picks; both designs must be reached at every split the plan can choose
+    (1-8 blocks of a cluster)."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    (ms, (n_s, g_s, zp_s), tiles_s) = INT4B_GRID["splits"]
+    cases = list(itertools.product(INT4B_GRID["shapes"], INT4B_GRID["M"]))
+    cases.append((INT4B_GRID["prefill"][1:], INT4B_GRID["prefill"][0]))
+    cases += [((n_s, 64 * t, g_s, zp_s), m)
+              for t, m in itertools.product(tiles_s, ms)]
+    worst, bad, seen = 0.0, 0, set()
+    for (n, k, g, asym), m in cases:
+        w = torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        s = torch.rand((k // g, n), generator=gen, device="cuda") * 2e-3 \
+            + 1e-3
+        zp = (torch.randint(-8, 8, (k // g, n), generator=gen,
+                            device="cuda").float() if asym else None)
+        x = dev_randn(gen, m, k)
+        err, out, scale = int4b_case(x, w, s, zp, n, k, g)
+        if out:
+            raise AssertionError(
+                f"int4b M={m} N={n} K={k} g={g} zero points {asym}: {out} "
+                "elements outside the a8b rule")
+        errs["w4a16_matmul"] = max(errs.get("w4a16_matmul", 0.0), err)
+        worst, bad = max(worst, err / scale), bad + out
+        _, splits, _ = w4.int4b_plan(m, n, k)
+        seen.add((w4.int4b_design(m), splits))
+        del w, s, zp, x
+    torch.cuda.empty_cache()
+    want = {(design, sp) for design in ("decode", "prefill")
+            for sp in range(1, 9)}
+    log(f"parity w4a16_matmul (int4b) over {len(cases)} cases (M "
+        f"{INT4B_GRID['M']} x (N, K, g, zero points) {INT4B_GRID['shapes']}, "
+        f"M, N, K = {INT4B_GRID['prefill'][:3]}, N = {n_s} with K of 1-13 "
+        f"k-tiles at M {ms}; designs and K splits reached: {sorted(seen)}): "
+        f"{bad} elements outside the a8b rule (max error {worst:.4g} of "
+        "max|plain|)")
+    if not want <= seen:
+        raise AssertionError(f"int4b grid missed {sorted(want - seen)}")
 
 
 def parity_grid_decode(errs, gen):
@@ -1174,7 +1279,6 @@ def phase_parity_8b(errs):
     from compressed_tensors_tpu_torch.ops.kernels import (
         decode_attention as da,
         prefill_attention as pa,
-        w4a16_matmul as w4,
         w8a8_matmul as w8,
     )
 
@@ -1191,11 +1295,10 @@ def phase_parity_8b(errs):
             keep("w4a16_a8b_matmul", check_a8b(
                 f"a8b {name} M={M_CHUNK}{' zero-point' if asym else ''}",
                 x, w, s, zp, n, k))
-        x, w, s, _ = w4_inputs(rng, n, k, BATCH, dev)
-        keep("w4a16_matmul", check_close(
-            f"w4a16 {name} M={BATCH} (8B)",
-            w4.w4a16_matmul(x, w, s, None, n=n, k=k, group_size=128),
-            w4.w4a16_matmul_plain(x, w, s, None, n=n, k=k, group_size=128)))
+        for m in (BATCH, M_CHUNK):
+            x, w, s, _ = w4_inputs(rng, n, k, m, dev)
+            keep("w4a16_matmul", check_int4b(f"w4a16 {name} M={m} (8B)", x,
+                                             w, s, None, n, k))
 
     x = dev_randn(gen, BATCH, 4096)
     wq = torch.from_numpy(rng.integers(-127, 128, size=(VOCAB8, 4096),
@@ -2074,7 +2177,6 @@ def phase_timings(errs, run_counts, per_step):
 
     from compressed_tensors_tpu_torch.ops.kernels import (
         decode_attention as da,
-        w4a16_matmul as w4,
         w8a8_matmul as w8,
     )
 
@@ -2082,43 +2184,11 @@ def phase_timings(errs, run_counts, per_step):
     rng = np.random.default_rng(2)
     rows = []
 
-    # W4A16: the four matmuls of one decoder layer at decode (M = 64)
-    ms = plain = lib = nbytes = ops = 0.0
-    for name, (n, k) in W4_SHAPES.items():
-        x, w, s, _ = w4_inputs(rng, n, k, BATCH, dev)
-        reps = copies_for(n * k // 2)
-        ws = [w.clone() for _ in range(reps)]
-        t = device_ms([lambda w=w: w4.w4a16_matmul(
-            x, w, s, None, n=n, k=k, group_size=128) for w in ws])
-        tp = eager_ms(lambda: w4.w4a16_matmul_plain(x, w, s, None, n=n, k=k,
-                                                    group_size=128))
-        del ws
-        wd = w4._dequantized_weight(w, s, None, n, k, 128).to(torch.bfloat16)
-        wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
-        tl = device_ms([lambda wd=wd: torch.matmul(x, wd.t()) for wd in wds])
-        del wds
-        b = BATCH * k * 2 + n * k // 2 + (k // 128) * n * 4 + BATCH * n * 2
-        bm, by = bound(b, 2 * BATCH * n * k, PEAK_BF16)
-        log(f"time w4a16_matmul {name} M={BATCH}: {t:.4f} ms, bound "
-            f"{bm:.4f} ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
-            f"dequantized bf16 weight {tl:.4f} ms")
-        ms, plain, lib = ms + t, plain + tp, lib + tl
-        nbytes, ops = nbytes + b, ops + 2 * BATCH * n * k
-    for name, (n, k) in W4_SHAPES.items():
-        m = BATCH * PROMPT
-        x, w, s, _ = w4_inputs(rng, n, k, m, dev)
-        wd = w4._dequantized_weight(w, s, None, n, k, 128).to(torch.bfloat16)
-        t = device_ms([lambda: w4.w4a16_matmul(x, w, s, None, n=n, k=k,
-                                               group_size=128)] * 3)
-        tl = device_ms([lambda: torch.matmul(x, wd.t())] * 3)
-        bm, by = bound(m * k * 2 + n * k // 2 + m * n * 2, 2 * m * n * k,
-                       PEAK_BF16)
-        log(f"time w4a16_matmul {name} M={m} (prefill): {t:.4f} ms, bound "
-            f"{bm:.4f} ms ({by}), torch.matmul bf16 {tl:.4f} ms")
-    bm, by = bound(nbytes, ops, PEAK_BF16)
-    rows.append(dict(name="w4a16_matmul", ms=ms, plain_ms=plain,
-                     bound_ms=bm, bound_by=by, library_ms=lib,
-                     shapes="qkv+o+gate_up+down of one layer, M=64"))
+    # W4A16: the four matmuls of one decoder layer at decode (M = 64) and
+    # at the prefill of 64 prompts of 128 tokens (M = 8192)
+    b1 = {f"TinyLlama M={m}": int4b_layer_row(rng, W4_SHAPES, m, "TinyLlama")
+          for m in (BATCH, BATCH * PROMPT)}
+    rows.append(dict(name="w4a16_matmul", **b1[f"TinyLlama M={BATCH}"]))
 
     # W8A8: the lm_head at M = 64 (65 MB of weight: two copies alternate)
     n, k = 32000, 2048
@@ -2186,7 +2256,49 @@ def phase_timings(errs, run_counts, per_step):
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"{per_step[r['name']]} launches per decode step, "
             f"{run_counts[r['name']]} in the greedy_generate run")
-    return rows
+    return rows, b1
+
+
+def int4b_layer_row(rng, shapes, m, label, note=""):
+    """Device ms of B1 (mode int4b) over one layer's four linears at M
+    rows (each linear's weight in copies larger than L2, so each call finds
+    it cold), bound, plain ms, and ``torch.matmul`` on the dequantized bf16
+    weight; one line per linear. Returns the layer's row."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    dev = torch.device("cuda")
+    ms = plain = lib = nbytes = ops = 0.0
+    for lin, (n, k) in shapes.items():
+        x, w, s, _ = w4_inputs(rng, n, k, m, dev)
+        ws = [w.clone() for _ in range(copies_for(n * k // 2))]
+        t = device_ms([lambda w=w: w4.w4a16_matmul(
+            x, w, s, None, n=n, k=k, group_size=128) for w in ws])
+        tp = eager_ms(lambda: w4.w4a16_matmul_plain(
+            x, w, s, None, n=n, k=k, group_size=128), iters=3)
+        del ws
+        wd = w4._dequantized_weight(w, s, None, n, k, 128).to(torch.bfloat16)
+        wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
+        tl = device_ms([lambda wd=wd: torch.matmul(x, wd.t()) for wd in wds])
+        del wds, wd
+        b = m * k * 2 + n * k // 2 + (k // 128) * n * 4 + m * n * 2
+        bm, by = bound(b, 2 * m * n * k, PEAK_BF16)
+        _, splits, per = w4.int4b_plan(m, n, k)
+        log(f"time w4a16_matmul {lin} M={m} ({label}, {w4.int4b_design(m)} "
+            f"design, {splits} split(s) of {per} k-tiles): {t:.4f} ms, bound "
+            f"{bm:.4f} ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
+            f"dequantized bf16 weight {tl:.4f} ms")
+        ms, plain, lib = ms + t, plain + tp, lib + tl
+        nbytes, ops = nbytes + b, ops + 2 * m * n * k
+        torch.cuda.empty_cache()
+    bm, by = bound(nbytes, ops, PEAK_BF16)
+    log(f"w4a16_matmul one {label} layer M={m}: {ms:.4f} ms, bound {bm:.4f} "
+        f"ms ({by}), torch.matmul {lib:.4f} ms: {ms / lib:.3f}x")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bm, bound_by=by,
+                library_ms=lib,
+                shapes=f"qkv+o+gate_up+down of one {label} layer, M={m}{note}; "
+                "library: torch.matmul on the dequantized bf16 weight")
 
 
 def phase_timings_8b(serving):
@@ -2204,28 +2316,30 @@ def phase_timings_8b(serving):
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
 
-    # W4A16 at the 8B widths: int4b at decode (M = 64), a8b at prefill
-    # chunks (M = 512, and 256, the least rows that select it); each row
-    # sums the four linears of one layer, a8b with its two passes timed
-    # apart beside it
+    # W4A16 at the 8B widths: int4b at decode (M = 64) and at a prefill
+    # chunk under w4_act="bf16" (M = 512), a8b at prefill chunks (M = 512,
+    # and 256, the least rows that select it); each row sums the four
+    # linears of one layer, a8b with its two passes timed apart beside it
+    b1 = {f"8B M={BATCH}": int4b_layer_row(rng, W4_SHAPES_8B, BATCH, "8B"),
+          f"8B M={M_CHUNK}": int4b_layer_row(rng, W4_SHAPES_8B, M_CHUNK, "8B",
+                                             " (w4_act=\"bf16\")")}
+    rows.append(dict(name="w4a16_matmul", **b1[f"8B M={BATCH}"]))
     a8b = {}
-    for name, m, mode in (("w4a16_matmul", BATCH, "int4b"),
-                          ("w4a16_a8b_matmul", M_CHUNK, "a8b"),
-                          ("w4a16_a8b_matmul", 256, "a8b")):
+    name = "w4a16_a8b_matmul"
+    for m in (M_CHUNK, 256):
         ms = plain = lib = nbytes = ops = quant = gemm = 0.0
         for lin, (n, k) in W4_SHAPES_8B.items():
             x, w, s, _ = w4_inputs(rng, n, k, m, dev)
             ws = [w.clone() for _ in range(copies_for(n * k // 2))]
             t = device_ms([lambda w=w: w4.w4a16_matmul(
-                x, w, s, None, n=n, k=k, group_size=128, mode=mode)
+                x, w, s, None, n=n, k=k, group_size=128, mode="a8b")
                 for w in ws])
             tp = eager_ms(lambda: w4.w4a16_matmul_plain(
-                x, w, s, None, n=n, k=k, group_size=128, mode=mode), iters=3)
-            parts = ""
-            if mode == "a8b":
-                tq, tg = a8b_parts_ms(x, ws, s, n, k)
-                quant, gemm = quant + tq, gemm + tg
-                parts = f" = quantize pass {tq:.4f} + GEMM {tg:.4f} (each alone)"
+                x, w, s, None, n=n, k=k, group_size=128, mode="a8b"),
+                iters=3)
+            tq, tg = a8b_parts_ms(x, ws, s, n, k)
+            quant, gemm = quant + tq, gemm + tg
+            parts = f" = quantize pass {tq:.4f} + GEMM {tg:.4f} (each alone)"
             del ws
             wd = w4._dequantized_weight(w, s, None, n, k, 128).to(
                 torch.bfloat16)
@@ -2234,29 +2348,24 @@ def phase_timings_8b(serving):
                             for wd in wds])
             del wds, wd
             b = m * k * 2 + n * k // 2 + (k // 128) * n * 4 + m * n * 2
-            peak = PEAK_INT8 if mode == "a8b" else PEAK_BF16
-            bm, by = bound(b, 2 * m * n * k, peak)
+            bm, by = bound(b, 2 * m * n * k, PEAK_INT8)
             log(f"time {name} {lin} M={m} (8B): {t:.4f} ms{parts}, bound "
                 f"{bm:.4f} ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
                 f"dequantized bf16 weight {tl:.4f} ms")
             ms, plain, lib = ms + t, plain + tp, lib + tl
             nbytes, ops = nbytes + b, ops + 2 * m * n * k
-        bm, by = bound(nbytes, ops, PEAK_INT8 if mode == "a8b" else PEAK_BF16)
+        bm, by = bound(nbytes, ops, PEAK_INT8)
         row = dict(name=name, ms=ms, plain_ms=plain, bound_ms=bm,
                    bound_by=by, library_ms=lib,
-                   shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}"
-                   + ("; library: torch.matmul on the dequantized bf16 "
-                      "weight, the nearest single call" if mode == "a8b"
-                      else ""))
-        if mode == "a8b":
-            row.update(quantize_ms=quant, gemm_ms=gemm)
-            log(f"w4a16_a8b_matmul one 8B layer M={m}: {ms:.4f} ms = "
-                f"quantize passes {quant:.4f} + GEMMs {gemm:.4f} (each "
-                f"alone); torch.matmul {lib:.4f}: {ms / lib:.3f}x, GEMM alone "
-                f"{gemm / lib:.3f}x")
-            a8b[f"M={m}"] = row
-        else:
-            rows.append(row)
+                   shapes=f"qkv+o+gate_up+down of one 8B layer, M={m}; "
+                   "library: torch.matmul on the dequantized bf16 weight, "
+                   "the nearest single call")
+        row.update(quantize_ms=quant, gemm_ms=gemm)
+        log(f"w4a16_a8b_matmul one 8B layer M={m}: {ms:.4f} ms = "
+            f"quantize passes {quant:.4f} + GEMMs {gemm:.4f} (each "
+            f"alone); torch.matmul {lib:.4f}: {ms / lib:.3f}x, GEMM alone "
+            f"{gemm / lib:.3f}x")
+        a8b[f"M={m}"] = row
 
     # W8A8: the 8B lm_head at M = 64 (525 MB of weight: two copies)
     n, k = VOCAB8, 4096
@@ -2320,7 +2429,8 @@ def phase_timings_8b(serving):
                     f"plain {row['plain_ms']:.4f} ms, library "
                     f"{row['library_ms']}")
 
-    for r in rows + list(a8b.values()):
+    for r in rows + list(a8b.values()) + [
+            dict(name="w4a16_matmul", **b1[f"8B M={M_CHUNK}"])]:
         counts = {run: res["counts"][r["name"]]
                   for run, res in serving.items()}
         steps = {run: res.get("per_step", {}).get(r["name"])
@@ -2329,7 +2439,7 @@ def phase_timings_8b(serving):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}; launches "
             f"per decode step {steps}, per serving run {counts}")
-    return rows, prefill, decode, a8b
+    return rows, prefill, decode, a8b, b1
 
 
 def a8b_parts_ms(x, ws, s, n, k, group=128):
@@ -3628,6 +3738,7 @@ KERNEL_META = {
 # the main variant of kernels timed in several (the others go under
 # "variants"); the scaled decode kernels' main variant is the fp8 cache
 MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
+                "w4a16_matmul": f"8B M={BATCH}",
                 "w4a16_a8b_matmul": f"M={M_CHUNK}",
                 "decode_attention": "TinyLlama",
                 "flash_decode_attention": "8B", "paged_decode_attention": "8B",
@@ -3638,7 +3749,9 @@ MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
 
 def kernel_report(errs, rows, variant_rows, paths):
     """The kernels line: one entry per kernel, at the newest (8B) shapes
-    where a path runs it: prefill attention at the 8B chunk (the Qwen2.5-7B
+    where a path runs it: B1 (int4b) at decode rows (M = 64; TinyLlama's M
+    = 64 and 8192 and the 8B 512-row chunk under ``variants``), prefill
+    attention at the 8B chunk (the Qwen2.5-7B
     chunk and TinyLlama's prompts under ``variants``), fp8 W8A8 at decode rows (M = 64) with the
     512-row chunk under ``variants``, the scaled decode kernels on the
     fp8 cache with the int8 cache under ``variants``, the fp4 kernel on
@@ -3686,17 +3799,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    resources = phase_device_and_build()
+    resources, serialized = phase_device_and_build()
     errs = phase_parity()
     phase_parity_8b(errs)
     phase_parity_fp8(errs)
     log(f"phases 1-2 done at {time.perf_counter() - t_start:.1f} s")
     e2e = phase_end_to_end()
-    rows = phase_timings(errs, e2e["run_counts"], e2e["per_step"])
+    rows, b1 = phase_timings(errs, e2e["run_counts"], e2e["per_step"])
     log(f"phases 3-4 (TinyLlama) done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving()
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
-    rows_8b, prefill, decode, a8b = phase_timings_8b(serving)
+    rows_8b, prefill, decode, a8b, b1_8b = phase_timings_8b(serving)
     prefill["TinyLlama B=64 S=128"] = next(
         r for r in rows if r["name"] == "prefill_attention")
     rows += rows_8b
@@ -3706,6 +3819,7 @@ def main() -> int:
     variant_rows["prefill_attention"] = prefill
     variant_rows.update(decode)
     variant_rows["w4a16_a8b_matmul"] = a8b
+    variant_rows["w4a16_matmul"] = {**b1_8b, **b1}
     variant_rows["decode_attention"]["TinyLlama"] = next(
         r for r in rows if r["name"] == "decode_attention")
     log(f"FP8 timings done at {time.perf_counter() - t_start:.1f} s")
@@ -3741,7 +3855,8 @@ def main() -> int:
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"registers": {
-        name: {"registers": r, "spill_bytes": b}
+        name: {"registers": r, "spill_bytes": b,
+               "wgmma_serialized": serialized.get(name, [])}
         for name, (r, b) in resources.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

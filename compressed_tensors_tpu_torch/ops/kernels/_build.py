@@ -33,7 +33,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ct_w4a16_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ct_w4a16_matmul": [_P] * 5 + [_I] * 7 + [_P],
     "ct_w4a16_a8b_matmul": [_P] * 7 + [_I] * 6 + [_P],
     "ct_w4a16_a8b_quantize": [_P] * 3 + [_I] * 2 + [_P],
     "ct_w4a16_a8b_gemm": [_P] * 6 + [_I] * 6 + [_P],
@@ -103,11 +103,13 @@ def build(verbose: bool = False) -> Path:
     return lib_path
 
 
-def ptxas_report(sources: tuple[str, ...]) -> dict[str, tuple[int, int]]:
+def ptxas_report(sources: tuple[str, ...], serialized: dict | None = None
+                 ) -> dict[str, tuple[int, int]]:
     """Registers and spill-store bytes of every kernel in ``sources``
     (``csrc`` file names), from ptxas's report of a compile-only build
     (each source by its own nvcc, all at once): {mangled name: (registers,
-    spill bytes)}."""
+    spill bytes)}. A ``serialized`` dict receives {mangled name: [codes]}
+    of ptxas's "wgmma ... serialized" performance warnings (C75xx)."""
     import re
     import tempfile
 
@@ -121,6 +123,9 @@ def ptxas_report(sources: tuple[str, ...]) -> dict[str, tuple[int, int]]:
         outs = [p.communicate()[0] for p in procs]
     report, name = {}, None
     for line in "\n".join(outs).splitlines():
+        m = re.search(r"\((C75\d\d)\).*serialized.*function '([^']+)'", line)
+        if m and serialized is not None:
+            serialized.setdefault(m.group(2), []).append(m.group(1))
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)

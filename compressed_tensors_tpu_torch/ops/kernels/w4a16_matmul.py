@@ -11,10 +11,13 @@ the layout needs no repacking. Group scales (and zero points) are stored
 (K/group, N) f32 so a k-tile reads one contiguous row of them.
 
 Bound on the H100: at decode (M = 64) the packed weight bytes, K*N/2 read
-once; at prefill (M = B*S) the 2*M*N*K bf16 tensor-core operations. The
-kernel keeps the weight packed in device memory and decodes it in shared
-memory, and at small M splits K across blocks so the weight streams on
-more SMs (see the source note in the .cu file).
+once; at prefill (M = B*S) the 2*M*N*K bf16 tensor-core operations.
+``int4b_plan`` picks one of the kernel's two designs by M (see the source
+note in the .cu file), both on ``wgmma`` over each k-tile's words decoded
+once a block into a bf16 tile: decode rows (M <= 64) as y^T = W x^T with
+128 weight rows a block; prefill rows over 128 x 192 tiles. Both
+split K over the blocks of a cluster and sum the splits through
+distributed shared memory.
 
 Mode ``a8b`` (int8 activations, the TPU kernel's mode for prefill row
 counts) is the second entry point of the same source, launched by
@@ -77,6 +80,8 @@ version only for CPU tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -85,7 +90,7 @@ from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 
 __all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
-           "a8b_plan",
+           "int4b_design", "int4b_plan", "a8b_plan",
            "quantize_rows_a8b_plain", "w4a16_fp4_matmul",
            "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain",
            "wna16_design", "wna16_plan", "choose_k_tile", "padded_k",
@@ -139,17 +144,61 @@ def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
 
 def _split_k(m: int, n: int, k: int, unit_tiles: int, *, tile_m: int = _TILE,
              tile_n: int = _TILE) -> tuple[int, int]:
-    """(splits, k-tiles per split): split K over up to 4 blocks when the
-    (M, N) grid of ``tile_m`` x ``tile_n`` blocks leaves most SMs idle;
-    splits cut at multiples of ``unit_tiles`` k-tiles (a group of the int4
-    kernels, one tile of the grouped-weight kernels, which scale each
-    split's part of a group)."""
+    """(splits, k-tiles per split) of the plane-layout kernel: split K over
+    up to 4 blocks when the (M, N) grid of ``tile_m`` x ``tile_n`` blocks
+    leaves most SMs idle; splits cut at multiples of ``unit_tiles`` k-tiles
+    (one k-tile of 8 groups)."""
     tiles = -(-k // _BK)
     units = -(-tiles // unit_tiles)
     blocks = -(-n // tile_n) * -(-m // tile_m)
     want = min(4, max(1, _SMS // blocks), units)
     tiles_per_split = -(-units // want) * unit_tiles
     return -(-tiles // tiles_per_split), tiles_per_split
+
+
+# mode int4b (csrc/w4a16_matmul.cu, namespace int4b): 64-deep k-tiles;
+# decode rows take 128 weight rows a block (two blocks an SM), prefill rows
+# 128 x 192 tiles; at most 8 blocks of a cluster share K
+_INT4B_BK = 64
+_INT4B_DECODE_ROWS, _INT4B_DECODE_BN = 64, 128
+_INT4B_PREFILL_BM, _INT4B_PREFILL_BN = 128, 192
+
+
+def int4b_design(m: int) -> str:
+    """Mode int4b's design for M rows: "decode" (M <= 64: the weight bytes
+    bound it) or "prefill" (128-row tiles: the tensor-core operations)."""
+    return "decode" if m <= _INT4B_DECODE_ROWS else "prefill"
+
+
+@functools.lru_cache(maxsize=1024)
+def int4b_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """(rows a block, K splits, k-tiles a split) of mode int4b, as
+    ``tools/int4b_sweep.py`` measured them on the H100.
+    Decode rows take 16, 32 or 64 rows (the fewest that hold M) and 128
+    weight rows a block, two blocks an SM, and split K over the largest
+    power-of-two cluster (up to 8) whose blocks fit in one wave. Prefill
+    rows take 128 x 192 tiles, one an SM, and the split with the least
+    estimated time, the number of waves times a block's k-tiles plus 4 for
+    its pipeline's fill and its epilogue, the fewer splits on a tie. The
+    split is then as many blocks as its k-tiles per block leave none
+    empty. Each split scales its own part of a group's sum, so a split may
+    cut a group. Cached: the wrapper asks once a call."""
+    tiles = -(-k // _INT4B_BK)
+    if int4b_design(m) == "decode":
+        bm = next(b for b in (16, 32, 64) if m <= b)
+        blocks = -(-n // _INT4B_DECODE_BN)
+        split = max(s for s in (1, 2, 4, 8)
+                    if s == 1 or (s <= tiles and blocks * s <= 2 * _SMS))
+    else:
+        bm = _INT4B_PREFILL_BM
+        blocks = -(-n // _INT4B_PREFILL_BN) * -(-m // bm)
+
+        def cost(s):
+            return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
+
+        split = min((s for s in (1, 2, 4, 8) if s <= tiles), key=cost)
+    per = -(-tiles // split)
+    return bm, -(-tiles // per), per
 
 
 # mode a8b's GEMM (csrc/w4a16_matmul.cu, namespace a8b): 128 x 128 tiles,
@@ -209,20 +258,20 @@ def w4a16_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     if mode != "int4b":
         raise ValueError(f"unknown w4a16 mode {mode!r}")
     _check(x, w_packed, scales, zp, n, k, group_size)
+    if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
+        raise ValueError("w4a16 kernel copies x and the packed weight 16 "
+                         "bytes at a time: both must be 16-byte aligned")
     m = x.shape[0]
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
-    splits, tiles_per_split = _split_k(m, n, k, group_size // _BK)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
+    bm, splits, per = int4b_plan(m, n, k)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.ct_w4a16_matmul(
             x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
             zp.data_ptr() if zp is not None else None, y.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            m, n, k, group_size, splits, tiles_per_split,
+            m, n, k, group_size, bm, splits, per,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "w4a16_matmul")
     w4a16_matmul.launches += 1

@@ -60,6 +60,63 @@ def test_w4a16_matmul(dev, m, asym):
     _close(got, w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=g))
 
 
+# (M, N, K, group, zero points) of B1 (int4b): a small copy of
+# chip_smoke.py's INT4B_GRID. N = 200 is one column tile of either design,
+# so K of 1-13 k-tiles reaches every K split the plan can choose (1-8
+# blocks of a cluster; 384 / 128 cuts every group) at decode rows (16, 32
+# and 64 of them) and at 65 and 200 rows; then ragged N (odd: scalar
+# stores, 4-byte scale copies), channel-wise groups, and more row tiles
+# (rows fastest in the grid up to 512 rows, columns fastest above)
+INT4B_CASES = [(1, 200, 64, 64, False), (7, 200, 128, 64, True),
+               (33, 200, 192, 64, False), (64, 200, 256, 128, True),
+               (16, 200, 320, 64, True), (17, 200, 384, 128, False),
+               (64, 200, 448, 64, False), (5, 200, 512, 256, True),
+               (9, 200, 576, 64, False), (40, 200, 704, 64, True),
+               (65, 200, 64, 64, True), (65, 200, 192, 64, False),
+               (65, 200, 320, 64, True), (65, 200, 512, 128, False),
+               (65, 200, 576, 64, True), (200, 200, 704, 64, False),
+               (3, 99, 128, 64, True), (100, 99, 256, 128, False),
+               (64, 136, 1344, 1344, True), (300, 328, 1344, 1344, False),
+               (700, 264, 512, 128, True), (130, 2048, 2048, 128, False)]
+
+
+def test_int4b_cases_cover_designs_and_splits():
+    """The cases reach the decode design at every K split its plan can
+    choose (1-8 blocks of a cluster), the prefill design at 1, 2, 4 and 8,
+    and a split that cuts a group in both (the plan is the wrapper's
+    own)."""
+    seen = set()
+    for m, n, k, g, _ in INT4B_CASES:
+        _, splits, per = w4.int4b_plan(m, n, k)
+        design = w4.int4b_design(m)
+        seen.add((design, splits))
+        if splits > 1 and per * 64 % g:
+            seen.add((design, "cut"))
+    assert seen >= {(d, s) for d in ("decode", "prefill")
+                    for s in range(1, 9)} | {("decode", "cut"),
+                                             ("prefill", "cut")}
+
+
+@pytest.mark.parametrize("m,n,k,g,asym", INT4B_CASES)
+def test_int4b_grid(dev, m, n, k, g, asym):
+    """B1 through the design and K split of ``int4b_plan``: every element
+    within the a8b rule of the plain f32 result (exact integer weights,
+    f32 sums: bf16 output rounding and f32 summation order), one launch."""
+    gen = torch.Generator(device=dev).manual_seed(m * 7919 + n + k)
+    w = torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    s = torch.rand((k // g, n), generator=gen, device=dev) * 2e-3 + 1e-3
+    zp = (torch.randint(-8, 8, (k // g, n), generator=gen, device=dev).float()
+          if asym else None)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = w4.w4a16_matmul.launches
+    got = w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=g)
+    assert w4.w4a16_matmul.launches == before + 1
+    want = w4.w4a16_matmul_plain(x, w, s, zp, n=n, k=k, group_size=g,
+                                 out_dtype=torch.float32)
+    assert _within_a8b_rule(got, want)
+
+
 @pytest.mark.parametrize("m,asym", [(5, False), (300, True)])
 def test_w4a16_a8b_matmul(dev, m, asym):
     rng = np.random.default_rng(m)

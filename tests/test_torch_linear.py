@@ -30,7 +30,12 @@ from compressed_tensors_tpu.quantization import (
 from compressed_tensors_tpu_torch.flags import flag_overrides
 from compressed_tensors_tpu_torch.ops.fuse import fuse_quantized_tensors
 from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+    _split_k,
     a8b_plan,
+    choose_k_tile,
+    int4b_design,
+    int4b_plan,
+    padded_k,
     w4a16_a8b_matmul,
 )
 from compressed_tensors_tpu_torch.ops.linear import (
@@ -201,6 +206,91 @@ def test_a8b_plan_at_the_8b_chunk():
     assert {name: a8b_plan(512, n, k)[0] for name, (n, k) in
             shapes.items()} == {"qkv": 2, "o": 1, "gate_up": 1, "down": 1}
     assert a8b_plan(256, 4096, 14336)[0] > 1
+
+
+# (M, N, K): the fused linears of Llama-3-8B, TinyLlama-1.1B and
+# Qwen2.5-7B at decode rows, the first prefill row count, a short serving
+# chunk, a full one and a TinyLlama prefill of 64 x 128 tokens
+INT4B_PLAN_CASES = [
+    (m, n, k) for m in (1, 64, 65, 255, 512, 8192)
+    for n, k in ((6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                 (2560, 2048), (2048, 2048), (11264, 2048), (2048, 5632),
+                 (4608, 3584), (3584, 3584), (37888, 3584), (3584, 18944))]
+
+
+@pytest.mark.parametrize("m,n,k", INT4B_PLAN_CASES)
+def test_int4b_plan_covers_k(m, n, k):
+    """int4b's plan: the decode design (16, 32 or 64 rows a block, the
+    fewest that hold M; 128 weight rows) up to 64 rows, 128 x 192 tiles
+    above; a cluster of 1-8 blocks along K, every block at least one
+    64-deep k-tile and together all of them. Splits cut K at k-tile
+    boundaries only; each split scales its own part of a group's sum, so
+    neither design needs a group whole within one split."""
+    tiles = k // 64
+    bm, splits, per = int4b_plan(m, n, k)
+    assert 1 <= splits <= 8 and (splits - 1) * per < tiles <= splits * per
+    if int4b_design(m) == "decode":
+        assert m <= bm == min(b for b in (16, 32, 64) if m <= b)
+        # the column tiles of 128 times the split fill at most one wave of
+        # blocks, two an SM
+        assert splits == 1 or -(-n // 128) * splits <= 264
+    else:
+        assert m > 64 and bm == 128
+
+
+def test_int4b_plan_at_the_model_shapes():
+    """The plan at the 8B linears as the design sweep measured them: at 1
+    and 64 rows gate_up's 224 column tiles fill the SMs (no split), qkv's
+    48 split 4 ways, o_proj's and down_proj's 32 8 ways; 512-row chunks
+    split only where the tiles leave SMs idle (o_proj, and the long K of
+    down_proj); a TinyLlama prefill keeps one block a tile but for
+    down_proj."""
+    shapes = {"qkv": (6144, 4096), "o": (4096, 4096),
+              "gate_up": (28672, 4096), "down": (4096, 14336)}
+
+    def splits(m):
+        return {name: int4b_plan(m, n, k)[1]
+                for name, (n, k) in shapes.items()}
+
+    for m in (1, 64):
+        assert splits(m) == {"qkv": 4, "o": 8, "gate_up": 1, "down": 8}
+    assert splits(512) == {"qkv": 1, "o": 4, "gate_up": 1, "down": 4}
+    assert [int4b_plan(8192, n, k)[1] for n, k in
+            ((2560, 2048), (2048, 2048), (11264, 2048), (2048, 5632))] == \
+        [1, 1, 1, 2]
+
+
+# (model, M, linear) -> B10's (splits, k-tiles a split) at the Qwen2.5-7B
+# and Qwen3-8B W4A16 g128 shapes, as the plane-layout wrapper calls it
+PLANES_SPLITS = {
+    "qwen2.5": ({"qkv": (4608, 3584), "o": (3584, 3584),
+                 "gate_up": (37888, 3584), "down": (3584, 18944)},
+                {1: (2, 32, 4, 16, 1, 64, 4, 80),
+                 64: (2, 32, 4, 16, 1, 64, 4, 80),
+                 65: (2, 32, 4, 16, 1, 64, 4, 80),
+                 512: (1, 64, 1, 64, 1, 64, 1, 304)}),
+    "qwen3": ({"qkv": (6144, 4096), "o": (4096, 4096),
+               "gate_up": (24576, 4096), "down": (4096, 12288)},
+              {1: (2, 32, 4, 16, 1, 64, 4, 48),
+               64: (2, 32, 4, 16, 1, 64, 4, 48),
+               65: (2, 32, 4, 16, 1, 64, 4, 48),
+               512: (1, 64, 1, 64, 1, 64, 1, 192)}),
+}
+
+
+@pytest.mark.parametrize("model", sorted(PLANES_SPLITS))
+def test_planes_split_k_unchanged(model):
+    """B10's K split (``_split_k``, which B1 no longer shares) keeps its
+    values at the Qwen shapes."""
+    shapes, want = PLANES_SPLITS[model]
+    g = 128
+    for m, flat in want.items():
+        got = []
+        for n, k in shapes.values():
+            k_pad = padded_k(k, g)
+            got += _split_k(m, n, k_pad, choose_k_tile(k, g) // 64,
+                            tile_m=128 if m > 64 else 64, tile_n=128)
+        assert tuple(got) == flat, (model, m)
 
 
 def test_fused_projections_match_members():

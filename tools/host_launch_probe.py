@@ -8,7 +8,8 @@ return (its checks, scratch allocations, the ctypes call and its kernel
 launches; no synchronization) at Llama-3-8B's decode shapes: flash and
 paged decode attention (batch 64, 32 over 8 heads of 128, lengths
 0-1000 in a 1024-position slab or 64-position pages) on a bf16 and an fp8
-cache, and the fp8 W8A8 matmul of the fused qkv linear at 64 rows.
+cache, and the fp8 W8A8 and the W4A16 (``int4b``, g128) matmuls of the
+fused qkv linear at 64 rows.
 Each reading is ``--calls`` calls back to back after a warm-up call,
 divided by their number, the median and the least of 7 repeats. The
 device runs behind: the queue holds every call's launches, so the host
@@ -43,6 +44,7 @@ def main() -> int:
     from compressed_tensors_tpu_torch.ops.kernels import (
         flash_decode as fd,
         paged_decode as pd,
+        w4a16_matmul as w4,
         w8a8_matmul as w8,
     )
 
@@ -87,6 +89,11 @@ def main() -> int:
     x = randn(64, k)
     calls["w8a8_matmul fp8 qkv M=64"] = lambda: w8.w8a8_matmul(
         x, w, ws, n=n, k=k)
+    words = torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+    s4 = torch.full((k // 128, n), 1e-3, dtype=torch.float32, device="cuda")
+    calls["w4a16_matmul int4b qkv M=64"] = lambda: w4.w4a16_matmul(
+        x, words, s4, None, n=n, k=k, group_size=128)
 
     out = {}
     for name, fn in calls.items():
