@@ -7,7 +7,7 @@ Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
 the shapes of the main paths (the W4A16 ``int4b`` kernel also over a grid
 of row counts, widths, depths, groups and K splits that reaches both of
-its designs at every split, by the a8b rule). Then it drives seven paths
+its designs at every split, by the a8b rule). Then it drives ten paths
 end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
@@ -59,7 +59,23 @@ end to end:
   no part of the non-kernel path), Qwen2.5's requests dense and paged in
   mode int4 (equal token for token)
   and once more under ``w4_layout="auto"`` (counted against them), and
-  ``greedy_generate`` at batch 64 in modes mat (Qwen2.5) and a8 (Qwen3).
+  ``greedy_generate`` at batch 64 in modes mat (Qwen2.5) and a8 (Qwen3);
+- Llama-3-8B 2:4 sparse-24-bitmask + INT4 (BASELINE config 4) built on
+  the card through the sparse codec and ``prepare_for_kernels``, each
+  linear's kernel words equal to its masked codes' bit for bit: the
+  codec on the card against the CPU, the logits by depth against the
+  non-kernel path over the sparse leaves, the requests dense and paged
+  (identical, with phase 5's B1/B2 launch counts), and a TinyLlama-shape
+  2:4 checkpoint written, loaded and decoded at batch 64 with the tokens
+  of the W4A16 model of the same codes;
+- TinyLlama W8A8-int in every linear and the lm_head (BASELINE config 2)
+  written, loaded and decoded at batch 64, its first-step logits held
+  against B3's plain version with a rolled-channel-scales control;
+- config 5's per-layer W4A16/W8A8 mix at Llama-3-8B width (16 layers of
+  each): the logits by depth against the model run through the kernels'
+  plain versions, ``greedy_generate`` at batch 64 and the requests
+  through the paged engine, with the launches of B1/B2 and B3 counted
+  per layer kind.
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -1334,13 +1350,93 @@ def phase_parity_8b(errs):
                          lambda shape: dev_randn(gen, *shape), "bf16 cache")
 
 
-def phase_end_to_end():
+def tiny_greedy(params, config, label, kinds=(), plain=None):
+    """Phase 3's run on ``params`` (fused): greedy_generate at batch 64
+    (128-token prompts, numpy seed 0, 32 new tokens) after a warm-up, its
+    launches, the launches of one decode step, prefill ms and decode
+    ms/step; the first-step logits against the non-kernel path, or with
+    ``plain`` (a context manager factory) against the kernel path run
+    inside it (the distance to the non-kernel path printed beside it),
+    within TOL_E2E * max|ref|, and with ``kinds`` the same check with the
+    kernel scales of those layouts rolled (``rolled_group_scales``), which
+    must fail it. Returns the tokens, the counts and the times."""
     import torch
 
     from compressed_tensors_tpu_torch.engine import (
         greedy_generate,
         make_step_fns,
     )
+
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, config.vocab_size,
+                                        size=(BATCH, PROMPT))).cuda()
+    greedy_generate(params, config, ids, max_new_tokens=2)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, config, ids, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
+            ((out >= 0) & (out < config.vocab_size)).all()):
+        raise AssertionError(f"{label} greedy_generate: ids out of range")
+    prefill, decode = make_step_fns(config, PROMPT + NEW_TOKENS)
+    token, cache, logits = prefill(params, ids, PROMPT)
+    nk = make_step_fns(config, PROMPT + NEW_TOKENS, use_kernels=False)[0](
+        params, ids, PROMPT)[2].float()
+    ref = nk
+    if plain is not None:
+        with plain():
+            ref = prefill(params, ids, PROMPT)[2].float()
+    scale = ref.abs().max().item()
+    err = (logits.float() - ref).abs().max().item() / scale
+    log(f"{label} first-step logits vs "
+        f"{'non-kernel' if plain is None else 'plain'} path: max {err:.4g} "
+        f"of max|ref| {scale:.4g} (limit {TOL_E2E}); vs the non-kernel "
+        f"path max {(logits.float() - nk).abs().max().item() / scale:.4g}, "
+        f"argmax agreement "
+        f"{(logits.argmax(-1) == nk.argmax(-1)).float().mean().item():.3f}")
+    if not bool(torch.isfinite(logits).all()) or err > TOL_E2E:
+        raise AssertionError(f"{label} first-step logits disagree with the "
+                             "non-kernel path")
+    if kinds:
+        with rolled_group_scales(params, kinds):
+            bad = prefill(params, ids, PROMPT)[2].float()
+        bad_err = (bad - ref).abs().max().item() / scale
+        log(f"{label} control, {'/'.join(kinds)} kernel scales rolled by "
+            f"one: max {bad_err:.4g} of max|ref|")
+        if bad_err <= TOL_E2E:
+            raise AssertionError(f"{label} logits check accepted the planted "
+                                 "fault (scales rolled by one)")
+    prefill_ms = eager_ms(lambda: prefill(params, ids, PROMPT))
+    state = {"token": token, "cache": cache}
+
+    def one_step():
+        state["token"], state["cache"] = decode(params, state["token"],
+                                                state["cache"])
+
+    torch.cuda.synchronize()
+    reset_counts()
+    one_step()
+    per_step = read_counts()
+    steps = NEW_TOKENS - 2
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one_step()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    log(f"{label} greedy_generate: {tuple(out.shape)} in {total * 1e3:.1f} "
+        f"ms; prefill {prefill_ms:.2f} ms (B={BATCH}, S={PROMPT}); decode "
+        f"{decode_ms:.3f} ms/step = {BATCH / decode_ms * 1e3:.0f} tok/s; "
+        f"kernel launches {counts}; per decode step {per_step}")
+    return dict(out=out, counts=counts, per_step=per_step, wall=total,
+                prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def phase_end_to_end():
+    import torch
+
     from compressed_tensors_tpu_torch.models import load_llama_params
     from compressed_tensors_tpu_torch.models.synthetic import (
         TINYLLAMA_1_1B,
@@ -1356,7 +1452,6 @@ def phase_end_to_end():
 
     config = TINYLLAMA_1_1B
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    result = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         t0 = time.perf_counter()
         synth = make_synthetic_llama(config, "W4A16", seed=0,
@@ -1373,68 +1468,11 @@ def phase_end_to_end():
         torch.cuda.synchronize()
         log(f"load + fuse: {time.perf_counter() - t0:.1f} s")
 
-    rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, config.vocab_size,
-                                        size=(BATCH, PROMPT))).cuda()
-    greedy_generate(params, config, ids, max_new_tokens=2)  # warm-up
-    torch.cuda.synchronize()
-
-    reset_counts()
-    t0 = time.perf_counter()
-    out = greedy_generate(params, config, ids, max_new_tokens=NEW_TOKENS)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    run_counts = read_counts()
-    log(f"greedy_generate: {tuple(out.shape)} in {total * 1e3:.1f} ms, "
-        f"kernel launches {run_counts}")
-    missing = [k for k in needs if run_counts[k] == 0]
+    res = tiny_greedy(params, config, "TinyLlama W4A16")
+    missing = [k for k in needs if res["counts"][k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    if out.shape != (BATCH, PROMPT + NEW_TOKENS) or not bool(
-            ((out >= 0) & (out < config.vocab_size)).all()):
-        raise AssertionError("generated ids out of range")
-
-    prefill, decode = make_step_fns(config, PROMPT + NEW_TOKENS)
-    token, cache, logits = prefill(params, ids, PROMPT)
-    _, _, ref_logits = make_step_fns(config, PROMPT + NEW_TOKENS,
-                                     use_kernels=False)[0](params, ids, PROMPT)
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("non-finite logits")
-    err = (logits.float() - ref_logits.float()).abs().max().item()
-    scale = ref_logits.float().abs().max().item()
-    agree = (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean().item()
-    log(f"first-step logits vs non-kernel path: max_abs_err={err:.5g} "
-        f"max|ref|={scale:.5g} rel={err / scale:.4g} (limit {TOL_E2E}), "
-        f"argmax agreement {agree:.3f}")
-    if err > TOL_E2E * scale:
-        raise AssertionError("first-step logits disagree with the "
-                             "non-kernel path")
-
-    prefill_ms = eager_ms(lambda: prefill(params, ids, PROMPT))
-    reset_counts()
-    step_cache = {"token": token, "cache": cache}
-
-    def one_step():
-        t, c = decode(params, step_cache["token"], step_cache["cache"])
-        step_cache["token"], step_cache["cache"] = t, c
-
-    torch.cuda.synchronize()
-    one_step()
-    per_step = read_counts()
-    # decode steps while the cache has room (one step above is spent)
-    steps = NEW_TOKENS - 2
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        one_step()
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    log(f"prefill: {prefill_ms:.2f} ms (B={BATCH}, S={PROMPT}); decode: "
-        f"{decode_ms:.3f} ms/step = {BATCH / decode_ms * 1e3:.0f} tok/s; "
-        f"end to end {BATCH * NEW_TOKENS / total:.0f} tok/s over "
-        f"{total * 1e3:.1f} ms")
-    log(f"launches per decode step: {per_step}")
-    result.update(run_counts=run_counts, per_step=per_step)
-    return result
+    return dict(run_counts=res["counts"], per_step=res["per_step"])
 
 
 def serving_requests():
@@ -1566,7 +1604,7 @@ def rel_rms(a, b):
 
 
 def logits_by_depth(params, config, requests, label, cache_dtype=None,
-                    fault=None, depths=DEPTHS, plain=None):
+                    fault=None, depths=DEPTHS, plain=None, ref_params=None):
     """One request's first-token logits through the first d layers (full
     width) for each d in DEPTHS: the kernel path, the reference, and the
     non-kernel path with one bf16 ulp up on 64 embedding values of one
@@ -1578,14 +1616,16 @@ def logits_by_depth(params, config, requests, label, cache_dtype=None,
     reference, relative RMS of the perturbed non-kernel logits,
     max|kernel - reference| / max|reference|)}; faulty is the same for the
     kernel path run inside the context manager ``fault`` (a planted
-    fault), or {} without one."""
+    fault), or {} without one. ``ref_params`` (sharing ``params``'
+    embedding table) runs the non-kernel path in place of ``params``."""
     rid, ids, _ = probe_request(requests)
     n = len(ids)
     ref_name = "non-kernel path" if plain is None else "plain path"
 
     def logits(depth, use_kernels):
-        return first_token_logits(params, config, ids, depth, use_kernels,
-                                  label, cache_dtype)
+        return first_token_logits(
+            params if use_kernels or ref_params is None else ref_params,
+            config, ids, depth, use_kernels, label, cache_dtype)
 
     emb, tok = params["embed_tokens"], ids[n // 3]
     row = emb[tok].clone()
@@ -1627,20 +1667,24 @@ def logits_by_depth(params, config, requests, label, cache_dtype=None,
     return sweep, faulty
 
 
+GROUP_KINDS = ("w4a16", "fp4", "w4e8", "w4packed")
+
+
 @contextlib.contextmanager
-def rolled_group_scales(params):
+def rolled_group_scales(params, kinds=GROUP_KINDS):
     """A planted kernel fault: the kernel scales of every W4 (int4 words or
     int32 planes), fp4 and grouped-int8 decoder linear rolled by one group,
     so that each
     group is read with its neighbour's scale (an off-by-one group index);
-    undone on exit. The non-kernel path reads the checkpoint's scales and is not
-    touched."""
+    with "w8a8" in ``kinds`` also every W8A8 decoder linear's per-channel
+    scales by one channel; undone on exit. The non-kernel path reads the
+    checkpoint's scales and is not touched."""
     from compressed_tensors_tpu_torch.ops.linear import QuantizedTensor
 
     scales = [qt.kernel_scales for layer in params["layers"]
               for qt in layer.values()
               if isinstance(qt, QuantizedTensor) and qt.kernel_meta
-              and qt.kernel_meta[0] in ("w4a16", "fp4", "w4e8", "w4packed")]
+              and qt.kernel_meta[0] in kinds]
     for s in scales:
         s.copy_(s.roll(1, 0))
     try:
@@ -1669,7 +1713,7 @@ def logits_rule_failures(sweep):
 
 
 def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
-                          plain=None):
+                          plain=None, ref_params=None, kinds=GROUP_KINDS):
     """The logits checks of phases 5 and 7-10.
 
     - The rule of ``logits_rule_failures``. Its spread arm is for a random
@@ -1682,7 +1726,10 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
       every check of the rule must fail.
     - With ``plain``, the reference of all of these is the kernel path
       with the matmuls of some kernels through their plain versions
-      (``logits_by_depth``), not the non-kernel path.
+      (``logits_by_depth``), not the non-kernel path; with ``ref_params``
+      the non-kernel path runs on those params (the sparse model's sparse
+      leaves). ``kinds`` names the kernel layouts whose scales the control
+      rolls (``rolled_group_scales``).
     - At one layer, the lm_head swapped on both paths for its dequantized
       bf16 weight: within TOL_E2E_8B * max|ref| (0.89-0.92% read on the
       H100). The W8A8-int lm_head's non-kernel path (as the JAX
@@ -1695,8 +1742,9 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
     import torch
 
     sweep, faulty = logits_by_depth(params, config, requests, label,
-                                    fault=rolled_group_scales(params),
-                                    depths=depths, plain=plain)
+                                    fault=rolled_group_scales(params, kinds),
+                                    depths=depths, plain=plain,
+                                    ref_params=ref_params)
     failures = logits_rule_failures(sweep)
     if failures:
         raise AssertionError(f"{label} logits: {'; '.join(failures)}")
@@ -1707,8 +1755,8 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
                     for d, (e, s, _) in sweep.items())
         + ")")
     caught = logits_rule_failures(faulty)
-    log(f"{label} control, group scales rolled by one group in the kernel "
-        "layouts: " + ", ".join(
+    log(f"{label} control, {'/'.join(kinds)} scales rolled by one group "
+        "(one channel for w8a8) in the kernel layouts: " + ", ".join(
             f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
             for d, (e, _, t) in faulty.items())
         + f"; the rule fails {len(caught)} of its {len(sweep) + 1} checks")
@@ -1721,11 +1769,13 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
     head = (lm.weight.to(torch.float32) * lm.scale.to(torch.float32)).to(
         torch.bfloat16)
     _, ids, _ = probe_request(requests)
-    bf16_head = dict(params, lm_head=head)
-    got = first_token_logits(bf16_head, config, ids, 1, True, label)
+    got = first_token_logits(dict(params, lm_head=head), config, ids, 1, True,
+                             label)
     with plain() if plain is not None else contextlib.nullcontext():
-        ref = first_token_logits(bf16_head, config, ids, 1, plain is not None,
-                                 label)
+        ref = first_token_logits(
+            dict(params if ref_params is None or plain is not None
+                 else ref_params, lm_head=head),
+            config, ids, 1, plain is not None, label)
     del head
     torch.cuda.empty_cache()
     err = (got - ref).abs().max().item() / ref.abs().max().item()
@@ -3038,11 +3088,22 @@ def timings_wna16(kernel, fmts):
     return rows
 
 
-def card_llama(config, make_linear, gen):
-    """Llama params built on the card from ``gen``: N(0, 0.02^2) bf16
-    embeddings, unit norms, a W8A8-int lm_head (int8 weights, (V, 1) f32
-    scales in [1e-4, 3e-4], as the synthetic models draw it) and the
-    decoder linears from ``make_linear(layer_index)`` (a dict)."""
+def card_w4_codes(gen, n, k, g=128):
+    """Symmetric W4 codes uniform in [-7, 7] and bf16 group scales in
+    [1e-3, 3e-3], drawn on the card (codes first), as every symmetric W4
+    model of this script draws them."""
+    import torch
+
+    codes = torch.randint(-7, 8, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scale = torch.rand((n, k // g), generator=gen, device="cuda") * 2e-3 \
+        + 1e-3
+    return codes, scale.to(torch.bfloat16)
+
+
+def card_w8a8(gen, n, k, scheme):
+    """A W8A8-int linear drawn on the card as ``card_llama``'s lm_head:
+    int8 weights in [-127, 127], (N, 1) f32 scales in [1e-4, 3e-4]."""
     import torch
 
     from compressed_tensors_tpu_torch.config import CompressionFormat
@@ -3050,6 +3111,22 @@ def card_llama(config, make_linear, gen):
         QuantizedTensor,
         prepare_for_kernels,
     )
+
+    return prepare_for_kernels(QuantizedTensor(
+        weight=torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                             dtype=torch.int8),
+        scale=torch.rand((n, 1), generator=gen, device="cuda") * 2e-4 + 1e-4,
+        shape=(n, k), scheme=scheme,
+        format=CompressionFormat.int_quantized.value))
+
+
+def card_llama(config, make_linear, gen):
+    """Llama params built on the card from ``gen``: N(0, 0.02^2) bf16
+    embeddings, unit norms, a W8A8-int lm_head (int8 weights, (V, 1) f32
+    scales in [1e-4, 3e-4], as the synthetic models draw it) and the
+    decoder linears from ``make_linear(layer_index)`` (a dict)."""
+    import torch
+
     from compressed_tensors_tpu_torch.quantization import (
         preset_name_to_scheme,
     )
@@ -3066,12 +3143,8 @@ def card_llama(config, make_linear, gen):
     for i in range(config.num_hidden_layers):
         params["layers"].append(dict(make_linear(i), input_layernorm=ones(),
                                      post_attention_layernorm=ones()))
-    params["lm_head"] = prepare_for_kernels(QuantizedTensor(
-        weight=torch.randint(-127, 128, (V, H), generator=gen, device="cuda",
-                             dtype=torch.int8),
-        scale=torch.rand((V, 1), generator=gen, device="cuda") * 2e-4 + 1e-4,
-        shape=(V, H), scheme=preset_name_to_scheme("W8A8", ["lm_head"]),
-        format=CompressionFormat.int_quantized.value))
+    params["lm_head"] = card_w8a8(gen, V, H, preset_name_to_scheme(
+        "W8A8", ["lm_head"]))
     return params
 
 
@@ -3431,22 +3504,22 @@ def w4a16_llama(config, seed, asym):
     g = scheme.weights.group_size
 
     def linear(n, k, bias):
-        words = (torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen,
-                               device="cuda", dtype=torch.int32) if asym
-                 else pack_to_int32(torch.randint(
-                     -7, 8, (n, k), generator=gen, device="cuda",
-                     dtype=torch.int8), 4))
-        scale = torch.rand((n, k // g), generator=gen, device="cuda") \
-            * 2e-3 + 1e-3
+        if asym:
+            words = torch.randint(-(2**31), 2**31, (n, k // 8), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            scale = (torch.rand((n, k // g), generator=gen, device="cuda")
+                     * 2e-3 + 1e-3).to(torch.bfloat16)
+        else:
+            codes, scale = card_w4_codes(gen, n, k, g)
+            words = pack_to_int32(codes, 4)
         zp = (pack_to_int32(torch.randint(
             -8, 8, (n, k // g), generator=gen, device="cuda",
             dtype=torch.int8), 4, packed_dim=0) if asym else None)
         b = ((torch.randn((n,), generator=gen, device="cuda") * QKV_BIAS_STD)
              .to(torch.bfloat16) if bias else None)
         return prepare_for_kernels(QuantizedTensor(
-            weight_packed=words, scale=scale.to(torch.bfloat16),
-            zero_point=zp, bias=b, shape=(n, k), scheme=scheme,
-            format=scheme.format))
+            weight_packed=words, scale=scale, zero_point=zp, bias=b,
+            shape=(n, k), scheme=scheme, format=scheme.format))
 
     def layer(_):
         out = {name: linear(*shape, bias=config.attention_bias
@@ -3584,6 +3657,28 @@ def plain_w4():
 
 
 @contextlib.contextmanager
+def plain_w8a8():
+    """Every W8A8 matmul of the model (B3, int8 and fp8) through its
+    kernel's plain version on the card; undone on exit."""
+    from compressed_tensors_tpu_torch.ops import linear
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    kernel = linear.w8a8_matmul
+    linear.w8a8_matmul = w8.w8a8_matmul_plain
+    try:
+        yield
+    finally:
+        linear.w8a8_matmul = kernel
+
+
+@contextlib.contextmanager
+def plain_w4_w8a8():
+    """``plain_w4`` and ``plain_w8a8`` together."""
+    with plain_w4(), plain_w8a8():
+        yield
+
+
+@contextlib.contextmanager
 def plain_planes():
     """Every plane-layout matmul of the model through the plane kernel's
     plain version on the card, in the same mode; undone on exit."""
@@ -3692,6 +3787,488 @@ def timings_planes():
     return rows
 
 
+# --------------------------------------------------------------------- #
+# phases 11-13: Llama-3-8B 2:4 sparse-24-bitmask + INT4 (BASELINE config
+# 4), TinyLlama W8A8-int in every linear (config 2) and the per-layer
+# W4A16/W8A8 mix of config 5 at Llama-3-8B width
+
+def sparse24_llama(config, seed):
+    """Llama-3-8B 2:4 + INT4 drawn on the card: each linear's codes drawn
+    as ``w4a16_llama``'s symmetric model draws them (``card_w4_codes``),
+    masked with the port's ``get_24_bytemasks``, compressed with
+    ``Sparse24BitMaskCompressor`` beside the bf16 group scales (the
+    naive-quantized stack of config 4's checkpoints), then
+    ``from_compressed_state`` -> ``prepare_for_kernels``. Each linear's
+    kernel words must equal ``pack_to_int32`` of its masked dense codes,
+    bit for bit, as it is built. Returns (params in the kernel layout,
+    the same model with every decoder linear keeping only its sparse
+    leaves: the non-kernel path's reference, sharing the embedding table,
+    norms and lm_head)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.compressors import (
+        Sparse24BitMaskCompressor,
+    )
+    from compressed_tensors_tpu_torch.ops.bitmask import get_24_bytemasks
+    from compressed_tensors_tpu_torch.ops.linear import (
+        from_compressed_state,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scheme = preset_name_to_scheme("W4A16", ["Linear"])
+    scheme.format = "naive-quantized"
+    sparse_layers = []
+
+    def layer(_):
+        kernel, sparse = {}, {}
+        for name, (n, k) in linear_shapes(config).items():
+            codes, scale = card_w4_codes(gen, n, k)
+            masked = torch.where(get_24_bytemasks(codes), codes,
+                                 torch.zeros_like(codes))
+            del codes
+            state = Sparse24BitMaskCompressor.compress(
+                {"weight": masked, "weight_scale": scale}, scheme)
+            sparse[name] = from_compressed_state(state, scheme)
+            kernel[name] = prepare_for_kernels(sparse[name])
+            if (kernel[name].kernel_meta[0] != "w4a16"
+                    or not torch.equal(kernel[name].kernel_packed,
+                                       pack_to_int32(masked, 4))):
+                raise AssertionError(
+                    f"sparse 8B layer {len(sparse_layers)} {name}: kernel "
+                    "words differ from the masked dense codes' words")
+        sparse_layers.append(sparse)
+        return kernel
+
+    params = card_llama(config, layer, gen)
+    ref = dict(params, layers=[
+        dict(sparse, input_layernorm=kl["input_layernorm"],
+             post_attention_layernorm=kl["post_attention_layernorm"])
+        for sparse, kl in zip(sparse_layers, params["layers"])])
+    return params, ref
+
+
+def sparse24_codec_on_card(gen, config):
+    """``sparse24_compress`` / ``_decompress`` on the card against the same
+    calls on the CPU, bit for bit, over one 8B layer's seven linears (the
+    codes drawn as ``card_w4_codes`` draws them); the device ms of
+    ``get_24_bytemasks``, ``sparse24_compress`` and ``sparse24_decompress``
+    at the gate_proj shape (the load scatters with the last)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.bitmask import (
+        get_24_bytemasks,
+        sparse24_compress,
+        sparse24_decompress,
+    )
+
+    n, k = linear_shapes(config)["gate_proj"]
+    codes, _ = card_w4_codes(gen, n, k)
+    vals, mask = sparse24_compress(codes)
+    log(f"sparse-24 codec at ({n}, {k}) on the card: get_24_bytemasks "
+        f"{eager_ms(lambda: get_24_bytemasks(codes)):.3f} ms, "
+        f"sparse24_compress {eager_ms(lambda: sparse24_compress(codes)):.3f}"
+        f" ms, sparse24_decompress "
+        f"{eager_ms(lambda: sparse24_decompress(vals, mask, (n, k))):.3f} "
+        "ms")
+    del codes, vals, mask
+    for name, (n, k) in linear_shapes(config).items():
+        codes, _ = card_w4_codes(gen, n, k)
+        cuda_vals, cuda_mask = sparse24_compress(codes)
+        cpu_vals, cpu_mask = sparse24_compress(codes.cpu())
+        dense = sparse24_decompress(cuda_vals, cuda_mask, (n, k))
+        same = (torch.equal(cuda_vals.cpu(), cpu_vals)
+                and torch.equal(cuda_mask.cpu(), cpu_mask)
+                and torch.equal(dense.cpu(), sparse24_decompress(
+                    cpu_vals, cpu_mask, (n, k))))
+        if not same:
+            raise AssertionError(f"sparse-24 codec on the card differs from "
+                                 f"the CPU at {name} ({n}, {k})")
+    log("sparse-24 codec on the card: compress and decompress of one 8B "
+        "layer's seven linears equal the CPU's bit for bit")
+
+
+def dense_codes_twin(params):
+    """The W4A16 model built from the same codes as a 2:4 sparse synthetic
+    model: each sparse linear's codes scattered dense and packed as
+    pack-quantized words beside its scales (kernel layout built)."""
+    import dataclasses as dc
+
+    from compressed_tensors_tpu_torch.config import CompressionFormat
+    from compressed_tensors_tpu_torch.ops.bitmask import sparse24_decompress
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+
+    def twin(qt):
+        if not isinstance(qt, QuantizedTensor) or qt.sparse_values is None:
+            return qt
+        codes = sparse24_decompress(qt.sparse_values, qt.sparse_bitmask,
+                                    qt.shape)
+        return prepare_for_kernels(dc.replace(
+            qt, sparse_values=None, sparse_bitmask=None,
+            weight_packed=pack_to_int32(codes, 4),
+            format=CompressionFormat.pack_quantized.value))
+
+    return dict(params, layers=[{k: twin(v) for k, v in layer.items()}
+                                for layer in params["layers"]],
+                lm_head=prepare_for_kernels(params["lm_head"]))
+
+
+def sparse24_checkpoint_path():
+    """A TinyLlama-shape 2:4 + INT4 checkpoint (``make_synthetic_llama``
+    with sparsity="2:4", W8A8-int lm_head) written with
+    ``save_llama_checkpoint``, loaded with ``load_llama_params``, and run
+    greedy at batch 64 beside the W4A16 model built from the same codes
+    (``dense_codes_twin``): the kernel words must be equal and the tokens
+    identical."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        TINYLLAMA_1_1B,
+        make_synthetic_llama,
+        save_llama_checkpoint,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    config = TINYLLAMA_1_1B
+    t0 = time.perf_counter()
+    synth = make_synthetic_llama(config, "W4A16", seed=0,
+                                 lm_head_preset="W8A8", sparsity="2:4",
+                                 use_kernels=False, device="cuda")
+    twin = dense_codes_twin(synth)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        save_llama_checkpoint(synth, config, tmp)
+        del synth
+        size = os.path.getsize(os.path.join(tmp, "model.safetensors"))
+        with open(os.path.join(tmp, "config.json")) as f:
+            sparsity = json.load(f)["quantization_config"]["sparsity_config"]
+        params, config, _ = load_llama_params(tmp, device="cuda")
+    log(f"TinyLlama 2:4 + INT4 checkpoint: {size / 2**20:.0f} MiB, "
+        f"sparsity_config {sparsity}; drawn, written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i, (a, b) in enumerate(zip(params["layers"], twin["layers"])):
+        for name, qt in a.items():
+            if hasattr(qt, "kernel_packed") and not (
+                    qt.kernel_meta[0] == "w4a16"
+                    and torch.equal(qt.kernel_packed, b[name].kernel_packed)):
+                raise AssertionError(f"TinyLlama 2:4 layer {i} {name}: "
+                                     "kernel words differ from the W4A16 "
+                                     "twin's")
+    sparse = tiny_greedy(fuse_llama_layers(params), config, "TinyLlama 2:4")
+    dense = tiny_greedy(fuse_llama_layers(twin), config,
+                        "TinyLlama W4A16 twin")
+    same = bool(torch.equal(sparse["out"], dense["out"]))
+    log(f"TinyLlama 2:4 checkpoint vs its W4A16 twin: greedy tokens "
+        f"{'identical' if same else 'DIFFERENT'} at batch {BATCH}")
+    if not same:
+        raise AssertionError("the 2:4 checkpoint's greedy tokens differ "
+                             "from the W4A16 model of the same codes")
+    return sparse
+
+
+def phase_sparse24(serving):
+    """Phase 11: BASELINE config 4, Llama-3-8B 2:4 sparse-24-bitmask + INT4
+    at full width and depth (``sparse24_llama``, the kernel words checked
+    against the masked codes as it is built), fused; the codec on the card
+    against the CPU; first-token logits by depth with every W4 linear at
+    bf16 activations against the non-kernel path through the sparse
+    leaves (the depth rule and its rolled-scales control); the 96
+    requests dense and paged (identical), whose B1/B2 launches must equal
+    phase 5's (``serving``) as every request runs to its max_new_tokens;
+    then the TinyLlama checkpoint path (``sparse24_checkpoint_path``)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    config = LLAMA3_8B
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sparse24_codec_on_card(torch.Generator(device="cuda").manual_seed(11),
+                           config)
+    log(f"sparse-24 codec check: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params, ref = sparse24_llama(config, seed=0)
+    params = fuse_llama_layers(params)
+    torch.cuda.synchronize()
+    log(f"Llama-3-8B 2:4 + INT4 model (built on the card from seed 0, codes "
+        f"in [-7, 7] masked 2:4, compressed, prepared, kernel words equal "
+        f"to the masked codes' in all {7 * config.num_hidden_layers} "
+        f"linears, fused): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+    t0 = time.perf_counter()
+    with flag_overrides(w4_act="bf16"):
+        check_logits_by_depth(params, config, requests, "8B 2:4 bf16",
+                              ref_params=ref)
+    log(f"8B 2:4 logits checks: {time.perf_counter() - t0:.1f} s")
+    del ref
+    torch.cuda.empty_cache()
+    runs = {"sparse24 dense": ("dense", dict(paged=False)),
+            "sparse24 paged": ("paged", dict(paged=True,
+                                             prefix_caching=False))}
+    results = {name: serve_requests(params, config, requests, name, **kw)
+               for name, (_, kw) in runs.items()}
+    dense, paged = (results[k]["outs"] for k in runs)
+    bad = [i for i in dense if paged[i] != dense[i]]
+    log(f"serving sparse24 paged vs dense: {N_REQUESTS - len(bad)}/"
+        f"{N_REQUESTS} completions identical token for token")
+    if bad:
+        raise AssertionError(f"sparse24 serving: paged and dense completions "
+                             f"differ for requests {bad}")
+    for name, (w4_run, _) in runs.items():
+        got = {k: results[name]["counts"][k]
+               for k in ("w4a16_matmul", "w4a16_a8b_matmul")}
+        want = {k: serving[w4_run]["counts"][k] for k in got}
+        log(f"{name} B1/B2 launches {got}; phase 5 W4A16 {w4_run} {want}")
+        if got != want:
+            raise AssertionError(f"{name}: B1/B2 launches {got} differ from "
+                                 f"phase 5's {w4_run} run {want}")
+    del params
+    torch.cuda.empty_cache()
+    results["sparse24 TinyLlama greedy_generate"] = sparse24_checkpoint_path()
+    base = ("w4a16_a8b_matmul", "w4a16_matmul", "w8a8_matmul",
+            "prefill_attention")
+    check_launched(results, {
+        "sparse24 dense": base + ("flash_decode_attention",),
+        "sparse24 paged": base + ("paged_decode_attention",),
+        "sparse24 TinyLlama greedy_generate": (
+            "w4a16_matmul", "w8a8_matmul", "prefill_attention",
+            "decode_attention")})
+    return results
+
+
+def phase_w8a8_tiny():
+    """Phase 12: BASELINE config 2, TinyLlama W8A8-int in every linear and
+    the lm_head (``make_synthetic_llama(preset="W8A8")``), written with
+    ``save_llama_checkpoint``, loaded, fused and run as phase 3: greedy at
+    batch 64, and 22 x 4 + 1 B3 int8 launches a decode step. The
+    first-step logits are held to TOL_E2E against the same model with B3
+    through its plain version (``plain_w8a8``), with the per-channel
+    weight scales rolled by one channel as the control, and their
+    distance to the non-kernel path is printed: that path (the JAX
+    package's) rounds each token's activation scale to bf16 before
+    quantizing, the kernel keeps it in f32, so codes on a rounding
+    boundary part by a step, and the two stood 6.2% of max|ref| apart on
+    the H100 (``PERF.md``, PR 11)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        TINYLLAMA_1_1B,
+        make_synthetic_llama,
+        save_llama_checkpoint,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    config = TINYLLAMA_1_1B
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        synth = make_synthetic_llama(config, "W8A8", seed=0,
+                                     lm_head_preset="W8A8", device="cpu",
+                                     use_kernels=False)
+        save_llama_checkpoint(synth, config, tmp)
+        del synth
+        params, config, _ = load_llama_params(tmp, device="cuda")
+    params = fuse_llama_layers(params)
+    torch.cuda.synchronize()
+    log(f"TinyLlama W8A8-int checkpoint (every linear and the lm_head): "
+        f"written, loaded and fused in {time.perf_counter() - t0:.1f} s")
+    res = tiny_greedy(params, config, "TinyLlama W8A8", kinds=("w8a8",),
+                      plain=plain_w8a8)
+    want = 4 * config.num_hidden_layers + 1
+    if res["per_step"]["w8a8_matmul"] != want or any(
+            res["per_step"][k] for k in ("w4a16_matmul", "w4a16_a8b_matmul")):
+        raise AssertionError(f"TinyLlama W8A8: {res['per_step']} launches a "
+                             f"decode step, expected {want} of B3 int8 and "
+                             "no W4")
+    log(f"TinyLlama W8A8: {want} B3 int8 launches a decode step (22 x 4 + 1)")
+    results = {"w8a8 TinyLlama greedy_generate": res}
+    check_launched(results, {"w8a8 TinyLlama greedy_generate": (
+        "w8a8_matmul", "prefill_attention", "decode_attention")})
+    return results
+
+
+def mixed_llama(config, seed, presets=("W4A16", "W8A8")):
+    """Llama-3-8B with per-layer schemes drawn on the card: layer i takes
+    ``presets[i % 2]``, W4A16 as ``w4a16_llama``'s symmetric model (codes
+    in [-7, 7], pack-quantized g128), W8A8-int as ``card_w8a8``; a
+    W8A8-int lm_head."""
+    import torch
+
+    from compressed_tensors_tpu_torch.config import CompressionFormat
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    schemes = {p: preset_name_to_scheme(p, ["Linear"]) for p in presets}
+
+    def linear(preset, n, k):
+        if preset == "W8A8":
+            return card_w8a8(gen, n, k, schemes[preset])
+        codes, scale = card_w4_codes(gen, n, k)
+        return prepare_for_kernels(QuantizedTensor(
+            weight_packed=pack_to_int32(codes, 4), scale=scale, shape=(n, k),
+            scheme=schemes[preset],
+            format=CompressionFormat.pack_quantized.value))
+
+    def layer(i):
+        preset = presets[i % len(presets)]
+        return {name: linear(preset, n, k)
+                for name, (n, k) in linear_shapes(config).items()}
+
+    return card_llama(config, layer, gen)
+
+
+def phase_mixed():
+    """Phase 13: config 5's per-layer W4A16/W8A8 mix at Llama-3-8B width
+    and depth (``mixed_llama``, 16 layers of each), fused: first-token
+    logits by depth at the serving default against the same model with
+    B1/B2 and B3 through their plain versions (``plain_w4_w8a8``; phase
+    5's depth rule, the control rolling the W4 group scales and the W8A8
+    channel scales, the distance to the non-kernel path printed: its W8A8
+    activations round with bf16 scales, see ``phase_w8a8_tiny``), greedy
+    at batch 64 and the 96 requests through the paged engine, with B1 in
+    the W4A16 layers and B3 int8 in the W8A8 layers and the lm_head: 64 +
+    65 launches a decode step."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.ops.linear import _w4b8_mode
+
+    config = LLAMA3_8B
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(mixed_llama(config, seed=0))
+    torch.cuda.synchronize()
+    kinds = [{qt.kernel_meta[0] for qt in layer.values()
+              if hasattr(qt, "kernel_meta")} for layer in params["layers"]]
+    if kinds != [{"w4a16"}, {"w8a8"}] * (config.num_hidden_layers // 2):
+        raise AssertionError(f"mixed 8B: kernel layouts by layer {kinds}")
+    log(f"Llama-3-8B mixed W4A16/W8A8 model (built on the card from seed 0, "
+        f"even layers W4A16, odd W8A8, fused): {time.perf_counter() - t0:.1f}"
+        f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+    check_logits_by_depth(params, config, requests, "8B mixed",
+                          plain=plain_w4_w8a8, kinds=GROUP_KINDS + ("w8a8",))
+    results = {"mixed greedy_generate": greedy_8b(params, config, "mixed"),
+               "mixed paged": serve_requests(params, config, requests,
+                                             "mixed paged", paged=True,
+                                             prefix_caching=False)}
+    # a decode step: B1 in the 4 fused linears of each W4A16 layer, B3
+    # int8 in those of each W8A8 layer and the lm_head; greedy's prefill
+    # (8192 rows) runs B2 in place of B1 where its dispatch picks a8b (all
+    # four at 8B widths)
+    half = config.num_hidden_layers // 2
+    step = {"w4a16_matmul": 4 * half, "w4a16_a8b_matmul": 0,
+            "w8a8_matmul": 4 * half + 1}
+    got = {k: results["mixed paged"]["per_step"][k] for k in step}
+    log(f"mixed paged: launches a decode step {got} (expected {step})")
+    decode_steps = NEW_TOKENS - 1
+    prefill_b2 = half * sum(
+        _w4b8_mode(BATCH * PROMPT, *qt.kernel_meta[1:3]) == "a8b"
+        for qt in params["layers"][0].values() if hasattr(qt, "kernel_meta"))
+    expect = {"w4a16_matmul": step["w4a16_matmul"] * NEW_TOKENS - prefill_b2,
+              "w4a16_a8b_matmul": prefill_b2,
+              "w8a8_matmul": step["w8a8_matmul"] * NEW_TOKENS}
+    counts = results["mixed greedy_generate"]["counts"]
+    total = {k: counts[k] for k in expect}
+    log(f"mixed greedy_generate: launches {total} over its prefill and "
+        f"{decode_steps} decode steps (expected {expect})")
+    if got != step or total != expect:
+        raise AssertionError(f"mixed 8B launches: a paged decode step {got}, "
+                             f"greedy {total}")
+    del params
+    torch.cuda.empty_cache()
+    base = ("w4a16_matmul", "w8a8_matmul", "prefill_attention")
+    check_launched(results, {
+        "mixed greedy_generate": base + ("w4a16_a8b_matmul",
+                                         "decode_attention"),
+        "mixed paged": base + ("w4a16_a8b_matmul",
+                               "paged_decode_attention")})
+    return results
+
+
+def w8a8_layer_row(gen, shapes, m, label):
+    """Device ms of B3 int8 over one layer's four fused linears at M rows
+    (each weight in copies larger than L2), its two passes alone beside
+    it, bound, plain ms, and ``torch._int_mm`` on rows quantized
+    beforehand (the GEMM's library counterpart); one line per linear."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, quantize_ms=0.0,
+               gemm_ms=0.0)
+    nbytes = ops = 0
+    for lin, (n, k) in shapes.items():
+        x = dev_randn(gen, m, k)
+        ws = [torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                            dtype=torch.int8)
+              for _ in range(copies_for(n * k))]
+        s = torch.rand((n,), generator=gen, device="cuda") * 2e-4 + 1e-4
+        t = device_ms([lambda w=w: w8.w8a8_matmul(x, w, s, n=n, k=k)
+                       for w in ws])
+        tq, tg = w8a8_parts_ms(x, ws, s, n, k)
+        tp = eager_ms(lambda: w8.w8a8_matmul_plain(x, ws[0], s, n=n, k=k),
+                      iters=3)
+        xq, _ = w8.quantize_rows_plain(x, torch.int8)
+        tl = device_ms([lambda w=w: torch._int_mm(xq, w.t()) for w in ws])
+        b = m * k * 2 + n * k + n * 4 + m * n * 2
+        bm, by = bound(b, 2 * m * n * k, PEAK_INT8)
+        log(f"time w8a8_matmul {lin} M={m} ({label}): {t:.4f} ms = quantize "
+            f"pass {tq:.4f} + GEMM {tg:.4f} (each alone), bound {bm:.4f} ms "
+            f"({by}), plain {tp:.4f} ms, torch._int_mm on the quantized rows "
+            f"{tl:.4f} ms")
+        for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl),
+                       ("quantize_ms", tq), ("gemm_ms", tg)):
+            tot[key] += v
+        nbytes, ops = nbytes + b, ops + 2 * m * n * k
+        del ws
+        torch.cuda.empty_cache()
+    bm, by = bound(nbytes, ops, PEAK_INT8)
+    log(f"w8a8_matmul one {label} layer M={m}: {tot['ms']:.4f} ms (GEMMs "
+        f"{tot['gemm_ms']:.4f}), bound {bm:.4f} ms ({by}), torch._int_mm "
+        f"{tot['library_ms']:.4f} ms: {tot['ms'] / tot['library_ms']:.3f}x, "
+        f"GEMMs alone {tot['gemm_ms'] / tot['library_ms']:.3f}x")
+    return dict(bound_ms=bm, bound_by=by, **tot,
+                shapes=f"qkv+o+gate_up+down of one {label} layer, M={m}; "
+                "library: torch._int_mm on the quantized rows, beside "
+                "gemm_ms")
+
+
+def timings_w8a8_int8():
+    """B3 int8 at the linear shapes of phases 12-13: one TinyLlama layer at
+    M = 64 and 8192 (greedy decode and the 64 x 128-token prefill), one 8B
+    layer at M = 64 and 512 (decode rows and a prefill chunk)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for label, shapes, ms in (("TinyLlama", W4_SHAPES,
+                               (BATCH, BATCH * PROMPT)),
+                              ("8B", W4_SHAPES_8B, (BATCH, M_CHUNK))):
+        for m in ms:
+            rows[f"{label} M={m}"] = w8a8_layer_row(gen, shapes, m, label)
+    return rows
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -3738,6 +4315,7 @@ KERNEL_META = {
 # the main variant of kernels timed in several (the others go under
 # "variants"); the scaled decode kernels' main variant is the fp8 cache
 MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
+                "w8a8_matmul": f"8B lm_head M={BATCH}",
                 "w4a16_matmul": f"8B M={BATCH}",
                 "w4a16_a8b_matmul": f"M={M_CHUNK}",
                 "decode_attention": "TinyLlama",
@@ -3847,10 +4425,26 @@ def main() -> int:
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
     log(f"phases 9-10 timings done at {time.perf_counter() - t_start:.1f} s")
+    sparse24 = phase_sparse24(serving)
+    log(f"phase 11 (2:4 + INT4) done at {time.perf_counter() - t_start:.1f} s")
+    w8a8_tiny = phase_w8a8_tiny()
+    log(f"phase 12 (TinyLlama W8A8) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    mixed = phase_mixed()
+    log(f"phase 13 (mixed W4A16/W8A8) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    variant_rows["w8a8_matmul"] = {
+        f"8B lm_head M={BATCH}": next(r for r in rows_8b
+                                      if r["name"] == "w8a8_matmul"),
+        f"TinyLlama lm_head M={BATCH}": next(
+            r for r in rows if r["name"] == "w8a8_matmul"),
+        **timings_w8a8_int8()}
+    log(f"phases 11-13 timings done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
-    for phase in (fp8, nvfp4, w8a16, qwen25, qwen3):
+    for phase in (fp8, nvfp4, w8a16, qwen25, qwen3, sparse24, w8a8_tiny,
+                  mixed):
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")

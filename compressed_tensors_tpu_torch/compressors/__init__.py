@@ -2,6 +2,8 @@ from compressed_tensors_tpu_torch.compressors.base import (  # noqa: F401
     COMPRESSIBLE_MODULE_TYPES,
     BaseCompressor,
     TensorStateDict,
+    compress_state_dict,
+    decompress_state_dict,
     get_compressor,
 )
 from compressed_tensors_tpu_torch.compressors.dense import DenseCompressor  # noqa: F401
@@ -17,6 +19,10 @@ from compressed_tensors_tpu_torch.compressors.nvfp4 import (  # noqa: F401
     MXFP4PackedCompressor,
     MXFP8QuantizationCompressor,
     NVFP4PackedCompressor,
+)
+from compressed_tensors_tpu_torch.compressors.sparse import (  # noqa: F401
+    BitmaskCompressor,
+    Sparse24BitMaskCompressor,
 )
 from compressed_tensors_tpu_torch.compressors.format import (  # noqa: F401
     COMPRESSION_FORMAT_PRIORITY,

@@ -4,15 +4,13 @@ dicts of torch tensors.
 Counterpart of ``compressed_tensors_tpu/compressors/base.py``: codecs are
 looked up in the registry by CompressionFormat value and called as
 ``decompress(state_dict, scheme)`` where keys are local names
-("weight_packed", "weight_scale", ...). ``compress`` exists for the codecs
-that build checkpoints in the port (naive, NVFP4, MXFP4, MXFP8); the rest
-belongs to the PTQ save path, which a later slice ports.
+("weight_packed", "weight_scale", ...), and ``compress`` the other way.
 """
 
 from __future__ import annotations
 
 from abc import ABC
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -25,6 +23,8 @@ __all__ = [
     "TensorStateDict",
     "COMPRESSIBLE_MODULE_TYPES",
     "get_compressor",
+    "compress_state_dict",
+    "decompress_state_dict",
 ]
 
 TensorStateDict = Dict[str, torch.Tensor]
@@ -82,3 +82,34 @@ class BaseCompressor(RegistryMixin, ABC):
 def get_compressor(format: str | CompressionFormat) -> type[BaseCompressor]:
     value = format.value if isinstance(format, CompressionFormat) else format
     return BaseCompressor.get_value_from_registry(value)
+
+
+def _resolve_format(scheme: QuantizationScheme,
+                    format: Optional[str]) -> CompressionFormat:
+    from compressed_tensors_tpu_torch.compressors.format import (
+        infer_module_format,
+    )
+
+    fmt = CompressionFormat(
+        format or scheme.format or infer_module_format("Linear", scheme))
+    scheme.format = fmt
+    return fmt
+
+
+def compress_state_dict(state_dict: TensorStateDict,
+                        scheme: QuantizationScheme,
+                        format: Optional[str] = None) -> TensorStateDict:
+    """Compress one module's state dict in the format given by (1)
+    ``format``, (2) ``scheme.format``, (3) inference; sets
+    ``scheme.format``."""
+    return get_compressor(_resolve_format(scheme, format)).compress(
+        state_dict, scheme)
+
+
+def decompress_state_dict(state_dict: TensorStateDict,
+                          scheme: QuantizationScheme,
+                          format: Optional[str] = None) -> TensorStateDict:
+    """Decompress one module's state dict (format resolved as in
+    ``compress_state_dict``)."""
+    return get_compressor(_resolve_format(scheme, format)).decompress(
+        state_dict, scheme)

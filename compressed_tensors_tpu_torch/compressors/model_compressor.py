@@ -1,19 +1,35 @@
 """ModelCompressor: the run-compressed load path of a compressed-tensors
 checkpoint -- parse ``config.json["quantization_config"]``, build the module
-graph from checkpoint names and resolve each module's scheme.
+graph from checkpoint names and resolve each module's scheme -- and the
+per-module compress / decompress of state dicts, with a sparse codec
+stacked over the quantization codec.
 
-Counterpart of ``compressed_tensors_tpu/compressors/model_compressor.py``
-(load side; the compress/save path belongs to a later slice).
+Counterpart of ``compressed_tensors_tpu/compressors/model_compressor.py``.
+Still missing from the save side (ROADMAP A5): ``save_checkpoint``,
+``load_checkpoint``, ``update_config`` and the format inference over a
+model's schemes (``infer_format_from_schemes``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Mapping
 
-from compressed_tensors_tpu_torch.config import SparsityCompressionConfig
+from compressed_tensors_tpu_torch.compressors.base import (
+    BaseCompressor,
+    TensorStateDict,
+    get_compressor,
+)
+from compressed_tensors_tpu_torch.compressors.format import (
+    infer_module_format,
+)
+from compressed_tensors_tpu_torch.config import (
+    CompressionFormat,
+    SparsityCompressionConfig,
+)
 from compressed_tensors_tpu_torch.quantization import (
     QuantizationConfig,
     QuantizationScheme,
+    QuantizationStatus,
 )
 from compressed_tensors_tpu_torch.utils.match import (
     ModuleInfo,
@@ -113,3 +129,98 @@ class ModelCompressor:
         if self.quantization_config is None:
             return {}
         return resolve_module_schemes(modules, self.quantization_config)
+
+    def _global_format(self) -> str | None:
+        """The model-level format, which applies to every module unless the
+        config is mixed-precision (then per-scheme or inferred formats
+        win)."""
+        if self.quantization_config is None:
+            return None
+        fmt = self.quantization_config.format
+        if fmt in ("fakequant", CompressionFormat.dense.value,
+                   CompressionFormat.mixed_precision.value, None):
+            return None
+        return fmt
+
+    def _module_compressor(self, module_type: str,
+                           scheme: QuantizationScheme
+                           ) -> type[BaseCompressor]:
+        fmt = CompressionFormat(
+            scheme.format or self._global_format()
+            or infer_module_format(module_type, scheme))
+        scheme.format = fmt
+        return get_compressor(fmt)
+
+    def compress_state(
+        self,
+        module_states: Mapping[str, TensorStateDict],
+        modules: Mapping[str, ModuleInfo],
+        progress: Callable | None = None,
+    ) -> dict[str, TensorStateDict]:
+        """Compress every matched module's local state dict: the
+        quantization codec first, then, where the sparsity config applies
+        and a ``weight`` remains (not after pack-quantized), the sparse
+        codec over the quantized values."""
+        schemes = self.resolve_schemes(modules)
+        out: dict[str, TensorStateDict] = {}
+        for name, state in module_states.items():
+            state = dict(state)
+            scheme = schemes.get(name)
+            if scheme is not None and scheme.weights is not None:
+                state = self._module_compressor(
+                    modules[name].type_name, scheme).compress(state, scheme)
+            if self._sparsity_applies(name, modules.get(name)) and \
+                    "weight" in state:
+                state = get_compressor(self.sparsity_config.format).compress(
+                    state, scheme)
+            out[name] = state
+            if progress is not None:
+                progress(name)
+        if self.quantization_config is not None:
+            self.quantization_config.quantization_status = (
+                QuantizationStatus.COMPRESSED)
+        return out
+
+    def decompress_state(
+        self,
+        module_states: Mapping[str, TensorStateDict],
+        modules: Mapping[str, ModuleInfo],
+        progress: Callable | None = None,
+    ) -> dict[str, TensorStateDict]:
+        """Decompress every matched module: the sparse codec first, then the
+        quantization codec over what it leaves."""
+        schemes = self.resolve_schemes(modules)
+        out: dict[str, TensorStateDict] = {}
+        for name, state in module_states.items():
+            state = dict(state)
+            if self._sparsity_applies(name, modules.get(name)) and \
+                    "weight.compressed" in state:
+                state = get_compressor(
+                    self.sparsity_config.format).decompress(state, None)
+            scheme = schemes.get(name)
+            if scheme is not None and scheme.weights is not None and (
+                    "weight_packed" in state
+                    or ("weight" in state and self._is_quantized_repr(state))):
+                state = self._module_compressor(
+                    modules[name].type_name, scheme).decompress(state, scheme)
+            out[name] = state
+            if progress is not None:
+                progress(name)
+        if self.quantization_config is not None:
+            self.quantization_config.quantization_status = (
+                QuantizationStatus.DECOMPRESSED)
+        return out
+
+    @staticmethod
+    def _is_quantized_repr(state: TensorStateDict) -> bool:
+        w = state.get("weight")
+        return w is not None and (not w.dtype.is_floating_point
+                                  or w.dtype.itemsize == 1)
+
+    def _sparsity_applies(self, name: str, info: ModuleInfo | None) -> bool:
+        if self.sparsity_config is None or info is None:
+            return False
+        if self.sparsity_config.format == CompressionFormat.dense.value:
+            return False
+        return is_match(name, info, self.sparsity_config.targets or ["Linear"],
+                        self.sparsity_config.ignore or [])

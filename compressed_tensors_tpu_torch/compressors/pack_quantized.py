@@ -1,10 +1,12 @@
 """Pack-quantized codec: INT 1-8 bit weights densely packed into int32.
 
-Counterpart of ``compressed_tensors_tpu/compressors/pack_quantized.py``
-(load side), on the bit-exact codec of ``ops/pack.py``.
+Counterpart of ``compressed_tensors_tpu/compressors/pack_quantized.py``,
+on the bit-exact codec of ``ops/pack.py``.
 """
 
 from __future__ import annotations
+
+import torch
 
 from compressed_tensors_tpu_torch.compressors.base import (
     COMPRESSIBLE_MODULE_TYPES,
@@ -12,8 +14,11 @@ from compressed_tensors_tpu_torch.compressors.base import (
     TensorStateDict,
 )
 from compressed_tensors_tpu_torch.config import CompressionFormat
-from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
-from compressed_tensors_tpu_torch.ops.quantize import dequantize
+from compressed_tensors_tpu_torch.ops.pack import (
+    pack_to_int32,
+    unpack_from_int32,
+)
+from compressed_tensors_tpu_torch.ops.quantize import dequantize, quantize
 from compressed_tensors_tpu_torch.quantization import (
     ActivationOrdering,
     QuantizationScheme,
@@ -46,6 +51,28 @@ class PackedQuantizationCompressor(BaseCompressor):
         ):
             param_names += ("input_global_scale",)
         return param_names
+
+    @classmethod
+    def compress(
+        cls, state_dict: TensorStateDict, scheme: QuantizationScheme
+    ) -> TensorStateDict:
+        state_dict = dict(state_dict)
+        weight = state_dict.pop("weight")
+        zero_point = state_dict.get("weight_zero_point")
+        weights = scheme.weights
+        quantized = quantize(weight, state_dict.get("weight_scale"),
+                             zero_point, weights, dtype=torch.int8,
+                             g_idx=state_dict.get("weight_g_idx"))
+        state_dict["weight_packed"] = pack_to_int32(quantized,
+                                                    weights.num_bits)
+        state_dict["weight_shape"] = torch.tensor(tuple(weight.shape),
+                                                  dtype=torch.int32)
+        if not weights.symmetric and weights.strategy in PACK_ZP_STRATS:
+            if zero_point is None:
+                raise ValueError("Asymmetric quant requires zero-point values")
+            state_dict["weight_zero_point"] = pack_to_int32(
+                zero_point.to(torch.int8), weights.num_bits, packed_dim=0)
+        return cls._remove_symmetric_zp(state_dict, scheme)
 
     @classmethod
     def decompress(

@@ -115,7 +115,7 @@ class ServingEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "ServingEngine(mesh=...) is not ported yet (ROADMAP A12)")
+                "ServingEngine(mesh=...) is not ported yet (ROADMAP A8)")
         self.device = resolve_device(device)
         params, cache_dtype = transcode_fp8_kv_to_int8(params, cache_dtype)
         self.params = params

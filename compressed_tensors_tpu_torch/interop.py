@@ -22,7 +22,8 @@ __all__ = ["params_from_numpy"]
 
 # fields of a linear in checkpoint layout
 _LINEAR_FIELDS = ("weight", "weight_packed", "scale", "zero_point", "bias",
-                  "g_idx", "global_scale", "input_global_scale")
+                  "g_idx", "global_scale", "input_global_scale",
+                  "sparse_values", "sparse_bitmask")
 # numpy extension dtypes (ml_dtypes) -> same-size integer view + torch dtype
 _VIEW_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16),
                 "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
@@ -70,9 +71,12 @@ def params_from_numpy(tree: dict, device="cuda",
     Each linear is a dict of its checkpoint-layout fields: ``format``,
     ``shape``, ``scheme`` (``QuantizationScheme.model_dump()``) and the
     arrays ``weight_packed`` / ``weight``, ``scale``, ``zero_point``,
-    ``bias``, ``g_idx``, ``global_scale``, ``input_global_scale`` (absent
-    or None when unused; the Qwen2 qkv biases ride in ``bias``). Every
-    other array (embeddings, norms with the Qwen3 per-head ``q_norm`` /
-    ``k_norm``, k/v scales) carries over as it is.
+    ``bias``, ``g_idx``, ``global_scale``, ``input_global_scale``, and
+    the 2:4 sparse leaves ``sparse_values`` / ``sparse_bitmask`` (absent
+    or None when unused; the Qwen2 qkv biases ride in ``bias``). Each
+    linear carries its own scheme, so per-layer mixed schemes come across
+    as they are. Every other array (embeddings, norms with the Qwen3
+    per-head ``q_norm`` / ``k_norm``, k/v/q scales) carries over as it
+    is.
     """
     return _convert(tree, resolve_device(device), use_kernels)

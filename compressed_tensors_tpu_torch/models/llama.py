@@ -2,12 +2,13 @@
 compressed, in PyTorch.
 
 Counterpart of ``compressed_tensors_tpu/models/llama.py`` for the dense and
-paged KV caches, non-MoE, non-MLA path, with the Qwen2 qkv bias and the
-Qwen3 per-head q/k RMSNorm. Every linear is a
-``QuantizedTensor`` through ``quantized_matmul``, so weights stay
-compressed on the device. The dense KV cache is (L, B, KVH, S_pad, D) and
-the paged pool (L, NP, KVH, page, D), in the cache dtype -- no lane padding
-of D and no head packing -- and both are updated in place. A cache of fp8
+paged KV caches, non-MoE, non-MLA path, with the Qwen2 qkv bias, the
+Qwen3 per-head q/k RMSNorm and the fp8 fake-quant of q by ``q_scale``.
+Every linear is a ``QuantizedTensor`` through ``quantized_matmul``, so
+weights stay compressed on the device. The dense KV cache is
+(L, B, KVH, S_pad, D) and the paged pool (L, NP, KVH, page, D), in the
+cache dtype -- no lane padding of D and no head packing -- and both are
+updated in place. A cache of fp8
 e4m3 or int8 holds K/V divided by the checkpoint's per-layer
 ``k_scale``/``v_scale`` (per tensor, or per kv head).
 """
@@ -180,6 +181,15 @@ def _cache_scale(scale, x_ndim, head_axis):
     return scale.reshape(shape).to(torch.float32)
 
 
+def _to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> fp8 e4m3, round to nearest even. An overflow casts to NaN, as
+    in XLA and ml_dtypes (newer PyTorch versions saturate): no silent
+    clip."""
+    x = torch.where(x.abs() > _E4M3_OVERFLOW,
+                    torch.full_like(x, float("nan")), x)
+    return x.to(torch.float8_e4m3fn)
+
+
 def _quantize_to_cache(x, scale, cache_dtype, head_axis=2):
     """Quantize post-RoPE K/V into the cache representation with the
     serialized k_scale/v_scale (fp8 or int8 caches)."""
@@ -187,10 +197,7 @@ def _quantize_to_cache(x, scale, cache_dtype, head_axis=2):
         return x.to(cache_dtype)
     scaled = x.to(torch.float32) / _cache_scale(scale, x.ndim, head_axis)
     if cache_dtype == torch.float8_e4m3fn:
-        # an overflow casts to NaN, as in XLA and ml_dtypes (newer PyTorch
-        # versions saturate): no silent clip
-        scaled = torch.where(scaled.abs() > _E4M3_OVERFLOW,
-                             torch.full_like(scaled, float("nan")), scaled)
+        return _to_e4m3(scaled)
     if cache_dtype.is_floating_point:
         return scaled.to(cache_dtype)
     return torch.round(scaled).clamp(-128, 127).to(cache_dtype)
@@ -259,6 +266,13 @@ def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
         k = rms_norm(k, layer["k_norm"], config.rms_norm_eps)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
+    # post-RoPE query quantization: fp8 e4m3 fake-quant by the checkpoint's
+    # q_scale (per tensor, or per head on q's head axis)
+    q_scale = layer.get("q_scale")
+    if q_scale is not None:
+        s = _cache_scale(q_scale, q.ndim, head_axis=2)
+        q = (_to_e4m3(q.to(torch.float32) / s).to(torch.float32) * s).to(
+            x.dtype)
 
     k_scale, v_scale = layer.get("k_scale"), layer.get("v_scale")
     # both scales present or absent; the flash and paged kernels take
@@ -483,7 +497,8 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
     config = LlamaConfig.from_pretrained(path)
     if config.is_moe or config.is_mla:
         raise NotImplementedError(
-            "MoE and MLA checkpoints are not ported yet (ROADMAP A10)")
+            "MoE (ROADMAP A2) and MLA (ROADMAP A3) checkpoints are not "
+            "ported yet")
     mc = ModelCompressor.from_pretrained(path)
     reader = CheckpointReader(path)
     module_names = reader.module_names()
@@ -516,10 +531,7 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
         for norm in ("input_layernorm", "post_attention_layernorm"):
             layer[norm] = _tensor(f"{prefix}.{norm}.weight").to(dtype)
         attn_state = reader.module_state_dict(f"{prefix}.self_attn")
-        if "q_scale" in attn_state:
-            raise NotImplementedError(
-                "query quantization (q_scale) is not ported yet")
-        for sname in ("k_scale", "v_scale"):
+        for sname in ("k_scale", "v_scale", "q_scale"):
             if sname in attn_state:
                 layer[sname] = attn_state[sname].to(device)
         # Qwen3-style per-head q/k norms

@@ -4,7 +4,10 @@ compressed-tensors checkpoint.
 Counterpart of ``compressed_tensors_tpu/models/synthetic.py``. Weights are
 drawn with numpy from ``seed`` in the same order and with the same
 distributions as the JAX package, directly in their packed
-representation, so both packages build the same model from the same seed.
+representation, so both packages build the same model from the same seed
+(per-layer mixed schemes included). ``sparsity="2:4"``, which the JAX
+package's builder lacks, masks the same draw to 2:4 and stores it as the
+stacked sparse-24-bitmask state.
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ from compressed_tensors_tpu_torch.ops.linear import (
     QuantizedTensor,
     prepare_for_kernels,
 )
-from compressed_tensors_tpu_torch.ops.pack import packed_cols
+from compressed_tensors_tpu_torch.ops.bitmask import sparse24_compress
+from compressed_tensors_tpu_torch.ops.pack import (
+    packed_cols,
+    unpack_from_int32,
+)
 from compressed_tensors_tpu_torch.quantization import (
     QuantizationConfig,
     QuantizationScheme,
@@ -89,29 +96,61 @@ def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
         format=CompressionFormat.pack_quantized.value)
 
 
+def _sparse24_state(qt: QuantizedTensor) -> QuantizedTensor:
+    """A synthetic int weight masked to 2:4 by code magnitude
+    (``get_24_bytemasks``) and stored as the stacked sparse state: the
+    kept int8 codes and the bitmask beside the scales, as a naive-quantized
+    (sub-byte codes) or int-quantized (int8) checkpoint holds them."""
+    args = qt.scheme.weights
+    codes = (qt.weight if qt.weight_packed is None else
+             unpack_from_int32(qt.weight_packed, args.num_bits, qt.shape))
+    values, bitmask = sparse24_compress(codes)
+    fmt = (CompressionFormat.naive_quantized.value
+           if qt.format == CompressionFormat.pack_quantized.value
+           else qt.format)
+    return QuantizedTensor(scale=qt.scale, zero_point=qt.zero_point,
+                           sparse_values=values, sparse_bitmask=bitmask,
+                           shape=qt.shape, scheme=qt.scheme, format=fmt)
+
+
 def make_synthetic_llama(
     config: LlamaConfig,
     preset: str = "W4A16",
     seed: int = 0,
     dtype=torch.bfloat16,
     use_kernels: bool = True,
+    layer_presets: list[str] | None = None,
     lm_head_preset: str | None = None,
+    sparsity: str | None = None,
     device="cuda",
 ) -> dict:
     """Build a synthetic compressed Llama params dict on ``device``.
 
+    :param layer_presets: per-layer presets, layer i taking
+        ``layer_presets[i % len(layer_presets)]`` (mixed-scheme models,
+        BASELINE config 5); ``preset`` otherwise
     :param lm_head_preset: quantize the lm_head with this preset instead of
         tying it to the embedding table
+    :param sparsity: "2:4" stores every decoder linear (int schemes only)
+        as its draw masked to 2:4 (``_sparse24_state``); the lm_head stays
+        dense
     :param use_kernels: build the kernel weight layouts
     """
     device = resolve_device(device)
+    if sparsity not in (None, "2:4"):
+        raise ValueError(f"sparsity={sparsity!r}")
     H, I, V = config.hidden_size, config.intermediate_size, config.vocab_size
     NH, KVH, D = (config.num_attention_heads, config.num_key_value_heads,
                   config.head_dim)
     rng = np.random.default_rng(seed)
 
-    def linear(shape, scheme):
+    def linear(shape, scheme, sparse=False):
         qt = _synthetic_qt(rng, shape, scheme, dtype, device)
+        if sparse:
+            if scheme.weights is None or scheme.weights.type != "int":
+                raise NotImplementedError(
+                    f"2:4 synthetic weights for {scheme.weights}")
+            qt = _sparse24_state(qt)
         return prepare_for_kernels(qt) if use_kernels else qt
 
     params: dict = {
@@ -121,20 +160,23 @@ def make_synthetic_llama(
         "norm": torch.ones((H,), dtype=dtype, device=device),
         "layers": [],
     }
-    scheme = preset_name_to_scheme(preset, ["Linear"])
-    for _ in range(config.num_hidden_layers):
+    sparse = sparsity is not None
+    for i in range(config.num_hidden_layers):
+        scheme = preset_name_to_scheme(
+            layer_presets[i % len(layer_presets)] if layer_presets
+            else preset, ["Linear"])
         layer = {
-            "q_proj": linear((NH * D, H), scheme),
-            "k_proj": linear((KVH * D, H), scheme),
-            "v_proj": linear((KVH * D, H), scheme),
-            "o_proj": linear((H, NH * D), scheme),
+            "q_proj": linear((NH * D, H), scheme, sparse),
+            "k_proj": linear((KVH * D, H), scheme, sparse),
+            "v_proj": linear((KVH * D, H), scheme, sparse),
+            "o_proj": linear((H, NH * D), scheme, sparse),
             "input_layernorm": torch.ones((H,), dtype=dtype, device=device),
             "post_attention_layernorm": torch.ones((H,), dtype=dtype,
                                                    device=device),
         }
-        layer["gate_proj"] = linear((I, H), scheme)
-        layer["up_proj"] = linear((I, H), scheme)
-        layer["down_proj"] = linear((H, I), scheme)
+        layer["gate_proj"] = linear((I, H), scheme, sparse)
+        layer["up_proj"] = linear((I, H), scheme, sparse)
+        layer["down_proj"] = linear((H, I), scheme, sparse)
         params["layers"].append(layer)
     if lm_head_preset is not None:
         params["lm_head"] = linear(
@@ -147,6 +189,10 @@ def make_synthetic_llama(
 def _checkpoint_state(qt: QuantizedTensor) -> dict[str, torch.Tensor]:
     """The checkpoint-layout tensors of one linear (kernel layout dropped)."""
     state = {}
+    if qt.sparse_values is not None:
+        state["weight.compressed"] = qt.sparse_values
+        state["weight.bitmask"] = qt.sparse_bitmask
+        state["weight.shape"] = torch.tensor(qt.shape, dtype=torch.int32)
     if qt.weight_packed is not None:
         state["weight_packed"] = qt.weight_packed
         if qt.format == CompressionFormat.pack_quantized.value:
@@ -164,12 +210,27 @@ def _checkpoint_state(qt: QuantizedTensor) -> dict[str, torch.Tensor]:
     return state
 
 
+def _layer_target(names: list[str]) -> list[str]:
+    """Targets naming exactly these modules' layers (and the lm_head among
+    them): one ``re:`` over the layer indices."""
+    layers = sorted({int(n.split(".")[2]) for n in names
+                     if n.startswith("model.layers.")})
+    targets = ([r"re:model\.layers\.(" + "|".join(map(str, layers))
+                + r")\."] if layers else [])
+    return targets + (["lm_head"] if "lm_head" in names else [])
+
+
 def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
     """Write unfused Llama params as a compressed-tensors checkpoint:
     ``model.safetensors`` plus ``config.json`` with its
-    ``quantization_config`` (one config group per distinct scheme, the
-    lm_head's targeting ``lm_head``). Per-layer ``k_scale``/``v_scale``
-    are written under ``model.layers.{i}.self_attn.``."""
+    ``quantization_config``: one config group per distinct scheme, each
+    with its scheme's targets (the lm_head's ``lm_head``) where the
+    decoder layers share one scheme, and ``re:`` targets over their layer
+    indices where they mix several. 2:4 sparse linears are written as
+    ``weight.compressed`` / ``weight.bitmask`` / ``weight.shape`` under a
+    ``sparsity_config`` (sparse-24-bitmask, ignoring the linears stored
+    dense). Per-layer ``k_scale``/``v_scale``/``q_scale`` are written under
+    ``model.layers.{i}.self_attn.``."""
     os.makedirs(path, exist_ok=True)
     tensors: dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed_tokens"],
@@ -184,13 +245,13 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
             linears[f"{p}.mlp.{proj}"] = layer[proj]
         for norm in ("input_layernorm", "post_attention_layernorm"):
             tensors[f"{p}.{norm}.weight"] = layer[norm]
-        for sname in ("k_scale", "v_scale"):
+        for sname in ("k_scale", "v_scale", "q_scale"):
             if layer.get(sname) is not None:
                 tensors[f"{p}.self_attn.{sname}"] = layer[sname]
     if isinstance(params["lm_head"], QuantizedTensor):
         linears["lm_head"] = params["lm_head"]
 
-    groups: dict[str, QuantizationScheme] = {}
+    members: list[tuple[QuantizationScheme, list[str]]] = []
     formats = set()
     for name, qt in linears.items():
         for local, t in _checkpoint_state(qt).items():
@@ -199,8 +260,18 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
             continue
         scheme = qt.scheme.model_copy(update={"format": qt.format})
         formats.add(qt.format)
-        if all(s != scheme for s in groups.values()):
-            groups[f"group_{len(groups)}"] = scheme
+        for known, names in members:
+            if known == scheme:
+                names.append(name)
+                break
+        else:
+            members.append((scheme, [name]))
+    mixed = sum(any(n != "lm_head" for n in names)
+                for _, names in members) > 1
+    groups = {f"group_{i}": (scheme.model_copy(
+                  update={"targets": _layer_target(names)}) if mixed
+                  else scheme)
+              for i, (scheme, names) in enumerate(members)}
     save_safetensors(os.path.join(path, "model.safetensors"), tensors,
                      metadata={"format": "pt"})
 
@@ -225,5 +296,11 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
             quantization_status=QuantizationStatus.COMPRESSED,
         )
         cfg["quantization_config"] = qconfig.model_dump(mode="json")
+        dense = [n for n, qt in linears.items() if qt.sparse_values is None]
+        if len(dense) < len(linears):
+            cfg["quantization_config"]["sparsity_config"] = {
+                "format": CompressionFormat.sparse_24_bitmask.value,
+                "targets": ["Linear"], "ignore": dense,
+                "sparsity_structure": "2:4"}
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)

@@ -43,13 +43,15 @@ def fuse_quantized_tensors(
     """Concatenate QuantizedTensors along output features (dim 0).
 
     Returns None if fusion is unsupported for these tensors (mismatched
-    schemes/formats/K or global scales, actorder, mixed bias presence).
+    schemes/formats/K or global scales, actorder, sparse leaves, mixed
+    bias presence).
     """
     first = tensors[0]
     if any(t.format != first.format or t.scheme != first.scheme
            or t.shape[1] != first.shape[1] for t in tensors):
         return None
-    if any(t.g_idx is not None for t in tensors):
+    if any(t.g_idx is not None or t.sparse_values is not None
+           for t in tensors):
         return None
     for field in ("global_scale", "input_global_scale"):
         vals = [getattr(t, field) for t in tensors]

@@ -3,8 +3,10 @@ matmul dispatch.
 
 Counterpart of ``compressed_tensors_tpu/ops/linear.py`` for the
 run-compressed WnA16 (int 2-8 bit groups), NVFP4 / MXFP4, MXFP8 and W8A8
-(int8 and fp8) paths. Weights stay compressed on the device and are
-dequantized inside the hand-written kernels (``ops/kernels/``).
+(int8 and fp8) paths, and 2:4 sparse-24-bitmask stacked over any of the
+quantized formats that leave a ``weight``. Weights stay compressed on the
+device and are dequantized inside the hand-written kernels
+(``ops/kernels/``).
 ``use_kernels=False`` selects the JAX package's non-kernel path
 (dequantize the weight, one plain matmul), which the tests and
 ``chip_smoke.py`` use as the reference.
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from compressed_tensors_tpu_torch.config import CompressionFormat
+from compressed_tensors_tpu_torch.ops.bitmask import sparse24_decompress
 from compressed_tensors_tpu_torch.ops.fp4_pack import unpack_fp4_from_uint8
 from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
     PLANE_MODES,
@@ -77,6 +80,9 @@ class QuantizedTensor:
     global_scale: Optional[torch.Tensor] = None    # NVFP4, f32 (1,)
     input_global_scale: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
+    # 2:4 sparse-24-bitmask: (N, K/2) kept values and (N, K/8) uint8 mask
+    sparse_values: Optional[torch.Tensor] = None
+    sparse_bitmask: Optional[torch.Tensor] = None
 
     # kernel layout, by kind (kernel_meta[0]):
     # ("w4a16", n, k, group_size): packed (N, K/8) int32, scales / zp
@@ -107,9 +113,21 @@ def from_compressed_state(
     format: str | CompressionFormat | None = None,
 ) -> QuantizedTensor:
     """Build a QuantizedTensor from a per-module compressed state dict as
-    loaded from a checkpoint."""
+    loaded from a checkpoint. A 2:4 sparse state keeps its values and
+    bitmask as sparse leaves, its shape from ``weight.shape``.
+
+    Unstructured sparse-bitmask states (1-D values) raise
+    NotImplementedError: run compressed, the JAX package scatters every
+    sparse leaf as 2:4 and fails on them;
+    ``ModelCompressor.decompress_state`` decompresses them."""
     fmt = format or (scheme.format if scheme is not None else None)
     fmt = CompressionFormat(fmt).value if fmt is not None else None
+    sparse_values = state.get("weight.compressed")
+    if sparse_values is not None and (sparse_values.dim() != 2
+                                      or "weight.row_offsets" in state):
+        raise NotImplementedError(
+            "unstructured sparse-bitmask weights do not run compressed; "
+            "decompress them with ModelCompressor.decompress_state")
     weight = state.get("weight")
     weight_packed = state.get("weight_packed")
     if fmt is None:
@@ -125,6 +143,8 @@ def from_compressed_state(
 
     if "weight_shape" in state:
         shape = tuple(int(v) for v in state["weight_shape"])
+    elif "weight.shape" in state:
+        shape = tuple(int(v) for v in state["weight.shape"])
     elif weight is not None:
         shape = tuple(weight.shape)
     elif weight_packed is not None and fmt in _FP4_FORMATS:
@@ -142,6 +162,8 @@ def from_compressed_state(
         global_scale=state.get("weight_global_scale"),
         input_global_scale=state.get("input_global_scale"),
         bias=state.get("bias"),
+        sparse_values=sparse_values,
+        sparse_bitmask=state.get("weight.bitmask"),
         format=fmt,
         shape=shape,
         scheme=scheme,
@@ -159,9 +181,18 @@ def _unpacked_zero_point(qt: QuantizedTensor, num_bits: int):
 def materialize_weight(qt: QuantizedTensor, dtype=torch.bfloat16
                        ) -> torch.Tensor:
     """Dequantize the compressed representation to a dense (N, K) weight
-    (the non-kernel path)."""
+    (the non-kernel path). A 2:4 sparse weight is scattered dense first,
+    then dequantized (int and fp8 values) or cast."""
     fmt = qt.format
     args = qt.scheme.weights if qt.scheme is not None else None
+    if qt.sparse_values is not None:
+        dense_q = sparse24_decompress(qt.sparse_values, qt.sparse_bitmask,
+                                      qt.shape)
+        if args is not None and (not dense_q.dtype.is_floating_point
+                                 or dense_q.dtype.itemsize == 1):
+            return dequantize(dense_q, qt.scale, qt.zero_point, args,
+                              g_idx=qt.g_idx, dtype=dtype)
+        return dense_q.to(dtype)
     if fmt == CompressionFormat.dense.value or (
             qt.weight is not None and qt.weight.dtype.is_floating_point
             and qt.weight.dtype.itemsize > 1):
@@ -215,6 +246,12 @@ def prepare_for_kernels(qt: QuantizedTensor,
     - W4A16 under ``w4_layout="packed"`` (or asymmetric under "e8"): the
       JAX package's int32 8-plane layout (``_prepare_packed``), run in the
       mode ``w4_mode`` names.
+    - 2:4 sparse over a symmetric int scheme: the codes scattered dense
+      (a kept zero or a dropped position is code 0, which dequantizes to
+      exactly 0), then 4-bit as pack-quantized (the layouts above) and
+      8-bit as int8 int-quantized (W8A8); the sparse leaves are dropped
+      once a kernel layout exists. Asymmetric schemes and layers no
+      kernel takes keep their sparse leaves (the non-kernel path).
     Group layouts of actorder checkpoints are column-permuted, and x is
     gathered by the same permutation at the matmul. Everything else keeps
     the checkpoint representation.
@@ -222,7 +259,25 @@ def prepare_for_kernels(qt: QuantizedTensor,
     args = qt.scheme.weights if qt.scheme is not None else None
     acts = qt.scheme.input_activations if qt.scheme is not None else None
 
-    if (qt.weight is not None
+    if (qt.sparse_values is not None and args is not None
+            and args.type == "int" and args.symmetric
+            and len(qt.shape) == 2):
+        dense_q = sparse24_decompress(qt.sparse_values, qt.sparse_bitmask,
+                                      qt.shape).to(torch.int8)
+        if args.num_bits == 4:
+            dense = dataclasses.replace(
+                qt, sparse_values=None, sparse_bitmask=None, weight=None,
+                weight_packed=pack_to_int32(dense_q, 4),
+                format=CompressionFormat.pack_quantized.value)
+        else:
+            dense = dataclasses.replace(
+                qt, sparse_values=None, sparse_bitmask=None, weight=dense_q,
+                weight_packed=None,
+                format=CompressionFormat.int_quantized.value)
+        prepped = prepare_for_kernels(dense, w4_layout)
+        return prepped if prepped.kernel_meta is not None else qt
+
+    if (qt.weight is not None and qt.sparse_values is None
             and qt.weight.dtype in (torch.int8, torch.float8_e4m3fn)
             and args is not None and args.strategy in _W8_STRATEGIES
             and acts is not None and acts.dynamic is True and acts.symmetric

@@ -22,7 +22,8 @@ def test_port_imports_no_jax_and_builds_nothing():
         for mod in ("ops.kernels.w4a16_matmul", "ops.kernels.w8a8_matmul",
                     "ops.kernels.flash_decode", "ops.kernels.paged_decode",
                     "engine.serving", "engine.generate", "ops.fp4",
-                    "ops.fp4_pack", "ops.mx", "compressors.nvfp4"):
+                    "ops.fp4_pack", "ops.mx", "compressors.nvfp4",
+                    "ops.bitmask", "compressors.sparse"):
             assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

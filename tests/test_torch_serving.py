@@ -180,7 +180,7 @@ def test_fp8_kv_cache_completions_match_jax(fp8_models, name):
 def test_engine_defaults_to_cuda_and_names_unported_options(models,
                                                             monkeypatch):
     _, _, tp, tc = models
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A8"):
         ServingEngine(tp, tc, mesh=object(), device="cpu")
     # quantized KV caches are served: fp8 as it is, int8 under the transcode
     for paged in (False, True):
