@@ -7,7 +7,7 @@ Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
 the shapes of the main paths (the W4A16 ``int4b`` kernel also over a grid
 of row counts, widths, depths, groups and K splits that reaches both of
-its designs at every split, by the a8b rule). Then it drives ten paths
+its designs at every split, by the a8b rule). Then it drives eleven paths
 end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
@@ -75,7 +75,17 @@ end to end:
   each): the logits by depth against the model run through the kernels'
   plain versions, ``greedy_generate`` at batch 64 and the requests
   through the paged engine, with the launches of B1/B2 and B3 counted
-  per layer kind.
+  per layer kind;
+- Qwen3-30B-A3B W4A16 g128 (MoE: 128 experts of width 768, 8 a token,
+  48 layers) built on the card, every expert linear one expert-batched
+  launch (B1e; B2e under w4_act="int8", B9e under w4_layout="e8", each
+  held against its plain version over a grid of Qwen and Mixtral expert
+  shapes first): its MoE blocks on the reference run's inputs, the
+  routing flips at one layer counted, the logits by depth against the
+  non-kernel path with the rolled-scales control, the requests dense and
+  paged (identical, 96 B1 + 144 B1e launches a decode step),
+  ``greedy_generate`` at batch 64, and a 2-layer checkpoint written and
+  read back with identical greedy tokens.
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -87,6 +97,7 @@ the repository, it exits non-zero without a result.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -252,6 +263,12 @@ COUNTERS = {
                         "a8_launches"),
     "w4a16_planes_mat": ("w4a16_matmul", "w4a16_planes_matmul",
                          "mat_launches"),
+    "w4a16_experts_matmul": ("w4a16_matmul", "w4a16_experts_matmul",
+                             "launches"),
+    "w4a16_a8b_experts_matmul": ("w4a16_matmul", "w4a16_a8b_experts_matmul",
+                                 "launches"),
+    "w4_e8_experts_matmul": ("w4a16_matmul", "w4_e8_experts_matmul",
+                             "launches"),
 }
 
 
@@ -1673,25 +1690,29 @@ GROUP_KINDS = ("w4a16", "fp4", "w4e8", "w4packed")
 @contextlib.contextmanager
 def rolled_group_scales(params, kinds=GROUP_KINDS):
     """A planted kernel fault: the kernel scales of every W4 (int4 words or
-    int32 planes), fp4 and grouped-int8 decoder linear rolled by one group,
-    so that each
+    int32 planes), fp4 and grouped-int8 decoder linear (MoE expert stacks
+    included) rolled by one group, so that each
     group is read with its neighbour's scale (an off-by-one group index);
     with "w8a8" in ``kinds`` also every W8A8 decoder linear's per-channel
     scales by one channel; undone on exit. The non-kernel path reads the
     checkpoint's scales and is not touched."""
     from compressed_tensors_tpu_torch.ops.linear import QuantizedTensor
 
-    scales = [qt.kernel_scales for layer in params["layers"]
-              for qt in layer.values()
+    linears = [qt for layer in params["layers"] for qt in layer.values()]
+    linears += [qt for layer in params["layers"] if "moe" in layer
+                for qt in layer["moe"]["experts"].values()]
+    # stacked experts' (E, K/g, N) scales roll along their group dim
+    scales = [(qt.kernel_scales, max(qt.kernel_scales.dim() - 2, 0))
+              for qt in linears
               if isinstance(qt, QuantizedTensor) and qt.kernel_meta
               and qt.kernel_meta[0] in kinds]
-    for s in scales:
-        s.copy_(s.roll(1, 0))
+    for s, dim in scales:
+        s.copy_(s.roll(1, dim))
     try:
         yield
     finally:
-        for s in scales:
-            s.copy_(s.roll(-1, 0))
+        for s, dim in scales:
+            s.copy_(s.roll(-1, dim))
 
 
 def logits_rule_failures(sweep):
@@ -4269,6 +4290,597 @@ def timings_w8a8_int8():
     return rows
 
 
+# --------------------------------------------------------------------- #
+# phase 14: MoE, Qwen3-30B-A3B W4A16 (the expert-batched B1e/B2e/B9e)
+
+# Qwen/Qwen3-30B-A3B's published config.json (cited, not fetched): 48
+# layers, every one MoE (decoder_sparse_step 1, no mlp_only_layers), 128
+# routed experts of width 768, 8 a token, no shared expert
+QWEN3_30B_A3B = dict(model_type="qwen3_moe", vocab_size=151936,
+                     hidden_size=2048, intermediate_size=6144,
+                     num_hidden_layers=48, num_attention_heads=32,
+                     num_key_value_heads=4, head_dim=128, rope_theta=1e6,
+                     rms_norm_eps=1e-6, max_position_embeddings=40960,
+                     tie_word_embeddings=False, num_experts=128,
+                     num_experts_per_tok=8, moe_intermediate_size=768,
+                     norm_topk_prob=True)
+MOE_DEPTHS = (1, 48)
+MOE_FEW = (1, 4)                  # the int8 and e8 arms' depths
+MOE_BLOCK_LAYERS = (0, 1, 23, 47)  # MoE blocks held on the reference input
+# one MoE block (route, three expert linears, combine) against the
+# non-kernel path on the same input: the kernel path keeps every weight
+# exact in f32 where that path rounds each to bf16 (2^-9), and the two
+# round the gate and up outputs to bf16 at other points; 2e-2 of max|ref|
+# is several times that, and far below a wrong scale or expert (O(1))
+TOL_MOE_BLOCK = 2e-2
+# Mixtral-8x7B's experts (E, N = intermediate, K = hidden)
+MIXTRAL_EXPERTS = (8, 14336, 4096)
+# the MoE call rows: C of one decode step at batch 64 (8), a 512-row
+# serving chunk (40), greedy's 64 x 128-token prefill (640), and around
+# the decode/prefill designs' edge (1, 64, 65)
+MOE_C = (1, 8, 40, 64, 65, 640)
+
+
+def card_expert_codes(gen, e, n, k, g=128):
+    """``card_w4_codes`` for E stacked experts: (E, N, K) codes in [-7, 7]
+    and (E, N, K/g) bf16 scales, drawn on the card."""
+    import torch
+
+    codes = torch.randint(-7, 8, (e, n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scale = torch.rand((e, n, k // g), generator=gen, device="cuda") * 2e-3 \
+        + 1e-3
+    return codes, scale.to(torch.bfloat16)
+
+
+def moe_llama(config, seed):
+    """A Qwen3-MoE model at full width and depth built on the card from
+    ``seed``, as ``w4a16_llama`` draws its symmetric W4A16 g128
+    pack-quantized model: the attention linears and every expert with
+    codes in [-7, 7] and bf16 group scales in [1e-3, 3e-3], experts stacked
+    (E, N, K) with their stacked kernel layouts; the router
+    N(0, 0.02^2) in bf16 (as the synthetic models draw it); q/k norm
+    weights 1 + N(0, QK_NORM_STD^2); a W8A8-int lm_head. Unfused."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scheme = preset_name_to_scheme("W4A16", ["Linear"])
+    scheme.format = "pack-quantized"
+    H, E = config.hidden_size, config.num_local_experts
+    Im = config.moe_intermediate_size
+
+    def linear(n, k):
+        codes, scale = card_w4_codes(gen, n, k)
+        return prepare_for_kernels(QuantizedTensor(
+            weight_packed=pack_to_int32(codes, 4), scale=scale, shape=(n, k),
+            scheme=scheme, format=scheme.format))
+
+    def experts(n, k):
+        codes, scale = card_expert_codes(gen, E, n, k)
+        words = pack_to_int32(codes, 4)
+        del codes
+        return prepare_for_kernels(QuantizedTensor(
+            weight_packed=words, scale=scale, shape=(E, n, k), scheme=scheme,
+            format=scheme.format))
+
+    def layer(_):
+        shapes = linear_shapes(config)
+        out = {name: linear(*shapes[name])
+               for name in ("q_proj", "k_proj", "v_proj", "o_proj")}
+        for name in ("q_norm", "k_norm"):
+            out[name] = (1 + QK_NORM_STD * torch.randn(
+                (config.head_dim,), generator=gen, device="cuda")).to(
+                    torch.bfloat16)
+        out["moe"] = {
+            "router": (torch.randn((E, H), generator=gen, device="cuda")
+                       * 0.02).to(torch.bfloat16),
+            "experts": {"gate_proj": experts(Im, H),
+                        "up_proj": experts(Im, H),
+                        "down_proj": experts(H, Im)}}
+        return out
+
+    return card_llama(config, layer, gen)
+
+
+def expert_layers(params):
+    """Every stacked expert linear of the model."""
+    return [qt for layer in params["layers"] if "moe" in layer
+            for qt in layer["moe"]["experts"].values()]
+
+
+@contextlib.contextmanager
+def plain_w4_moe():
+    """``plain_w4`` with B1e/B2e too: every int4-word W4 matmul, 2-D and
+    expert-batched, through its plain version on the card; undone on
+    exit."""
+    from compressed_tensors_tpu_torch.ops import linear
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    kernel = linear.w4a16_experts_matmul
+    linear.w4a16_experts_matmul = w4.w4a16_matmul_plain
+    try:
+        with plain_w4():
+            yield
+    finally:
+        linear.w4a16_experts_matmul = kernel
+
+
+@contextlib.contextmanager
+def plain_e8():
+    """Every grouped-int8 matmul (B9 and B9e) through its plain version on
+    the card; undone on exit."""
+    from compressed_tensors_tpu_torch.ops import linear
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    kernels = linear.w4_e8_matmul, linear.w4_e8_experts_matmul
+    linear.w4_e8_matmul = linear.w4_e8_experts_matmul = w4.w4_e8_matmul_plain
+    try:
+        yield
+    finally:
+        linear.w4_e8_matmul, linear.w4_e8_experts_matmul = kernels
+
+
+@contextlib.contextmanager
+def moe_inputs():
+    """Records the input of every MoE block run inside it, in call order."""
+    from compressed_tensors_tpu_torch.models import moe as moe_mod
+
+    seen, orig = [], moe_mod.moe_mlp
+
+    def recording(layer, x, config, *a, **kw):
+        seen.append(x.detach().clone())
+        return orig(layer, x, config, *a, **kw)
+
+    moe_mod.moe_mlp = recording
+    try:
+        yield seen
+    finally:
+        moe_mod.moe_mlp = orig
+
+
+def expert_operands(gen, e, c, n, k, asym, bits=4, g=128):
+    """Stacked expert operands drawn on the card: x (E, C, K) bf16, random
+    int4 words (E, N, K/8) (or int8 (E, N, K) for bits 8), (E, K/g, N)
+    scales in [1e-3, 3e-3] (and zero points in [-8, 7])."""
+    import torch
+
+    if bits == 4:
+        w = torch.randint(-(2**31), 2**31, (e, n, k // 8), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+    else:
+        w = torch.randint(-128, 128, (e, n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    s = torch.rand((e, k // g, n), generator=gen, device="cuda") * 2e-3 \
+        + 1e-3
+    zp = (torch.randint(-8, 8, (e, k // g, n), generator=gen,
+                        device="cuda").float() if asym else None)
+    return dev_randn(gen, e, c, k), w, s, zp
+
+
+def parity_experts(errs):
+    """B1e, B2e and B9e against their plain f32 versions by the a8b rule
+    (every element within A8B_REL * |y| + A8B_ABS * max|y|), one launch a
+    call: Qwen3-30B-A3B's gate/up (E 128, N 768, K 2048) and down (N
+    2048, K 768) at every C of ``MOE_C``, with zero points at C = 8 and 640;
+    Mixtral-8x7B's experts at C = 24 (B1e, B9e) and 320 (B2e); N not a
+    multiple of the column tile (200) with zero points; B2e's quantization
+    pass bit for bit."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    E, I, H = 128, 768, 2048
+    qwen = [(E, c, n, k, False) for n, k in ((I, H), (H, I)) for c in MOE_C]
+    qwen += [(E, c, I, H, True) for c in (8, 640)]
+    ragged = [(16, c, 200, 768, True) for c in (8, 65)]
+    me, mn, mk = MIXTRAL_EXPERTS
+    cases = {
+        "w4a16_experts_matmul": qwen + ragged + [(me, 24, mn, mk, False)],
+        "w4a16_a8b_experts_matmul": [(me, 320, mn, mk, False),
+                                     (me, 320, mn, mk, True),
+                                     (E, 8, I, H, False), (E, 640, I, H, True),
+                                     (E, 640, H, I, False)] + ragged,
+        "w4_e8_experts_matmul": [(E, c, n, k, False) for n, k in ((I, H),
+                                                                  (H, I))
+                                 for c in (1, 8, 40, 65, 640)]
+        + [(16, 8, 200, 768, False), (me, 24, mn, mk, False)],
+    }
+    for name, grid in cases.items():
+        worst, seen = 0.0, set()
+        for e, c, n, k, asym in grid:
+            bits = 8 if name == "w4_e8_experts_matmul" else 4
+            x, w, s, zp = expert_operands(gen, e, c, n, k, asym, bits)
+            kw = dict(n=n, k=k, group_size=128)
+            before = getattr(w4, name).launches
+            if name == "w4a16_experts_matmul":
+                got = w4.w4a16_experts_matmul(x, w, s, zp, **kw)
+                want = w4.w4a16_matmul_plain(x, w, s, zp,
+                                             out_dtype=torch.float32, **kw)
+                _, splits, _ = w4.int4b_plan(c, n, k, e)
+                seen.add((w4.int4b_design(c), splits))
+            elif name == "w4a16_a8b_experts_matmul":
+                xq = torch.empty((e, c, k), dtype=torch.int8, device="cuda")
+                xs = torch.empty((e, c), dtype=torch.float32, device="cuda")
+                got = w4.w4a16_a8b_experts_matmul(x, w, s, zp, xq=xq, xs=xs,
+                                                  **kw)
+                xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+                if not (torch.equal(xq, xq_p) and torch.equal(xs, xs_p)):
+                    raise AssertionError(f"{name} E={e} C={c}: the "
+                                         "quantization pass differs")
+                want = w4.w4a16_matmul_plain(x, w, s, zp, mode="a8b",
+                                             out_dtype=torch.float32, **kw)
+                seen.add(w4.a8b_plan(c, n, k, e)[0])
+            else:
+                got = w4.w4_e8_experts_matmul(x, w, s, **kw)
+                want = w4.w4_e8_matmul_plain(x, w, s, out_dtype=torch.float32,
+                                             **kw)
+                _, splits, _ = w4.wna16_plan(c, n, k, e)
+                seen.add((w4.wna16_design(c), splits))
+            if getattr(w4, name).launches != before + 1:
+                raise AssertionError(f"{name}: not one launch a call")
+            got = got.float()
+            if not bool(got.isfinite().all()):
+                raise AssertionError(f"{name} E={e} C={c}: non-finite")
+            scale = want.abs().max().item()
+            diff = (got - want).abs()
+            bad = int((diff > A8B_REL * want.abs() + A8B_ABS * scale).sum())
+            if bad:
+                raise AssertionError(
+                    f"{name} E={e} C={c} N={n} K={k} zero points {asym}: "
+                    f"{bad} elements outside the a8b rule")
+            errs[name] = max(errs.get(name, 0.0), diff.max().item())
+            worst = max(worst, diff.max().item() / scale)
+            del x, w, s, zp, got, want
+        torch.cuda.empty_cache()
+        log(f"parity {name} over {len(grid)} cases (E, C, N, K, zero "
+            f"points) {grid}: 0 elements outside the a8b rule, max error "
+            f"{worst:.4g} of max|plain|; plans reached "
+            f"{sorted(seen, key=str)}")
+
+
+def kept_experts(h, router, config):
+    """The last token's (expert, kept) pairs when the rows ``h`` (T, H) are
+    routed and dispatched as ``moe_mlp`` does, and its gap between the
+    k-th and (k+1)-th router probability."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models import moe as moe_mod
+
+    T = h.shape[0]
+    E, k = config.num_local_experts, config.num_experts_per_tok
+    _, top_i = moe_mod._route(h, router, config)
+    C = moe_mod.moe_capacity(T, E, k)
+    sort_idx, rows = moe_mod.dispatch_rows(top_i, E, C)
+    slot_rows = torch.empty_like(rows)
+    slot_rows[sort_idx] = rows
+    kept = (slot_rows < E * C).reshape(T, k)[-1].tolist()
+    probs = torch.softmax(h[-1:].float() @ router.float().t(), dim=-1)[0]
+    top = probs.topk(k + 1).values
+    return (set(zip(top_i[-1].tolist(), kept)),
+            (top[k - 1] - top[k]).item())
+
+
+def routing_flips(params, config, requests):
+    """At one layer, each request's first-token logits on the kernel path
+    (every W4 linear at bf16 activations) against the non-kernel path,
+    with the last token's routing read on both: a request whose last token
+    takes other experts, or keeps other slots, is a routing flip (an f32
+    ulp at a router near-tie; at one layer only the last token's own MoE
+    output reaches its logits). Prints each flip's gap between the k-th
+    and (k+1)-th router probability, holds the rest to TOL_WNA16_DEPTH1 of
+    max|ref| and returns the flipped request ids."""
+    router = params["layers"][0]["moe"]["router"]
+    flips, worst = {}, (0.0, None)
+    for rid, ids, _ in requests:
+        with moe_inputs() as seen:
+            got = first_token_logits(params, config, ids, 1, True, "moe")
+            ref = first_token_logits(params, config, ids, 1, False, "moe")
+        (mine, _), (theirs, gap) = (kept_experts(seen[i][0], router, config)
+                                    for i in (0, 1))
+        if mine != theirs:
+            flips[rid] = gap
+            continue
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        worst = max(worst, (err, rid), key=lambda t: t[0])
+    log(f"Qwen3-30B-A3B routing at one layer over {len(requests)} requests: "
+        f"{len(flips)} routing flips (the last token's experts or kept slots "
+        "differ between the kernel and non-kernel paths), each with its "
+        "gap between the k-th and (k+1)-th router probability: "
+        + (", ".join(f"request {r}: {g:.3g}" for r, g in flips.items())
+           or "none")
+        + f"; the others' first-token logits within {worst[0]:.4g} of "
+        f"max|ref| (request {worst[1]}; limit {TOL_WNA16_DEPTH1})")
+    if worst[0] > TOL_WNA16_DEPTH1:
+        raise AssertionError("Qwen3-30B-A3B one-layer logits without a "
+                             "routing flip disagree with the non-kernel "
+                             "path")
+    return set(flips)
+
+
+def moe_block_checks(params, config, ids):
+    """Each MoE block of ``MOE_BLOCK_LAYERS`` on its input from the
+    non-kernel reference run of the prompt ``ids`` (the routing then the
+    same on every path, the same router code on the same input): the
+    kernel path against the kernels' plain versions within TOL_KERNEL of
+    max|plain|, and against the non-kernel path within TOL_MOE_BLOCK;
+    the expert group scales rolled by one group must fail the latter."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.moe import moe_mlp
+
+    with moe_inputs() as seen:
+        first_token_logits(params, config, ids,
+                           config.num_hidden_layers, False, "moe")
+    for i in MOE_BLOCK_LAYERS:
+        layer, h = params["layers"][i], seen[i]
+        got = moe_mlp(layer, h, config)
+        with plain_w4_moe():
+            plain = moe_mlp(layer, h, config)
+        ref = moe_mlp(layer, h, config, use_kernels=False)
+        check_close(f"Qwen3-30B-A3B MoE block {i} ({h.shape[1]} tokens), "
+                    "kernel vs plain", got, plain)
+        err = check_close(f"Qwen3-30B-A3B MoE block {i}, kernel vs "
+                          "non-kernel path", got, ref, TOL_MOE_BLOCK)
+        scales = [qt.kernel_scales for qt in layer["moe"]["experts"].values()]
+        for s in scales:
+            s.copy_(s.roll(1, 1))
+        bad = moe_mlp(layer, h, config)
+        for s in scales:
+            s.copy_(s.roll(-1, 1))
+        miss = (bad.float() - ref.float()).abs().max().item() / \
+            ref.float().abs().max().item()
+        log(f"Qwen3-30B-A3B MoE block {i} control, expert group scales "
+            f"rolled by one group: {miss:.4g} of max|ref| (limit "
+            f"{TOL_MOE_BLOCK}; {err / ref.float().abs().max().item():.4g} "
+            "unrolled)")
+        if miss <= TOL_MOE_BLOCK:
+            raise AssertionError(f"MoE block {i}: the check accepted rolled "
+                                 "expert group scales")
+    del seen
+    torch.cuda.empty_cache()
+
+
+def moe_reprepared(params, layers, w4_layout):
+    """The first ``layers`` layers with every decoder linear's and expert
+    stack's kernel layout rebuilt under ``w4_layout``."""
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_experts_for_kernels,
+    )
+
+    def bare(qt):
+        return dataclasses.replace(qt, kernel_packed=None, kernel_scales=None,
+                                   kernel_zp=None, kernel_perm=None,
+                                   kernel_meta=None)
+
+    out = reprepared(dict(params, layers=params["layers"][:layers]),
+                     w4_layout)
+    for layer in out["layers"]:
+        layer["moe"] = dict(layer["moe"], experts={
+            name: prepare_experts_for_kernels(bare(qt), w4_layout)
+            for name, qt in layer["moe"]["experts"].items()})
+        if any(not isinstance(qt, QuantizedTensor) or qt.kernel_meta is None
+               for qt in layer["moe"]["experts"].values()):
+            raise AssertionError(f"experts without a {w4_layout} layout")
+    return out
+
+
+def moe_checkpoint_round_trip(raw, config):
+    """The first 2 layers of the unfused model written by
+    ``save_llama_checkpoint`` (one linear per expert, Qwen naming) and
+    read back by ``load_llama_params``: greedy tokens at batch 64 equal
+    to the in-memory model's."""
+    import torch
+
+    from compressed_tensors_tpu_torch.engine import greedy_generate
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        save_llama_checkpoint,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    cfg = dataclasses.replace(config, num_hidden_layers=2)
+    two = dict(raw, layers=raw["layers"][:2])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        save_llama_checkpoint(two, cfg, tmp)
+        size = os.path.getsize(os.path.join(tmp, "model.safetensors"))
+        loaded, lcfg, _ = load_llama_params(tmp, device="cuda")
+    log(f"Qwen3-30B-A3B 2-layer checkpoint: {size / 2**20:.0f} MiB, written "
+        f"and loaded in {time.perf_counter() - t0:.1f} s (config: "
+        f"{lcfg.num_local_experts} experts, top {lcfg.num_experts_per_tok}, "
+        f"q/k norms {lcfg.qk_norm})")
+    if lcfg != cfg:
+        raise AssertionError(f"the checkpoint's config reads back as {lcfg}")
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, VOCAB8, size=(BATCH, PROMPT)))
+    outs = [greedy_generate(fuse_llama_layers(p), cfg, ids, max_new_tokens=16)
+            for p in (two, loaded)]
+    same = bool(torch.equal(*outs))
+    log(f"Qwen3-30B-A3B 2-layer checkpoint vs the model in memory: greedy "
+        f"tokens {'identical' if same else 'DIFFERENT'} at batch {BATCH}")
+    if not same:
+        raise AssertionError("the MoE checkpoint's greedy tokens differ from "
+                             "the model it was written from")
+
+
+def phase_moe(errs):
+    """Phase 14: MoE. B1e/B2e/B9e against their plain versions
+    (``parity_experts``); Qwen3-30B-A3B W4A16 g128 at full width and depth
+    built on the card (``moe_llama``), fused: the MoE blocks on the
+    reference run's inputs (``moe_block_checks``), the routing flips at one
+    layer over the 96 prompts (``routing_flips``), first-token logits by
+    depth (1 and 48 layers) at bf16 activations against the non-kernel
+    path with the rolled-scales control (experts included), the model
+    under w4_act="int8" (B2/B2e) and its first layers under
+    w4_layout="e8" (B9/B9e) against their plain versions; the 96 requests
+    dense and paged (identical), 96 B1 + 144 B1e launches a decode step
+    and no other W4 launch, ``greedy_generate`` at batch 64; the 2-layer
+    checkpoint round trip."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    parity_experts(errs)
+    config = LlamaConfig.from_dict(QWEN3_30B_A3B)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    raw = moe_llama(config, seed=0)
+    params = fuse_llama_layers(raw)
+    torch.cuda.synchronize()
+    kinds = {qt.kernel_meta[0] for qt in expert_layers(params)}
+    if kinds != {"w4a16"} or "qkv_proj" not in params["layers"][0]:
+        raise AssertionError(f"Qwen3-30B-A3B: experts prepared as {kinds}")
+    log(f"Qwen3-30B-A3B W4A16 model (built on the card from seed 0, "
+        f"{config.num_hidden_layers} layers of {config.num_local_experts} "
+        f"experts, fused attention, W8A8-int lm_head): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+    with flag_overrides(w4_act="bf16"):
+        flips = routing_flips(params, config, requests)
+        steady = [r for r in requests if r[0] not in flips]
+        moe_block_checks(params, config, probe_request(steady)[1])
+        check_logits_by_depth(params, config, steady, "Qwen3-30B-A3B bf16",
+                              depths=MOE_DEPTHS)
+    # int8 activations (B2 and B2e at every W4 linear) and the grouped-int8
+    # layout (B9 and B9e) are no part of the non-kernel path: each is held
+    # by the logits rule against the same model with those kernels through
+    # their plain versions; their launches count as runs of their own
+    results = {}
+    for label, layout, act, plain, kernel in (
+            ("int8", None, "int8", plain_w4_moe, "w4a16_a8b_experts_matmul"),
+            ("e8", "e8", "auto", plain_e8, "w4_e8_experts_matmul")):
+        model = (params if layout is None else
+                 moe_reprepared(params, max(MOE_FEW), layout))
+        reset_counts()
+        with flag_overrides(w4_act=act):
+            sweep, _ = logits_by_depth(model, config, steady,
+                                       f"Qwen3-30B-A3B {label}",
+                                       depths=MOE_FEW, plain=plain)
+        counts = read_counts()
+        results[f"moe {label} logits"] = {"counts": counts}
+        launched = counts[kernel]
+        failures = logits_rule_failures(sweep)
+        log(f"Qwen3-30B-A3B {label}: {kernel} launched {launched} times")
+        if failures or not launched:
+            raise AssertionError(f"Qwen3-30B-A3B {label} against its plain "
+                                 f"path: {'; '.join(failures)} ({kernel} "
+                                 f"launched {launched} times)")
+        del model
+        torch.cuda.empty_cache()
+    results["moe dense"] = serve_requests(params, config, requests,
+                                          "moe dense")
+    results["moe paged"] = serve_requests(params, config, requests,
+                                          "moe paged", paged=True,
+                                          prefix_caching=False)
+    same = sum(results["moe dense"]["outs"][i] == results["moe paged"][
+        "outs"][i] for i in range(N_REQUESTS))
+    log(f"Qwen3-30B-A3B serving: paged = dense in {same} of {N_REQUESTS} "
+        "completions")
+    if same != N_REQUESTS:
+        raise AssertionError("Qwen3-30B-A3B paged completions differ from "
+                             "dense")
+    L = config.num_hidden_layers
+    step = {"w4a16_matmul": 2 * L, "w4a16_experts_matmul": 3 * L,
+            "w8a8_matmul": 1}
+    for run in ("moe dense", "moe paged"):
+        got = {k: v for k, v in results[run]["per_step"].items()
+               if v and k.startswith(("w4", "w8a8"))}
+        log(f"{run}: W4/W8A8 launches a decode step {got} (expected {step})")
+        if got != step:
+            raise AssertionError(f"{run}: a decode step launched {got}")
+    results["moe greedy_generate"] = greedy_8b(params, config, "Qwen3-30B-A3B")
+    del params
+    torch.cuda.empty_cache()
+    moe_checkpoint_round_trip(raw, config)
+    del raw
+    torch.cuda.empty_cache()
+    base = ("w4a16_matmul", "w4a16_experts_matmul", "w8a8_matmul",
+            "prefill_attention")
+    check_launched(results, {
+        "moe dense": base + ("flash_decode_attention",),
+        "moe paged": base + ("paged_decode_attention",),
+        "moe greedy_generate": base + ("decode_attention",)})
+    return results
+
+
+def experts_row(gen, name, e, c, n, k, label):
+    """Device ms of one expert-batched launch (operands in copies larger
+    than L2), bound, plain ms and ``torch.matmul`` on the (E, C, K) rows
+    and the dequantized bf16 (E, K, N) weights."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+
+    bits = 8 if name == "w4_e8_experts_matmul" else 4
+    x, w, s, _ = expert_operands(gen, e, c, n, k, False, bits)
+    kw = dict(n=n, k=k, group_size=128)
+    fn = getattr(w4, name)
+    wbytes = e * n * k * bits // 8
+    ws = [(w.clone(), s.clone()) for _ in range(copies_for(wbytes))]
+    t = device_ms([lambda w=w, s=s: fn(x, w, s, **kw) if bits == 8
+                   else fn(x, w, s, None, **kw) for w, s in ws])
+    plain = (w4.w4_e8_matmul_plain if bits == 8 else
+             functools.partial(w4.w4a16_matmul_plain,
+                               mode="a8b" if "a8b" in name else "int4b"))
+    tp = eager_ms(lambda: plain(x, w, s, **kw) if bits == 8
+                  else plain(x, w, s, None, **kw), iters=3)
+    del ws
+    wd = (w.float() * w4._group_scales(s, 128) if bits == 8 else
+          w4._dequantized_weight(w, s, None, n, k, 128)).to(
+              torch.bfloat16).transpose(1, 2)
+    wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
+    tl = device_ms([lambda wd=wd: torch.matmul(x, wd) for wd in wds])
+    del wds, wd
+    b = e * (c * k * 2 + c * n * 2 + (k // 128) * n * 4) + wbytes
+    bm, by = bound(b, 2 * e * c * n * k,
+                   PEAK_INT8 if "a8b" in name else PEAK_BF16)
+    log(f"time {name} {label} (E={e}, C={c}, N={n}, K={k}): {t:.4f} ms, "
+        f"bound {bm:.4f} ms ({by}), plain {tp:.4f} ms, torch.matmul on the "
+        f"dequantized bf16 weights {tl:.4f} ms ({t / tl:.3f}x)")
+    del x, w, s
+    torch.cuda.empty_cache()
+    return dict(ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
+                shapes=f"{label}: E={e}, C={c}, N={n}, K={k}, g128; library: "
+                "torch.matmul on the (E, C, K) rows and the dequantized bf16 "
+                "(E, K, N) weights")
+
+
+def timings_moe():
+    """B1e at Qwen3-30B-A3B's gate (C = 8, 40, 640) and down (C = 8), B2e
+    at Mixtral-8x7B's experts (C = 320), B9e at the Qwen gate (C = 8)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    E, I, H = 128, 768, 2048
+    rows = {"w4a16_experts_matmul": {}, "w4a16_a8b_experts_matmul": {},
+            "w4_e8_experts_matmul": {}}
+    for c in (8, 40, 640):
+        rows["w4a16_experts_matmul"][f"gate C={c}"] = experts_row(
+            gen, "w4a16_experts_matmul", E, c, I, H, "Qwen3-30B-A3B gate")
+    rows["w4a16_experts_matmul"]["down C=8"] = experts_row(
+        gen, "w4a16_experts_matmul", E, 8, H, I, "Qwen3-30B-A3B down")
+    rows["w4a16_a8b_experts_matmul"]["Mixtral C=320"] = experts_row(
+        gen, "w4a16_a8b_experts_matmul", *MIXTRAL_EXPERTS[:1], 320,
+        *MIXTRAL_EXPERTS[1:], "Mixtral-8x7B experts")
+    rows["w4_e8_experts_matmul"]["gate C=8"] = experts_row(
+        gen, "w4_e8_experts_matmul", E, 8, I, H, "Qwen3-30B-A3B gate")
+    return rows
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -4309,7 +4921,22 @@ KERNEL_META = {
         "compressed_tensors_tpu_torch/csrc/w4a16_planes.cu",
         "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541")
        for mode in ("int4", "a8", "mat")},
+    # the expert-batched launches: the JAX package vmaps these kernels over
+    # the expert dim in quantized_matmul_experts (ops/linear.py:800, :810)
+    "w4a16_experts_matmul": (
+        "compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
+        "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
+    "w4a16_a8b_experts_matmul": (
+        "compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
+        "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
+    "w4_e8_experts_matmul": (
+        "compressed_tensors_tpu_torch/csrc/wna16_matmul.cu",
+        "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:485"),
 }
+BATCHED_BY = {
+    "w4a16_experts_matmul": "compressed_tensors_tpu/ops/linear.py:800",
+    "w4a16_a8b_experts_matmul": "compressed_tensors_tpu/ops/linear.py:800",
+    "w4_e8_experts_matmul": "compressed_tensors_tpu/ops/linear.py:810"}
 
 
 # the main variant of kernels timed in several (the others go under
@@ -4322,7 +4949,9 @@ MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
                 "flash_decode_attention": "8B", "paged_decode_attention": "8B",
                 "w4a16_fp4_matmul": "nvfp4 M=64", "w4_e8_matmul": "w8a16 M=64",
                 "w4a16_planes_int4": "M=64", "w4a16_planes_a8": "M=64",
-                "w4a16_planes_mat": "M=64"}
+                "w4a16_planes_mat": "M=64", "w4a16_experts_matmul": "gate C=8",
+                "w4a16_a8b_experts_matmul": "Mixtral C=320",
+                "w4_e8_experts_matmul": "gate C=8"}
 
 
 def kernel_report(errs, rows, variant_rows, paths):
@@ -4358,6 +4987,8 @@ def kernel_report(errs, rows, variant_rows, paths):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shapes": r["shapes"], **extra,
+            **({"batched_by": BATCHED_BY[name]} if name in BATCHED_BY
+               else {}),
         })
     return out
 
@@ -4440,11 +5071,16 @@ def main() -> int:
             r for r in rows if r["name"] == "w8a8_matmul"),
         **timings_w8a8_int8()}
     log(f"phases 11-13 timings done at {time.perf_counter() - t_start:.1f} s")
+    moe = phase_moe(errs)
+    log(f"phase 14 (Qwen3-30B-A3B MoE) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    variant_rows.update(timings_moe())
+    log(f"phase 14 timings done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
     for phase in (fp8, nvfp4, w8a16, qwen25, qwen3, sparse24, w8a8_tiny,
-                  mixed):
+                  mixed, moe):
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")

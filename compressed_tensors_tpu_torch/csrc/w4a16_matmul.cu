@@ -52,10 +52,15 @@
 // part of a group's sum, stages its f32 tile in its own shared memory, and
 // the cluster sums the tiles in rank order through distributed shared
 // memory, each block writing a slice of the rows in bf16; no partial goes
-// to device memory and there is no second kernel. Operands are addressed
-// by pointer and row length (an expert dimension can be added to the
-// grid). Ragged M and N are masked at the store; K and the group are
-// multiples of 64.
+// to device memory and there is no second kernel. Ragged M and N are
+// masked at the store; K and the group are multiples of 64.
+// Experts (ct_w4a16_matmul_experts, the MoE layer's stacked weights): one
+// launch computes y[e] = x[e] . W[e]^T for every expert e of an (E, M, K)
+// dispatch buffer and (E, N, K/8) words with (E, K/group, N) scales and
+// zero points. The expert index rides in grid y (which the K-split cluster
+// does not span): each block offsets its operands by its expert's
+// strides, and the design and split come from M rows and all E experts'
+// blocks (int4b_plan).
 // What bounds it now (PERF.md): the k-loop runs its copies, decode,
 // wgmmas and flush largely one after the other between its barriers;
 // neither the copies' latency (3-6 stages alike) nor x's bytes (copying
@@ -360,9 +365,9 @@ struct Cfg {
   static_assert(SMEM <= 113 * 1024, "two blocks an SM");
 };
 
-// grid (column tiles, 1, splits), cluster (1, 1, splits); k-tiles [z *
-// per, (z + 1) * per). Accumulator element i: weight row 64 wg + 16 (warp
-// % 4) + g + 8 ((i >> 1) & 1), x row 8 (i / 4) + 2 t + (i & 1).
+// grid (column tiles, experts, splits), cluster (1, 1, splits); k-tiles
+// [z * per, (z + 1) * per). Accumulator element i: weight row 64 wg + 16
+// (warp % 4) + g + 8 ((i >> 1) & 1), x row 8 (i / 4) + 2 t + (i & 1).
 template <int MT>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_kernel(const __nv_bfloat16* __restrict__ x,
@@ -374,6 +379,14 @@ decode_kernel(const __nv_bfloat16* __restrict__ x,
   using C = Cfg<MT>;
   constexpr int ND = 8 * MT;  // f32 accumulator registers a thread
   extern __shared__ __align__(1024) unsigned char smem[];
+  {  // expert blockIdx.y's operands in the stacked (E, ...) buffers
+    const size_t e = blockIdx.y, groups = (size_t)(K / group) * N;
+    x += e * M * K;
+    w += e * N * (K / 8);
+    scales += e * groups;
+    if (zp) zp += e * groups;
+    y += e * M * N;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN;
@@ -476,22 +489,32 @@ constexpr size_t RED = (size_t)BM * RS * 4;
 constexpr size_t SMEM = RING > RED ? RING : RED;
 static_assert(SMEM <= 227 * 1024, "shared memory");
 
-// grid (row tiles, column tiles, splits) when rows_fast, else (column
-// tiles, row tiles, splits); cluster (1, 1, splits); k-tiles [z * per,
-// (z + 1) * per). Accumulator element i: row 16 (warp % 4) + g + 8 ((i >>
-// 1) & 1) of the warpgroup's 64, column 8 (i / 4) + 2 t + (i & 1).
+// grid (row tiles, column tiles x experts, splits) when rows_fast, else
+// (column tiles, row tiles x experts, splits), ny tiles of grid y an
+// expert; cluster (1, 1, splits); k-tiles [z * per, (z + 1) * per).
+// Accumulator element i: row 16 (warp % 4) + g + 8 ((i >> 1) & 1) of the
+// warpgroup's 64, column 8 (i / 4) + 2 t + (i & 1).
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_kernel(const __nv_bfloat16* __restrict__ x,
                const int32_t* __restrict__ w,
                const float* __restrict__ scales,  // (K/group, N)
                const float* __restrict__ zp,      // (K/group, N) or null
                __nv_bfloat16* __restrict__ y, int M, int N, int K, int group,
-               int per, int vec, int rows_fast) {
+               int per, int vec, int rows_fast, int ny) {
   extern __shared__ __align__(1024) unsigned char smem[];
+  {  // expert blockIdx.y / ny's operands in the stacked (E, ...) buffers
+    const size_t e = blockIdx.y / ny, groups = (size_t)(K / group) * N;
+    x += e * M * K;
+    w += e * N * (K / 8);
+    scales += e * groups;
+    if (zp) zp += e * groups;
+    y += e * M * N;
+  }
+  const int by = blockIdx.y % ny;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, t = lane & 3;
-  const int m0 = (rows_fast ? blockIdx.x : blockIdx.y) * BM;
-  const int n0 = (rows_fast ? blockIdx.y : blockIdx.x) * BN;
+  const int m0 = (rows_fast ? blockIdx.x : by) * BM;
+  const int n0 = (rows_fast ? by : blockIdx.x) * BN;
   const int kt0 = blockIdx.z * per;
   const int kt1 = min(kt0 + per, K / BK);
   const int tpg = group / BK;
@@ -579,9 +602,9 @@ prefill_kernel(const __nv_bfloat16* __restrict__ x,
 
 template <int MT>
 int launch_decode(const void* x, const void* w, const void* scales,
-                  const void* zp, void* y, int M, int N, int K, int group,
-                  int splits, int per, int vec, cudaStream_t s) {
-  const dim3 grid((N + dec::BN - 1) / dec::BN, 1, splits);
+                  const void* zp, void* y, int E, int M, int N, int K,
+                  int group, int splits, int per, int vec, cudaStream_t s) {
+  const dim3 grid((N + dec::BN - 1) / dec::BN, E, splits);
   return ct::launch<&dec::decode_kernel<MT>>(
       dec::Cfg<MT>::SMEM, grid, THREADS, s, static_cast<const __nv_bfloat16*>(x),
       static_cast<const int32_t*>(w), static_cast<const float*>(scales),
@@ -590,33 +613,37 @@ int launch_decode(const void* x, const void* w, const void* scales,
 }
 
 int launch_prefill(const void* x, const void* w, const void* scales,
-                   const void* zp, void* y, int M, int N, int K, int group,
-                   int splits, int per, int vec, cudaStream_t s) {
+                   const void* zp, void* y, int E, int M, int N, int K,
+                   int group, int splits, int per, int vec, cudaStream_t s) {
   const int rt = (M + pre::BM - 1) / pre::BM, ct_ = (N + pre::BN - 1) / pre::BN;
-  const int rows_fast = rt * pre::BM <= 512;
-  const dim3 grid(rows_fast ? rt : ct_, rows_fast ? ct_ : rt, splits);
+  const int rows_fast = rt * pre::BM <= 512, ny = rows_fast ? ct_ : rt;
+  if ((long long)ny * E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(rows_fast ? rt : ct_, ny * E, splits);
   return ct::launch<&pre::prefill_kernel>(
       pre::SMEM, grid, THREADS, s, static_cast<const __nv_bfloat16*>(x),
       static_cast<const int32_t*>(w), static_cast<const float*>(scales),
       static_cast<const float*>(zp), static_cast<__nv_bfloat16*>(y), M, N, K,
-      group, per, vec, rows_fast);
+      group, per, vec, rows_fast, ny);
 }
 
-// bm 16, 32 or 64 >= M (decode rows) or 128 (prefill rows); splits (1-8)
-// blocks of a cluster share K, per 64-deep k-tiles each
+// E experts (1: one matrix); bm 16, 32 or 64 >= M (decode rows) or 128
+// (prefill rows); splits (1-8) blocks of a cluster share K, per 64-deep
+// k-tiles each
 int matmul(const void* x, const void* w, const void* scales, const void* zp,
-           void* y, int M, int N, int K, int group, int bm, int splits,
+           void* y, int E, int M, int N, int K, int group, int bm, int splits,
            int per, cudaStream_t s) {
   const int tiles = K / BK;
-  if (M < 1 || N < 1 || K < BK || K % BK || group % BK || splits < 1 ||
-      splits > 8 || per < 1 || (splits - 1) * per >= tiles || splits * per < tiles)
+  if (E < 1 || E > 65535 || M < 1 || N < 1 || K < BK || K % BK ||
+      group % BK || (E > 1 && K % group) || splits < 1 || splits > 8 ||
+      per < 1 || (splits - 1) * per >= tiles || splits * per < tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = !(N & 3) && !(reinterpret_cast<uintptr_t>(scales) & 15) &&
                   !(reinterpret_cast<uintptr_t>(zp) & 15);
   if (bm == pre::BM)
-    return launch_prefill(x, w, scales, zp, y, M, N, K, group, splits, per, vec, s);
+    return launch_prefill(x, w, scales, zp, y, E, M, N, K, group, splits, per,
+                          vec, s);
   if (M > bm) return static_cast<int>(cudaErrorInvalidValue);
-#define CT_ARGS x, w, scales, zp, y, M, N, K, group, splits, per, vec, s
+#define CT_ARGS x, w, scales, zp, y, E, M, N, K, group, splits, per, vec, s
   switch (bm) {
     case 16: return launch_decode<1>(CT_ARGS);
     case 32: return launch_decode<2>(CT_ARGS);
@@ -764,7 +791,9 @@ __device__ __forceinline__ void issue(int (&part)[NP], const unsigned char* as,
 // HALF: group % 128 != 0, so a group may end in the middle of a k-tile:
 // each 64-deep half sums and scales apart. VEC: 16-byte scale copies (N %
 // 4 == 0, scales and zero points 16-byte aligned). grid (row tiles, column
-// tiles, splits), cluster (1, 1, splits), k-tiles [z * per, (z + 1) * per).
+// tiles x experts, splits), ny column tiles an expert (each block offsets
+// its operands to expert blockIdx.y / ny's in the stacked (E, ...)
+// buffers), cluster (1, 1, splits), k-tiles [z * per, (z + 1) * per).
 template <bool HALF, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
@@ -772,11 +801,20 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
             const float* __restrict__ scales,  // (K/group, N)
             const float* __restrict__ zp,      // (K/group, N) or null
             __nv_bfloat16* __restrict__ y, int M, int N, int K, int group,
-            int tiles_per_split) {
+            int tiles_per_split, int ny) {
   extern __shared__ __align__(1024) unsigned char smem[];
+  {
+    const size_t e = blockIdx.y / ny, groups = (size_t)(K / group) * N;
+    xq += e * M * K;
+    xs += e * M;
+    w += e * N * (K / 8);
+    scales += e * groups;
+    if (zp) zp += e * groups;
+    y += e * M * N;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * BM, n0 = (blockIdx.y % ny) * BN;
   const int kt0 = blockIdx.z * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, (K + BK - 1) / BK);
   const size_t kwords = K / 8;
@@ -947,31 +985,33 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 template <bool HALF, bool VEC>
 int launch(dim3 grid, cudaStream_t s, const void* xq, const void* xs,
            const void* w, const void* scales, const void* zp, void* y, int M,
-           int N, int K, int group, int per) {
+           int N, int K, int group, int per, int ny) {
   return ct::launch<&w4a8_kernel<HALF, VEC>>(
       SMEM, grid, THREADS, s, static_cast<const int8_t*>(xq),
       static_cast<const float*>(xs), static_cast<const int32_t*>(w),
       static_cast<const float*>(scales), static_cast<const float*>(zp),
-      static_cast<__nv_bfloat16*>(y), M, N, K, group, per);
+      static_cast<__nv_bfloat16*>(y), M, N, K, group, per, ny);
 }
 
-// the GEMM from the quantized rows; splits 1-8 blocks of a cluster, per
-// 128-deep k-tiles each
+// the GEMM from the quantized rows of E experts (1: one matrix); splits
+// 1-8 blocks of a cluster, per 128-deep k-tiles each
 int gemm(const void* xq, const void* xs, const void* w, const void* scales,
-         const void* zp, void* y, int M, int N, int K, int group, int splits,
-         int per, cudaStream_t s) {
-  if (K % 64 || group % 64 || splits < 1 || splits > 8 || per < 1 ||
+         const void* zp, void* y, int E, int M, int N, int K, int group,
+         int splits, int per, cudaStream_t s) {
+  const int ny = (N + BN - 1) / BN;
+  if (K % 64 || group % 64 || (E > 1 && K % group) || E < 1 ||
+      (long long)ny * E > 65535 || splits < 1 || splits > 8 || per < 1 ||
       (splits - 1) * per >= (K + BK - 1) / BK)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const dim3 grid((M + BM - 1) / BM, ny * E, splits);
   const bool half = group % BK;
   const bool vec = !(N & 3) && !(reinterpret_cast<uintptr_t>(scales) & 15) &&
                    !(reinterpret_cast<uintptr_t>(zp) & 15);
+#define CT_ARGS grid, s, xq, xs, w, scales, zp, y, M, N, K, group, per, ny
   if (half)
-    return vec ? launch<true, true>(grid, s, xq, xs, w, scales, zp, y, M, N, K, group, per)
-               : launch<true, false>(grid, s, xq, xs, w, scales, zp, y, M, N, K, group, per);
-  return vec ? launch<false, true>(grid, s, xq, xs, w, scales, zp, y, M, N, K, group, per)
-             : launch<false, false>(grid, s, xq, xs, w, scales, zp, y, M, N, K, group, per);
+    return vec ? launch<true, true>(CT_ARGS) : launch<true, false>(CT_ARGS);
+  return vec ? launch<false, true>(CT_ARGS) : launch<false, false>(CT_ARGS);
+#undef CT_ARGS
 }
 
 int quantize(const void* x, void* xq, void* xs, int M, int K, cudaStream_t s) {
@@ -994,7 +1034,20 @@ extern "C" int ct_w4a16_matmul(const void* x, const void* w, const void* scales,
                                const void* zp, void* y, int M, int N, int K,
                                int group, int bm, int splits, int per,
                                void* stream) {
-  return int4b::matmul(x, w, scales, zp, y, M, N, K, group, bm, splits, per,
+  return int4b::matmul(x, w, scales, zp, y, 1, M, N, K, group, bm, splits, per,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Mode int4b over E experts in one launch: x (E, M, K) bf16, w (E, N, K/8)
+// int32, scales/zp (E, K/group, N) f32, y (E, M, N) bf16, each stacked
+// contiguously; K % group == 0; the plan as above for M rows and E
+// experts.
+extern "C" int ct_w4a16_matmul_experts(const void* x, const void* w,
+                                       const void* scales, const void* zp,
+                                       void* y, int E, int M, int N, int K,
+                                       int group, int bm, int splits, int per,
+                                       void* stream) {
+  return int4b::matmul(x, w, scales, zp, y, E, M, N, K, group, bm, splits, per,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -1011,7 +1064,22 @@ extern "C" int ct_w4a16_a8b_matmul(const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = a8b::quantize(x, xq, xs, M, K, s);
   if (err) return err;
-  return a8b::gemm(xq, xs, w, scales, zp, y, M, N, K, group, splits, per, s);
+  return a8b::gemm(xq, xs, w, scales, zp, y, 1, M, N, K, group, splits, per, s);
+}
+
+// Mode a8b over E experts: the row pass quantizes all E * M rows of x (E,
+// M, K) into xq (E, M, K) and xs (E, M), then one GEMM launch covers every
+// expert (operands stacked as for ct_w4a16_matmul_experts).
+extern "C" int ct_w4a16_a8b_matmul_experts(const void* x, const void* w,
+                                           const void* scales, const void* zp,
+                                           void* y, void* xq, void* xs, int E,
+                                           int M, int N, int K, int group,
+                                           int splits, int per, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((long long)E * M > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = a8b::quantize(x, xq, xs, E * M, K, s);
+  if (err) return err;
+  return a8b::gemm(xq, xs, w, scales, zp, y, E, M, N, K, group, splits, per, s);
 }
 
 // The two passes of mode a8b on their own (timing): the row quantization
@@ -1025,6 +1093,6 @@ extern "C" int ct_w4a16_a8b_gemm(const void* xq, const void* xs, const void* w,
                                  const void* scales, const void* zp, void* y,
                                  int M, int N, int K, int group, int splits,
                                  int per, void* stream) {
-  return a8b::gemm(xq, xs, w, scales, zp, y, M, N, K, group, splits, per,
+  return a8b::gemm(xq, xs, w, scales, zp, y, 1, M, N, K, group, splits, per,
                    static_cast<cudaStream_t>(stream));
 }

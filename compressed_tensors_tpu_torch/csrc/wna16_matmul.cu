@@ -66,6 +66,13 @@
 // slice of the rows in bf16, so no partial goes to device memory. Ragged K
 // (a multiple of 32 for fp4, 16 for int8), M and N are zero-filled by
 // cp.async and masked at the store.
+// Experts (ct_w4_e8_matmul_experts, the MoE layer's stacked weights): one
+// launch computes y[e] = x[e] . W[e]^T for every expert e of an (E, M, K)
+// dispatch buffer, (E, N, K) weights and (E, K/group, N) scales. The
+// expert index rides in grid y beside the row tiles (the K-split cluster
+// spans grid z only); each block offsets its operands by its expert's
+// strides, and the design and split come from M rows and all E experts'
+// blocks (wna16_plan).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -594,15 +601,22 @@ wna16_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                            const uint8_t* __restrict__ w,
                            const float* __restrict__ scales,  // (K/group, N)
                            __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                           int group, int tiles_per_split) {
+                           int group, int tiles_per_split, int ny) {
   using C = PrefillCfg<W>;
   constexpr int S = PREFILL_STAGES, CPT = C::CPT;
   static_assert(C::THREADS == 512, "4 warpgroups");
   extern __shared__ __align__(1024) unsigned char smem[];
+  {  // expert e's operands in the stacked (E, ...) buffers
+    const size_t e = blockIdx.y / ny;
+    x += e * M * K;
+    w += e * N * (size_t)(K * W::kRowBytes / BK);
+    scales += e * (size_t)(K / group) * N;
+    y += e * M * N;
+  }
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wgm = warp >> 3, wgn = (warp >> 2) & 1, wq = warp & 3;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * BN;
+  const int m0 = (blockIdx.y % ny) * C::BM, n0 = blockIdx.x * BN;
   const int kt0 = blockIdx.z * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, (K + BK - 1) / BK);
   const int k_end = min(kt1 * BK, K);
@@ -766,6 +780,13 @@ wna16_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
   using C = DecodeCfg<W, BM>;
   constexpr int S = DECODE_STAGES, ND = BM / 2;
   extern __shared__ __align__(1024) unsigned char smem[];
+  {  // expert e's operands in the stacked (E, ...) buffers
+    const size_t e = blockIdx.y;
+    x += e * M * K;
+    w += e * N * (size_t)(K * W::kRowBytes / BK);
+    scales += e * (size_t)(K / group) * N;
+    y += e * M * N;
+  }
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -933,9 +954,9 @@ wna16_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
 
 template <class W, int BM>
 int launch_decode(const void* x, const void* w, const void* scales, void* y,
-                  int M, int N, int K, int group, int splits,
+                  int E, int M, int N, int K, int group, int splits,
                   int tiles_per_split, cudaStream_t s) {
-  dim3 grid((N + BN - 1) / BN, 1, splits);
+  dim3 grid((N + BN - 1) / BN, E, splits);
   return launch<&wna16_decode_wgmma_kernel<W, BM>>(DecodeCfg<W, BM>::SMEM,
                                                   grid, DECODE_THREADS, s,
                 static_cast<const __nv_bfloat16*>(x),
@@ -945,32 +966,47 @@ int launch_decode(const void* x, const void* w, const void* scales, void* y,
                 tiles_per_split);
 }
 
+// E experts (1: one matrix); bm 16, 32 or 64 >= M (decode rows) or 128
+// (prefill rows)
 template <class W>
 int launch_wna16(const void* x, const void* w, const void* scales, void* y,
-                 int M, int N, int K, int group, int bm, int splits,
+                 int E, int M, int N, int K, int group, int bm, int splits,
                  int tiles_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || splits > 8 || group % 16 || (bm <= 64 && M > bm))
+  const int ny = (M + 127) / 128;
+  if (splits < 1 || splits > 8 || group % 16 || (bm <= 64 && M > bm) ||
+      E < 1 || E > 65535 || (E > 1 && K % group) ||
+      (bm == 128 && (long long)ny * E > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (bm) {
-    case 16: return launch_decode<W, 16>(x, w, scales, y, M, N, K, group,
+    case 16: return launch_decode<W, 16>(x, w, scales, y, E, M, N, K, group,
                                          splits, tiles_per_split, s);
-    case 32: return launch_decode<W, 32>(x, w, scales, y, M, N, K, group,
+    case 32: return launch_decode<W, 32>(x, w, scales, y, E, M, N, K, group,
                                          splits, tiles_per_split, s);
-    case 64: return launch_decode<W, 64>(x, w, scales, y, M, N, K, group,
+    case 64: return launch_decode<W, 64>(x, w, scales, y, E, M, N, K, group,
                                          splits, tiles_per_split, s);
     case 128: {
-      dim3 grid((N + BN - 1) / BN, (M + 127) / 128, splits);
+      dim3 grid((N + BN - 1) / BN, ny * E, splits);
       return launch<&wna16_prefill_wgmma_kernel<W>>(PrefillCfg<W>::SMEM, grid,
                                                    PrefillCfg<W>::THREADS, s,
                     static_cast<const __nv_bfloat16*>(x),
                     static_cast<const uint8_t*>(w),
                     static_cast<const float*>(scales),
                     static_cast<__nv_bfloat16*>(y), M, N, K, group,
-                    tiles_per_split);
+                    tiles_per_split, ny);
     }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int w4_e8(const void* x, const void* w, const void* scales, void* y, int E,
+          int M, int N, int K, int group, int bm, int splits,
+          int tiles_per_split, void* stream) {
+  return group % BK
+      ? launch_wna16<Int8<false>>(x, w, scales, y, E, M, N, K, group, bm,
+                                  splits, tiles_per_split, stream)
+      : launch_wna16<Int8<true>>(x, w, scales, y, E, M, N, K, group, bm,
+                                 splits, tiles_per_split, stream);
 }
 
 }  // namespace
@@ -983,7 +1019,7 @@ extern "C" int ct_w4a16_fp4_matmul(const void* x, const void* codes,
                                    const void* scales, void* y, int M, int N,
                                    int K, int group, int bm, int splits,
                                    int tiles_per_split, void* stream) {
-  return launch_wna16<Fp4>(x, codes, scales, y, M, N, K, group, bm, splits,
+  return launch_wna16<Fp4>(x, codes, scales, y, 1, M, N, K, group, bm, splits,
                            tiles_per_split, stream);
 }
 
@@ -992,9 +1028,19 @@ extern "C" int ct_w4a16_fp4_matmul(const void* x, const void* codes,
 extern "C" int ct_w4_e8_matmul(const void* x, const void* w, const void* scales,
                                void* y, int M, int N, int K, int group, int bm,
                                int splits, int tiles_per_split, void* stream) {
-  return group % BK
-      ? launch_wna16<Int8<false>>(x, w, scales, y, M, N, K, group, bm, splits,
-                                  tiles_per_split, stream)
-      : launch_wna16<Int8<true>>(x, w, scales, y, M, N, K, group, bm, splits,
-                                 tiles_per_split, stream);
+  return w4_e8(x, w, scales, y, 1, M, N, K, group, bm, splits,
+               tiles_per_split, stream);
+}
+
+// Grouped int8 over E experts in one launch: x (E, M, K) bf16, w (E, N, K)
+// int8, scales (E, K/group, N) f32, y (E, M, N) bf16, each stacked
+// contiguously; K % group == 0; the plan as above for M rows and E
+// experts.
+extern "C" int ct_w4_e8_matmul_experts(const void* x, const void* w,
+                                       const void* scales, void* y, int E,
+                                       int M, int N, int K, int group, int bm,
+                                       int splits, int tiles_per_split,
+                                       void* stream) {
+  return w4_e8(x, w, scales, y, E, M, N, K, group, bm, splits,
+               tiles_per_split, stream);
 }

@@ -75,8 +75,10 @@ def params_from_numpy(tree: dict, device="cuda",
     the 2:4 sparse leaves ``sparse_values`` / ``sparse_bitmask`` (absent
     or None when unused; the Qwen2 qkv biases ride in ``bias``). Each
     linear carries its own scheme, so per-layer mixed schemes come across
-    as they are. Every other array (embeddings, norms with the Qwen3
-    per-head ``q_norm`` / ``k_norm``, k/v/q scales) carries over as it
-    is.
+    as they are. An MoE layer's ``moe`` dict carries over with its dense
+    ``router`` and its stacked (E, N, K) expert linears, which take the
+    stacked kernel layouts. Every other
+    array (embeddings, norms with the Qwen3 per-head ``q_norm`` /
+    ``k_norm``, k/v/q scales) carries over as it is.
     """
     return _convert(tree, resolve_device(device), use_kernels)

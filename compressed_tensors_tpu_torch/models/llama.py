@@ -2,8 +2,9 @@
 compressed, in PyTorch.
 
 Counterpart of ``compressed_tensors_tpu/models/llama.py`` for the dense and
-paged KV caches, non-MoE, non-MLA path, with the Qwen2 qkv bias, the
-Qwen3 per-head q/k RMSNorm and the fp8 fake-quant of q by ``q_scale``.
+paged KV caches, non-MLA path, with the Qwen2 qkv bias, the Qwen3
+per-head q/k RMSNorm, the fp8 fake-quant of q by ``q_scale`` and MoE
+layers (``models/moe.py``; Qwen-MoE, DeepSeek and Mixtral expert naming).
 Every linear is a ``QuantizedTensor`` through ``quantized_matmul``, so
 weights stay compressed on the device. The dense KV cache is
 (L, B, KVH, S_pad, D) and the paged pool (L, NP, KVH, page, D), in the
@@ -42,6 +43,7 @@ from compressed_tensors_tpu_torch.ops.linear import (
     materialize_weight,
     prepare_for_kernels,
     quantized_matmul,
+    stack_quantized_tensors,
 )
 from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
@@ -407,6 +409,10 @@ def _attention_dense_tail(layer: dict, x, q, k, v, cache_k_l, cache_v_l,
 
 
 def _mlp(layer: dict, x, config: LlamaConfig, use_kernels: bool = True):
+    if "moe" in layer:
+        from compressed_tensors_tpu_torch.models.moe import moe_mlp
+
+        return moe_mlp(layer, x, config, use_kernels=use_kernels)
     if "gate_up_proj" in layer:
         gu = quantized_matmul(x, layer["gate_up_proj"], use_kernels)
         split = layer["gate_up_split"]
@@ -495,10 +501,9 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
 
     device = resolve_device(device)
     config = LlamaConfig.from_pretrained(path)
-    if config.is_moe or config.is_mla:
+    if config.is_mla:
         raise NotImplementedError(
-            "MoE (ROADMAP A2) and MLA (ROADMAP A3) checkpoints are not "
-            "ported yet")
+            "MLA checkpoints (ROADMAP A3) are not ported yet")
     mc = ModelCompressor.from_pretrained(path)
     reader = CheckpointReader(path)
     module_names = reader.module_names()
@@ -509,14 +514,56 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
     def _tensor(name):
         return reader.get(name).to(device)
 
-    def _get_qt(mod_name: str) -> QuantizedTensor:
+    def _get_qt(mod_name: str, kernels: bool | None = None
+                ) -> QuantizedTensor:
         state = {k: v.to(device)
                  for k, v in reader.module_state_dict(mod_name).items()}
         qt = from_compressed_state(state, schemes.get(mod_name))
         if (qt.weight is not None and qt.weight.dtype.is_floating_point
                 and qt.weight.dtype.itemsize > 1):
             qt = dataclasses.replace(qt, weight=qt.weight.to(dtype))
-        return prepare_for_kernels(qt) if use_kernels else qt
+        if kernels if kernels is not None else use_kernels:
+            qt = prepare_for_kernels(qt)
+        return qt
+
+    def _load_moe(prefix: str) -> dict | None:
+        """The stacked-expert MoE block of a layer, or None: Qwen/DeepSeek
+        naming (``mlp.experts.N.{gate,up,down}_proj`` with the ``mlp.gate``
+        router and an optional ``mlp.shared_expert`` or
+        ``mlp.shared_experts``) or Mixtral naming
+        (``block_sparse_moe.experts.N.{w1,w3,w2}`` with
+        ``block_sparse_moe.gate``). Experts stack in checkpoint layout,
+        then take the stacked kernel layouts where they have one."""
+        styles = ((f"{prefix}.mlp", ("gate_proj", "up_proj", "down_proj")),
+                  (f"{prefix}.block_sparse_moe", ("w1", "w3", "w2")))
+        for base, src_names in styles:
+            if f"{base}.experts.0.{src_names[0]}" not in module_names:
+                continue
+            E = config.num_local_experts or sum(
+                1 for m in module_names
+                if m.startswith(f"{base}.experts.")
+                and m.endswith(f".{src_names[0]}"))
+
+            def stacked(src):
+                st = stack_quantized_tensors([
+                    _get_qt(f"{base}.experts.{j}.{src}", kernels=False)
+                    for j in range(E)])
+                return prepare_for_kernels(st) if use_kernels else st
+
+            moe: dict = {
+                "router": reader.module_state_dict(f"{base}.gate")[
+                    "weight"].to(device=device, dtype=dtype),
+                "experts": {dst: stacked(src) for src, dst in zip(
+                    src_names, ("gate_proj", "up_proj", "down_proj"))},
+            }
+            for shared in ("shared_expert", "shared_experts"):
+                if f"{base}.{shared}.gate_proj" in module_names:
+                    moe["shared_expert"] = {
+                        p: _get_qt(f"{base}.{shared}.{p}")
+                        for p in ("gate_proj", "up_proj", "down_proj")}
+                    break
+            return moe
+        return None
 
     params: dict = {"layers": []}
     params["embed_tokens"] = materialize_weight(
@@ -526,8 +573,12 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
         layer: dict = {}
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             layer[proj] = _get_qt(f"{prefix}.self_attn.{proj}")
-        for proj in ("gate_proj", "up_proj", "down_proj"):
-            layer[proj] = _get_qt(f"{prefix}.mlp.{proj}")
+        moe = _load_moe(prefix)
+        if moe is not None:
+            layer["moe"] = moe
+        else:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                layer[proj] = _get_qt(f"{prefix}.mlp.{proj}")
         for norm in ("input_layernorm", "post_attention_layernorm"):
             layer[norm] = _tensor(f"{prefix}.{norm}.weight").to(dtype)
         attn_state = reader.module_state_dict(f"{prefix}.self_attn")

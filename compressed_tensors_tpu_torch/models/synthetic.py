@@ -7,7 +7,8 @@ distributions as the JAX package, directly in their packed
 representation, so both packages build the same model from the same seed
 (per-layer mixed schemes included). ``sparsity="2:4"``, which the JAX
 package's builder lacks, masks the same draw to 2:4 and stores it as the
-stacked sparse-24-bitmask state.
+stacked sparse-24-bitmask state. MoE layers draw their router and their
+experts stacked (E, N, K), in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from compressed_tensors_tpu_torch.models.config import LlamaConfig
 from compressed_tensors_tpu_torch.models.llama import resolve_device
 from compressed_tensors_tpu_torch.ops.linear import (
     QuantizedTensor,
+    expert_slice,
     prepare_for_kernels,
 )
 from compressed_tensors_tpu_torch.ops.bitmask import sparse24_compress
@@ -57,8 +59,9 @@ LLAMA3_8B = LlamaConfig(
 def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
                   dtype, device) -> QuantizedTensor:
     """Random compressed weight for `shape` (dense, pack-quantized, int8 or
-    fp8 e4m3)."""
-    n, k = shape
+    fp8 e4m3); a leading dim (E, N, K) stacks MoE experts."""
+    *lead, n, k = shape
+    shape = tuple(shape)
     args = scheme.weights
     if args is None:
         w = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
@@ -67,7 +70,8 @@ def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
                                format=CompressionFormat.dense.value)
     if args.num_bits == 8 and args.type == "int":
         wq = rng.integers(-127, 128, size=shape, dtype=np.int8)
-        scale = rng.uniform(size=(n, 1)).astype(np.float32) * 2e-4 + 1e-4
+        scale = rng.uniform(size=(*lead, n, 1)).astype(np.float32) * 2e-4 \
+            + 1e-4
         return QuantizedTensor(
             weight=torch.from_numpy(wq).to(device),
             scale=torch.from_numpy(scale).to(device), shape=shape,
@@ -79,16 +83,19 @@ def _synthetic_qt(rng: np.random.Generator, shape, scheme: QuantizationScheme,
             device)
         wq = (w * 100).clamp_(-440, 440).to(torch.float8_e4m3fn)
         del w
-        scale = rng.uniform(size=(n, 1)).astype(np.float32) * 2e-4 + 1e-4
+        scale = rng.uniform(size=(*lead, n, 1)).astype(np.float32) * 2e-4 \
+            + 1e-4
         return QuantizedTensor(
             weight=wq, scale=torch.from_numpy(scale).to(device), shape=shape,
             scheme=scheme, format=CompressionFormat.float_quantized.value)
     if args.type != "int":
         raise NotImplementedError(f"synthetic {args.type} weights")
     g = args.group_size or k
-    packed = rng.integers(-(2**31), 2**31, size=(n, packed_cols(k, args.num_bits)),
+    packed = rng.integers(-(2**31), 2**31,
+                          size=(*lead, n, packed_cols(k, args.num_bits)),
                           dtype=np.int32)
-    scale = rng.uniform(size=(n, k // g)).astype(np.float32) * 0.002 + 0.001
+    scale = rng.uniform(size=(*lead, n, k // g)).astype(np.float32) * 0.002 \
+        + 0.001
     return QuantizedTensor(
         weight_packed=torch.from_numpy(packed).to(device),
         scale=torch.from_numpy(scale).to(device=device, dtype=torch.bfloat16),
@@ -174,9 +181,33 @@ def make_synthetic_llama(
             "post_attention_layernorm": torch.ones((H,), dtype=dtype,
                                                    device=device),
         }
-        layer["gate_proj"] = linear((I, H), scheme, sparse)
-        layer["up_proj"] = linear((I, H), scheme, sparse)
-        layer["down_proj"] = linear((H, I), scheme, sparse)
+        if config.layer_is_moe(i):
+            if sparse:
+                raise NotImplementedError("2:4 synthetic MoE experts")
+            E = config.num_local_experts
+            Im = config.moe_intermediate_size or I
+            moe: dict = {
+                "router": torch.from_numpy(
+                    rng.standard_normal((E, H), dtype=np.float32) * 0.02).to(
+                        device=device, dtype=dtype),
+                "experts": {
+                    "gate_proj": linear((E, Im, H), scheme),
+                    "up_proj": linear((E, Im, H), scheme),
+                    "down_proj": linear((E, H, Im), scheme),
+                },
+            }
+            Is = config.shared_expert_intermediate_size
+            if Is:
+                moe["shared_expert"] = {
+                    "gate_proj": linear((Is, H), scheme),
+                    "up_proj": linear((Is, H), scheme),
+                    "down_proj": linear((H, Is), scheme),
+                }
+            layer["moe"] = moe
+        else:
+            layer["gate_proj"] = linear((I, H), scheme, sparse)
+            layer["up_proj"] = linear((I, H), scheme, sparse)
+            layer["down_proj"] = linear((H, I), scheme, sparse)
         params["layers"].append(layer)
     if lm_head_preset is not None:
         params["lm_head"] = linear(
@@ -229,8 +260,14 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
     indices where they mix several. 2:4 sparse linears are written as
     ``weight.compressed`` / ``weight.bitmask`` / ``weight.shape`` under a
     ``sparsity_config`` (sparse-24-bitmask, ignoring the linears stored
-    dense). Per-layer ``k_scale``/``v_scale``/``q_scale`` are written under
-    ``model.layers.{i}.self_attn.``."""
+    dense). Per-layer ``k_scale``/``v_scale``/``q_scale`` and the Qwen3
+    ``q_norm``/``k_norm`` weights are written under
+    ``model.layers.{i}.self_attn.``. MoE layers are written in the Qwen
+    naming, one 2-D linear per expert
+    (``mlp.experts.{j}.{gate,up,down}_proj``), the router as
+    ``mlp.gate.weight`` and a shared expert as ``mlp.shared_expert.*``;
+    ``config.json`` then names the MoE widths (and ``model_type``
+    qwen3_moe for models with q/k norms)."""
     os.makedirs(path, exist_ok=True)
     tensors: dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed_tokens"],
@@ -241,13 +278,26 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
         p = f"model.layers.{i}"
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             linears[f"{p}.self_attn.{proj}"] = layer[proj]
-        for proj in ("gate_proj", "up_proj", "down_proj"):
-            linears[f"{p}.mlp.{proj}"] = layer[proj]
+        moe = layer.get("moe")
+        if moe is not None:
+            tensors[f"{p}.mlp.gate.weight"] = moe["router"]
+            for proj, qt in moe["experts"].items():
+                for e in range(qt.shape[0]):
+                    linears[f"{p}.mlp.experts.{e}.{proj}"] = expert_slice(
+                        qt, e)
+            for proj, qt in (moe.get("shared_expert") or {}).items():
+                linears[f"{p}.mlp.shared_expert.{proj}"] = qt
+        else:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                linears[f"{p}.mlp.{proj}"] = layer[proj]
         for norm in ("input_layernorm", "post_attention_layernorm"):
             tensors[f"{p}.{norm}.weight"] = layer[norm]
         for sname in ("k_scale", "v_scale", "q_scale"):
             if layer.get(sname) is not None:
                 tensors[f"{p}.self_attn.{sname}"] = layer[sname]
+        for nname in ("q_norm", "k_norm"):
+            if layer.get(nname) is not None:
+                tensors[f"{p}.self_attn.{nname}.weight"] = layer[nname]
     if isinstance(params["lm_head"], QuantizedTensor):
         linears["lm_head"] = params["lm_head"]
 
@@ -275,8 +325,11 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
     save_safetensors(os.path.join(path, "model.safetensors"), tensors,
                      metadata={"format": "pt"})
 
+    model_type = ("qwen3_moe" if config.is_moe else "qwen3") \
+        if config.qk_norm else "llama"
     cfg = {
-        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "architectures": ["LlamaForCausalLM"], "model_type": model_type,
+        "attention_bias": config.attention_bias,
         "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
         "intermediate_size": config.intermediate_size,
         "num_hidden_layers": config.num_hidden_layers,
@@ -288,6 +341,14 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
         "tie_word_embeddings": not isinstance(params["lm_head"],
                                               QuantizedTensor),
     }
+    if config.is_moe:
+        cfg.update(num_experts=config.num_local_experts,
+                   num_experts_per_tok=config.num_experts_per_tok,
+                   moe_intermediate_size=config.moe_intermediate_size,
+                   shared_expert_intermediate_size=(
+                       config.shared_expert_intermediate_size),
+                   first_k_dense_replace=config.first_k_dense_replace,
+                   norm_topk_prob=config.norm_topk_prob)
     if groups:
         qconfig = QuantizationConfig(
             config_groups=groups,

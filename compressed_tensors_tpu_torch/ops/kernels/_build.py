@@ -34,11 +34,14 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ct_w4a16_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    "ct_w4a16_matmul_experts": [_P] * 5 + [_I] * 8 + [_P],
+    "ct_w4a16_a8b_matmul_experts": [_P] * 7 + [_I] * 7 + [_P],
     "ct_w4a16_a8b_matmul": [_P] * 7 + [_I] * 6 + [_P],
     "ct_w4a16_a8b_quantize": [_P] * 3 + [_I] * 2 + [_P],
     "ct_w4a16_a8b_gemm": [_P] * 6 + [_I] * 6 + [_P],
     "ct_w4a16_fp4_matmul": [_P] * 4 + [_I] * 7 + [_P],
     "ct_w4_e8_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    "ct_w4_e8_matmul_experts": [_P] * 4 + [_I] * 8 + [_P],
     "ct_w4a16_planes_int4": [_P] * 6 + [_I] * 7 + [_P],
     "ct_w4a16_planes_mat": [_P] * 6 + [_I] * 7 + [_P],
     "ct_w4a16_planes_a8": [_P] * 8 + [_I] * 7 + [_P],

@@ -74,6 +74,16 @@ Bound: the checkpoint bytes at decode rows (codes, bf16 scales, 4-bit zero
 points), the 2*M*N*K bf16 (``int4``, ``mat``) or int8 (``a8``) operations
 at prefill rows.
 
+The MoE layer's stacked experts take three expert-batched entry points,
+each one launch for all E experts of an (E, C, K) dispatch buffer with the
+expert index in grid y (the K-split cluster spans grid z only), the design
+picked by C rows and the split counted over all E experts' blocks:
+``w4a16_experts_matmul`` (int4b over (E, N, K/8) words, the replacement
+of the JAX package's ``jax.vmap`` of ``w4a16_matmul`` in
+``quantized_matmul_experts``), its mode a8b ``w4a16_a8b_experts_matmul``,
+and ``w4_e8_experts_matmul`` (the vmapped ``w4_e8_matmul``). Their plain
+versions are the 2-D ones, which take a leading expert dim.
+
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors.
 """
@@ -90,6 +100,8 @@ from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.ops.pack import unpack_from_int32
 
 __all__ = ["w4a16_matmul", "w4a16_a8b_matmul", "w4a16_matmul_plain",
+           "w4a16_experts_matmul", "w4a16_a8b_experts_matmul",
+           "w4_e8_experts_matmul",
            "int4b_design", "int4b_plan", "a8b_plan",
            "quantize_rows_a8b_plain", "w4a16_fp4_matmul",
            "w4a16_fp4_matmul_plain", "w4_e8_matmul", "w4_e8_matmul_plain",
@@ -104,11 +116,13 @@ _SMS = 132
 
 
 def _dequantized_weight(w_packed, scales, zp, n, k, group_size):
-    """(N, K) f32 weight: (q - zp) * s."""
+    """(..., N, K) f32 weight: (q - zp) * s, for (..., N, K/8) words and
+    (..., K/g, N) scales and zero points (a leading expert dim rides
+    along)."""
     q = unpack_from_int32(w_packed, 4, (n, k)).to(torch.float32)
-    s = scales.to(torch.float32).t().repeat_interleave(group_size, dim=1)
+    s = _group_scales(scales, group_size)
     if zp is not None:
-        q = q - zp.to(torch.float32).t().repeat_interleave(group_size, dim=1)
+        q = q - _group_scales(zp, group_size)
     return q * s
 
 
@@ -130,13 +144,15 @@ def w4a16_matmul_plain(x, w_packed, scales, zp, *, n, k, group_size,
     """Plain PyTorch version: dequantize the weight in f32, one f32 matmul,
     cast to ``out_dtype`` (x's dtype by default). Mode "a8b" first
     quantizes x per row to int8 (``quantize_rows_a8b_plain``), as the TPU
-    kernel's a8b mode."""
+    kernel's a8b mode. Stacked experts -- x (E, C, K), words (E, N, K/8),
+    scales and zero points (E, K/g, N) -- give y (E, C, N), one batched
+    matmul (the plain version of ``w4a16_experts_matmul``)."""
     w = _dequantized_weight(w_packed, scales, zp, n, k, group_size)
     if mode == "a8b":
         xq, x_scale = quantize_rows_a8b_plain(x)
-        y = (xq.to(torch.float32) @ w.t()) * x_scale[..., None]
+        y = (xq.to(torch.float32) @ w.transpose(-1, -2)) * x_scale[..., None]
     elif mode == "int4b":
-        y = x.to(torch.float32) @ w.t()
+        y = x.to(torch.float32) @ w.transpose(-1, -2)
     else:
         raise ValueError(f"unknown w4a16 mode {mode!r}")
     return y.to(out_dtype or x.dtype)
@@ -171,7 +187,8 @@ def int4b_design(m: int) -> str:
 
 
 @functools.lru_cache(maxsize=1024)
-def int4b_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+def int4b_plan(m: int, n: int, k: int,
+               experts: int = 1) -> tuple[int, int, int]:
     """(rows a block, K splits, k-tiles a split) of mode int4b, as
     ``tools/int4b_sweep.py`` measured them on the H100.
     Decode rows take 16, 32 or 64 rows (the fewest that hold M) and 128
@@ -182,16 +199,18 @@ def int4b_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
     its pipeline's fill and its epilogue, the fewer splits on a tie. The
     split is then as many blocks as its k-tiles per block leave none
     empty. Each split scales its own part of a group's sum, so a split may
-    cut a group. Cached: the wrapper asks once a call."""
+    cut a group. An expert-batched launch (``experts`` > 1) picks the
+    design by the M rows of one expert and counts the blocks of all of
+    them. Cached: the wrapper asks once a call."""
     tiles = -(-k // _INT4B_BK)
     if int4b_design(m) == "decode":
         bm = next(b for b in (16, 32, 64) if m <= b)
-        blocks = -(-n // _INT4B_DECODE_BN)
+        blocks = -(-n // _INT4B_DECODE_BN) * experts
         split = max(s for s in (1, 2, 4, 8)
                     if s == 1 or (s <= tiles and blocks * s <= 2 * _SMS))
     else:
         bm = _INT4B_PREFILL_BM
-        blocks = -(-n // _INT4B_PREFILL_BN) * -(-m // bm)
+        blocks = -(-n // _INT4B_PREFILL_BN) * -(-m // bm) * experts
 
         def cost(s):
             return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
@@ -206,14 +225,14 @@ def int4b_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
 _A8B_BM = _A8B_BN = _A8B_BK = 128
 
 
-def a8b_plan(m: int, n: int, k: int) -> tuple[int, int]:
+def a8b_plan(m: int, n: int, k: int, experts: int = 1) -> tuple[int, int]:
     """(K splits, k-tiles a split) of mode a8b's GEMM: the split with the
     least estimated time, the number of waves of 128 x 128 blocks (one an
-    SM) times a block's 128-deep k-tiles plus 4 for its pipeline's fill
-    and its epilogue, the fewer splits on a tie; then as many blocks as
-    its k-tiles per block leave none empty."""
+    SM; M rows of each of ``experts``) times a block's 128-deep k-tiles
+    plus 4 for its pipeline's fill and its epilogue, the fewer splits on a
+    tie; then as many blocks as its k-tiles per block leave none empty."""
     tiles = -(-k // _A8B_BK)
-    blocks = -(-n // _A8B_BN) * -(-m // _A8B_BM)
+    blocks = -(-n // _A8B_BN) * -(-m // _A8B_BM) * experts
 
     def cost(s):
         return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
@@ -334,8 +353,9 @@ w4a16_a8b_matmul.launches = 0
 # ---- fp4 codes and int8-expanded weights ------------------------------ #
 
 def _group_scales(scales, group_size):
-    """(K/g, N) scales -> (N, K) f32, one per weight."""
-    return scales.to(torch.float32).t().repeat_interleave(group_size, dim=1)
+    """(..., K/g, N) scales -> (..., N, K) f32, one per weight."""
+    return scales.to(torch.float32).transpose(-1, -2).repeat_interleave(
+        group_size, dim=-1)
 
 
 def w4a16_fp4_matmul_plain(x, codes, scales, *, n, k, group_size,
@@ -353,9 +373,12 @@ def w4a16_fp4_matmul_plain(x, codes, scales, *, n, k, group_size,
 def w4_e8_matmul_plain(x, w8, scales, *, n, k, group_size, out_dtype=None):
     """Plain version of the grouped-int8 matmul: the (N, K) int8 values
     times their group scales in f32, one f32 matmul, cast to
-    ``out_dtype`` (x's dtype by default)."""
+    ``out_dtype`` (x's dtype by default). Stacked experts -- x (E, C, K),
+    w8 (E, N, K), scales (E, K/g, N) -- give y (E, C, N) (the plain
+    version of ``w4_e8_experts_matmul``)."""
     w = w8.to(torch.float32) * _group_scales(scales, group_size)
-    return (x.to(torch.float32) @ w.t()).to(out_dtype or x.dtype)
+    return (x.to(torch.float32) @ w.transpose(-1, -2)).to(
+        out_dtype or x.dtype)
 
 
 # the grouped-weight kernels (csrc/wna16_matmul.cu): 64-deep k-tiles, 128
@@ -372,7 +395,8 @@ def wna16_design(m: int) -> str:
     return "decode" if m <= _DECODE_ROWS else "prefill"
 
 
-def wna16_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+def wna16_plan(m: int, n: int, k: int,
+               experts: int = 1) -> tuple[int, int, int]:
     """(rows a block, K splits, k-tiles a split) of the grouped-weight
     kernels. Decode rows take a block of 16, 32 or 64 rows (the fewest
     that hold M) and split K over a cluster of up to 8 blocks as far as two
@@ -381,16 +405,18 @@ def wna16_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
     with the least estimated time, the number of waves of blocks times a
     block's k-tiles plus 4 for its pipeline's fill and its epilogue (the
     fewer splits on a tie). The split is then as many blocks as its
-    k-tiles per block leave none empty."""
+    k-tiles per block leave none empty. An expert-batched launch
+    (``experts`` > 1) picks the design by the M rows of one expert and
+    counts the blocks of all of them."""
     tiles = -(-k // _WNA16_BK)
     if wna16_design(m) == "decode":
         bm = next(b for b in (16, 32, 64) if m <= b)
-        blocks = -(-n // _WNA16_BN)
+        blocks = -(-n // _WNA16_BN) * experts
         split = max(s for s in (1, 2, 4, 8)
                     if s == 1 or (s <= tiles and blocks * s <= 2 * _SMS))
     else:
         bm = 128
-        blocks = -(-n // _WNA16_BN) * -(-m // bm)
+        blocks = -(-n // _WNA16_BN) * -(-m // bm) * experts
 
         def cost(s):
             return -(-blocks * s // _SMS) * (-(-tiles // s) + 4)
@@ -470,6 +496,173 @@ def w4_e8_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
 
 
 w4_e8_matmul.launches = 0
+
+
+# ---- expert-batched launches (the MoE layer's stacked experts) --------- #
+
+def _check_experts(entry, x, w, scales, zp, n, k, group_size, w_dtype,
+                   w_cols):
+    """Raise on expert-stacked operands the CUDA kernels do not take: x
+    (E, C, K) bf16, weights (E, N, w_cols), scales and zero points (E,
+    K/g, N) f32, all contiguous on one device. Each expert's block of x,
+    the weights and y then starts where the kernels' 16-byte copies need
+    it, since K is a multiple of 16 and the group divides K."""
+    if x.dtype != torch.bfloat16 or x.dim() != 3 or x.shape[2] != k:
+        raise ValueError(f"x must be (E, C, {k}) bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    e = x.shape[0]
+    if k % group_size:
+        raise NotImplementedError(f"{entry} needs the group size to divide "
+                                  f"K; got K={k}, group_size={group_size}")
+    if (w.dtype != w_dtype or tuple(w.shape) != (e, n, w_cols)
+            or scales.dtype != torch.float32
+            or tuple(scales.shape) != (e, k // group_size, n)
+            or (zp is not None and (zp.dtype != torch.float32
+                                    or zp.shape != scales.shape))):
+        raise ValueError(f"{entry}: weights must be ({e}, {n}, {w_cols}) "
+                         f"{w_dtype}, scales and zero points ({e}, "
+                         f"{k // group_size}, {n}) f32")
+    if e > 65535:
+        raise NotImplementedError(f"{entry} takes at most 65535 experts")
+    tensors = [x, w, scales] + ([zp] if zp is not None else [])
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in tensors):
+        raise ValueError(f"{entry} operands must be contiguous, 16-byte "
+                         "aligned and on one device")
+
+
+def w4a16_experts_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                         scales: torch.Tensor, zp: torch.Tensor | None, *,
+                         n: int, k: int, group_size: int,
+                         mode: str = "int4b") -> torch.Tensor:
+    """y (E, C, N), y[e] = x[e] @ W[e]^T for every expert in one launch:
+    x the (E, C, K) dispatch buffer, W[e] packed (E, N, K/8) int32 with
+    (E, K/g, N) f32 scales and optional zero points. Mode "int4b" runs
+    ``ct_w4a16_matmul_experts`` (counted on this function's ``launches``),
+    mode "a8b" ``w4a16_a8b_experts_matmul``. The design and split come
+    from C rows and all E experts' blocks (``int4b_plan``)."""
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, w_packed, scales, zp, n=n, k=k,
+                                  group_size=group_size, mode=mode)
+    if mode == "a8b":
+        return w4a16_a8b_experts_matmul(x, w_packed, scales, zp, n=n, k=k,
+                                        group_size=group_size)
+    if mode != "int4b":
+        raise ValueError(f"unknown w4a16 mode {mode!r}")
+    _check_experts("w4a16_experts_matmul", x, w_packed, scales, zp, n, k,
+                   group_size, torch.int32, k // 8)
+    if k % _BK or group_size % _BK:
+        raise NotImplementedError(
+            f"w4a16 kernel needs K and group_size multiples of {_BK}, got "
+            f"K={k}, group_size={group_size}")
+    e, m, _ = x.shape
+    y = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0 or e == 0:
+        return y
+    bm, splits, per = int4b_plan(m, n, k, e)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ct_w4a16_matmul_experts(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            zp.data_ptr() if zp is not None else None, y.data_ptr(),
+            e, m, n, k, group_size, bm, splits, per,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "w4a16_experts_matmul")
+    w4a16_experts_matmul.launches += 1
+    return y
+
+
+w4a16_experts_matmul.launches = 0
+
+
+def w4a16_a8b_experts_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                             scales: torch.Tensor, zp: torch.Tensor | None,
+                             *, n: int, k: int, group_size: int,
+                             xq: torch.Tensor | None = None,
+                             xs: torch.Tensor | None = None) -> torch.Tensor:
+    """Mode ``a8b`` of ``w4a16_experts_matmul``: the row pass quantizes all
+    E * C rows to int8, then one GEMM launch covers every expert.
+
+    :param xq: optional (E, C, K) int8 buffer for the quantized rows
+    :param xs: optional (E, C) f32 buffer for their scales
+    """
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, w_packed, scales, zp, n=n, k=k,
+                                  group_size=group_size, mode="a8b")
+    _check_experts("w4a16_a8b_experts_matmul", x, w_packed, scales, zp, n, k,
+                   group_size, torch.int32, k // 8)
+    if k % _BK or group_size % _BK:
+        raise NotImplementedError(
+            f"a8b kernel needs K and group_size multiples of {_BK}, got "
+            f"K={k}, group_size={group_size}")
+    e, m, _ = x.shape
+    y = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0 or e == 0:
+        return y
+    if xq is None:
+        xq = torch.empty((e, m, k), dtype=torch.int8, device=x.device)
+    if xs is None:
+        xs = torch.empty((e, m), dtype=torch.float32, device=x.device)
+    if (xq.dtype != torch.int8 or tuple(xq.shape) != (e, m, k)
+            or xs.dtype != torch.float32 or tuple(xs.shape) != (e, m)
+            or not (xq.is_contiguous() and xs.is_contiguous())
+            or xq.device != x.device or xs.device != x.device
+            or xq.data_ptr() % 16):
+        raise ValueError("a8b scratch must be (E, C, K) int8 (16-byte "
+                         "aligned) and (E, C) f32, contiguous on x's device")
+    splits, per = a8b_plan(m, n, k, e)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ct_w4a16_a8b_matmul_experts(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            zp.data_ptr() if zp is not None else None, y.data_ptr(),
+            xq.data_ptr(), xs.data_ptr(), e, m, n, k, group_size, splits,
+            per, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "w4a16_a8b_experts_matmul")
+    w4a16_a8b_experts_matmul.launches += 1
+    return y
+
+
+w4a16_a8b_experts_matmul.launches = 0
+
+
+def w4_e8_experts_matmul(x: torch.Tensor, w8: torch.Tensor,
+                         scales: torch.Tensor, *, n: int, k: int,
+                         group_size: int) -> torch.Tensor:
+    """y (E, C, N), y[e] = x[e] @ W[e]^T for every expert in one launch of
+    the grouped-int8 kernel: x (E, C, K), W (E, N, K) signed int8 q - zp
+    with (E, K/g, N) f32 scales. The design and split come from C rows and
+    all E experts' blocks (``wna16_plan``)."""
+    if x.device.type == "cpu":
+        return w4_e8_matmul_plain(x, w8, scales, n=n, k=k,
+                                  group_size=group_size)
+    _check_experts("w4_e8_experts_matmul", x, w8, scales, None, n, k,
+                   group_size, torch.int8, k)
+    if group_size % 16 or k % 16:
+        raise NotImplementedError(
+            f"w4_e8_experts_matmul needs a group size and K that are "
+            f"multiples of 16; got K={k}, group_size={group_size}")
+    e, m, _ = x.shape
+    if m * k >= 2**31 or n * k >= 2**31:
+        raise NotImplementedError("w4_e8_experts_matmul indexes one expert's "
+                                  "x and weight with 32-bit offsets: C*K and "
+                                  "N*K must stay below 2^31")
+    y = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0 or e == 0:
+        return y
+    bm, splits, tiles_per_split = wna16_plan(m, n, k, e)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ct_w4_e8_matmul_experts(
+            x.data_ptr(), w8.data_ptr(), scales.data_ptr(), y.data_ptr(),
+            e, m, n, k, group_size, bm, splits, tiles_per_split,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "w4_e8_experts_matmul")
+    w4_e8_experts_matmul.launches += 1
+    return y
+
+
+w4_e8_experts_matmul.launches = 0
 
 
 # ---- the int32 8-plane layout (w4_layout="packed") --------------------- #

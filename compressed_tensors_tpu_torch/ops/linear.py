@@ -3,10 +3,11 @@ matmul dispatch.
 
 Counterpart of ``compressed_tensors_tpu/ops/linear.py`` for the
 run-compressed WnA16 (int 2-8 bit groups), NVFP4 / MXFP4, MXFP8 and W8A8
-(int8 and fp8) paths, and 2:4 sparse-24-bitmask stacked over any of the
-quantized formats that leave a ``weight``. Weights stay compressed on the
-device and are dequantized inside the hand-written kernels
-(``ops/kernels/``).
+(int8 and fp8) paths, 2:4 sparse-24-bitmask stacked over any of the
+quantized formats that leave a ``weight``, and the MoE layer's stacked
+experts (``stack_quantized_tensors``, ``prepare_experts_for_kernels``,
+``quantized_matmul_experts``). Weights stay compressed on the device and
+are dequantized inside the hand-written kernels (``ops/kernels/``).
 ``use_kernels=False`` selects the JAX package's non-kernel path
 (dequantize the weight, one plain matmul), which the tests and
 ``chip_smoke.py`` use as the reference.
@@ -29,7 +30,9 @@ from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
     padded_k,
     repack_w4_for_kernel,
     retile_groups,
+    w4_e8_experts_matmul,
     w4_e8_matmul,
+    w4a16_experts_matmul,
     w4a16_fp4_matmul,
     w4a16_matmul,
     w4a16_planes_matmul,
@@ -52,9 +55,13 @@ from compressed_tensors_tpu_torch.quantization import (
 __all__ = [
     "QuantizedTensor",
     "quantized_matmul",
+    "quantized_matmul_experts",
     "from_compressed_state",
     "materialize_weight",
     "prepare_for_kernels",
+    "prepare_experts_for_kernels",
+    "stack_quantized_tensors",
+    "expert_slice",
 ]
 
 _W8_STRATEGIES = (QuantizationStrategy.CHANNEL.value,
@@ -172,8 +179,9 @@ def from_compressed_state(
 
 def _unpacked_zero_point(qt: QuantizedTensor, num_bits: int):
     zp = qt.zero_point
-    if zp is not None and zp.dtype == torch.int32:  # packed along dim 0
-        zp = unpack_from_int32(zp, num_bits, (qt.shape[0], qt.scale.shape[-1]),
+    if zp is not None and zp.dtype == torch.int32:  # packed along dim -2
+        zp = unpack_from_int32(zp, num_bits,
+                               (*qt.shape[:-1], qt.scale.shape[-1]),
                                packed_dim=0)
     return zp
 
@@ -253,9 +261,12 @@ def prepare_for_kernels(qt: QuantizedTensor,
       once a kernel layout exists. Asymmetric schemes and layers no
       kernel takes keep their sparse leaves (the non-kernel path).
     Group layouts of actorder checkpoints are column-permuted, and x is
-    gathered by the same permutation at the matmul. Everything else keeps
+    gathered by the same permutation at the matmul. Stacked MoE experts
+    (E, N, K) take ``prepare_experts_for_kernels``. Everything else keeps
     the checkpoint representation.
     """
+    if len(qt.shape) == 3:
+        return prepare_experts_for_kernels(qt, w4_layout)
     args = qt.scheme.weights if qt.scheme is not None else None
     acts = qt.scheme.input_activations if qt.scheme is not None else None
 
@@ -487,6 +498,139 @@ def _fp8_matmul(x, qt: QuantizedTensor, input_args):
             x.dtype)
     w = dequantize(qt.weight, qt.scale, None, qt.scheme.weights, dtype=x.dtype)
     return _dense_matmul(x, w)
+
+
+# the tensor fields of a QuantizedTensor, which gain a leading expert dim
+# when experts stack, and those of the checkpoint layout among them
+_TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(QuantizedTensor)
+                       if f.name not in ("kernel_meta", "format", "shape",
+                                         "scheme"))
+_CHECKPOINT_FIELDS = ("weight", "weight_packed", "scale", "zero_point",
+                      "g_idx", "global_scale", "input_global_scale", "bias")
+
+
+def expert_slice(qt: QuantizedTensor, e: int) -> QuantizedTensor:
+    """Expert ``e`` of a stacked (E, N, K) QuantizedTensor, in checkpoint
+    layout."""
+    return QuantizedTensor(
+        **{f: getattr(qt, f)[e] for f in _CHECKPOINT_FIELDS
+           if getattr(qt, f) is not None},
+        format=qt.format, shape=tuple(qt.shape[1:]), scheme=qt.scheme)
+
+
+def stack_quantized_tensors(qts: list[QuantizedTensor]) -> QuantizedTensor:
+    """Stack per-expert QuantizedTensors into one with a leading expert dim
+    on every tensor field (the checkpoint's slice-wise 3-D layout, and the
+    kernel layouts when the experts have them). All experts must share
+    format and shape."""
+    first = qts[0]
+    for qt in qts[1:]:
+        if qt.format != first.format or qt.shape != first.shape:
+            raise ValueError("experts must share format and shape to stack")
+    fields = {}
+    for name in _TENSOR_FIELDS:
+        values = [getattr(qt, name) for qt in qts]
+        if any((v is None) != (values[0] is None) for v in values):
+            raise ValueError(f"experts must all have {name} or none")
+        fields[name] = (torch.stack(values) if values[0] is not None
+                        else None)
+    return dataclasses.replace(first, shape=(len(qts), *first.shape),
+                               **fields)
+
+
+def prepare_experts_for_kernels(qt: QuantizedTensor,
+                                w4_layout: str | None = None
+                                ) -> QuantizedTensor:
+    """The stacked-expert (3-D) analogue of ``prepare_for_kernels``:
+    prepare each expert slice and stack the kernel layouts, so that one
+    expert-batched kernel launch serves every expert. Only the WnA16
+    layouts those kernels take stack -- the int4 words (``"w4a16"``) and
+    the grouped int8 (``"w4e8"``); every other layout (W8A8, fp4, the
+    plane layout, actorder experts with a column permutation, 2:4 sparse
+    experts) returns unchanged, as in the JAX package."""
+    if (qt.kernel_packed is not None or len(qt.shape) != 3
+            or qt.sparse_values is not None):
+        return qt
+    prepped = [prepare_for_kernels(expert_slice(qt, e), w4_layout)
+               for e in range(qt.shape[0])]
+    first = prepped[0]
+    if first.kernel_meta is None or first.kernel_meta[0] not in ("w4a16",
+                                                                 "w4e8"):
+        return qt
+    if any(p.kernel_perm is not None for p in prepped):
+        return qt  # actorder experts stay on the non-kernel path
+    kernel = {f: (torch.stack([getattr(p, f) for p in prepped])
+                  if getattr(first, f) is not None else None)
+              for f in ("kernel_scales", "kernel_zp")}
+    # the int4 words are the checkpoint's own: no second copy
+    kernel["kernel_packed"] = (
+        qt.weight_packed.contiguous() if first.kernel_meta[0] == "w4a16"
+        else torch.stack([p.kernel_packed for p in prepped]))
+    return dataclasses.replace(qt, kernel_meta=first.kernel_meta, **kernel)
+
+
+def quantized_matmul_experts(x: torch.Tensor, qt: QuantizedTensor,
+                             use_kernels: bool = True) -> torch.Tensor:
+    """Batched expert matmul: y[e] = x[e] @ W[e]^T (+ bias[e]) for the
+    (E, C, K) dispatch buffer and stacked expert weights.
+
+    With ``use_kernels`` and a stacked kernel layout, one expert-batched
+    launch: the int4 words through ``w4a16_experts_matmul`` in the mode
+    ``_w4b8_mode`` picks for C rows (int4b, or a8b), the grouped int8
+    through ``w4_e8_experts_matmul`` (their plain versions for CPU
+    tensors). Otherwise the JAX package's non-kernel path: W8A8-int and
+    FP8 experts with dynamic per-token activations as one batched product
+    over E (exact integer sums for int8; the JAX package runs these
+    outside any Pallas kernel), everything else dequantized and one
+    batched matmul.
+    """
+    scheme = qt.scheme
+    input_args = scheme.input_activations if scheme is not None else None
+    weights_args = scheme.weights if scheme is not None else None
+    E, C, K = x.shape
+    kind = qt.kernel_meta[0] if qt.kernel_meta is not None else None
+
+    if use_kernels and kind in ("w4a16", "w4e8"):
+        n, k, group_size = qt.kernel_meta[1:4]
+        x = x.contiguous()
+        if kind == "w4a16":
+            out = w4a16_experts_matmul(
+                x, qt.kernel_packed, qt.kernel_scales, qt.kernel_zp, n=n,
+                k=k, group_size=group_size, mode=_w4b8_mode(C, n, k))
+        else:
+            out = w4_e8_experts_matmul(x, qt.kernel_packed, qt.kernel_scales,
+                                       n=n, k=k, group_size=group_size)
+        if qt.bias is not None:
+            out = out + qt.bias.to(out.dtype)[:, None, :]
+        return out
+
+    w8 = (qt.weight is not None and qt.sparse_values is None
+          and input_args is not None and input_args.dynamic is True
+          and input_args.num_bits == 8 and weights_args is not None
+          and weights_args.strategy in _W8_STRATEGIES)
+    if w8 and qt.weight.dtype == torch.int8 and input_args.type == "int":
+        x_scale, _ = compute_dynamic_scales_and_zp(x, input_args)  # (E, C, 1)
+        x_q = quantize(x, x_scale, None, input_args, dtype=torch.int8)
+        acc = torch.matmul(x_q.to(torch.float64),
+                           qt.weight.to(torch.float64).transpose(1, 2))
+        w_scale = qt.scale.to(torch.float32).reshape(E, 1, -1)
+        out = acc.to(torch.float32) * x_scale.to(torch.float32) * w_scale
+        return out.to(x.dtype)
+    if (w8 and qt.weight.dtype == torch.float8_e4m3fn
+            and input_args.type == "float"):
+        x_scale, _ = compute_dynamic_scales_and_zp(x, input_args)
+        x_q = quantize(x, x_scale, None, input_args, dtype=qt.weight.dtype)
+        acc = torch.matmul(x_q.to(torch.float32),
+                           qt.weight.to(torch.float32).transpose(1, 2))
+        w_scale = qt.scale.to(torch.float32).reshape(E, 1, -1)
+        return (acc * x_scale.to(torch.float32) * w_scale).to(x.dtype)
+
+    w = materialize_weight(qt, dtype=x.dtype)  # (E, N, K)
+    out = torch.matmul(x.to(torch.float32),
+                       w.to(torch.float32).transpose(1, 2)).to(x.dtype)
+    if qt.bias is not None:
+        out = out + qt.bias.to(out.dtype)[:, None, :]
+    return out
 
 
 def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,

@@ -843,3 +843,142 @@ def test_block_decode_grid(dev, rep, d, s_pad, cache):
         assert sorted(map(tuple, changed)) == sorted(
             (1, b, h, lens[b]) for b in live for h in range(kvh)
             if lens[b] < s_pad)
+
+
+# ---- the expert-batched launches of the MoE layer (B1e, B2e, B9e) ------ #
+
+# (E, C, N, K, group, zero points) of B1e: decode rows with a K split over
+# several experts (E > 1: 2-4 experts of 1-2 column tiles leave SMs idle),
+# Qwen3-30B-A3B's gate/up at decode rows (128 experts, no split), prefill
+# rows with rows fastest (C <= 512) and columns fastest (640), ragged C and
+# N (odd: scalar stores), groups 64 and 128
+INT4B_EXPERT_CASES = [(4, 8, 200, 384, 128, True),
+                      (2, 1, 128, 2048, 128, False),
+                      (3, 65, 200, 512, 128, True), (5, 40, 99, 256, 64, True),
+                      (2, 640, 328, 1024, 128, False),
+                      (3, 300, 264, 512, 128, True),
+                      (128, 8, 768, 2048, 128, False),
+                      (16, 64, 2048, 768, 128, True)]
+
+
+def test_int4b_expert_cases_cover_designs_and_splits():
+    """B1e's cases reach both designs with E > 1 and a K split in each."""
+    seen = set()
+    for e, c, n, k, _, _ in INT4B_EXPERT_CASES:
+        _, splits, _ = w4.int4b_plan(c, n, k, e)
+        if e > 1:
+            seen.add((w4.int4b_design(c), splits > 1))
+    assert seen >= {("decode", True), ("prefill", True), ("decode", False)}
+
+
+def _expert_operands(gen, dev, e, c, n, k, g, asym, bits=4):
+    """Stacked expert operands drawn on the card: x (E, C, K) bf16, words
+    (E, N, K/8) int32 (or int8 (E, N, K) for bits 8), scales (and zero
+    points) (E, K/g, N) f32."""
+    if bits == 4:
+        w = torch.randint(-(2**31), 2**31, (e, n, k // 8), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+    else:
+        w = torch.randint(-128, 128, (e, n, k), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int8)
+    s = torch.rand((e, k // g, n), generator=gen, device=dev) * 2e-3 + 1e-3
+    zp = (torch.randint(-8, 8, (e, k // g, n), generator=gen,
+                        device=dev).float() if asym else None)
+    x = torch.randn((e, c, k), generator=gen, device=dev).to(torch.bfloat16)
+    return x, w, s, zp
+
+
+@pytest.mark.parametrize("e,c,n,k,g,asym", INT4B_EXPERT_CASES)
+def test_int4b_experts_grid(dev, e, c, n, k, g, asym):
+    """B1e: every expert within the a8b rule of the plain f32 result, one
+    launch for all experts; an expert's rows equal B1's on that expert
+    alone where the plans agree."""
+    gen = torch.Generator(device=dev).manual_seed(e * 131 + c + n + k)
+    x, w, s, zp = _expert_operands(gen, dev, e, c, n, k, g, asym)
+    kw = dict(n=n, k=k, group_size=g)
+    before = w4.w4a16_experts_matmul.launches
+    got = w4.w4a16_experts_matmul(x, w, s, zp, **kw)
+    assert w4.w4a16_experts_matmul.launches == before + 1
+    assert got.shape == (e, c, n)
+    want = w4.w4a16_matmul_plain(x, w, s, zp, out_dtype=torch.float32, **kw)
+    assert _within_a8b_rule(got, want)
+    last = e - 1
+    if w4.int4b_plan(c, n, k, e) == w4.int4b_plan(c, n, k):
+        one = w4.w4a16_matmul(x[last], w[last], s[last],
+                              zp[last] if asym else None, **kw)
+        assert torch.equal(got[last], one)
+
+
+# (E, C, N, K, group, zero points) of B2e: the Mixtral expert shape cut to
+# two experts (a 320-row chunk), decode rows, ragged N, channel-wise and
+# 64-wide groups
+A8B_EXPERT_CASES = [(2, 320, 1024, 4096, 128, False),
+                    (3, 64, 328, 2048, 128, True),
+                    (2, 300, 198, 1344, 1344, True),
+                    (4, 1, 200, 1024, 64, False)]
+
+
+@pytest.mark.parametrize("e,c,n,k,g,asym", A8B_EXPERT_CASES)
+def test_a8b_experts_grid(dev, e, c, n, k, g, asym):
+    """B2e: the quantization pass bit for bit over all E * C rows, every
+    expert within the a8b rule of the plain f32 result, one launch."""
+    gen = torch.Generator(device=dev).manual_seed(e * 17 + c + n)
+    x, w, s, zp = _expert_operands(gen, dev, e, c, n, k, g, asym)
+    kw = dict(n=n, k=k, group_size=g)
+    xq = torch.empty((e, c, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((e, c), dtype=torch.float32, device=dev)
+    before = w4.w4a16_a8b_experts_matmul.launches
+    got = w4.w4a16_a8b_experts_matmul(x, w, s, zp, xq=xq, xs=xs, **kw)
+    assert w4.w4a16_a8b_experts_matmul.launches == before + 1
+    xq_p, xs_p = w4.quantize_rows_a8b_plain(x)
+    assert torch.equal(xq, xq_p) and torch.equal(xs, xs_p)
+    want = w4.w4a16_matmul_plain(x, w, s, zp, mode="a8b",
+                                 out_dtype=torch.float32, **kw)
+    assert _within_a8b_rule(got, want)
+    assert torch.equal(w4.w4a16_experts_matmul(x, w, s, zp, mode="a8b", **kw),
+                       got)
+
+
+# (E, C, N, K, group) of B9e: decode rows split over a cluster with E > 1,
+# prefill rows, ragged N, groups 16 (a step) to 128, Qwen3-30B-A3B's gate
+# at decode rows
+W4E8_EXPERT_CASES = [(4, 5, 192, 384, 16), (2, 300, 136, 256, 16),
+                     (3, 64, 200, 2048, 128), (2, 130, 256, 512, 128),
+                     (3, 9, 99, 480, 48), (128, 8, 768, 2048, 128)]
+
+
+def test_w4e8_expert_cases_cover_designs_and_splits():
+    seen = set()
+    for e, c, n, k, _ in W4E8_EXPERT_CASES:
+        _, splits, _ = w4.wna16_plan(c, n, k, e)
+        seen.add((w4.wna16_design(c), splits > 1))
+    assert seen >= {("decode", True), ("prefill", True), ("decode", False)}
+
+
+@pytest.mark.parametrize("e,c,n,k,g", W4E8_EXPERT_CASES)
+def test_w4_e8_experts_grid(dev, e, c, n, k, g):
+    """B9e: every expert within the a8b rule of the plain f32 result, one
+    launch."""
+    gen = torch.Generator(device=dev).manual_seed(e * 7 + c + n + k)
+    x, w8, s, _ = _expert_operands(gen, dev, e, c, n, k, g, False, bits=8)
+    kw = dict(n=n, k=k, group_size=g)
+    before = w4.w4_e8_experts_matmul.launches
+    got = w4.w4_e8_experts_matmul(x, w8, s, **kw)
+    assert w4.w4_e8_experts_matmul.launches == before + 1
+    assert _within_a8b_rule(got, w4.w4_e8_matmul_plain(
+        x, w8, s, out_dtype=torch.float32, **kw))
+
+
+def test_expert_wrappers_refuse_bad_operands(dev):
+    """A ragged expert stack (K not a multiple of the group) and a
+    non-contiguous weight stack raise before any launch."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, w, s, _ = _expert_operands(gen, dev, 2, 8, 128, 256, 128, False)
+    before = w4.w4a16_experts_matmul.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        w4.w4a16_experts_matmul(x, w.transpose(1, 2).contiguous().transpose(
+            1, 2), s, None, n=128, k=256, group_size=128)
+    with pytest.raises(NotImplementedError, match="divide"):
+        w4.w4a16_experts_matmul(x, w, s[:, :1].contiguous(), None, n=128,
+                                k=256, group_size=192)
+    assert w4.w4a16_experts_matmul.launches == before
