@@ -7,7 +7,7 @@ Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
 the shapes of the main paths (the W4A16 ``int4b`` kernel also over a grid
 of row counts, widths, depths, groups and K splits that reaches both of
-its designs at every split, by the a8b rule). Then it drives eleven paths
+its designs at every split, by the a8b rule). Then it drives twelve paths
 end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
@@ -85,7 +85,20 @@ end to end:
   non-kernel path with the rolled-scales control, the requests dense and
   paged (identical, 96 B1 + 144 B1e launches a decode step),
   ``greedy_generate`` at batch 64, and a 2-layer checkpoint written and
-  read back with identical greedy tokens.
+  read back with identical greedy tokens;
+- DeepSeek-V2-Lite W4A16 g64 (MLA: 16 heads over one latent head of
+  K 576 / V 512, layer 0 dense, 26 layers of 64 experts of width 1408, 6
+  a token, with 2 shared experts) built on the card, its absorbed decode
+  through the latent-head kernels (B5-L on the slab, B7-L on pages, each
+  held against its plain version over a grid of cache types, widths, head
+  counts and lengths first, and B1e at group 64): the routing flips at the
+  first MoE layer counted, the decode-step logits by depth against the
+  non-kernel (non-absorbed) path with two planted faults (rolled group
+  scales, the softmax scale of the latent width) that must fail every
+  check, an fp8 latent cache against the plain versions, the requests
+  dense and paged (identical, 161 B1 + 78 B1e + 1 B3 + 27 latent launches
+  a decode step), ``greedy_generate`` at batch 64, and a 2-layer DeepSeek
+  V2 checkpoint written and read back with identical greedy tokens.
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -269,6 +282,12 @@ COUNTERS = {
                                  "launches"),
     "w4_e8_experts_matmul": ("w4a16_matmul", "w4_e8_experts_matmul",
                              "launches"),
+    # MLA's latent head: B5-L on the slab, B7-L on pages
+    "decode_attention_latent": ("decode_attention", "decode_attention",
+                                "latent_launches"),
+    "paged_decode_attention_latent": ("paged_decode",
+                                      "paged_decode_attention",
+                                      "latent_launches"),
 }
 
 
@@ -472,7 +491,7 @@ def phase_device_and_build():
 # spills the script reports
 REDESIGNED = ("prefill_attention.cu", "w4a16_planes.cu", "wna16_matmul.cu",
               "w8a8_matmul.cu", "paged_decode.cu", "w4a16_matmul.cu",
-              "decode_attention.cu")
+              "decode_attention.cu", "mla_decode.cu")
 CACHE_NAMES = ("bf16", "e4m3", "int8")    # ct::CacheKind order
 
 
@@ -511,6 +530,16 @@ def kernel_resources(report):
         if m:
             out[f"block_decode<D={m.group(1)}, {CACHE_NAMES[int(m.group(2))]}, "
                 f"{'scores' if m.group(3) == '1' else 'recompute'}>"] = value
+            continue
+        m = re.search(r"latent_kernelILb([01])ELi(\d)EE", mangled)
+        if m:
+            out[f"latent_decode<{'paged' if m.group(1) == '1' else 'dense'}, "
+                f"{CACHE_NAMES[int(m.group(2))]}>"] = value
+            continue
+        m = re.search(r"latent_merge_kernelILb([01])EE", mangled)
+        if m:
+            out[f"latent_merge<{'scaled' if m.group(1) == '1' else 'bf16'}>"] \
+                = value
             continue
         m = re.search(r"split_kernelILi(\d+)ELb([01])ELi(\d)EE", mangled)
         if m:
@@ -1492,19 +1521,19 @@ def phase_end_to_end():
     return dict(run_counts=res["counts"], per_step=res["per_step"])
 
 
-def serving_requests():
+def serving_requests(vocab=VOCAB8):
     """96 requests drawn with numpy seed 0: prompt lengths uniform in
     64-768 (257-768 for the third that begin with the shared 256-token
     prefix, so each holds the whole prefix and a token of its own), new
-    tokens uniform in 16-64."""
+    tokens uniform in 16-64, token ids below ``vocab``."""
     rng = np.random.default_rng(0)
-    prefix = rng.integers(0, VOCAB8, size=SHARED_PREFIX).tolist()
+    prefix = rng.integers(0, vocab, size=SHARED_PREFIX).tolist()
     reqs = []
     for i in range(N_REQUESTS):
         shared = i % SHARE_EVERY == 0
         low = SHARED_PREFIX + 1 if shared else PROMPT_LENS[0]
         n = int(rng.integers(low, PROMPT_LENS[1] + 1))
-        ids = rng.integers(0, VOCAB8, size=n).tolist()
+        ids = rng.integers(0, vocab, size=n).tolist()
         if shared:
             ids[:SHARED_PREFIX] = prefix
         reqs.append((i, ids, int(rng.integers(NEW_LENS[0], NEW_LENS[1] + 1))))
@@ -1811,15 +1840,16 @@ def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
     return sweep
 
 
-def greedy_8b(params, config, label, **kw):
-    """greedy_generate at batch 64 (128-token prompts, numpy seed 0, 32
-    new tokens) after a warm-up; its launches and wall time."""
+def greedy_8b(params, config, label, vocab=VOCAB8, **kw):
+    """greedy_generate at batch 64 (128-token prompts of ids below
+    ``vocab``, numpy seed 0, 32 new tokens) after a warm-up; its launches
+    and wall time."""
     import torch
 
     from compressed_tensors_tpu_torch.engine import greedy_generate
 
     rng = np.random.default_rng(0)
-    gids = torch.from_numpy(rng.integers(0, VOCAB8, size=(BATCH, PROMPT))).cuda()
+    gids = torch.from_numpy(rng.integers(0, vocab, size=(BATCH, PROMPT))).cuda()
     greedy_generate(params, config, gids, max_new_tokens=2, **kw)
     torch.cuda.synchronize()
     reset_counts()
@@ -4570,21 +4600,30 @@ def kept_experts(h, router, config):
             (top[k - 1] - top[k]).item())
 
 
-def routing_flips(params, config, requests):
-    """At one layer, each request's first-token logits on the kernel path
-    (every W4 linear at bf16 activations) against the non-kernel path,
-    with the last token's routing read on both: a request whose last token
-    takes other experts, or keeps other slots, is a routing flip (an f32
-    ulp at a router near-tie; at one layer only the last token's own MoE
+def routing_flips(params, config, requests, moe_layer=0,
+                  label="Qwen3-30B-A3B"):
+    """At one MoE layer (the first, ``moe_layer``, and the layers before
+    it), each request's first-token logits on the kernel path (every W4
+    linear at bf16 activations) against the non-kernel path, with the last
+    token's routing read on both: a request whose last token takes other
+    experts, or keeps other slots, is a routing flip (an f32 ulp at a
+    router near-tie; through one MoE layer only the last token's own MoE
     output reaches its logits). Prints each flip's gap between the k-th
     and (k+1)-th router probability, holds the rest to TOL_WNA16_DEPTH1 of
-    max|ref| and returns the flipped request ids."""
-    router = params["layers"][0]["moe"]["router"]
-    flips, worst = {}, (0.0, None)
+    max|ref| and returns the flipped request ids. Behind a leading dense
+    layer (``moe_layer`` > 0) that is no longer one layer, and the rest
+    are held to the depth rule of ``logits_rule_failures`` instead: within
+    TOL_E2E_8B of max|ref|, or the relative RMS error within FLOOR_RATIO
+    times the request's own spread (the non-kernel path with one bf16 ulp
+    up on 64 embedding values of one prompt token)."""
+    router = params["layers"][moe_layer]["moe"]["router"]
+    depth = moe_layer + 1
+    emb = params["embed_tokens"]
+    flips, worst, outside = {}, (0.0, None), []
     for rid, ids, _ in requests:
         with moe_inputs() as seen:
-            got = first_token_logits(params, config, ids, 1, True, "moe")
-            ref = first_token_logits(params, config, ids, 1, False, "moe")
+            got = first_token_logits(params, config, ids, depth, True, "moe")
+            ref = first_token_logits(params, config, ids, depth, False, "moe")
         (mine, _), (theirs, gap) = (kept_experts(seen[i][0], router, config)
                                     for i in (0, 1))
         if mine != theirs:
@@ -4592,16 +4631,31 @@ def routing_flips(params, config, requests):
             continue
         err = (got - ref).abs().max().item() / ref.abs().max().item()
         worst = max(worst, (err, rid), key=lambda t: t[0])
-    log(f"Qwen3-30B-A3B routing at one layer over {len(requests)} requests: "
+        if moe_layer and err > TOL_E2E_8B:
+            tok = ids[len(ids) // 3]
+            row = emb[tok].clone()
+            emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
+            moved = first_token_logits(params, config, ids, depth, False,
+                                       "moe")
+            emb[tok] = row
+            ratio = rel_rms(got, ref) / max(rel_rms(moved, ref), 1e-30)
+            if ratio > FLOOR_RATIO:
+                outside.append((rid, err, ratio))
+    log(f"{label} routing at one MoE layer (depth {depth}) over "
+        f"{len(requests)} requests: "
         f"{len(flips)} routing flips (the last token's experts or kept slots "
         "differ between the kernel and non-kernel paths), each with its "
         "gap between the k-th and (k+1)-th router probability: "
         + (", ".join(f"request {r}: {g:.3g}" for r, g in flips.items())
            or "none")
         + f"; the others' first-token logits within {worst[0]:.4g} of "
-        f"max|ref| (request {worst[1]}; limit {TOL_WNA16_DEPTH1})")
-    if worst[0] > TOL_WNA16_DEPTH1:
-        raise AssertionError("Qwen3-30B-A3B one-layer logits without a "
+        f"max|ref| (request {worst[1]}; limit "
+        + (f"{TOL_WNA16_DEPTH1})" if not moe_layer else
+           f"{TOL_E2E_8B} or {FLOOR_RATIO}x the spread: outside "
+           f"{outside})"))
+    failed = outside if moe_layer else worst[0] > TOL_WNA16_DEPTH1
+    if failed:
+        raise AssertionError(f"{label} one-MoE-layer logits without a "
                              "routing flip disagree with the non-kernel "
                              "path")
     return set(flips)
@@ -4817,17 +4871,17 @@ def phase_moe(errs):
     return results
 
 
-def experts_row(gen, name, e, c, n, k, label):
+def experts_row(gen, name, e, c, n, k, label, g=128):
     """Device ms of one expert-batched launch (operands in copies larger
-    than L2), bound, plain ms and ``torch.matmul`` on the (E, C, K) rows
-    and the dequantized bf16 (E, K, N) weights."""
+    than L2; groups of ``g``), bound, plain ms and ``torch.matmul`` on the
+    (E, C, K) rows and the dequantized bf16 (E, K, N) weights."""
     import torch
 
     from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
 
     bits = 8 if name == "w4_e8_experts_matmul" else 4
-    x, w, s, _ = expert_operands(gen, e, c, n, k, False, bits)
-    kw = dict(n=n, k=k, group_size=128)
+    x, w, s, _ = expert_operands(gen, e, c, n, k, False, bits, g)
+    kw = dict(n=n, k=k, group_size=g)
     fn = getattr(w4, name)
     wbytes = e * n * k * bits // 8
     ws = [(w.clone(), s.clone()) for _ in range(copies_for(wbytes))]
@@ -4839,13 +4893,13 @@ def experts_row(gen, name, e, c, n, k, label):
     tp = eager_ms(lambda: plain(x, w, s, **kw) if bits == 8
                   else plain(x, w, s, None, **kw), iters=3)
     del ws
-    wd = (w.float() * w4._group_scales(s, 128) if bits == 8 else
-          w4._dequantized_weight(w, s, None, n, k, 128)).to(
+    wd = (w.float() * w4._group_scales(s, g) if bits == 8 else
+          w4._dequantized_weight(w, s, None, n, k, g)).to(
               torch.bfloat16).transpose(1, 2)
     wds = [wd.clone() for _ in range(copies_for(wd.numel() * 2))]
     tl = device_ms([lambda wd=wd: torch.matmul(x, wd) for wd in wds])
     del wds, wd
-    b = e * (c * k * 2 + c * n * 2 + (k // 128) * n * 4) + wbytes
+    b = e * (c * k * 2 + c * n * 2 + (k // g) * n * 4) + wbytes
     bm, by = bound(b, 2 * e * c * n * k,
                    PEAK_INT8 if "a8b" in name else PEAK_BF16)
     log(f"time {name} {label} (E={e}, C={c}, N={n}, K={k}): {t:.4f} ms, "
@@ -4854,7 +4908,7 @@ def experts_row(gen, name, e, c, n, k, label):
     del x, w, s
     torch.cuda.empty_cache()
     return dict(ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
-                shapes=f"{label}: E={e}, C={c}, N={n}, K={k}, g128; library: "
+                shapes=f"{label}: E={e}, C={c}, N={n}, K={k}, g{g}; library: "
                 "torch.matmul on the (E, C, K) rows and the dequantized bf16 "
                 "(E, K, N) weights")
 
@@ -4879,6 +4933,703 @@ def timings_moe():
     rows["w4_e8_experts_matmul"]["gate C=8"] = experts_row(
         gen, "w4_e8_experts_matmul", E, 8, I, H, "Qwen3-30B-A3B gate")
     return rows
+
+
+# --------------------------------------------------------------------- #
+# phase 15: MLA, DeepSeek-V2-Lite W4A16 (the latent-head B5-L/B7-L)
+
+# deepseek-ai/DeepSeek-V2-Lite's published config.json (cited, not
+# fetched): 27 layers of MLA with 16 heads (kv_lora_rank 512, nope 128,
+# rope 64, v 128, a dense q_proj), layer 0 a dense MLP of 10944
+# (first_k_dense_replace 1), the others 64 routed experts of width 1408, 6
+# a token without renormalisation (norm_topk_prob false; n_group =
+# topk_group = 1) and 2 shared experts (shared_experts.* of width 2816)
+V2_LITE = dict(model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
+               intermediate_size=10944, num_hidden_layers=27,
+               num_attention_heads=16, num_key_value_heads=16,
+               q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+               qk_rope_head_dim=64, v_head_dim=128, rope_theta=10000.0,
+               rms_norm_eps=1e-6, max_position_embeddings=163840,
+               tie_word_embeddings=False, n_routed_experts=64,
+               num_experts_per_tok=6, moe_intermediate_size=1408,
+               first_k_dense_replace=1, norm_topk_prob=False)
+V2_SHARED = 2 * 1408       # n_shared_experts x moe_intermediate_size
+# W4A16 groups of 64: 10944 = 85.5 x 128, so a group of 128 leaves layer
+# 0's down_proj without a kernel layout; 64 divides every K of the model
+MLA_GROUP = 64
+# group scales of the projections that form the attention scores (q_proj,
+# kv_a_proj_with_mqa, kv_b_proj): this factor times the [1e-3, 3e-3] of
+# the other linears, about what a trained model's W4 groups of 64 hold
+# (absmax / 7 of N(0, 0.02^2) weights). At 1x the scores' RMS after the
+# 1/sqrt(192) scale is about 0.1: the softmax is nearly uniform, and no
+# logits check sees the softmax (a CPU rehearsal at small width moved the
+# decode-step logits 0.7% of max|ref| under a softmax scale of
+# 1/sqrt(576)). At 5x the score RMS is about 3, a peaked softmax.
+MLA_QK_SCALE = 5.0
+MLA_DEPTHS = (1, 27)
+MLA_FEW = (1, 4)           # the fp8 latent cache arm's depths
+MLA_STEPS = 4              # decode steps whose logits are held
+# B5-L/B7-L grids: (K, V) widths of V2-Lite and a narrow pair, S_pad of
+# greedy_generate's cache and of the serving engine's
+LATENT_WIDTHS = ((576, 512), (128, 64))
+LATENT_SPADS = (192, 1024)
+# B1e at V2-Lite's experts, group 64: (E, C, N, K) at a decode step's C
+# (batch 64, 6 of 64 experts: 8), a 512-row serving chunk's (64) and
+# greedy's 64 x 128-token prefill (960)
+V2_EXPERT_CASES = [(64, c, n, k) for n, k in ((1408, 2048), (2048, 1408))
+                   for c in (8, 64, 960)]
+
+
+def parity_latent(errs):
+    """B5-L and B7-L against their plain versions on every cache type, at
+    the (K, V) widths of ``LATENT_WIDTHS``, 16 query heads and one, S_pad
+    of ``LATENT_SPADS``; lengths 0, 1, 63-65, each side of a split
+    boundary below S_pad, S_pad - 1 and an inactive row; on the slab and
+    through shuffled page tables. Each element within the a8b rule of the
+    plain version's f32 result in the kernels' order and the outputs within
+    TOL_KERNEL of the one-softmax plain version; inactive rows zero; cache
+    bytes equal to the plain version's and changed at the step's positions
+    only. Then B1e at V2-Lite's expert shapes in groups of 64 by the a8b
+    rule (one launch a call)."""
+    import itertools
+
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+        paged_decode as pd,
+        w4a16_matmul as w4,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rng = np.random.default_rng(16)
+    page, worst, cases, outside = 64, 0.0, 0, 0
+    dtypes = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+              "int8": torch.int8}
+    for cache, (dk, dv), rep, s_pad in itertools.product(
+            dtypes, LATENT_WIDTHS, (16, 1), LATENT_SPADS):
+        dtype = dtypes[cache]
+        span = da.latent_split(dtype)
+        lens = sorted({n for n in (0, 1, 63, 64, 65, span - 1, span, span + 1,
+                                   s_pad - 1) if n < s_pad}) + [-1]
+        B, P = len(lens), s_pad // page
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        active = lengths >= 0
+        sc = CACHE_SCALES.get(cache)
+        ks = vs = None if sc is None else torch.tensor([sc], device="cuda")
+        kw = dict(layer=1, k_scale=ks, v_scale=vs, true_d=dk // 3)
+
+        def make(shape):
+            return (dev_randn(gen, *shape) if sc is None
+                    else dev_cache(gen, shape, dtype, sc))
+
+        q = dev_randn(gen, B, rep, dk)
+        nk, nv = dev_randn(gen, B, 1, dk), dev_randn(gen, B, 1, dv)
+        tables = rng.permutation(np.arange(1, B * P + 1)).astype(
+            np.int32).reshape(B, P)
+        tables[~active.cpu().numpy()] = 0
+        tables_d = torch.from_numpy(tables).cuda()
+        for name, shapes, kernel, plain, at in (
+                ("decode_attention_latent",
+                 ((2, B, 1, s_pad, dk), (2, B, 1, s_pad, dv)),
+                 lambda k, v: da.decode_attention(q, nk, nv, k, v, lengths,
+                                                  **kw),
+                 lambda k, v, **o: da.latent_decode_attention_plain(
+                     q, nk, nv, k, v, lengths, **kw, **o),
+                 lambda b: (b, lens[b])),
+                ("paged_decode_attention_latent",
+                 ((2, B * P + 1, 1, page, dk), (2, B * P + 1, 1, page, dv)),
+                 lambda k, v: pd.paged_decode_attention(
+                     q, nk, nv, k, v, tables_d, lengths, **kw),
+                 lambda k, v, **o: pd.paged_decode_attention_plain(
+                     q, nk, nv, k, v, tables_d, lengths, **kw, **o),
+                 lambda b: (int(tables[b, lens[b] // page]), lens[b] % page))):
+            ck, cv = make(shapes[0]), make(shapes[1])
+            ck0, cv0 = ck.clone(), cv.clone()
+            before = getattr(*_counter(name))
+            got = kernel(ck, cv)[0]
+            if getattr(*_counter(name)) != before + 1:
+                raise AssertionError(f"{name}: not one launch a call")
+            got = got.float()
+            ordered = plain(ck0.clone(), cv0.clone(), kernel_order=True,
+                            out_dtype=torch.float32)[0]
+            ck_p, cv_p = ck0.clone(), cv0.clone()
+            want = plain(ck_p, cv_p)[0].float()
+            label = f"{name} K={dk} V={dv} rep={rep} {cache} S_pad={s_pad}"
+            if not bool(got.isfinite().all()):
+                raise AssertionError(f"{label}: non-finite output")
+            diff = (got[active] - ordered[active]).abs()
+            bad = int((diff > A8B_REL * ordered[active].abs()
+                       + A8B_ABS * ordered[active].abs().max()).sum())
+            outside += bad
+            rel = ((got[active] - want[active]).abs().max()
+                   / want[active].abs().max()).item()
+            if bad or rel > TOL_KERNEL:
+                raise AssertionError(f"{label}: {bad} elements outside the "
+                                     f"a8b rule, {rel} of max|plain|")
+            if got[~active].any():
+                raise AssertionError(f"{label}: inactive rows must be zero")
+            if not (torch.equal(byte_view(ck), byte_view(ck_p))
+                    and torch.equal(byte_view(cv), byte_view(cv_p))):
+                raise AssertionError(f"{label}: cache bytes differ from plain")
+            expect = [(1, *at(b)[:1], 0, at(b)[1]) for b in range(B)
+                      if lens[b] >= 0]
+            check_written(label, ck, ck0, expect)
+            check_written(label, cv, cv0, expect)
+            key = name
+            errs[key] = max(errs.get(key, 0.0),
+                            (got[active] - want[active]).abs().max().item())
+            worst, cases = max(worst, rel), cases + 1
+            del ck, cv, ck0, cv0, ck_p, cv_p
+        torch.cuda.empty_cache()
+    log(f"parity B5-L/B7-L over {cases} cases (cache bf16/fp8/int8, (K, V) "
+        f"{LATENT_WIDTHS}, rep 16 and 1, S_pad {LATENT_SPADS}, lengths 0, 1, "
+        "63-65, each side of the split, S_pad - 1, one inactive; slab and "
+        f"shuffled pages): {outside} elements outside the a8b rule against "
+        "the kernels' order, max error "
+        f"{worst:.4g} of max|plain| against one softmax (limit {TOL_KERNEL});"
+        " cache bytes equal, written at the step's positions only")
+
+    worst = 0.0
+    for e, c, n, k in V2_EXPERT_CASES:
+        x, w, s, _ = expert_operands(gen, e, c, n, k, False, g=MLA_GROUP)
+        kw = dict(n=n, k=k, group_size=MLA_GROUP)
+        before = w4.w4a16_experts_matmul.launches
+        got = w4.w4a16_experts_matmul(x, w, s, None, **kw).float()
+        if w4.w4a16_experts_matmul.launches != before + 1:
+            raise AssertionError("w4a16_experts_matmul: not one launch a call")
+        want = w4.w4a16_matmul_plain(x, w, s, None, out_dtype=torch.float32,
+                                     **kw)
+        diff = (got - want).abs()
+        bad = int((diff > A8B_REL * want.abs()
+                   + A8B_ABS * want.abs().max()).sum())
+        if bad or not bool(got.isfinite().all()):
+            raise AssertionError(f"w4a16_experts_matmul g{MLA_GROUP} E={e} "
+                                 f"C={c} N={n} K={k}: {bad} elements outside "
+                                 "the a8b rule")
+        errs["w4a16_experts_matmul"] = max(
+            errs.get("w4a16_experts_matmul", 0.0), diff.max().item())
+        worst = max(worst, diff.max().item() / want.abs().max().item())
+        del x, w, s, got, want
+    torch.cuda.empty_cache()
+    log(f"parity w4a16_experts_matmul at group {MLA_GROUP} over "
+        f"{V2_EXPERT_CASES} (E, C, N, K): 0 elements outside the a8b rule, "
+        f"max error {worst:.4g} of max|plain|")
+
+
+def mla_llama(config, seed):
+    """DeepSeek-V2-Lite at full width and depth built on the card from
+    ``seed``, as ``moe_llama`` draws its MoE model: symmetric W4A16 g64
+    pack-quantized linears with codes in [-7, 7] and bf16 group scales in
+    [1e-3, 3e-3] (those of q_proj, kv_a_proj_with_mqa and kv_b_proj times
+    ``MLA_QK_SCALE``; the MLA projections, layer 0's dense MLP, the shared
+    experts and the stacked (E, N, K) routed experts, each with its kernel
+    layout but kv_b_proj, kept in checkpoint layout and dequantized once
+    into ``w_kb``/``w_vb`` as the loader does), the interleaved-rope rows
+    already in the engine's half layout, the router N(0, 0.02^2) in bf16,
+    every norm at one, a W8A8-int lm_head. Unfused."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.mla import kv_b_weights
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scheme = preset_name_to_scheme("W4A16", ["Linear"])
+    scheme = scheme.model_copy(update={
+        "format": "pack-quantized",
+        "weights": scheme.weights.model_copy(
+            update={"group_size": MLA_GROUP})})
+    H, E, h = config.hidden_size, config.num_local_experts, \
+        config.num_attention_heads
+    r, rope = config.kv_lora_rank, config.qk_rope_head_dim
+    nope, vd = config.qk_nope_head_dim, config.v_head_dim
+
+    def linear(n, k, kernels=True, scale_by=1.0):
+        codes, scale = card_w4_codes(gen, n, k, MLA_GROUP)
+        if scale_by != 1.0:
+            scale = (scale.float() * scale_by).to(torch.bfloat16)
+        qt = QuantizedTensor(weight_packed=pack_to_int32(codes, 4),
+                             scale=scale, shape=(n, k), scheme=scheme,
+                             format=scheme.format)
+        return prepare_for_kernels(qt) if kernels else qt
+
+    def experts(n, k):
+        codes, scale = card_expert_codes(gen, E, n, k, MLA_GROUP)
+        words = pack_to_int32(codes, 4)
+        del codes
+        return prepare_for_kernels(QuantizedTensor(
+            weight_packed=words, scale=scale, shape=(E, n, k), scheme=scheme,
+            format=scheme.format))
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16, device="cuda")
+
+    def mlp(width):
+        return {"gate_proj": linear(width, H), "up_proj": linear(width, H),
+                "down_proj": linear(H, width)}
+
+    def layer(i):
+        qk = MLA_QK_SCALE
+        out = {"q_proj": linear(h * (nope + rope), H, scale_by=qk),
+               "kv_a_proj_with_mqa": linear(r + rope, H, scale_by=qk),
+               "kv_a_layernorm": ones(r),
+               "kv_b_proj": linear(h * (nope + vd), r, kernels=False,
+                                   scale_by=qk),
+               "o_proj": linear(H, h * vd)}
+        out["w_kb"], out["w_vb"] = kv_b_weights(out, config, torch.bfloat16)
+        if config.layer_is_moe(i):
+            Im = config.moe_intermediate_size
+            out["moe"] = {
+                "router": (torch.randn((E, H), generator=gen, device="cuda")
+                           * 0.02).to(torch.bfloat16),
+                "experts": {"gate_proj": experts(Im, H),
+                            "up_proj": experts(Im, H),
+                            "down_proj": experts(H, Im)},
+                "shared_expert": mlp(V2_SHARED)}
+        else:
+            out.update(mlp(config.intermediate_size))
+        return out
+
+    return card_llama(config, layer, gen)
+
+
+def mla_step_logits(params, config, ids, steps, depth, use_kernels, label,
+                    cache_dtype=None):
+    """f32 logits (len(steps), V) of decode steps through the first
+    ``depth`` layers (full width): the prompt ``ids`` prefilled (the
+    non-absorbed form on either path), then the tokens ``steps`` fed one a
+    step (the absorbed decode through B5-L on the kernel path); the latent
+    cache checked for NaN."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.llama import (
+        init_kv_cache,
+        llama_forward,
+    )
+
+    n = len(ids)
+    cfg = dataclasses.replace(config, num_hidden_layers=depth)
+    p = dict(params, layers=params["layers"][:depth])
+    cache = init_kv_cache(cfg, 1, n + len(steps), cache_dtype=cache_dtype,
+                          device="cuda")
+    _, cache = llama_forward(p, cfg, torch.tensor([ids], device="cuda"),
+                             torch.arange(n, device="cuda")[None], cache,
+                             fresh_prefill=True, use_kernels=use_kernels,
+                             last_logit_only=True)
+    out = []
+    for tok in steps:
+        logits, cache = llama_forward(
+            p, cfg, torch.tensor([[tok]], device="cuda"),
+            cache.lengths[:, None], cache, use_kernels=use_kernels)
+        out.append(logits.float().reshape(-1))
+    nans = int(cache.k.float().isnan().sum() + cache.v.float().isnan().sum())
+    if nans:
+        raise AssertionError(f"{label} latent cache: {nans} NaN values")
+    logits = torch.stack(out)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"non-finite {label} logits at depth {depth}")
+    return logits
+
+
+def mla_logits_by_depth(params, config, ids, steps, label, depths,
+                        cache_dtype=None, plain=None, faults=()):
+    """``logits_by_depth`` on the decode steps' logits (``mla_step_logits``)
+    in place of the first token's: per depth (relative RMS error kernel vs
+    reference, the non-kernel path's spread under one bf16 ulp up on 64
+    embedding values of one prompt token, max|kernel - reference| /
+    max|reference|). The reference is the non-kernel path, or with
+    ``plain`` the kernel path inside that context manager. ``faults``:
+    (name, context manager factory) pairs, each planted fault's sweep of
+    the kernel path against the same references. Returns (sweep, {name:
+    sweep})."""
+    emb, tok = params["embed_tokens"], ids[len(ids) // 3]
+    row = emb[tok].clone()
+    ref_name = "non-kernel path" if plain is None else "plain path"
+
+    def run(depth, use_kernels):
+        return mla_step_logits(params, config, ids, steps, depth, use_kernels,
+                               label, cache_dtype)
+
+    sweep, refs = {}, {}
+    for depth in depths:
+        got, nk = run(depth, True), run(depth, False)
+        if plain is None:
+            ref = nk
+        else:
+            with plain():
+                ref = run(depth, True)
+        refs[depth] = ref
+        emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
+        moved = run(depth, False)
+        emb[tok] = row
+        top = ref.abs().max().item()
+        sweep[depth] = (rel_rms(got, ref), rel_rms(moved, nk),
+                        (got - ref).abs().max().item() / top)
+        log(f"{label} decode-step logits ({len(steps)} steps after a "
+            f"{len(ids)}-token prompt), {depth} of {config.num_hidden_layers}"
+            f" layers: kernel vs {ref_name} rel_rms={sweep[depth][0]:.4g} "
+            f"(max {sweep[depth][2]:.4g} of max|ref| {top:.4g}); non-kernel "
+            f"path under the perturbation rel_rms={sweep[depth][1]:.4g}; "
+            f"argmax kernel {got.argmax(-1).tolist()} reference "
+            f"{ref.argmax(-1).tolist()}")
+    faulty = {}
+    for name, fault in faults:
+        faulty[name] = {}
+        with fault():
+            for depth, ref in refs.items():
+                bad = run(depth, True)
+                faulty[name][depth] = (
+                    rel_rms(bad, ref), sweep[depth][1],
+                    (bad - ref).abs().max().item() / ref.abs().max().item())
+    return sweep, faulty
+
+
+@contextlib.contextmanager
+def latent_scale_of_dk():
+    """A planted kernel fault: the latent decode kernels run with the
+    softmax scale 1/sqrt(Dk) of the latent K width (576) in place of
+    1/sqrt(qk_nope + qk_rope) (192); undone on exit."""
+    from compressed_tensors_tpu_torch.models import mla
+
+    kernels = mla.decode_attention, mla.paged_decode_attention
+
+    def wrong(kernel):
+        def run(*a, **kw):
+            return kernel(*a, **dict(kw, true_d=None))
+        return run
+
+    mla.decode_attention, mla.paged_decode_attention = map(wrong, kernels)
+    try:
+        yield
+    finally:
+        mla.decode_attention, mla.paged_decode_attention = kernels
+
+
+@contextlib.contextmanager
+def plain_latent_w4():
+    """B5-L (in its kernels' order), B1 and B1e through their plain
+    versions on the card; undone on exit."""
+    from compressed_tensors_tpu_torch.models import mla
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+    )
+
+    kernel = mla.decode_attention
+
+    def plain(q, nk, nv, ck, cv, lengths, **kw):
+        return da.latent_decode_attention_plain(q, nk, nv, ck, cv, lengths,
+                                                kernel_order=True, **kw)
+
+    mla.decode_attention = plain
+    try:
+        with plain_w4_moe():
+            yield
+    finally:
+        mla.decode_attention = kernel
+
+
+def check_mla_logits(params, config, ids, steps):
+    """The decode-step logits rule (``logits_rule_failures``) at
+    ``MLA_DEPTHS``, kernel path against the non-kernel path, with two
+    planted faults that must fail every check: the group scales rolled by
+    one group (expert stacks included) and the latent kernels' softmax
+    scale of true_d = Dk."""
+    faults = (("group scales rolled by one group",
+               lambda: rolled_group_scales(params)),
+              ("softmax scale 1/sqrt(Dk)", latent_scale_of_dk))
+    sweep, faulty = mla_logits_by_depth(params, config, ids, steps,
+                                        "V2-Lite bf16", MLA_DEPTHS,
+                                        faults=faults)
+    failures = logits_rule_failures(sweep)
+    if failures:
+        raise AssertionError(f"V2-Lite decode-step logits: "
+                             f"{'; '.join(failures)}")
+    log(f"V2-Lite decode-step logits: within {TOL_WNA16_DEPTH1} of max|ref| "
+        f"at one layer, and at every depth within {TOL_E2E_8B} of max|ref| "
+        f"or {FLOOR_RATIO}x the perturbation spread (rel_rms / spread: "
+        + ", ".join(f"{d}: {e / max(s, 1e-30):.3g}"
+                    for d, (e, s, _) in sweep.items()) + ")")
+    for name, bad in faulty.items():
+        caught = logits_rule_failures(bad)
+        log(f"V2-Lite control, {name}: " + ", ".join(
+            f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
+            for d, (e, _, t) in bad.items())
+            + f"; the rule fails {len(caught)} of its {len(sweep) + 1} checks")
+        if len(caught) < len(sweep) + 1:
+            raise AssertionError(f"V2-Lite logits rule accepted the planted "
+                                 f"fault ({name}) in "
+                                 f"{len(sweep) + 1 - len(caught)} checks")
+
+
+def mla_checkpoint_round_trip(raw, config):
+    """The first 2 layers of the unfused model (layer 0 dense, layer 1
+    MoE) written by ``save_llama_checkpoint`` (a DeepSeek V2 checkpoint,
+    rope rows interleaved) and read back by ``load_llama_params``: greedy
+    tokens at batch 64 equal to the in-memory model's."""
+    import torch
+
+    from compressed_tensors_tpu_torch.engine import greedy_generate
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        save_llama_checkpoint,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    cfg = dataclasses.replace(config, num_hidden_layers=2)
+    two = dict(raw, layers=raw["layers"][:2])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        save_llama_checkpoint(two, cfg, tmp)
+        size = os.path.getsize(os.path.join(tmp, "model.safetensors"))
+        loaded, lcfg, _ = load_llama_params(tmp, device="cuda")
+    log(f"V2-Lite 2-layer checkpoint: {size / 2**20:.0f} MiB, written and "
+        f"loaded in {time.perf_counter() - t0:.1f} s (config: MLA "
+        f"{lcfg.is_mla}, rope interleaved {lcfg.rope_interleaved}, "
+        f"{lcfg.num_local_experts} experts, top {lcfg.num_experts_per_tok})")
+    if lcfg != cfg:
+        raise AssertionError(f"the checkpoint's config reads back as {lcfg}")
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, config.vocab_size,
+                                        size=(BATCH, PROMPT)))
+    outs = [greedy_generate(fuse_llama_layers(p), cfg, ids, max_new_tokens=16)
+            for p in (two, loaded)]
+    same = bool(torch.equal(*outs))
+    log(f"V2-Lite 2-layer checkpoint vs the model in memory: greedy tokens "
+        f"{'identical' if same else 'DIFFERENT'} at batch {BATCH}")
+    if not same:
+        raise AssertionError("the MLA checkpoint's greedy tokens differ from "
+                             "the model it was written from")
+
+
+def phase_mla(errs):
+    """Phase 15: MLA. B5-L/B7-L and B1e at group 64 against their plain
+    versions (``parity_latent``); DeepSeek-V2-Lite W4A16 g64 at full width
+    and depth built on the card (``mla_llama``), fused: the routing flips
+    at the first MoE layer over the 96 prompts (``routing_flips``), the
+    decode-step logits by depth (1 and 27 layers) at bf16 activations
+    against the non-kernel path with two planted faults
+    (``check_mla_logits``), an fp8 latent cache against the model run
+    through B5-L's, B1's and B1e's plain versions at 1 and 4 layers; the
+    96 requests dense and paged (identical) with 161 B1 + 78 B1e + 1 B3 +
+    27 latent launches a decode step and no GQA decode launch,
+    ``greedy_generate`` at batch 64; the 2-layer checkpoint round trip."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    parity_latent(errs)
+    config = LlamaConfig.from_dict(V2_LITE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    raw = mla_llama(config, seed=0)
+    params = fuse_llama_layers(raw)
+    torch.cuda.synchronize()
+    log(f"DeepSeek-V2-Lite W4A16 g{MLA_GROUP} model (built on the card from "
+        f"seed 0, {config.num_hidden_layers} MLA layers, layer 0 dense, "
+        f"{config.num_local_experts} experts of {config.moe_intermediate_size}"
+        f" + shared {V2_SHARED}, W8A8-int lm_head): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    kinds = {qt.kernel_meta[0] for qt in expert_layers(params)}
+    if kinds != {"w4a16"} or "gate_up_proj" not in params["layers"][0]:
+        raise AssertionError(f"V2-Lite: experts prepared as {kinds}")
+    requests = serving_requests(config.vocab_size)
+    step_rng = np.random.default_rng(15)
+    steps = step_rng.integers(0, config.vocab_size, size=MLA_STEPS).tolist()
+    with flag_overrides(w4_act="bf16"):
+        flips = routing_flips(params, config, requests, moe_layer=1,
+                              label="V2-Lite")
+        steady = [r for r in requests if r[0] not in flips]
+        ids = probe_request(steady)[1]
+        check_mla_logits(params, config, ids, steps)
+
+    # the fp8 latent cache (k_scale = v_scale per tensor) against the
+    # model run through the plain versions of B5-L, B1 and B1e
+    scale = torch.tensor([KV_SCALE], device="cuda")
+    fp8 = dict(params, layers=[dict(layer, k_scale=scale, v_scale=scale)
+                               for layer in params["layers"]])
+    reset_counts()
+    sweep, _ = mla_logits_by_depth(fp8, config, ids, steps, "V2-Lite fp8 "
+                                   "cache", MLA_FEW,
+                                   cache_dtype=torch.float8_e4m3fn,
+                                   plain=plain_latent_w4)
+    counts = read_counts()
+    failures = logits_rule_failures(sweep)
+    log(f"V2-Lite fp8 latent cache: decode_attention latent launches "
+        f"{counts['decode_attention_latent']}")
+    if failures or not counts["decode_attention_latent"]:
+        raise AssertionError(f"V2-Lite fp8 latent cache against its plain "
+                             f"path: {'; '.join(failures)}")
+    results = {"mla fp8 logits": {"counts": counts}}
+    del fp8
+
+    results["mla dense"] = serve_requests(params, config, requests,
+                                          "mla dense")
+    results["mla paged"] = serve_requests(params, config, requests,
+                                          "mla paged", paged=True,
+                                          prefix_caching=False)
+    same = sum(results["mla dense"]["outs"][i] == results["mla paged"][
+        "outs"][i] for i in range(N_REQUESTS))
+    log(f"V2-Lite serving: paged = dense in {same} of {N_REQUESTS} "
+        "completions")
+    if same != N_REQUESTS:
+        raise AssertionError("V2-Lite paged completions differ from dense")
+    L = config.num_hidden_layers
+    moe_layers = L - config.first_k_dense_replace
+    base = {"w4a16_matmul": 5 + 6 * moe_layers,
+            "w4a16_experts_matmul": 3 * moe_layers, "w8a8_matmul": 1}
+    gqa = ("decode_attention", "decode_attention_scaled",
+           "flash_decode_attention", "flash_decode_attention_scaled",
+           "paged_decode_attention", "paged_decode_attention_scaled")
+    for run, latent in (("mla dense", "decode_attention_latent"),
+                        ("mla paged", "paged_decode_attention_latent")):
+        step = dict(base, **{latent: L})
+        got = {k: v for k, v in results[run]["per_step"].items()
+               if v and (k.startswith(("w4", "w8a8")) or k in gqa
+                         or k.endswith("_latent"))}
+        log(f"{run}: launches a decode step {got} (expected {step})")
+        if got != step:
+            raise AssertionError(f"{run}: a decode step launched {got}")
+    results["mla greedy_generate"] = greedy_8b(params, config, "V2-Lite",
+                                               vocab=config.vocab_size)
+    del params
+    torch.cuda.empty_cache()
+    mla_checkpoint_round_trip(raw, config)
+    del raw
+    torch.cuda.empty_cache()
+    base = ("w4a16_matmul", "w4a16_experts_matmul", "w8a8_matmul")
+    check_launched(results, {
+        "mla fp8 logits": ("decode_attention_latent",),
+        "mla dense": base + ("decode_attention_latent",),
+        "mla paged": base + ("paged_decode_attention_latent",),
+        "mla greedy_generate": base + ("decode_attention_latent",)})
+    return results
+
+
+def latent_row(gen, rng, name, cache, s_pad, label):
+    """Device ms of B5-L (``s_pad`` S_pad, lengths 128-159 at 192 or 0-1000
+    at 1024) or B7-L (the paged engine's pool through shuffled tables,
+    lengths 0-1000) on one layer of a 27-layer V2-Lite cache at batch 64,
+    the calls walking the layers as a decode step does, beside its bound
+    (the live cache bytes read once at 3.35 TB/s, q, the new rows and the
+    output), its plain version and SDPA on the same operands (the one
+    latent head expanded by ``enable_gqa``, the cache widened to bf16 and,
+    for the pool, gathered beforehand; a mask of the live prefix)."""
+    import torch
+    import torch.nn.functional as F
+
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        decode_attention as da,
+        paged_decode as pd,
+    )
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    L, h, dk, dv = 27, 16, 576, 512
+    dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}[cache]
+    sc = CACHE_SCALES.get(cache)
+    ks = vs = None if sc is None else torch.tensor([sc], device="cuda")
+    widen = ((lambda c: c) if sc is None else
+             (lambda c: (c.float() * sc).to(torch.bfloat16)))
+    q = dev_randn(gen, BATCH, h, dk)
+    nk, nv = dev_randn(gen, BATCH, 1, dk), dev_randn(gen, BATCH, 1, dv)
+    if s_pad == 192:
+        lens_np = rng.integers(PROMPT, PROMPT + NEW_TOKENS,
+                               size=BATCH).astype(np.int32)
+    else:
+        lens_np, _ = serving_lengths(rng, BATCH, ())
+    lengths = torch.from_numpy(lens_np).cuda()
+    kw = dict(k_scale=ks, v_scale=vs, true_d=192)
+
+    def make(shape):
+        return (dev_randn(gen, *shape) if sc is None
+                else dev_cache(gen, shape, dtype, sc))
+
+    if name == "decode_attention_latent":
+        ck, cv = make((L, BATCH, 1, s_pad, dk)), make((L, BATCH, 1, s_pad, dv))
+        t = device_ms([lambda i=i: da.decode_attention(
+            q, nk, nv, ck, cv, lengths, layer=i, **kw) for i in range(L)])
+        tp = eager_ms(lambda: da.latent_decode_attention_plain(
+            q, nk, nv, ck, cv, lengths, layer=0, **kw))
+        keys = [widen(ck[i]) for i in range(3)]
+        values = [widen(cv[i]) for i in range(3)]
+        how = "a mask of the live prefix over S_pad"
+    else:
+        tables, num_pages = serving_tables(rng)
+        tables_d = torch.from_numpy(tables).cuda()
+        page = SERVE["page_size"]
+        ck = make((L, num_pages, 1, page, dk))
+        cv = make((L, num_pages, 1, page, dv))
+        t = device_ms([lambda i=i: pd.paged_decode_attention(
+            q, nk, nv, ck, cv, tables_d, lengths, layer=i, **kw)
+            for i in range(L)])
+        tp = eager_ms(lambda: pd.paged_decode_attention_plain(
+            q, nk, nv, ck, cv, tables_d, lengths, layer=0, **kw))
+
+        def gathered(pool, i):
+            return widen(byte_view(pool[i])[tables_d.long()].permute(
+                0, 2, 1, 3, 4).reshape(BATCH, 1, -1, pool.shape[-1])
+                .view(pool.dtype))
+
+        keys = [gathered(ck, i) for i in range(3)]
+        values = [gathered(cv, i) for i in range(3)]
+        s_pad = keys[0].shape[2]
+        how = "the pages gathered beforehand into a contiguous cache"
+    mask = (torch.arange(s_pad, device="cuda")[None, :]
+            <= lengths[:, None])[:, None, None, :]
+    try:
+        tl = device_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True,
+            scale=192 ** -0.5)
+            for k, v in zip(keys * (L // 3), values * (L // 3))])
+    except (RuntimeError, TypeError) as exc:
+        log(f"scaled_dot_product_attention at K {dk}, V {dv} unavailable: "
+            f"{exc}")
+        tl = None
+    live = int((lens_np + 1).sum())
+    nbytes = (live * (dk + dv) * ck.element_size()
+              + (q.numel() + nk.numel() + nv.numel() + BATCH * h * dv) * 2)
+    bm, by = bound(nbytes, 2 * h * (dk + dv) * live, PEAK_BF16)
+    del ck, cv, keys, values
+    torch.cuda.empty_cache()
+    log(f"time {name} {label}: {t:.4f} ms, bound {bm:.4f} ms ({by}), plain "
+        f"{tp:.4f} ms, SDPA {tl if tl is None else round(tl, 4)} ms")
+    return dict(ms=t, plain_ms=tp, bound_ms=bm, bound_by=by, library_ms=tl,
+                shapes=f"{label}: B={BATCH}, h={h}, K={dk}, V={dv}, one layer "
+                f"of {L}; library: SDPA over the cache in bf16 ({how})")
+
+
+def timings_mla():
+    """B5-L on bf16 and fp8 caches at S_pad 192 and 1024, B7-L on bf16 and
+    fp8 pools, and B1e at V2-Lite's gate and down at group 64 (C = 8)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rng = np.random.default_rng(17)
+    rows = {"decode_attention_latent": {}, "paged_decode_attention_latent": {}}
+    for cache in ("bf16", "fp8"):
+        for s_pad in LATENT_SPADS:
+            rows["decode_attention_latent"][f"{cache} S_pad={s_pad}"] = \
+                latent_row(gen, rng, "decode_attention_latent", cache, s_pad,
+                           f"V2-Lite {cache} slab S_pad {s_pad}")
+        rows["paged_decode_attention_latent"][cache] = latent_row(
+            gen, rng, "paged_decode_attention_latent", cache, 1024,
+            f"V2-Lite {cache} pool, lengths 0-1000")
+    b1e = {}
+    for label, n, k in (("gate", 1408, 2048), ("down", 2048, 1408)):
+        b1e[f"V2-Lite {label} C=8 g64"] = experts_row(
+            gen, "w4a16_experts_matmul", 64, 8, n, k, f"V2-Lite {label}",
+            g=MLA_GROUP)
+    return rows, b1e
 
 
 KERNEL_META = {
@@ -4932,6 +5683,14 @@ KERNEL_META = {
     "w4_e8_experts_matmul": (
         "compressed_tensors_tpu_torch/csrc/wna16_matmul.cu",
         "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:485"),
+    # MLA's latent head: the JAX package calls these kernels with kvh=1,
+    # rep=h, d=Dp, true_d (models/mla.py:149-165)
+    "decode_attention_latent": (
+        "compressed_tensors_tpu_torch/csrc/mla_decode.cu",
+        "compressed_tensors_tpu/ops/kernels/decode_attention.py:290"),
+    "paged_decode_attention_latent": (
+        "compressed_tensors_tpu_torch/csrc/mla_decode.cu",
+        "compressed_tensors_tpu/ops/kernels/paged_decode.py:310"),
 }
 BATCHED_BY = {
     "w4a16_experts_matmul": "compressed_tensors_tpu/ops/linear.py:800",
@@ -4951,7 +5710,9 @@ MAIN_VARIANT = {"prefill_attention": "8B chunk", "w8a8_matmul_fp8": BATCH,
                 "w4a16_planes_int4": "M=64", "w4a16_planes_a8": "M=64",
                 "w4a16_planes_mat": "M=64", "w4a16_experts_matmul": "gate C=8",
                 "w4a16_a8b_experts_matmul": "Mixtral C=320",
-                "w4_e8_experts_matmul": "gate C=8"}
+                "w4_e8_experts_matmul": "gate C=8",
+                "decode_attention_latent": "bf16 S_pad=1024",
+                "paged_decode_attention_latent": "bf16"}
 
 
 def kernel_report(errs, rows, variant_rows, paths):
@@ -5076,11 +5837,18 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     variant_rows.update(timings_moe())
     log(f"phase 14 timings done at {time.perf_counter() - t_start:.1f} s")
+    mla = phase_mla(errs)
+    log(f"phase 15 (DeepSeek-V2-Lite MLA) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    latent_rows, b1e_g64 = timings_mla()
+    variant_rows.update(latent_rows)
+    variant_rows["w4a16_experts_matmul"].update(b1e_g64)
+    log(f"phase 15 timings done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
     for phase in (fp8, nvfp4, w8a16, qwen25, qwen3, sparse24, w8a8_tiny,
-                  mixed, moe):
+                  mixed, moe, mla):
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -56,7 +56,10 @@ def _convert(value, device, use_kernels):
     if isinstance(value, dict) and "format" in value:
         return _linear(value, device, use_kernels)
     if isinstance(value, dict):
-        return {k: _convert(v, device, use_kernels) for k, v in value.items()}
+        # MLA's kv_b_proj is read as a dense matrix, never by a matmul
+        # kernel: it keeps its checkpoint layout, as the loaders keep it
+        return {k: _convert(v, device, use_kernels and k != "kv_b_proj")
+                for k, v in value.items()}
     if isinstance(value, list):
         return [_convert(v, device, use_kernels) for v in value]
     if isinstance(value, np.ndarray):
@@ -77,8 +80,14 @@ def params_from_numpy(tree: dict, device="cuda",
     linear carries its own scheme, so per-layer mixed schemes come across
     as they are. An MoE layer's ``moe`` dict carries over with its dense
     ``router`` and its stacked (E, N, K) expert linears, which take the
-    stacked kernel layouts. Every other
+    stacked kernel layouts. An MLA layer's linears (``q_proj`` or
+    ``q_a_proj``/``q_b_proj``, ``kv_a_proj_with_mqa``, ``o_proj``) take
+    their kernel layouts in the engine's half-rotation rope layout, as the
+    JAX loader left them; ``kv_b_proj`` stays in checkpoint layout and is
+    dequantized by ``models.mla.mla_attention`` in each forward, as the
+    JAX package does. Every other
     array (embeddings, norms with the Qwen3 per-head ``q_norm`` /
-    ``k_norm``, k/v/q scales) carries over as it is.
+    ``k_norm`` and MLA's ``q_a_layernorm``/``kv_a_layernorm``, k/v/q
+    scales) carries over as it is.
     """
     return _convert(tree, resolve_device(device), use_kernels)

@@ -1,8 +1,12 @@
 """Model configuration parsed from HF config.json.
 
 Counterpart of ``compressed_tensors_tpu/models/config.py`` (the same
-fields, so the same config.json parses the same way in both packages);
-this port's forward pass serves the dense Llama subset.
+fields, so the same config.json parses the same way in both packages):
+the dense Llama family with the Qwen2 qkv bias and the Qwen3 q/k norms,
+MoE layers (Mixtral, Qwen-MoE, DeepSeek naming) and DeepSeek V2/V3
+multi-head latent attention (``kv_lora_rank`` > 0; the rope dims of
+``deepseek*`` checkpoints are interleaved, ``rope_interleaved``). This
+port's forward pass serves all of them.
 """
 
 from __future__ import annotations

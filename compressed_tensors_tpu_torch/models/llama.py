@@ -2,14 +2,17 @@
 compressed, in PyTorch.
 
 Counterpart of ``compressed_tensors_tpu/models/llama.py`` for the dense and
-paged KV caches, non-MLA path, with the Qwen2 qkv bias, the Qwen3
-per-head q/k RMSNorm, the fp8 fake-quant of q by ``q_scale`` and MoE
-layers (``models/moe.py``; Qwen-MoE, DeepSeek and Mixtral expert naming).
+paged KV caches: GQA attention with the Qwen2 qkv bias, the Qwen3
+per-head q/k RMSNorm and the fp8 fake-quant of q by ``q_scale``; DeepSeek
+V2/V3 multi-head latent attention (``models/mla.py``); and MoE layers
+(``models/moe.py``; Qwen-MoE, DeepSeek and Mixtral expert naming).
 Every linear is a ``QuantizedTensor`` through ``quantized_matmul``, so
 weights stay compressed on the device. The dense KV cache is
 (L, B, KVH, S_pad, D) and the paged pool (L, NP, KVH, page, D), in the
 cache dtype -- no lane padding of D and no head packing -- and both are
-updated in place. A cache of fp8
+updated in place. An MLA cache holds one latent head: K rows [c_kv ;
+k_pe] of width kv_lora_rank + qk_rope_head_dim and V rows c_kv of width
+kv_lora_rank. A cache of fp8
 e4m3 or int8 holds K/V divided by the checkpoint's per-layer
 ``k_scale``/``v_scale`` (per tensor, or per kv head).
 """
@@ -41,6 +44,7 @@ from compressed_tensors_tpu_torch.ops.linear import (
     _transcode_fp8_enabled,
     from_compressed_state,
     materialize_weight,
+    permute_output_rows,
     prepare_for_kernels,
     quantized_matmul,
     stack_quantized_tensors,
@@ -51,6 +55,7 @@ __all__ = [
     "LlamaConfig",
     "KVCache",
     "PagedKVCache",
+    "cache_heads",
     "init_kv_cache",
     "init_paged_kv_cache",
     "llama_forward",
@@ -91,18 +96,28 @@ class KVCache:
     lengths: torch.Tensor  # (B,) int32: valid prefix length per slot
 
 
+def cache_heads(config: LlamaConfig) -> tuple[int, int, int]:
+    """(kv heads, K width, V width) of a cache row: the model's GQA heads,
+    or MLA's one latent head with K rows [c_kv ; k_pe] and V rows c_kv
+    (the JAX package pads both to 128 lanes and stores V as [c_kv ; 0])."""
+    if config.is_mla:
+        r = config.kv_lora_rank
+        return 1, r + config.qk_rope_head_dim, r
+    return config.num_key_value_heads, config.head_dim, config.head_dim
+
+
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, cache_dtype=None,
                   device="cuda") -> KVCache:
     """Zeroed cache with S_pad = max_len rounded up to a multiple of 64."""
     device = resolve_device(device)
     s_pad = -(-max_len // 64) * 64
-    shape = (config.num_hidden_layers, batch, config.num_key_value_heads,
-             s_pad, config.head_dim)
+    kvh, dk, dv = cache_heads(config)
+    lead = (config.num_hidden_layers, batch, kvh, s_pad)
     cd = cache_dtype or dtype
     return KVCache(
-        k=_zeros(shape, cd, device),
-        v=_zeros(shape, cd, device),
+        k=_zeros((*lead, dk), cd, device),
+        v=_zeros((*lead, dv), cd, device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
 
@@ -138,12 +153,12 @@ def init_paged_kv_cache(config: LlamaConfig, batch: int, max_len: int,
     p_max = -(-max_len // page_size)
     if num_pages is None:
         num_pages = batch * p_max + 1
-    shape = (config.num_hidden_layers, num_pages, config.num_key_value_heads,
-             page_size, config.head_dim)
+    kvh, dk, dv = cache_heads(config)
+    lead = (config.num_hidden_layers, num_pages, kvh, page_size)
     cd = cache_dtype or dtype
     return PagedKVCache(
-        k=_zeros(shape, cd, device),
-        v=_zeros(shape, cd, device),
+        k=_zeros((*lead, dk), cd, device),
+        v=_zeros((*lead, dv), cd, device),
         tables=torch.zeros((batch, p_max), dtype=torch.int32, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
@@ -446,7 +461,8 @@ def llama_forward(params: dict, config: LlamaConfig,
         embed, QuantizedTensor) else embed
     x = embed_w[input_ids]
     B, S = input_ids.shape
-    cos, sin = _rope(positions, config.head_dim, config.rope_theta)
+    rope_dim = config.qk_rope_head_dim if config.is_mla else config.head_dim
+    cos, sin = _rope(positions, rope_dim, config.rope_theta)
 
     if fresh_prefill is None:
         fresh_prefill = kv_cache is None
@@ -457,10 +473,17 @@ def llama_forward(params: dict, config: LlamaConfig,
     kv_k_all, kv_v_all = kv_cache.k, kv_cache.v
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_layernorm"], config.rms_norm_eps)
-        attn_out, kv_k_all, kv_v_all = _attention(
-            layer, i, h, cos, sin, kv_k_all, kv_v_all, cache_lens, config,
-            positions, fresh_prefill=fresh_prefill, tables=tables,
-            use_kernels=use_kernels)
+        if config.is_mla:
+            from compressed_tensors_tpu_torch.models.mla import mla_attention
+
+            attn_out, kv_k_all, kv_v_all = mla_attention(
+                layer, i, h, cos, sin, kv_k_all, kv_v_all, cache_lens,
+                config, positions, use_kernels=use_kernels, tables=tables)
+        else:
+            attn_out, kv_k_all, kv_v_all = _attention(
+                layer, i, h, cos, sin, kv_k_all, kv_v_all, cache_lens,
+                config, positions, fresh_prefill=fresh_prefill,
+                tables=tables, use_kernels=use_kernels)
         x = x + attn_out
         h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
         x = x + _mlp(layer, h, config, use_kernels)
@@ -501,9 +524,6 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
 
     device = resolve_device(device)
     config = LlamaConfig.from_pretrained(path)
-    if config.is_mla:
-        raise NotImplementedError(
-            "MLA checkpoints (ROADMAP A3) are not ported yet")
     mc = ModelCompressor.from_pretrained(path)
     reader = CheckpointReader(path)
     module_names = reader.module_names()
@@ -514,14 +534,16 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
     def _tensor(name):
         return reader.get(name).to(device)
 
-    def _get_qt(mod_name: str, kernels: bool | None = None
-                ) -> QuantizedTensor:
+    def _get_qt(mod_name: str, kernels: bool | None = None,
+                perm_out=None) -> QuantizedTensor:
         state = {k: v.to(device)
                  for k, v in reader.module_state_dict(mod_name).items()}
         qt = from_compressed_state(state, schemes.get(mod_name))
         if (qt.weight is not None and qt.weight.dtype.is_floating_point
                 and qt.weight.dtype.itemsize > 1):
             qt = dataclasses.replace(qt, weight=qt.weight.to(dtype))
+        if perm_out is not None:
+            qt = permute_output_rows(qt, perm_out)
         if kernels if kernels is not None else use_kernels:
             qt = prepare_for_kernels(qt)
         return qt
@@ -565,14 +587,48 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
             return moe
         return None
 
+    def _load_mla(prefix: str) -> dict:
+        """A DeepSeek MLA layer's projections and latent norms. The rope
+        rows of ``kv_a_proj_with_mqa`` and of the q projection are permuted
+        from the interleaved to the half layout when the checkpoint is
+        interleaved (``mla_rope_perms``); ``kv_b_proj`` keeps its checkpoint
+        layout (no matmul kernel reads it) and is dequantized once here into
+        the absorbed ``w_kb``/``w_vb``."""
+        from compressed_tensors_tpu_torch.models.mla import (
+            kv_b_weights,
+            mla_rope_perms,
+        )
+
+        attn = f"{prefix}.self_attn"
+        perms = mla_rope_perms(config) if config.rope_interleaved else {}
+        projs = ["kv_a_proj_with_mqa", "kv_b_proj", "o_proj"]
+        out: dict = {}
+        if f"{attn}.q_a_proj" in module_names:
+            projs += ["q_a_proj", "q_b_proj"]
+            out["q_a_layernorm"] = _tensor(
+                f"{attn}.q_a_layernorm.weight").to(dtype)
+        else:
+            projs.append("q_proj")
+        for proj in projs:
+            out[proj] = _get_qt(f"{attn}.{proj}",
+                                kernels=False if proj == "kv_b_proj" else None,
+                                perm_out=perms.get(proj))
+        out["kv_a_layernorm"] = _tensor(
+            f"{attn}.kv_a_layernorm.weight").to(dtype)
+        out["w_kb"], out["w_vb"] = kv_b_weights(out, config, dtype)
+        return out
+
     params: dict = {"layers": []}
     params["embed_tokens"] = materialize_weight(
         _get_qt("model.embed_tokens"), dtype=dtype)
     for i in range(config.num_hidden_layers):
         prefix = f"model.layers.{i}"
         layer: dict = {}
-        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            layer[proj] = _get_qt(f"{prefix}.self_attn.{proj}")
+        if config.is_mla:
+            layer.update(_load_mla(prefix))
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                layer[proj] = _get_qt(f"{prefix}.self_attn.{proj}")
         moe = _load_moe(prefix)
         if moe is not None:
             layer["moe"] = moe

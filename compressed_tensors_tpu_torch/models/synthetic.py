@@ -13,6 +13,7 @@ experts stacked (E, N, K), in the JAX package's order.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -22,9 +23,11 @@ import torch
 from compressed_tensors_tpu_torch.config import CompressionFormat
 from compressed_tensors_tpu_torch.models.config import LlamaConfig
 from compressed_tensors_tpu_torch.models.llama import resolve_device
+from compressed_tensors_tpu_torch.models.mla import mla_rope_perms
 from compressed_tensors_tpu_torch.ops.linear import (
     QuantizedTensor,
     expert_slice,
+    permute_output_rows,
     prepare_for_kernels,
 )
 from compressed_tensors_tpu_torch.ops.bitmask import sparse24_compress
@@ -241,6 +244,28 @@ def _checkpoint_state(qt: QuantizedTensor) -> dict[str, torch.Tensor]:
     return state
 
 
+def _mla_linears(layer: dict, config: LlamaConfig, prefix: str
+                 ) -> dict[str, QuantizedTensor]:
+    """An MLA layer's attention linears by checkpoint name, the rope rows
+    of ``kv_a_proj_with_mqa`` and of the q projection permuted back to
+    the interleaved order (kernel layouts dropped first: the permutation
+    reads the checkpoint layout)."""
+    perms = mla_rope_perms(config)
+    out = {}
+    for proj in ("q_proj", "q_a_proj", "q_b_proj", "kv_a_proj_with_mqa",
+                 "kv_b_proj", "o_proj"):
+        qt = layer.get(proj)
+        if qt is None:
+            continue
+        if proj in perms:
+            qt = permute_output_rows(dataclasses.replace(
+                qt, kernel_packed=None, kernel_scales=None, kernel_zp=None,
+                kernel_perm=None, kernel_meta=None),
+                torch.argsort(perms[proj]))
+        out[f"{prefix}.self_attn.{proj}"] = qt
+    return out
+
+
 def _layer_target(names: list[str]) -> list[str]:
     """Targets naming exactly these modules' layers (and the lm_head among
     them): one ``re:`` over the layer indices."""
@@ -254,9 +279,11 @@ def _layer_target(names: list[str]) -> list[str]:
 def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
     """Write unfused Llama params as a compressed-tensors checkpoint:
     ``model.safetensors`` plus ``config.json`` with its
-    ``quantization_config``: one config group per distinct scheme, each
-    with its scheme's targets (the lm_head's ``lm_head``) where the
-    decoder layers share one scheme, and ``re:`` targets over their layer
+    ``quantization_config``: one config group per distinct scheme (the
+    linears stored dense, such as an unquantized lm_head, in its
+    ``ignore``), each with its scheme's targets (the lm_head's
+    ``lm_head``) where the decoder layers share one scheme, and ``re:``
+    targets over their layer
     indices where they mix several. 2:4 sparse linears are written as
     ``weight.compressed`` / ``weight.bitmask`` / ``weight.shape`` under a
     ``sparsity_config`` (sparse-24-bitmask, ignoring the linears stored
@@ -267,17 +294,33 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
     (``mlp.experts.{j}.{gate,up,down}_proj``), the router as
     ``mlp.gate.weight`` and a shared expert as ``mlp.shared_expert.*``;
     ``config.json`` then names the MoE widths (and ``model_type``
-    qwen3_moe for models with q/k norms)."""
+    qwen3_moe for models with q/k norms).
+
+    MLA models (``config.is_mla``) are written as DeepSeek V2 checkpoints
+    (``model_type`` deepseek_v2, the shared expert as
+    ``mlp.shared_experts.*``): ``q_proj`` or ``q_a_proj`` /
+    ``q_a_layernorm`` / ``q_b_proj``, ``kv_a_proj_with_mqa``,
+    ``kv_a_layernorm``, ``kv_b_proj`` and ``o_proj``, with the rope rows of
+    ``kv_a_proj_with_mqa`` and of the q projection back in DeepSeek's
+    interleaved order (the inverse of the loader's ``mla_rope_perms``), so
+    that the loader's permutation restores the params' own rows."""
     os.makedirs(path, exist_ok=True)
     tensors: dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed_tokens"],
         "model.norm.weight": params["norm"],
     }
     linears: dict[str, QuantizedTensor] = {}
+    shared_name = "shared_experts" if config.is_mla else "shared_expert"
     for i, layer in enumerate(params["layers"]):
         p = f"model.layers.{i}"
-        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            linears[f"{p}.self_attn.{proj}"] = layer[proj]
+        if config.is_mla:
+            linears.update(_mla_linears(layer, config, p))
+            for norm in ("q_a_layernorm", "kv_a_layernorm"):
+                if layer.get(norm) is not None:
+                    tensors[f"{p}.self_attn.{norm}.weight"] = layer[norm]
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                linears[f"{p}.self_attn.{proj}"] = layer[proj]
         moe = layer.get("moe")
         if moe is not None:
             tensors[f"{p}.mlp.gate.weight"] = moe["router"]
@@ -286,7 +329,7 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
                     linears[f"{p}.mlp.experts.{e}.{proj}"] = expert_slice(
                         qt, e)
             for proj, qt in (moe.get("shared_expert") or {}).items():
-                linears[f"{p}.mlp.shared_expert.{proj}"] = qt
+                linears[f"{p}.mlp.{shared_name}.{proj}"] = qt
         else:
             for proj in ("gate_proj", "up_proj", "down_proj"):
                 linears[f"{p}.mlp.{proj}"] = layer[proj]
@@ -303,10 +346,12 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
 
     members: list[tuple[QuantizationScheme, list[str]]] = []
     formats = set()
+    unquantized = []  # dense linears, which the config groups must ignore
     for name, qt in linears.items():
         for local, t in _checkpoint_state(qt).items():
             tensors[f"{name}.{local}"] = t
         if qt.scheme is None or qt.scheme.weights is None:
+            unquantized.append(name)
             continue
         scheme = qt.scheme.model_copy(update={"format": qt.format})
         formats.add(qt.format)
@@ -327,6 +372,8 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
 
     model_type = ("qwen3_moe" if config.is_moe else "qwen3") \
         if config.qk_norm else "llama"
+    if config.is_mla:
+        model_type = "deepseek_v2"
     cfg = {
         "architectures": ["LlamaForCausalLM"], "model_type": model_type,
         "attention_bias": config.attention_bias,
@@ -349,12 +396,19 @@ def save_llama_checkpoint(params: dict, config: LlamaConfig, path: str) -> None:
                        config.shared_expert_intermediate_size),
                    first_k_dense_replace=config.first_k_dense_replace,
                    norm_topk_prob=config.norm_topk_prob)
+    if config.is_mla:
+        cfg.update(q_lora_rank=config.q_lora_rank or None,
+                   kv_lora_rank=config.kv_lora_rank,
+                   qk_nope_head_dim=config.qk_nope_head_dim,
+                   qk_rope_head_dim=config.qk_rope_head_dim,
+                   v_head_dim=config.v_head_dim)
     if groups:
         qconfig = QuantizationConfig(
             config_groups=groups,
             format=(formats.pop() if len(formats) == 1
                     else CompressionFormat.mixed_precision.value),
             quantization_status=QuantizationStatus.COMPRESSED,
+            ignore=unquantized,
         )
         cfg["quantization_config"] = qconfig.model_dump(mode="json")
         dense = [n for n, qt in linears.items() if qt.sparse_values is None]

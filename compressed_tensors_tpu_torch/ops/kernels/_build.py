@@ -27,7 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("w4a16_matmul.cu", "w4a16_planes.cu", "wna16_matmul.cu",
            "w8a8_matmul.cu",
            "prefill_attention.cu", "decode_attention.cu", "paged_decode.cu",
-           "errors.cu")
+           "mla_decode.cu", "errors.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "ct_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     "ct_flash_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
     "ct_paged_decode": [_P] * 12 + [_I] * 11 + [_F, _P],
+    "ct_latent_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
+    "ct_latent_paged_decode": [_P] * 12 + [_I] * 11 + [_F, _P],
 }
 
 _lib = None

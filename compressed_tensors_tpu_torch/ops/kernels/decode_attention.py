@@ -32,6 +32,15 @@ the JAX package does; ``flash_decode.py`` serves the larger ones.
 ``decode_attention_plain`` only for CPU tensors. Launches on a bf16 cache
 count in ``decode_attention.launches``, on an fp8 or int8 cache in
 ``decode_attention.scaled_launches``.
+
+MLA's latent head (one kv head whose K and V widths are not a GQA head
+width: DeepSeek V2-Lite's K rows [c_kv ; k_pe] of 576 and V rows c_kv of
+512) takes the latent-head kernel B5-L instead (``csrc/mla_decode.cu``,
+entry point ``ct_latent_decode``): the same contract with V narrower than
+K and the softmax scale 1/sqrt(``true_d``), as the JAX package calls its
+kernel with ``kvh=1, rep=h, d=Dp, true_d``. Its plain version is
+``latent_decode_attention_plain``; its launches count in
+``decode_attention.latent_launches``.
 """
 
 from __future__ import annotations
@@ -44,13 +53,19 @@ from compressed_tensors_tpu_torch.ops.kernels import _build
 from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = ["decode_attention", "decode_attention_plain",
-           "block_decode_form", "SCORE_POSITIONS"]
+           "latent_decode_attention_plain", "is_latent_head",
+           "block_decode_form", "SCORE_POSITIONS", "LATENT_TILE"]
 
 # cache element type -> ct::CacheKind of csrc/common.cuh
 _CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
 # the longest cache whose f32 scores (16 heads) the kernel keeps in shared
 # memory: every cache that decode_attn="auto" sends here (S_pad < 512)
 SCORE_POSITIONS = 512
+# positions a tile of the latent-head kernels (csrc/mla_decode.cu)
+LATENT_TILE = 32
+# the widest latent K row the latent-head kernels take, and their most
+# query heads (the 16 rows of an mma tile)
+LATENT_MAX_D, LATENT_MAX_REP = 640, 16
 
 
 def block_decode_form(s_pad: int) -> str:
@@ -70,6 +85,56 @@ def _layer_views(cache_k, cache_v, layer):
     return cache_k, cache_v
 
 
+def is_latent_head(new_k, new_v) -> bool:
+    """MLA's latent head: one kv head whose (K, V) widths are not a GQA
+    head's (equal, 64 or 128); the latent-head kernels serve it."""
+    dk, dv = new_k.shape[-1], new_v.shape[-1]
+    return new_k.shape[1] == 1 and not (dk == dv and dk in (64, 128))
+
+
+def _check_placement(name, q, new_k, new_v, cache_k, cache_v, lengths):
+    """The checks every decode kernel shares: contiguous operands on one
+    device, bf16 q and new rows, a bf16/fp8/int8 cache, (B,) int32
+    lengths."""
+    for t in (q, new_k, new_v, cache_k, cache_v):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous on one "
+                             "device")
+    if any(t.dtype != torch.bfloat16 for t in (q, new_k, new_v)):
+        raise ValueError(f"{name} takes bf16 q and new k/v")
+    if cache_k.dtype not in _CACHE_KINDS or cache_v.dtype != cache_k.dtype:
+        raise NotImplementedError(
+            f"{name} kernel serves bf16, fp8 e4m3 and int8 caches, got "
+            f"{cache_k.dtype}")
+    if (lengths.dtype != torch.int32 or lengths.device != q.device
+            or tuple(lengths.shape) != (q.shape[0],)):
+        raise ValueError("lengths must be (B,) int32 on q's device")
+
+
+def check_latent_operands(name, q, new_k, new_v, cache_k, cache_v, lengths):
+    """Raise on operands the latent-head kernels (B5-L, B7-L) do not take;
+    returns (B, H, Dk, Dv)."""
+    B, H, Dk = q.shape
+    Dv = new_v.shape[-1]
+    if H > LATENT_MAX_REP:
+        raise NotImplementedError(
+            f"{name} latent-head kernel serves up to {LATENT_MAX_REP} query "
+            f"heads, got {H} (ROADMAP B-v)")
+    if not (Dk % 64 == 0 and Dv % 64 == 0 and 64 <= Dv <= Dk <= LATENT_MAX_D
+            and H >= 1):
+        raise NotImplementedError(
+            f"{name} latent-head kernel serves K and V widths that are "
+            f"multiples of 64 with V <= K <= {LATENT_MAX_D}, got K={Dk}, "
+            f"V={Dv}")
+    if (tuple(new_k.shape) != (B, 1, Dk) or tuple(new_v.shape) != (B, 1, Dv)
+            or cache_k.shape[-1] != Dk or cache_v.shape[-1] != Dv
+            or cache_k.shape[:-1] != cache_v.shape[:-1]
+            or cache_k.shape[-3] != 1):
+        raise ValueError(f"{name} shape mismatch")
+    _check_placement(name, q, new_k, new_v, cache_k, cache_v, lengths)
+    return B, H, Dk, Dv
+
+
 def check_decode_operands(name, q, new_k, new_v, cache_k, cache_v,
                           lengths):
     """Raise on operands the CUDA decode kernels (block, flash, paged) do
@@ -85,19 +150,7 @@ def check_decode_operands(name, q, new_k, new_v, cache_k, cache_v,
             or cache_v.shape != cache_k.shape or cache_k.shape[-1] != D
             or cache_k.shape[-3] != KVH):
         raise ValueError(f"{name} shape mismatch")
-    for t in (q, new_k, new_v, cache_k, cache_v):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} operands must be contiguous on one "
-                             "device")
-    if any(t.dtype != torch.bfloat16 for t in (q, new_k, new_v)):
-        raise ValueError(f"{name} takes bf16 q and new k/v")
-    if cache_k.dtype not in _CACHE_KINDS or cache_v.dtype != cache_k.dtype:
-        raise NotImplementedError(
-            f"{name} kernel serves bf16, fp8 e4m3 and int8 caches, got "
-            f"{cache_k.dtype}")
-    if (lengths.dtype != torch.int32 or lengths.device != q.device
-            or tuple(lengths.shape) != (B,)):
-        raise ValueError("lengths must be (B,) int32 on q's device")
+    _check_placement(name, q, new_k, new_v, cache_k, cache_v, lengths)
     return B, H, D, KVH, rep
 
 
@@ -125,7 +178,8 @@ def kernel_scales(name, q, cache_k, k_scale, v_scale, per_head=False):
 
 
 def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, *,
-                           layer=None, k_scale=None, v_scale=None):
+                           layer=None, k_scale=None, v_scale=None,
+                           true_d=None):
     """Plain PyTorch version: the in-place row write (the new K/V in the
     cache's representation), then masked softmax attention in f32 with the
     normalized probabilities cast to q's dtype before P.V, the TPU kernel's
@@ -157,7 +211,8 @@ def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, *,
     if folded:
         qg = (qg * head_scales(k_scale)).to(cd).to(torch.float32)
     keys, values = (c.to(cd).to(torch.float32) for c in (ck, cv))
-    scores = torch.einsum("bkrd,bksd->bkrs", qg, keys) * (1.0 / math.sqrt(D))
+    scores = torch.einsum("bkrd,bksd->bkrs", qg, keys) * (
+        1.0 / math.sqrt(true_d or D))
     pos = torch.arange(S_pad, device=q.device)
     mask = pos[None, :] <= lengths[:, None]                  # (B, S_pad)
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
@@ -171,20 +226,112 @@ def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, *,
     return out.to(cd), cache_k, cache_v
 
 
+def latent_split(cache_dtype) -> int:
+    """Positions a split of the latent-head kernels' keys: the flash and
+    paged decode kernels' split (``flash_decode.SPLIT_TILES``)."""
+    from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+        CHUNK,
+        SPLIT_TILES,
+    )
+
+    return SPLIT_TILES[torch.empty((), dtype=cache_dtype).element_size()] \
+        * CHUNK
+
+
+def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
+                                  lengths, *, layer=None, k_scale=None,
+                                  v_scale=None, true_d=None,
+                                  kernel_order=False, out_dtype=None):
+    """B5-L's plain version: the in-place row write at lengths[b] (K rows
+    of width Dk, V rows of width Dv, in the cache's representation), then
+    ``flash_decode.attend_plain`` over the row's cached prefix with the
+    softmax scale 1/sqrt(``true_d``): the TPU kernel's numerics (q *
+    k_scale rounded to q's dtype, the probabilities rounded to q's dtype
+    before P.V, v_scale onto the f32 output). ``kernel_order`` sums in the
+    CUDA kernel's order (runs of ``latent_split`` positions, tiles of
+    ``LATENT_TILE`` positions inside them), as ``chip_smoke.py`` compares
+    it, with ``out_dtype`` f32 for the unrounded result. Outputs of
+    inactive rows are zero."""
+    from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
+    from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+        attend_plain,
+    )
+
+    ck, cv = _layer_views(cache_k, cache_v, layer)
+    nk_c = _quantize_to_cache(new_k, k_scale, ck.dtype, head_axis=1)
+    nv_c = _quantize_to_cache(new_v, v_scale, cv.dtype, head_axis=1)
+    out = attend_plain(
+        q, nk_c, nv_c, ck, cv, lengths, k_scale, v_scale,
+        split=latent_split(ck.dtype) if kernel_order else None,
+        tile=LATENT_TILE if kernel_order else None,
+        inv_sqrt_d=1.0 / math.sqrt(true_d or q.shape[-1]),
+        out_dtype=out_dtype)
+    lengths = lengths.to(torch.int64)
+    rows = torch.nonzero((lengths >= 0) & (lengths < ck.shape[2])).reshape(-1)
+    byte_view(ck)[rows, :, lengths[rows]] = byte_view(nk_c[rows])
+    byte_view(cv)[rows, :, lengths[rows]] = byte_view(nv_c[rows])
+    return out, cache_k, cache_v
+
+
+def _latent_decode(q, new_k, new_v, cache_k, cache_v, lengths, layer,
+                   k_scale, v_scale, true_d):
+    """B5-L on CUDA tensors: one launch of ``ct_latent_decode`` (and its
+    merge pass when a row may take more than one split)."""
+    from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
+        split_scratch,
+    )
+
+    B, H, Dk, Dv = check_latent_operands(
+        "decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
+    kind, ks, vs, _, scaled = kernel_scales(
+        "decode_attention", q, cache_k, k_scale, v_scale)
+    if cache_k.dim() != 5 or cache_k.shape[1] != B:
+        raise ValueError("the latent decode_attention needs the (L, B, 1, "
+                         "S_pad, D) cache")
+    L, _, _, S_pad, _ = cache_k.shape
+    if layer is None or not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range for {L} cache layers")
+    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    per, splits, (part_ml, part_o, _scratch) = split_scratch(
+        B, 1, H, Dv, S_pad, cache_k.element_size(), q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.ct_latent_decode(
+            q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+            cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), ks.data_ptr() if scaled else None,
+            vs.data_ptr() if scaled else None, part_ml, part_o, B, H, S_pad,
+            Dk, Dv, layer, kind, per, splits,
+            1.0 / math.sqrt(true_d or Dk),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "decode_attention (latent head)")
+    decode_attention.latent_launches += 1
+    return out, cache_k, cache_v
+
+
 def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
                      new_v: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, lengths: torch.Tensor, *,
                      layer: int | None = None,
                      k_scale: torch.Tensor | None = None,
-                     v_scale: torch.Tensor | None = None):
+                     v_scale: torch.Tensor | None = None,
+                     true_d: int | None = None):
     """q (B, H, D), new_k/new_v (B, KVH, D) post-RoPE; cache (L, B, KVH,
     S_pad, D) with ``layer``, or (B, KVH, S_pad, D); lengths (B,) int32,
     negative = inactive. Returns (out (B, H, D), cache_k, cache_v), the
-    caches being the same tensors, updated in place."""
+    caches being the same tensors, updated in place. ``true_d`` sets the
+    softmax scale 1/sqrt(true_d) (D by default). MLA's latent head
+    (``is_latent_head``: KVH 1, new_v and the V cache of width Dv) gives
+    out (B, H, Dv) through B5-L."""
+    latent = is_latent_head(new_k, new_v)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
-                                      lengths, layer=layer, k_scale=k_scale,
-                                      v_scale=v_scale)
+        plain = (latent_decode_attention_plain if latent
+                 else decode_attention_plain)
+        return plain(q, new_k, new_v, cache_k, cache_v, lengths, layer=layer,
+                     k_scale=k_scale, v_scale=v_scale, true_d=true_d)
+    if latent:
+        return _latent_decode(q, new_k, new_v, cache_k, cache_v, lengths,
+                              layer, k_scale, v_scale, true_d)
     B, H, D, KVH, rep = check_decode_operands(
         "decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
     kind, ks, vs, stride, scaled = kernel_scales(
@@ -208,7 +355,7 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
             out.data_ptr(), ks.data_ptr() if scaled else None,
             vs.data_ptr() if scaled else None, B, KVH, rep, S_pad, D, layer,
             kind, stride, int(block_decode_form(S_pad) == "scores"),
-            1.0 / math.sqrt(D),
+            1.0 / math.sqrt(true_d or D),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     if scaled:
@@ -220,3 +367,4 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor,
 
 decode_attention.launches = 0
 decode_attention.scaled_launches = 0
+decode_attention.latent_launches = 0

@@ -54,9 +54,10 @@ SPLIT_TILES = {2: 4, 1: 8}
 
 def split_scratch(B, KVH, rep, D, capacity, itemsize, device):
     """(tiles a split, splits, scratch pointers) of the flash and paged
-    decode kernels for rows of up to ``capacity`` cached positions
-    (positions 0..capacity, the new token's included) in a cache of
-    ``itemsize``-byte elements. The scratch is one f32 ``torch.empty``
+    decode kernels (and the latent-head ones) for rows of up to
+    ``capacity`` cached positions (positions 0..capacity, the new token's
+    included) in a cache of ``itemsize``-byte elements; ``D`` is the
+    output width (the V width). The scratch is one f32 ``torch.empty``
     holding the per-split unnormalized outputs (B, KVH, splits, rep, D)
     and then their (max, sum) pairs (B, KVH, splits, rep, 2): the pointers
     are (pairs, outputs, the tensor that keeps them alive), all None when
@@ -74,22 +75,28 @@ def split_scratch(B, KVH, rep, D, capacity, itemsize, device):
 
 
 def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
-                 v_scale, split=None):
+                 v_scale, split=None, inv_sqrt_d=None, tile=None,
+                 out_dtype=None):
     """The flash/paged decode arithmetic in plain PyTorch, as the TPU
     kernels compute it: the new token (in its cache representation) plus
-    each row's cached positions 0..lengths[b]-1 of ``keys``/``values``
-    (B, KVH, T, D); softmax in f32 with the unnormalized probabilities cast
-    to q's dtype before P.V. Scalar cache scales fold into q and onto the
-    output, so cached values only take a dtype cast. Inactive rows give
-    zeros.
+    each row's cached positions 0..lengths[b]-1 of ``keys`` (B, KVH, T, D)
+    and ``values`` (B, KVH, T, Dv; Dv = D but for MLA's latent head);
+    softmax in f32 of the scores times ``inv_sqrt_d`` (1/sqrt(D) by
+    default) with the unnormalized probabilities cast to q's dtype before
+    P.V. Scalar cache scales fold into q and onto the output, so cached
+    values only take a dtype cast. Inactive rows give zeros.
 
     With ``split`` (positions a split), the order of the CUDA kernel: the
     new token sits at position min(lengths[b], T) after the cached ones,
     each run of ``split`` positions takes its own softmax (max, sum and
     unnormalized output, the probabilities cast against the run's max),
-    and the runs merge by their maxima."""
+    and the runs merge by their maxima. With ``tile`` too, the order of
+    the latent-head kernel: inside a run the tiles of ``tile`` positions
+    update one online softmax, each tile's probabilities cast against the
+    running max after that tile. The output is in q's dtype, or
+    ``out_dtype`` (f32 to hold a kernel to its unrounded result)."""
     B, H, D = q.shape
-    KVH, T = keys.shape[1], keys.shape[2]
+    KVH, T, Dv = keys.shape[1], keys.shape[2], values.shape[-1]
     cd = q.dtype
     folded = k_scale is not None and keys.dtype != cd
     qh = ((q.to(torch.float32) * k_scale.to(torch.float32).reshape(()))
@@ -97,7 +104,8 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
     qg = qh.to(torch.float32).reshape(B, KVH, H // KVH, D)
     kf, vf = (t.to(cd).to(torch.float32) for t in (keys, values))
     nkf, nvf = (t.to(cd).to(torch.float32) for t in (new_k_c, new_v_c))
-    inv_sqrt_d = 1.0 / math.sqrt(D)
+    if inv_sqrt_d is None:
+        inv_sqrt_d = 1.0 / math.sqrt(D)
     lengths = lengths.to(torch.int64)
     if split is None:
         s_new = torch.einsum("bkrd,bkd->bkr", qg, nkf)[..., None] * inv_sqrt_d
@@ -113,37 +121,48 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
         out = acc / l.clamp_min(1e-30)
     else:
         out = _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd,
-                            inv_sqrt_d)
+                            inv_sqrt_d, tile)
     if folded:
         out = out * v_scale.to(torch.float32).reshape(())
-    out = out.reshape(B, H, D)
+    out = out.reshape(B, H, Dv)
     out = torch.where((lengths >= 0)[:, None, None], out, torch.zeros_like(out))
-    return out.to(cd)
+    return out.to(out_dtype or cd)
 
 
-def _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd, inv_sqrt_d):
-    """``attend_plain``'s split order: f32 (B, KVH, rep, D) outputs."""
+def _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd, inv_sqrt_d,
+                  tile=None):
+    """``attend_plain``'s split order: f32 (B, KVH, rep, Dv) outputs."""
     B, KVH, T, D = kf.shape
+    Dv = vf.shape[-1]
     cached = lengths.clamp(0, T)
     n = -(-(T + 1) // split) * split
     pad = n - T
     rows = torch.arange(B, device=kf.device)
     kx = torch.cat([kf, kf.new_zeros(B, KVH, pad, D)], dim=2)
-    vx = torch.cat([vf, vf.new_zeros(B, KVH, pad, D)], dim=2)
+    vx = torch.cat([vf, vf.new_zeros(B, KVH, pad, Dv)], dim=2)
     kx[rows, :, cached] = nkf
     vx[rows, :, cached] = nvf
     s = torch.einsum("bkrd,bktd->bkrt", qg, kx) * inv_sqrt_d
     valid = torch.arange(n, device=kf.device)[None, :] <= cached[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    s = s.reshape(*s.shape[:3], n // split, split)         # (B, KVH, R, Z, P)
-    m = s.amax(dim=-1, keepdim=True)
-    m_use = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-    p = torch.exp(s - m_use)
-    l = p.sum(dim=-1)                                        # (B, KVH, R, Z)
+    if tile is None:
+        tile = split
+    nt = split // tile
+    # (B, KVH, R, Z, NT, tile): runs of `split`, tiles of `tile`
+    s = s.reshape(*s.shape[:3], n // split, nt, tile)
+    run = torch.cummax(s.amax(dim=-1), dim=-1).values     # running max
+    run_use = torch.where(torch.isinf(run), torch.zeros_like(run), run)
+    p = torch.exp(s - run_use[..., None])
     pr = p.to(cd).to(torch.float32)
-    acc = torch.einsum("bkrzp,bkzpd->bkrzd", pr,
-                       vx.reshape(B, KVH, n // split, split, D))
-    m = m.squeeze(-1)
+    acc_t = torch.einsum("bkrztp,bkztpd->bkrztd", pr,
+                         vx.reshape(B, KVH, n // split, nt, tile, Dv))
+    m = run[..., -1]                                         # (B, KVH, R, Z)
+    m_use = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    # each tile's sums carried to the run's final max
+    w = torch.where(torch.isinf(run), torch.zeros_like(run),
+                    torch.exp(run_use - m_use[..., None]))
+    l = (p.sum(dim=-1) * w).sum(dim=-1)
+    acc = (acc_t * w[..., None]).sum(dim=-2)
     top = m.amax(dim=-1, keepdim=True)
     f = torch.exp(m - top)                                   # empty runs: 0
     total = (f * l).sum(dim=-1)[..., None]

@@ -62,6 +62,7 @@ __all__ = [
     "prepare_experts_for_kernels",
     "stack_quantized_tensors",
     "expert_slice",
+    "permute_output_rows",
 ]
 
 _W8_STRATEGIES = (QuantizationStrategy.CHANNEL.value,
@@ -184,6 +185,51 @@ def _unpacked_zero_point(qt: QuantizedTensor, num_bits: int):
                                (*qt.shape[:-1], qt.scale.shape[-1]),
                                packed_dim=0)
     return zp
+
+
+def permute_output_rows(qt: QuantizedTensor, perm) -> QuantizedTensor:
+    """Reorder the output features of a compressed weight: row i of the
+    result is row perm[i] of the input, for every per-output-row leaf.
+
+    The loader converts DeepSeek's interleaved rope rows to the half
+    layout with it, and the checkpoint writer back. Packing runs along
+    the input dim, so the weight, packed words and bias permute by row;
+    per-row scales and zero points follow (int32 zero points packed along
+    the output dim are unpacked, permuted and repacked); g_idx indexes
+    input columns and stays. Sparse leaves raise NotImplementedError and
+    a prepared tensor (kernel layout built) raises ValueError, as in the
+    JAX package.
+    """
+    perm = torch.as_tensor(perm, dtype=torch.int64)
+    n_out = qt.shape[0] if qt.shape else None
+    if n_out is None or perm.numel() != n_out:
+        raise ValueError(f"perm length {perm.numel()} != out_features {n_out}")
+    if qt.sparse_values is not None:
+        raise NotImplementedError(
+            "output-row permutation of bitmask-sparse weights")
+    if qt.kernel_packed is not None:
+        raise ValueError("permute before prepare_for_kernels")
+
+    rep = {}
+    for field in ("weight", "weight_packed", "bias"):
+        leaf = getattr(qt, field)
+        if leaf is not None:
+            rep[field] = leaf[perm.to(leaf.device)]
+    scale = qt.scale
+    if scale is not None and scale.dim() >= 1 and scale.shape[0] == n_out:
+        rep["scale"] = scale[perm.to(scale.device)]
+    zp = qt.zero_point
+    if zp is not None:
+        idx = perm.to(zp.device)
+        if zp.dtype == torch.int32:
+            num_bits = qt.scheme.weights.num_bits
+            unpacked = unpack_from_int32(zp, num_bits, (n_out, zp.shape[-1]),
+                                         packed_dim=0)
+            rep["zero_point"] = pack_to_int32(unpacked[idx], num_bits,
+                                              packed_dim=0)
+        elif zp.dim() >= 1 and zp.shape[0] == n_out:
+            rep["zero_point"] = zp[idx]
+    return dataclasses.replace(qt, **rep)
 
 
 def materialize_weight(qt: QuantizedTensor, dtype=torch.bfloat16

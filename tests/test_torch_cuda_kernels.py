@@ -858,7 +858,15 @@ INT4B_EXPERT_CASES = [(4, 8, 200, 384, 128, True),
                       (2, 640, 328, 1024, 128, False),
                       (3, 300, 264, 512, 128, True),
                       (128, 8, 768, 2048, 128, False),
-                      (16, 64, 2048, 768, 128, True)]
+                      (16, 64, 2048, 768, 128, True),
+                      # DeepSeek-V2-Lite's experts at group 64 (the
+                      # kernels' half-k-tile groups): gate/up (N 1408, K
+                      # 2048) and down (N 2048, K 1408) at a decode step's
+                      # C (batch 64, 6 of 64 experts) and a serving chunk's
+                      (64, 8, 1408, 2048, 64, False),
+                      (64, 8, 2048, 1408, 64, False),
+                      (64, 64, 1408, 2048, 64, True),
+                      (64, 64, 2048, 1408, 64, False)]
 
 
 def test_int4b_expert_cases_cover_designs_and_splits():
@@ -982,3 +990,141 @@ def test_expert_wrappers_refuse_bad_operands(dev):
         w4.w4a16_experts_matmul(x, w, s[:, :1].contiguous(), None, n=128,
                                 k=256, group_size=192)
     assert w4.w4a16_experts_matmul.launches == before
+
+
+# B5-L / B7-L, MLA's latent head: (K, V) widths of DeepSeek-V2-Lite (576,
+# 512) and a narrow pair (128, 64), 16 query heads and one, every cache
+# type; lengths 0, 1, 63-65, each side of a split boundary and S_pad - 1,
+# an inactive row; the softmax scale of a true_d below K's width
+LATENT_WIDTHS = [(576, 512), (128, 64)]
+
+
+def _latent_case(rng, dev, rep, dk, dv, cache, s_pad, lens):
+    q = _bf16(rng, len(lens), rep, dk, device=dev)
+    nk = _bf16(rng, len(lens), 1, dk, device=dev)
+    nv = _bf16(rng, len(lens), 1, dv, device=dev)
+    scaled = cache != torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=dev)
+    ks = torch.tensor([0.02], **f32) if scaled else None
+    vs = torch.tensor([0.03], **f32) if scaled else None
+
+    def make(*shape):
+        if scaled:
+            return _quantized_cache(rng, cache, *shape, device=dev)
+        return _bf16(rng, *shape, device=dev)
+
+    return q, nk, nv, ks, vs, make
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn,
+                                   torch.int8], ids=["bf16", "fp8", "int8"])
+@pytest.mark.parametrize("dk,dv", LATENT_WIDTHS)
+@pytest.mark.parametrize("rep", [1, 16])
+def test_latent_decode_grid(dev, rep, dk, dv, cache):
+    """B5-L on the slab and B7-L on shuffled pages: every element within
+    the a8b rule of the plain version's f32 result in the kernels' order,
+    within TOL of the one-softmax plain version, inactive rows zero, cache
+    bytes equal to the plain version's and changed at the step's positions
+    only, one launch a call."""
+    rng = np.random.default_rng(rep + dk + dv)
+    span = da.latent_split(cache)
+    s_pad, page, true_d = span + 192, 64, dk // 3
+    lens = [0, 1, 63, 64, 65, span - 1, span, span + 1, s_pad - 1, -1]
+    B, P = len(lens), s_pad // page
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = [b for b in range(B) if lens[b] >= 0]
+    q, nk, nv, ks, vs, make = _latent_case(rng, dev, rep, dk, dv, cache,
+                                           s_pad, lens)
+    kw = dict(layer=1, k_scale=ks, v_scale=vs, true_d=true_d)
+
+    def check(out, run_plain, caches, before):
+        ordered = run_plain([c.clone() for c in before], kernel_order=True,
+                            out_dtype=torch.float32)[0]
+        assert _within_a8b_rule(out[live], ordered[live])
+        one = run_plain([c.clone() for c in before])[0]
+        _close(out[live], one[live])
+        assert out.shape == (B, rep, dv) and not out[B - 1].any()
+        plain_caches = [c.clone() for c in before]
+        run_plain(plain_caches)
+        for got, want in zip(caches, plain_caches):
+            assert _same_bytes(got, want)
+
+    # the slab
+    ck, cv = make(2, B, 1, s_pad, dk), make(2, B, 1, s_pad, dv)
+    before = [ck.clone(), cv.clone()]
+    count = da.decode_attention.latent_launches
+    out, _, _ = da.decode_attention(q, nk, nv, ck, cv, lengths, **kw)
+    assert da.decode_attention.latent_launches == count + 1
+    check(out, lambda c, **o: da.latent_decode_attention_plain(
+        q, nk, nv, *c, lengths, **kw, **o), (ck, cv), before)
+    changed = torch.nonzero((ck.view(torch.uint8) != before[0].view(
+        torch.uint8)).any(-1)).tolist()
+    assert sorted(map(tuple, changed)) == sorted(
+        (1, b, 0, lens[b]) for b in live)
+
+    # the pool through shuffled page tables (the inactive row on page 0)
+    tables = rng.permutation(np.arange(1, B * P + 1)).astype(np.int32)
+    tables = tables.reshape(B, P)
+    tables[B - 1] = 0
+    tables_d = torch.from_numpy(tables).to(dev)
+    pk, pv = make(2, B * P + 1, 1, page, dk), make(2, B * P + 1, 1, page, dv)
+    before = [pk.clone(), pv.clone()]
+    count = pd.paged_decode_attention.latent_launches
+    out_p, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d,
+                                            lengths, **kw)
+    assert pd.paged_decode_attention.latent_launches == count + 1
+    check(out_p, lambda c, **o: pd.paged_decode_attention_plain(
+        q, nk, nv, *c, tables_d, lengths, **kw, **o), (pk, pv), before)
+    changed = torch.nonzero((pk.view(torch.uint8) != before[0].view(
+        torch.uint8)).any(-1)).tolist()
+    assert sorted(map(tuple, changed)) == sorted(
+        (1, int(tables[b, lens[b] // page]), 0, lens[b] % page) for b in live)
+
+
+def test_latent_decode_pages_smaller_than_a_tile(dev):
+    """B7-L with 16-position pages (a 32-position tile spans two pages)
+    gives the bits of B5-L on the same rows laid out densely."""
+    rng = np.random.default_rng(21)
+    dk, dv, page, s_pad = 576, 512, 16, 256
+    lens = [5, 31, 32, 200, -1]
+    B, P = len(lens), s_pad // page
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q, nk, nv, _, _, make = _latent_case(rng, dev, 16, dk, dv,
+                                         torch.bfloat16, s_pad, lens)
+    tables = rng.permutation(np.arange(1, B * P + 1)).astype(np.int32)
+    tables = tables.reshape(B, P)
+    tables[B - 1] = 0
+    tables_d = torch.from_numpy(tables).to(dev)
+    pk, pv = make(1, B * P + 1, 1, page, dk), make(1, B * P + 1, 1, page, dv)
+    dense = [p[0][tables_d.long()].permute(0, 2, 1, 3, 4).reshape(
+        B, 1, s_pad, p.shape[-1])[None].contiguous() for p in (pk, pv)]
+    out_p, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d,
+                                            lengths, layer=0, true_d=192)
+    out_d, _, _ = da.decode_attention(q, nk, nv, *dense, lengths, layer=0,
+                                      true_d=192)
+    assert torch.equal(out_p[:-1], out_d[:-1])
+
+
+def test_latent_decode_refuses_operands(dev):
+    """More than 16 query heads, a K width that is no multiple of 64, V
+    wider than K and a per-head scale raise before any launch."""
+    rng = np.random.default_rng(22)
+    lengths = torch.tensor([3], dtype=torch.int32, device=dev)
+    count = da.decode_attention.latent_launches
+    for h, dk, dv in ((17, 576, 512), (16, 560, 512), (16, 512, 576)):
+        q = _bf16(rng, 1, h, dk, device=dev)
+        nk, nv = _bf16(rng, 1, 1, dk, device=dev), _bf16(rng, 1, 1, dv,
+                                                         device=dev)
+        ck, cv = (_bf16(rng, 1, 1, 1, 64, d, device=dev) for d in (dk, dv))
+        with pytest.raises(NotImplementedError):
+            da.decode_attention(q, nk, nv, ck, cv, lengths, layer=0)
+    q = _bf16(rng, 1, 16, 576, device=dev)
+    nk, nv = _bf16(rng, 1, 1, 576, device=dev), _bf16(rng, 1, 1, 512,
+                                                      device=dev)
+    ck, cv = (_quantized_cache(rng, torch.int8, 1, 1, 1, 64, d, device=dev)
+              for d in (576, 512))
+    two = torch.tensor([0.02, 0.03], device=dev).reshape(2, 1, 1)
+    with pytest.raises(NotImplementedError):
+        da.decode_attention(q, nk, nv, ck, cv, lengths, layer=0, k_scale=two,
+                            v_scale=two)
+    assert da.decode_attention.latent_launches == count
