@@ -7,7 +7,7 @@ Builds the hand-written kernels of ``compressed_tensors_tpu_torch`` (nvcc,
 into ``build/``) and holds each kernel against its plain PyTorch version at
 the shapes of the main paths (the W4A16 ``int4b`` kernel also over a grid
 of row counts, widths, depths, groups and K splits that reaches both of
-its designs at every split, by the a8b rule). Then it drives twelve paths
+its designs at every split, by the a8b rule). Then it drives thirteen paths
 end to end:
 
 - greedy decode of a full-width TinyLlama-1.1B-shape W4A16 checkpoint
@@ -98,7 +98,23 @@ end to end:
   check, an fp8 latent cache against the plain versions, the requests
   dense and paged (identical, 161 B1 + 78 B1e + 1 B3 + 27 latent launches
   a decode step), ``greedy_generate`` at batch 64, and a 2-layer DeepSeek
-  V2 checkpoint written and read back with identical greedy tokens.
+  V2 checkpoint written and read back with identical greedy tokens;
+- the PTQ lifecycle and save path (phase 16): a dense bf16 Llama-3-8B
+  drawn on the card, quantized with ``apply_quantization_config``,
+  calibrated (``calibrate_module``, min-max) and compressed on the card,
+  saved with ``ModelCompressor.save_checkpoint`` in 2 GiB shards and
+  served from that checkpoint through ``load_llama_params``: W4A16 g128
+  with a W8A8-int lm_head at full depth (codes and qparams equal to the
+  CPU's, decompressed weights equal to the fake-quantized ones, the
+  hidden state entering the lm_head by depth against the QDQ model with
+  the rolled-scales control, greedy and the 96 requests dense and paged,
+  identical, with B1/B2/B3's launches counted); FP8 W8A8 with k/v scales
+  calibrated from the dense model's cache (equal to the CPU's), its
+  first-token and decode-step logits on an fp8 cache against the QDQ
+  model on a bf16 cache with a saturating-scales control, greedy; and
+  MXFP4A16 through B8, its logits against the QDQ model with the
+  rolled-scales control, greedy (the first model run of B8's MXFP4
+  path).
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -462,10 +478,7 @@ def phase_device_and_build():
         f"(count {torch.cuda.device_count()}), python "
         f"{sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    log(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: off for matmul and cudnn (float32 references run in full "
@@ -1551,7 +1564,8 @@ def serve_requests(params, config, requests, name, keep=False, **kw):
     from compressed_tensors_tpu_torch.engine import Request, ServingEngine
 
     engine = ServingEngine(params, config, **SERVE, **kw)
-    timing = {"prefill_s": 0.0, "chunks": 0, "decode_s": 0.0, "steps": 0}
+    timing = {"prefill_s": 0.0, "chunks": 0, "decode_s": 0.0, "steps": 0,
+              "chunk_rows": []}
     prefill_chunk, decode = engine._prefill_chunk, engine._decode
 
     def timed_prefill(*a):
@@ -1560,6 +1574,7 @@ def serve_requests(params, config, requests, name, keep=False, **kw):
         torch.cuda.synchronize()
         timing["prefill_s"] += time.perf_counter() - t
         timing["chunks"] += 1
+        timing["chunk_rows"].append(len(a[1]))  # (slot, piece, start)
         return out
 
     def timed_decode(active, burst):
@@ -1621,28 +1636,8 @@ def first_token_logits(params, config, ids, depth, use_kernels, label,
                        cache_dtype=None):
     """f32 first-token logits of the prompt ``ids`` through the first
     ``depth`` layers (full width), the KV cache checked for NaN."""
-    import torch
-
-    from compressed_tensors_tpu_torch.models.llama import (
-        init_kv_cache,
-        llama_forward,
-    )
-
-    n = len(ids)
-    cfg = dataclasses.replace(config, num_hidden_layers=depth)
-    cache = init_kv_cache(cfg, 1, n, cache_dtype=cache_dtype, device="cuda")
-    logits, cache = llama_forward(
-        dict(params, layers=params["layers"][:depth]), cfg,
-        torch.tensor([ids], device="cuda"),
-        torch.arange(n, device="cuda")[None], cache, fresh_prefill=True,
-        use_kernels=use_kernels, last_logit_only=True)
-    nans = int(cache.k.float().isnan().sum() + cache.v.float().isnan().sum())
-    if nans:  # an fp8 cache overflows to NaN
-        raise AssertionError(f"{label} KV cache: {nans} NaN values")
-    logits = logits.float().reshape(-1)
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"non-finite {label} logits at depth {depth}")
-    return logits
+    return ptq_logits(params, config, ids, depth, use_kernels,
+                      cache_dtype=cache_dtype, label=label)[0]
 
 
 def rel_rms(a, b):
@@ -5208,35 +5203,8 @@ def mla_step_logits(params, config, ids, steps, depth, use_kernels, label,
     non-absorbed form on either path), then the tokens ``steps`` fed one a
     step (the absorbed decode through B5-L on the kernel path); the latent
     cache checked for NaN."""
-    import torch
-
-    from compressed_tensors_tpu_torch.models.llama import (
-        init_kv_cache,
-        llama_forward,
-    )
-
-    n = len(ids)
-    cfg = dataclasses.replace(config, num_hidden_layers=depth)
-    p = dict(params, layers=params["layers"][:depth])
-    cache = init_kv_cache(cfg, 1, n + len(steps), cache_dtype=cache_dtype,
-                          device="cuda")
-    _, cache = llama_forward(p, cfg, torch.tensor([ids], device="cuda"),
-                             torch.arange(n, device="cuda")[None], cache,
-                             fresh_prefill=True, use_kernels=use_kernels,
-                             last_logit_only=True)
-    out = []
-    for tok in steps:
-        logits, cache = llama_forward(
-            p, cfg, torch.tensor([[tok]], device="cuda"),
-            cache.lengths[:, None], cache, use_kernels=use_kernels)
-        out.append(logits.float().reshape(-1))
-    nans = int(cache.k.float().isnan().sum() + cache.v.float().isnan().sum())
-    if nans:
-        raise AssertionError(f"{label} latent cache: {nans} NaN values")
-    logits = torch.stack(out)
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"non-finite {label} logits at depth {depth}")
-    return logits
+    return ptq_logits(params, config, ids, depth, use_kernels, steps,
+                      cache_dtype=cache_dtype, label=label)[1:]
 
 
 def mla_logits_by_depth(params, config, ids, steps, label, depths,
@@ -5632,6 +5600,819 @@ def timings_mla():
     return rows, b1e
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: the PTQ lifecycle and save path on the card
+
+# the arms' recipes, as a checkpoint's quantization_config gives them (preset
+# names over targets): A is BASELINE config 1's, B config 3's
+PTQ_W4 = {"config_groups": {"W4A16": ["Linear"], "W8A8": ["lm_head"]},
+          "quant_method": "compressed-tensors"}
+PTQ_FP8 = {"config_groups": {"FP8_DYNAMIC": ["Linear"]},
+           "kv_cache_scheme": {"num_bits": 8, "type": "float",
+                               "strategy": "tensor", "symmetric": True,
+                               "dynamic": False},
+           "quant_method": "compressed-tensors"}
+PTQ_MXFP4 = {"config_groups": {"MXFP4A16": ["Linear"]}, "ignore": ["lm_head"],
+             "quant_method": "compressed-tensors"}
+PTQ_FEW = (1, 4)              # arms B and C: 4 layers at full width
+PTQ_SHARD_BYTES = 2 * 1024**3
+PTQ_CALIB = (64, 128)         # arm B's KV calibration: prompts x tokens
+PTQ_STEPS = 4                 # arm B's decode steps whose logits are held
+# the dense weights: N(0, s^2) with s uniform in PTQ_SPREAD, drawn per 32
+# columns of a row (weight RMS 0.0092, phase 5's), so that neighbouring
+# quantization groups' calibrated scales differ as phase 5's drawn scales
+# do and the rolled-scales control reads a fault
+PTQ_SPREAD = (6e-3, 1.2e-2)
+PTQ_SUBMODULE = {"q_proj": "self_attn", "k_proj": "self_attn",
+                 "v_proj": "self_attn", "o_proj": "self_attn",
+                 "gate_proj": "mlp", "up_proj": "mlp", "down_proj": "mlp"}
+# the W4 kernels that a W4A16 decode step must not launch
+OTHER_W4 = ("w4a16_a8b_matmul", "w4a16_fp4_matmul", "w4_e8_matmul",
+            "w4a16_planes_int4", "w4a16_planes_a8", "w4a16_planes_mat",
+            "w4a16_experts_matmul", "w4a16_a8b_experts_matmul",
+            "w4_e8_experts_matmul")
+
+
+@functools.lru_cache(maxsize=None)
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def same_bits(a, b):
+    """Equal dtype, shape and bytes (floats through an integer view)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def ptq_dense_llama(config, seed, device="cuda"):
+    """A dense bf16 Llama drawn from ``seed`` in checkpoint naming:
+    {module name: weight} for the embedding (N(0, 0.02^2)), every decoder
+    linear and the lm_head (``PTQ_SPREAD``), and the unit norms as extra
+    tensors {tensor name: weight}."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    H, V = config.hidden_size, config.vocab_size
+    lo, hi = PTQ_SPREAD
+
+    def draw(n, k):
+        s = torch.rand((n, k // 32, 1), generator=gen, device=device) \
+            * (hi - lo) + lo
+        return (torch.randn((n, k // 32, 32), generator=gen, device=device)
+                * s).reshape(n, k).to(torch.bfloat16)
+
+    weights = {"model.embed_tokens": (torch.randn(
+        (V, H), generator=gen, device=device) * 0.02).to(torch.bfloat16)}
+    ones = torch.ones((H,), dtype=torch.bfloat16, device=device)
+    extra = {"model.norm.weight": ones}
+    for i in range(config.num_hidden_layers):
+        p = f"model.layers.{i}"
+        for name, (n, k) in linear_shapes(config).items():
+            weights[f"{p}.{PTQ_SUBMODULE[name]}.{name}"] = draw(n, k)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            extra[f"{p}.{norm}.weight"] = ones
+    weights["lm_head"] = draw(V, H)
+    return weights, extra
+
+
+def first_layers(tensors, depth):
+    """The tensors of the embedding, the head, the final norm and the
+    first ``depth`` decoder layers."""
+    return {n: t for n, t in tensors.items()
+            if not n.startswith("model.layers.")
+            or int(n.split(".")[2]) < depth}
+
+
+def dense_qt(w):
+    from compressed_tensors_tpu_torch.ops.linear import QuantizedTensor
+
+    return QuantizedTensor(weight=w, shape=tuple(w.shape), format="dense")
+
+
+def ptq_params(weights, extra, config, linear):
+    """Unfused Llama params of the port from checkpoint-named tensors, each
+    linear from ``linear(module name)``."""
+    params = {"embed_tokens": weights["model.embed_tokens"],
+              "norm": extra["model.norm.weight"],
+              "lm_head": linear("lm_head"), "layers": []}
+    for i in range(config.num_hidden_layers):
+        p = f"model.layers.{i}"
+        layer = {name: linear(f"{p}.{sub}.{name}")
+                 for name, sub in PTQ_SUBMODULE.items()}
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            layer[norm] = extra[f"{p}.{norm}.weight"]
+        params["layers"].append(layer)
+    return params
+
+
+def qdq_weight(state, w):
+    """The weight the QDQ forward (``quantized_module_forward`` at status
+    CALIBRATION) multiplies by: ``fake_quantize`` with the module's
+    calibrated qparams."""
+    from compressed_tensors_tpu_torch.ops.quantize import fake_quantize
+
+    q = state.qparams
+    return fake_quantize(w, q["weight_scale"], q.get("weight_zero_point"),
+                         state.scheme.weights,
+                         global_scale=q.get("weight_global_scale"))
+
+
+def ptq_calibrate(weights, recipe, config, device="cuda"):
+    """``apply_quantization_config`` over the model's module graph (the
+    attention modules named for a kv_cache_scheme), then min-max
+    ``calibrate_module`` of every matched linear on its weight, where the
+    weights lie. Returns (module graph, QuantizationConfig, states)."""
+    from compressed_tensors_tpu_torch.compressors import (
+        module_graph_from_names,
+    )
+    from compressed_tensors_tpu_torch.quantization import QuantizationConfig
+    from compressed_tensors_tpu_torch.quantization import lifecycle
+
+    modules = module_graph_from_names(list(weights))
+    qconfig = QuantizationConfig.model_validate(recipe)
+    states = lifecycle.apply_quantization_config(
+        modules, {n: tuple(w.shape) for n, w in weights.items()}, qconfig,
+        kv_module_names=[f"model.layers.{i}.self_attn"
+                         for i in range(config.num_hidden_layers)],
+        device=device)
+    for name, state in states.items():
+        if name in weights:
+            lifecycle.calibrate_module(state, weights[name])
+    return modules, qconfig, states
+
+
+def llama_config_json(config):
+    """config.json's model widths, as the tests' checkpoints write them."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": config.vocab_size,
+            "hidden_size": config.hidden_size,
+            "intermediate_size": config.intermediate_size,
+            "num_hidden_layers": config.num_hidden_layers,
+            "num_attention_heads": config.num_attention_heads,
+            "num_key_value_heads": config.num_key_value_heads,
+            "head_dim": config.head_dim, "rms_norm_eps": config.rms_norm_eps,
+            "rope_theta": config.rope_theta,
+            "max_position_embeddings": config.max_position_embeddings,
+            "tie_word_embeddings": False}
+
+
+def ptq_save(path, weights, extra, states, modules, qconfig, config, label,
+             device="cuda"):
+    """config.json with the widths, then ``ModelCompressor.save_checkpoint``
+    of the dense weights with their calibrated qparams (the codecs
+    quantize and pack them on the card; each tensor is copied to the host
+    once) in shards of ``PTQ_SHARD_BYTES``; the index and the
+    quantization config come with it. Returns the shard count."""
+    import torch
+
+    from compressed_tensors_tpu_torch.compressors import ModelCompressor
+    from compressed_tensors_tpu_torch.utils.safetensors_io import (
+        get_weight_map,
+    )
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(llama_config_json(config), f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ModelCompressor(quantization_config=qconfig).save_checkpoint(
+        path, {n: {"weight": w, **(states[n].qparams if n in states else {})}
+               for n, w in weights.items()},
+        modules, extra_tensors=extra, max_shard_bytes=PTQ_SHARD_BYTES)
+    seconds = time.perf_counter() - t0
+    shards = sorted(set(get_weight_map(path).values()))
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in shards)
+    log(f"{label}: save_checkpoint {size / 1e9:.3f} GB in {len(shards)} "
+        f"shards in {seconds:.2f} s ({size / 1e9 / seconds:.2f} GB/s; "
+        f"{card()})")
+    return len(shards)
+
+
+def ptq_load(path, config, label, device="cuda"):
+    """``load_llama_params`` (run compressed, kernel layouts) and fusion,
+    timed; the config read back must be the model's."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, lcfg, _ = load_llama_params(path, device=device)
+    params = fuse_llama_layers(params)
+    torch.cuda.synchronize()
+    log(f"{label}: load_llama_params and fusion in "
+        f"{time.perf_counter() - t0:.2f} s ({card()})")
+    if lcfg != config:
+        raise AssertionError(f"{label}: the checkpoint's config reads back "
+                             f"as {lcfg}")
+    return params
+
+
+def ptq_logits(params, config, ids, depth, use_kernels, steps=(),
+               cache_dtype=None, device="cuda", check=True, label="model"):
+    """f32 logits through the first ``depth`` layers (full width): the
+    prompt ``ids`` prefilled (row 0: its last position), then each token of
+    ``steps`` decoded (one row each); with ``check`` the cache and the
+    logits checked for NaN (a planted fault's run may give them)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.llama import (
+        init_kv_cache,
+        llama_forward,
+    )
+
+    n = len(ids)
+    cfg = dataclasses.replace(config, num_hidden_layers=depth)
+    p = dict(params, layers=params["layers"][:depth])
+    cache = init_kv_cache(cfg, 1, n + len(steps), cache_dtype=cache_dtype,
+                          device=device)
+    logits, cache = llama_forward(
+        p, cfg, torch.tensor([ids], device=device),
+        torch.arange(n, device=device)[None], cache, fresh_prefill=True,
+        use_kernels=use_kernels, last_logit_only=True)
+    out = [logits.float().reshape(-1)]
+    for tok in steps:
+        logits, cache = llama_forward(
+            p, cfg, torch.tensor([[tok]], device=device),
+            cache.lengths[:, None], cache, use_kernels=use_kernels)
+        out.append(logits.float().reshape(-1))
+    out = torch.stack(out)
+    if check:
+        nans = int(cache.k.float().isnan().sum()
+                   + cache.v.float().isnan().sum())
+        if nans:  # an fp8 cache overflows to NaN
+            raise AssertionError(f"{label} KV cache: {nans} NaN values")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite {label} logits at depth "
+                                 f"{depth}")
+    return out
+
+
+@contextlib.contextmanager
+def one_ulp(emb, tok):
+    """One bf16 ulp up on 64 embedding values of token ``tok``: the
+    perturbation whose effect on the reference is its own spread."""
+    row = emb[tok].clone()
+    emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(emb.dtype)
+    try:
+        yield
+    finally:
+        emb[tok] = row
+
+
+def fp8_rule_failures(sweep):
+    """Phase 6's FP8 rule on a sweep, held at every depth; returns what it
+    fails: relative RMS error within TOL_FP8_DEPTH1 at one layer, and at
+    every depth within FLOOR_RATIO times the reference's own spread under
+    the one-ulp perturbation. (Every linear rounds its input to fp8 per
+    token, so a one-ulp difference anywhere upstream flips codes by a full
+    fp8 step: a max-error limit of 3% at one layer cannot hold between
+    two paths that are not bit-identical; PERF.md section 6 has the
+    readings.)"""
+    out = []
+    if sweep[1][0] > TOL_FP8_DEPTH1:
+        out.append(f"one layer: rel_rms {sweep[1][0]:.4g} > {TOL_FP8_DEPTH1}")
+    for depth, (err, spread, _) in sweep.items():
+        if not err <= FLOOR_RATIO * spread:
+            out.append(f"{depth} layers: rel_rms {err:.4g} > {FLOOR_RATIO} "
+                       f"x the spread {spread:.4g}")
+    return out
+
+
+def ptq_depth_rule(label, depths, run, perturb, fault, control,
+                   views=None, rule=logits_rule_failures):
+    """The depth rule of phases 5 and 7-15 (``logits_rule_failures``) on
+    readings of ``run(depth, test, check)`` (f32 logits of the test path,
+    or of the reference; ``check`` off for the planted fault's run), each
+    view of them (``views``: name -> picker) held alone: per depth the
+    relative RMS error, the reference's own relative RMS under
+    ``perturb`` (a context manager factory) and max|test - ref| /
+    max|ref|. The test path inside ``fault`` (a planted fault) must fail
+    every check of the rule in every view; a non-finite reading of it
+    counts as infinitely far. ``rule`` is the depth rule
+    (``logits_rule_failures``) or phase 6's FP8 rule
+    (``fp8_rule_failures``)."""
+    views = views or {"": lambda t: t}
+    sweeps = {v: ({}, {}) for v in views}
+    refs = {}
+    for depth in depths:
+        got, ref = run(depth, True), run(depth, False)
+        with perturb():
+            moved = run(depth, False)
+        refs[depth] = ref
+        for v, pick in views.items():
+            g, r, m = pick(got), pick(ref), pick(moved)
+            top = r.abs().max().item()
+            sweeps[v][0][depth] = (rel_rms(g, r), rel_rms(m, r),
+                                   (g - r).abs().max().item() / top)
+            err, spread, rel = sweeps[v][0][depth]
+            log(f"{label}{v}, {depth} layers: test vs QDQ reference rel_rms "
+                f"{err:.4g}, max {rel:.4g} of max|ref| {top:.4g}; the "
+                f"reference under one ulp rel_rms {spread:.4g}; argmax test "
+                f"{g.argmax(-1).tolist()} reference {r.argmax(-1).tolist()}")
+    with fault:
+        for depth, ref in refs.items():
+            bad = run(depth, True, False)
+            for v, pick in views.items():
+                b, r = pick(bad), pick(ref)
+                err, rel = rel_rms(b, r), ((b - r).abs().max().item()
+                                           / r.abs().max().item())
+                sweeps[v][1][depth] = (
+                    err if np.isfinite(err) else float("inf"),
+                    sweeps[v][0][depth][1],
+                    rel if np.isfinite(rel) else float("inf"))
+    for v, (sweep, faulty) in sweeps.items():
+        failures = rule(sweep)
+        if failures:
+            raise AssertionError(f"{label}{v}: {'; '.join(failures)}")
+        caught = rule(faulty)
+        log(f"{label}{v}: " + (
+            f"within {TOL_WNA16_DEPTH1} of max|ref| at one layer, and at "
+            f"every depth within {TOL_E2E_8B} of max|ref| or "
+            if rule is logits_rule_failures else
+            f"rel_rms within {TOL_FP8_DEPTH1} at one layer, and at every "
+            "depth within ") + f"{FLOOR_RATIO}x the spread (rel_rms / spread: "
+            + ", ".join(f"{d}: {e / max(s, 1e-30):.3g}"
+                        for d, (e, s, _) in sweep.items())
+            + f"); control ({control}): " + ", ".join(
+                f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
+                for d, (e, _, t) in faulty.items())
+            + f"; the rule fails {len(caught)} of its {len(sweep) + 1} "
+            "checks")
+        if len(caught) < len(sweep) + 1:
+            raise AssertionError(f"{label}{v}: the rule accepted the planted "
+                                 f"fault ({control}) in "
+                                 f"{len(sweep) + 1 - len(caught)} checks")
+    return sweeps
+
+
+def ptq_card_vs_cpu(label, weights, states, codes, names):
+    """Check 1: the named modules calibrated and compressed again on the
+    CPU from the same bf16 weights: every qparam and the integer codes
+    before packing equal the card's bit for bit."""
+    from compressed_tensors_tpu_torch.quantization import lifecycle
+
+    t0 = time.perf_counter()
+    for name in names:
+        state, w = states[name], weights[name].cpu()
+        cpu = lifecycle.initialize_module_for_quantization(
+            state.scheme, tuple(w.shape), device="cpu")
+        lifecycle.calibrate_module(cpu, w)
+        _, q = lifecycle.compress_quantized_weights(cpu, w)
+        bad = [k for k in state.qparams
+               if not same_bits(state.qparams[k], cpu.qparams.get(k))]
+        if sorted(state.qparams) != sorted(cpu.qparams) or bad or \
+                not same_bits(codes[name], q):
+            raise AssertionError(f"{label} {name}: the card's calibration or "
+                                 f"codes differ from the CPU's ({bad or 'codes'})")
+    log(f"{label}: {len(names)} modules ({', '.join(names)}) calibrated and "
+        "compressed on the CPU from the same weights: qparams and codes "
+        f"equal the card's bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+
+def ptq_check_saved(label, path, weights, extra, states, names, shards,
+                    locals_of, device="cuda"):
+    """Check 2: ``ModelCompressor.from_pretrained(path).load_checkpoint(path,
+    run_compressed=False)`` decompresses the named modules to weights equal
+    bit for bit to ``fake_quantize`` of the dense weights with the
+    calibrated qparams (up to the sign of zero: a negative weight whose
+    code rounds to 0 fake-quantizes to -0.0 and decompresses from the
+    stored integer 0 as +0.0); ``get_weight_map`` names every tensor of
+    the shards, and they are every tensor the model holds
+    (``locals_of(module) -> local names``), in at least 3 shards."""
+    import torch
+
+    from compressed_tensors_tpu_torch.compressors import ModelCompressor
+    from compressed_tensors_tpu_torch.utils.safetensors_io import (
+        get_safetensors_header,
+        get_weight_map,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = ModelCompressor.from_pretrained(path)
+    dec, _ = mc.load_checkpoint(path, run_compressed=False, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for name in names:
+        got = dec[name]["weight"]
+        want = qdq_weight(states[name], weights[name])
+        if not (bool(torch.equal(got, want))
+                and same_bits(got + 0.0, want + 0.0)):
+            raise AssertionError(f"{label} {name}: decompressed weight is not "
+                                 "the fake-quantized one")
+    del dec
+    torch.cuda.empty_cache()
+    weight_map = get_weight_map(path)
+    files = sorted(set(weight_map.values()))
+    held = {k: f for f in files
+            for k in get_safetensors_header(os.path.join(path, f))}
+    expected = set(extra) | {f"{m}.{k}" for m in weights
+                             for k in locals_of(m)}
+    if held != weight_map or set(weight_map) != expected or \
+            len(files) != shards or shards < 3:
+        raise AssertionError(
+            f"{label}: weight map of {len(weight_map)} tensors over "
+            f"{len(files)} shards; missing {sorted(expected - set(weight_map))[:5]}, "
+            f"unexpected {sorted(set(weight_map) - expected)[:5]}")
+    log(f"{label}: load_checkpoint(run_compressed=False) in {seconds:.2f} s "
+        f"({card()}); {', '.join(names)} decompressed equal fake_quantize "
+        f"of the dense weights bit for bit; get_weight_map names all "
+        f"{len(weight_map)} tensors over {len(files)} shards")
+
+
+def exact_qdq(state, w):
+    """(weight, state) for a QDQ reference in f32: the weight's codes as
+    the codec computes them, times the scales in f32 (no bf16 rounding of
+    the product), and a copy of ``state`` with f32 scales, under which
+    fake quantization leaves that weight as it is."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.quantize import dequantize, quantize
+    from compressed_tensors_tpu_torch.quantization import lifecycle
+
+    q, args = state.qparams, state.scheme.weights
+    codes = quantize(w, q["weight_scale"], q.get("weight_zero_point"), args,
+                     dtype=args.storage_dtype())
+    f32 = {k: v.float() if v.is_floating_point() else v for k, v in q.items()}
+    return (dequantize(codes, f32["weight_scale"], f32.get("weight_zero_point"),
+                       args, dtype=torch.float32),
+            lifecycle.ModuleQuantState(scheme=state.scheme, status=state.status,
+                                       qparams=f32))
+
+
+@contextlib.contextmanager
+def qdq_linears(states):
+    """The reference's linears (dense QuantizedTensors keyed by id in
+    ``states``) run ``quantized_module_forward`` at status CALIBRATION:
+    the input quantized per the scheme (given in f32, the dtype the W8A8
+    kernels keep activation scales in), the weight fake-quantized, one
+    f32 product; the result back in the activations' dtype."""
+    from compressed_tensors_tpu_torch.models import llama
+    from compressed_tensors_tpu_torch.quantization import lifecycle
+
+    matmul = llama.quantized_matmul
+
+    def qdq_matmul(x, qt, use_kernels=True):
+        state = states.get(id(qt))
+        if state is None:
+            return matmul(x, qt, use_kernels)
+        return lifecycle.quantized_module_forward(
+            x.float(), qt.weight, state).to(x.dtype)
+
+    llama.quantized_matmul = qdq_matmul
+    try:
+        yield
+    finally:
+        llama.quantized_matmul = matmul
+
+
+@contextlib.contextmanager
+def kv_scales_times(params, factor):
+    """A planted fault: every layer's k_scale and v_scale times
+    ``factor`` (1/16 saturates an fp8 cache); undone on exit."""
+    scales = [layer[k] for layer in params["layers"]
+              for k in ("k_scale", "v_scale")]
+    saved = [s.clone() for s in scales]
+    for s in scales:
+        s.mul_(factor)
+    try:
+        yield
+    finally:
+        for s, old in zip(scales, saved):
+            s.copy_(old)
+
+
+def check_w4_serving(label, results, config):
+    """Arm A's launches: a decode step runs B1 in the 4 fused linears of
+    each layer and B3 once (the lm_head), and no other W4 kernel; prefill
+    chunks of 256 rows or more run B2 in all 4 (N and K >= 4096 at 8B
+    width), the shorter ones B1."""
+    per_layer = 4 * config.num_hidden_layers
+    for run in ("dense", "paged"):
+        res = results[f"{label} {run}"]
+        step = res["per_step"]
+        got = {k: step[k] for k in ("w4a16_matmul", "w8a8_matmul") + OTHER_W4}
+        want = dict.fromkeys(got, 0)
+        want.update(w4a16_matmul=per_layer, w8a8_matmul=1)
+        big = sum(rows >= 256 for rows in res["chunk_rows"])
+        log(f"{label} {run}: launches a decode step {got}; B2 launches "
+            f"{res['counts']['w4a16_a8b_matmul']} over {big} of "
+            f"{len(res['chunk_rows'])} prefill chunks with >= 256 rows")
+        if got != want or \
+                res["counts"]["w4a16_a8b_matmul"] != per_layer * big or big == 0:
+            raise AssertionError(f"{label} {run}: launches a decode step "
+                                 f"{got} (expected {want}), B2 "
+                                 f"{res['counts']['w4a16_a8b_matmul']}")
+
+
+def ptq_arm_w4(dense, extra, config, requests, path, device="cuda"):
+    """Arm A: BASELINE config 1's recipe (W4A16 g128 symmetric on every
+    decoder linear, W8A8-int on the lm_head) over the full-depth model:
+    apply, min-max calibrate and compress every module on the card (the
+    codes and qparams of layer 0 and the lm_head against the CPU's, check
+    1), save in 2 GiB shards, decompress (check 2), load with
+    ``load_llama_params`` and fuse; the hidden state entering the lm_head
+    held to the depth rule against the QDQ model, every W4 linear at bf16
+    activations (check 3; the W8A8 head's activation scales part from the
+    QDQ path's by the known rounding, so the head is held to B3's plain
+    version bit for bit and its QDQ distance printed); greedy and the 96
+    requests dense and paged (check 4)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.ops.linear import quantized_matmul
+    from compressed_tensors_tpu_torch.quantization import lifecycle
+
+    label = "ptq w4a16"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    modules, qconfig, states = ptq_calibrate(dense, PTQ_W4, config, device)
+    held = [f"model.layers.0.{sub}.{name}"
+            for name, sub in PTQ_SUBMODULE.items()] + ["lm_head"]
+    codes = {}
+    for name, state in states.items():
+        # on a copy: the states stay at CALIBRATION for the QDQ reference
+        _, q = lifecycle.compress_quantized_weights(
+            dataclasses.replace(state), dense[name])
+        if name in held:
+            codes[name] = q
+    torch.cuda.synchronize()
+    log(f"{label}: apply_quantization_config, calibrate_module and "
+        f"compress_quantized_weights over {len(states)} linears of "
+        f"{config.num_hidden_layers} layers in "
+        f"{time.perf_counter() - t0:.2f} s ({card()})")
+    ptq_card_vs_cpu(label, dense, states, codes, held)
+    del codes
+    shards = ptq_save(path, dense, extra, states, modules, qconfig, config,
+                      label, device)
+    ptq_check_saved(
+        label, path, dense, extra, states, held, shards,
+        lambda m: (("weight",) if m == "model.embed_tokens" else
+                   ("weight", "weight_scale") if m == "lm_head" else
+                   ("weight_packed", "weight_scale", "weight_shape")),
+        device)
+    params = ptq_load(path, config, label, device)
+    qdq = {n: dense_qt(qdq_weight(states[n], dense[n])) for n in states}
+    ref = ptq_params(dense, extra, config, qdq.__getitem__)
+    eye = torch.eye(config.hidden_size, dtype=torch.bfloat16, device=device)
+    _, ids, _ = probe_request(requests)
+
+    def hidden(depth, test, check=True):
+        with flag_overrides(w4_act="bf16"):
+            return ptq_logits(dict(params if test else ref, lm_head=eye),
+                              config, ids, depth, test, device=device,
+                              check=check)
+
+    ptq_depth_rule(f"{label} hidden state entering the lm_head", DEPTHS,
+                   hidden, lambda: one_ulp(ref["embed_tokens"],
+                                           ids[len(ids) // 3]),
+                   rolled_group_scales(params, ("w4a16",)),
+                   "group scales rolled by one group")
+    h = hidden(config.num_hidden_layers, True)[0].to(torch.bfloat16)[None]
+    got = quantized_matmul(h, params["lm_head"])
+    with plain_w8a8():
+        want = quantized_matmul(h, params["lm_head"])
+    qdq_head = lifecycle.quantized_module_forward(h, dense["lm_head"],
+                                                  states["lm_head"])
+    top = qdq_head.float().abs().max().item()
+    log(f"{label} lm_head on the full-depth hidden state: B3 vs its plain "
+        f"version max |diff| {(got - want).float().abs().max().item():.4g}; "
+        f"vs the QDQ lm_head (activation scales in bf16) max "
+        f"{(got - qdq_head).float().abs().max().item() / top:.4g} of "
+        f"max|ref| {top:.4g}, argmax B3 {int(got.argmax())} QDQ "
+        f"{int(qdq_head.argmax())}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: the lm_head's B3 launch differs from "
+                             "its plain version")
+    del ref, qdq, eye
+    results = {f"{label} {run}": serve_requests(
+        params, config, requests, f"{label} {run}", paged=run == "paged",
+        **({"prefix_caching": False} if run == "paged" else {}))
+        for run in ("dense", "paged")}
+    dense_out, paged_out = (results[f"{label} {r}"]["outs"]
+                            for r in ("dense", "paged"))
+    bad = [i for i in dense_out if paged_out[i] != dense_out[i]]
+    log(f"{label} serving paged vs dense: {N_REQUESTS - len(bad)}/"
+        f"{N_REQUESTS} completions identical token for token ({card()})")
+    if bad:
+        raise AssertionError(f"{label} serving: paged and dense completions "
+                             f"differ for requests {bad}")
+    check_w4_serving(label, results, config)
+    results[f"{label} greedy_generate"] = greedy_8b(params, config, label)
+    served = []
+    for run in ("dense", "paged"):
+        res = results[f"{label} {run}"]
+        tokens = sum(len(out) for out in res["outs"].values())
+        served.append(f"{run} {tokens / res['wall']:.1f} tok/s, "
+                      f"{res['decode_s'] * 1e3 / max(res['steps'], 1):.2f} "
+                      "ms a decode step")
+    log(f"{label} served from its own checkpoint: {'; '.join(served)}; "
+        f"greedy_generate "
+        f"{results[f'{label} greedy_generate']['wall'] * 1e3:.1f} ms "
+        f"({card()})")
+    base = ("w4a16_matmul", "w4a16_a8b_matmul", "w8a8_matmul",
+            "prefill_attention")
+    check_launched(results, {
+        f"{label} dense": base + ("flash_decode_attention",),
+        f"{label} paged": base + ("paged_decode_attention",),
+        f"{label} greedy_generate": base + ("decode_attention",)})
+    return results
+
+
+def ptq_arm_fp8(dense, extra, config, requests, path, device="cuda"):
+    """Arm B: FP8_DYNAMIC on every linear and the lm_head with an fp8
+    per-tensor static kv_cache_scheme (BASELINE config 3's recipe) over 4
+    layers: the k/v scales calibrated (``calibrate_kv_scales``, each row
+    up to its length) from the post-RoPE K/V rows that 64 prompts of 128
+    tokens leave in a bf16 cache of the dense model, equal bit for bit to
+    the CPU's from the same rows; saved beside the weights, loaded, and
+    the first-token and decode-step logits on the fp8 cache held to the
+    depth rule at 1 and 4 layers against the QDQ model on a bf16 cache
+    (k/v scales / 16, which saturate the cache, must fail it); greedy on
+    the fp8 cache through B3 fp8 and the scaled decode kernel."""
+    import torch
+
+    from compressed_tensors_tpu_torch.modeling import attention
+    from compressed_tensors_tpu_torch.models.llama import (
+        init_kv_cache,
+        llama_forward,
+    )
+
+    label = "ptq fp8"
+    modules, qconfig, states = ptq_calibrate(dense, PTQ_FP8, config, device)
+    plain = ptq_params(dense, extra, config, lambda n: dense_qt(dense[n]))
+    B, S = PTQ_CALIB
+    gen = np.random.default_rng(2)
+    ids = torch.from_numpy(gen.integers(0, config.vocab_size, (B, S))).to(
+        device)
+    cache = init_kv_cache(config, B, S, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = llama_forward(plain, config, ids,
+                             torch.arange(S, device=device)[None].expand(B, S),
+                             cache, fresh_prefill=True, last_logit_only=True)
+    kv = {}
+    for i in range(config.num_hidden_layers):
+        rows = (cache.k[i].transpose(1, 2), cache.v[i].transpose(1, 2))
+        card_state = attention.calibrate_kv_scales(
+            attention.initialize_hooked_kv_cache(qconfig.kv_cache_scheme,
+                                                 device=device),
+            *rows, lengths=cache.lengths)
+        cpu_state = attention.calibrate_kv_scales(
+            attention.initialize_hooked_kv_cache(qconfig.kv_cache_scheme,
+                                                 device="cpu"),
+            *(r.cpu() for r in rows), lengths=cache.lengths.cpu())
+        for key in ("k_scale", "v_scale"):
+            if not same_bits(getattr(card_state, key),
+                             getattr(cpu_state, key)):
+                raise AssertionError(f"{label} layer {i} {key}: card "
+                                     "and CPU calibrations differ")
+            kv[f"model.layers.{i}.self_attn.{key}"] = getattr(card_state,
+                                                              key)
+    torch.cuda.synchronize()
+    log(f"{label}: k/v scales of {config.num_hidden_layers} layers "
+        f"calibrated from {B} x {S}-token prompts in "
+        f"{time.perf_counter() - t0:.2f} s, equal to the CPU's bit for bit: "
+        + ", ".join(f"{k.split('.')[2]}.{k[-7:]} {float(v):.4g}"
+                    for k, v in kv.items()))
+    del cache, plain
+    shards = ptq_save(path, dense, {**extra, **kv}, states, modules, qconfig,
+                      config, label, device)
+    params = ptq_load(path, config, label, device)
+    kinds = {qt.kernel_meta[0] for layer in params["layers"]
+             for qt in layer.values() if getattr(qt, "kernel_meta", None)}
+    if kinds != {"w8a8"} or params["lm_head"].kernel_meta[0] != "w8a8":
+        raise AssertionError(f"{label}: kernel layouts {kinds}")
+    # the reference's linears in f32 (``exact_qdq``): at bf16 the QDQ
+    # product's rounding (2^-9) flips fp8 activation codes downstream, and
+    # a random fp8 model spreads each flip (phase 6)
+    exact = {n: exact_qdq(states[n], w) for n, w in dense.items()
+             if n in states}
+    ref_linears = {n: dense_qt(w) for n, (w, _) in exact.items()}
+    ref = ptq_params(dense, extra, config, ref_linears.__getitem__)
+    qdq = {id(qt): exact[n][1] for n, qt in ref_linears.items()}
+    _, prompt, _ = probe_request(requests)
+    steps = requests[1][1][:PTQ_STEPS]
+
+    def logits(depth, test, check=True):
+        if test:
+            return ptq_logits(params, config, prompt, depth, True, steps,
+                              cache_dtype=torch.float8_e4m3fn, device=device,
+                              check=check)
+        # attention through the same kernels on a bf16 cache: the
+        # non-kernel attention's other summation order flips fp8
+        # activation codes downstream as well
+        with qdq_linears(qdq):
+            return ptq_logits(ref, config, prompt, depth, True, steps,
+                              device=device)
+
+    ptq_depth_rule(f"{label} ({shards} shards)", PTQ_FEW, logits,
+                   lambda: one_ulp(ref["embed_tokens"],
+                                   prompt[len(prompt) // 3]),
+                   kv_scales_times(params, 1 / 16),
+                   "k/v scales / 16: values past the fp8 range",
+                   views={" first-token logits": lambda t: t[:1],
+                          " decode-step logits": lambda t: t[1:]},
+                   rule=fp8_rule_failures)
+    results = {f"{label} greedy_generate": greedy_8b(
+        params, config, label, cache_dtype=torch.float8_e4m3fn)}
+    check_launched(results, {f"{label} greedy_generate": (
+        "w8a8_matmul_fp8", "prefill_attention", "decode_attention_scaled")})
+    return results
+
+
+def ptq_arm_mxfp4(dense, extra, config, requests, path, device="cuda"):
+    """Arm C: MXFP4A16 (E8M0 group-32 scales from ``calculate_qparams``' MX
+    branch) on every decoder linear, a bf16 lm_head, over 4 layers: saved
+    through the MXFP4 codec, loaded (B8's fp4 layout), the first-token
+    logits held to the depth rule at 1 and 4 layers against the QDQ
+    model (group scales rolled by one group must fail it), greedy through
+    B8."""
+    label = "ptq mxfp4"
+    modules, qconfig, states = ptq_calibrate(dense, PTQ_MXFP4, config, device)
+    shards = ptq_save(path, dense, extra, states, modules, qconfig, config,
+                      label, device)
+    params = ptq_load(path, config, label, device)
+    kinds = {qt.kernel_meta[0] for layer in params["layers"]
+             for qt in layer.values() if getattr(qt, "kernel_meta", None)}
+    if kinds != {"fp4"}:
+        raise AssertionError(f"{label}: kernel layouts {kinds}")
+    qdq = {n: dense_qt(qdq_weight(states[n], dense[n])) if n in states
+           else dense_qt(dense[n]) for n in dense}
+    ref = ptq_params(dense, extra, config, qdq.__getitem__)
+    _, prompt, _ = probe_request(requests)
+
+    def logits(depth, test, check=True):
+        return ptq_logits(params if test else ref, config, prompt, depth,
+                          test, device=device, check=check)
+
+    ptq_depth_rule(f"{label} ({shards} shards) first-token logits", PTQ_FEW,
+                   logits, lambda: one_ulp(ref["embed_tokens"],
+                                           prompt[len(prompt) // 3]),
+                   rolled_group_scales(params, ("fp4",)),
+                   "group scales rolled by one group")
+    results = {f"{label} greedy_generate": greedy_8b(params, config, label)}
+    check_launched(results, {f"{label} greedy_generate": (
+        "w4a16_fp4_matmul", "prefill_attention", "decode_attention")})
+    return results
+
+
+def phase_ptq():
+    """Phase 16: the PTQ lifecycle and save path on the card. A dense bf16
+    Llama-3-8B (meta-llama/Meta-Llama-3-8B's published config.json:
+    hidden 4096, intermediate 14336, 32 layers, 32 heads over 8 KV heads
+    of 128, vocab 128256) drawn on the card from seed 0
+    (``ptq_dense_llama``), quantized, calibrated, compressed and saved
+    through the lifecycle and ``ModelCompressor.save_checkpoint``, then
+    served from its own checkpoint: arm A at full depth
+    (``ptq_arm_w4``), arms B and C on its first 4 layers (``ptq_arm_fp8``,
+    ``ptq_arm_mxfp4``). Every entry point at its default device, the
+    card."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
+
+    config = LLAMA3_8B
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dense, extra = ptq_dense_llama(config, seed=0)
+    torch.cuda.synchronize()
+    log(f"dense bf16 Llama-3-8B drawn on the card from seed 0 in "
+        f"{time.perf_counter() - t_phase:.1f} s: "
+        f"{sum(w.numel() for w in dense.values()) / 1e9:.3f} G parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests()
+    results = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        results.update(ptq_arm_w4(dense, extra, config, requests,
+                                  os.path.join(tmp, "w4a16")))
+    dense, extra = first_layers(dense, 4), first_layers(extra, 4)
+    config = dataclasses.replace(config, num_hidden_layers=4)
+    torch.cuda.empty_cache()
+    for arm, name in ((ptq_arm_fp8, "fp8"), (ptq_arm_mxfp4, "mxfp4")):
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as tmp:
+            results.update(arm(dense, extra, config, requests,
+                               os.path.join(tmp, name)))
+        torch.cuda.empty_cache()
+    log(f"phase 16 (PTQ) wall {time.perf_counter() - t_phase:.1f} s "
+        f"({card()})")
+    return results
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -5768,6 +6549,13 @@ def main() -> int:
               "compressed_tensors_tpu_torch package is missing)",
               file=sys.stderr)
         return 2
+    from compressed_tensors_tpu_torch.flags import FLAGS
+
+    if FLAGS.enforce_eager or FLAGS.w4_dense_m:
+        print("chip_smoke: enforce_eager or w4_dense_m is set (the "
+              "CT_TORCH_ENFORCE_EAGER / CT_TORCH_W4_DENSE_M variables): the "
+              "kernel paths would not run", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     resources, serialized = phase_device_and_build()
     errs = phase_parity()
@@ -5844,11 +6632,13 @@ def main() -> int:
     variant_rows.update(latent_rows)
     variant_rows["w4a16_experts_matmul"].update(b1e_g64)
     log(f"phase 15 timings done at {time.perf_counter() - t_start:.1f} s")
+    ptq = phase_ptq()
+    log(f"phase 16 (PTQ) done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
     for phase in (fp8, nvfp4, w8a16, qwen25, qwen3, sparse24, w8a8_tiny,
-                  mixed, moe, mla):
+                  mixed, moe, mla, ptq):
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -26,6 +26,8 @@ from compressed_tensors_tpu_torch.compressors.sparse import (  # noqa: F401
 )
 from compressed_tensors_tpu_torch.compressors.format import (  # noqa: F401
     COMPRESSION_FORMAT_PRIORITY,
+    flatten_formats,
+    infer_format_from_schemes,
     infer_module_format,
 )
 from compressed_tensors_tpu_torch.compressors.model_compressor import (  # noqa: F401

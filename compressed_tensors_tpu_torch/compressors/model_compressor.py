@@ -1,18 +1,26 @@
-"""ModelCompressor: the run-compressed load path of a compressed-tensors
-checkpoint -- parse ``config.json["quantization_config"]``, build the module
-graph from checkpoint names and resolve each module's scheme -- and the
-per-module compress / decompress of state dicts, with a sparse codec
-stacked over the quantization codec.
+"""ModelCompressor: whole-model compress / decompress and checkpoint I/O.
 
-Counterpart of ``compressed_tensors_tpu/compressors/model_compressor.py``.
-Still missing from the save side (ROADMAP A5): ``save_checkpoint``,
-``load_checkpoint``, ``update_config`` and the format inference over a
-model's schemes (``infer_format_from_schemes``).
+Counterpart of ``compressed_tensors_tpu/compressors/model_compressor.py``:
+parse ``config.json["quantization_config"]``, build the module graph from
+checkpoint names, resolve each module's scheme, compress / decompress
+per-module state dicts (a sparse codec stacked over the quantization
+codec), and the checkpoint level:
+
+- save: compress every matched module -> shards by size (+ index) ->
+  ``update_config``; the state dicts may lie on the card, and each tensor
+  is copied to the host once, as it is written;
+- load: read the shards into per-module state dicts on ``device`` and
+  hand them to the engine run compressed, or decompress them.
+
+A ``transform_config`` waits for the transforms (ROADMAP A6) and raises.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Mapping
+
+import torch
 
 from compressed_tensors_tpu_torch.compressors.base import (
     BaseCompressor,
@@ -37,7 +45,11 @@ from compressed_tensors_tpu_torch.utils.match import (
     match_targets,
 )
 from compressed_tensors_tpu_torch.utils.safetensors_io import (
+    CheckpointReader,
     get_quantization_config_dict,
+    save_safetensors,
+    update_config,
+    update_safetensors_index,
 )
 
 __all__ = ["ModelCompressor", "module_graph_from_names", "resolve_module_schemes"]
@@ -87,15 +99,23 @@ def resolve_module_schemes(
 
 
 class ModelCompressor:
-    """Holds a checkpoint's quantization (and sparsity) config."""
+    """Whole-model compression orchestrator."""
 
     def __init__(
         self,
         quantization_config: QuantizationConfig | None = None,
         sparsity_config: SparsityCompressionConfig | None = None,
+        transform_config=None,
+        force_compression_format: str | None = None,
     ):
+        if transform_config is not None:
+            raise NotImplementedError(
+                "transform_config: the transforms are not ported yet "
+                "(ROADMAP A6)")
         self.quantization_config = quantization_config
         self.sparsity_config = sparsity_config
+        self.transform_config = None
+        self.force_compression_format = force_compression_format
 
     @classmethod
     def from_compression_config(cls, config: dict) -> "ModelCompressor | None":
@@ -115,6 +135,10 @@ class ModelCompressor:
         )
         if quantization_config is None and sparsity_config is None:
             return None
+        if config.get("transform_config"):
+            raise NotImplementedError(
+                "transform_config: the transforms are not ported yet "
+                "(ROADMAP A6)")
         return cls(quantization_config=quantization_config,
                    sparsity_config=sparsity_config)
 
@@ -146,7 +170,8 @@ class ModelCompressor:
                            scheme: QuantizationScheme
                            ) -> type[BaseCompressor]:
         fmt = CompressionFormat(
-            scheme.format or self._global_format()
+            self.force_compression_format or scheme.format
+            or self._global_format()
             or infer_module_format(module_type, scheme))
         scheme.format = fmt
         return get_compressor(fmt)
@@ -224,3 +249,86 @@ class ModelCompressor:
             return False
         return is_match(name, info, self.sparsity_config.targets or ["Linear"],
                         self.sparsity_config.ignore or [])
+
+    def save_checkpoint(
+        self,
+        save_directory: str,
+        module_states: Mapping[str, TensorStateDict],
+        modules: Mapping[str, ModuleInfo],
+        extra_tensors: Mapping[str, torch.Tensor] | None = None,
+        max_shard_bytes: int = 5 * 1024**3,
+    ) -> None:
+        """Compress and write a sharded safetensors checkpoint, its index
+        (more than one shard) and ``config.json``, as the JAX package
+        writes them: tensors in module order, a new shard when the next
+        tensor would pass ``max_shard_bytes``."""
+        os.makedirs(save_directory, exist_ok=True)
+        compressed = self.compress_state(module_states, modules)
+        flat: dict[str, torch.Tensor] = {}
+        for mod_name, state in compressed.items():
+            for local, tensor in state.items():
+                flat[f"{mod_name}.{local}" if mod_name else local] = tensor
+        flat.update(extra_tensors or {})
+
+        shards: list[dict[str, torch.Tensor]] = [{}]
+        sizes = [0]
+        for name, tensor in flat.items():
+            nbytes = tensor.numel() * tensor.element_size()
+            if sizes[-1] + nbytes > max_shard_bytes and shards[-1]:
+                shards.append({})
+                sizes.append(0)
+            shards[-1][name] = tensor
+            sizes[-1] += nbytes
+        names = (["model.safetensors"] if len(shards) == 1 else
+                 [f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+                  for i in range(len(shards))])
+        weight_map: dict[str, str] = {}
+        for fname, shard in zip(names, shards):
+            save_safetensors(os.path.join(save_directory, fname), shard,
+                             metadata={"format": "pt"})
+            weight_map.update(dict.fromkeys(shard, fname))
+        if len(shards) > 1:
+            update_safetensors_index(save_directory, weight_map)
+        self.update_config(save_directory)
+
+    def load_checkpoint(
+        self,
+        path: str,
+        modules: Mapping[str, ModuleInfo] | None = None,
+        run_compressed: bool = True,
+        device: str | torch.device = "cuda",
+    ) -> tuple[dict[str, TensorStateDict], dict[str, QuantizationScheme]]:
+        """Read a checkpoint into per-module state dicts on ``device``.
+
+        :param run_compressed: True (the default) returns the compressed
+            representations, which the engine runs; False decompresses
+            them to dense weights (on ``device``)
+        :return: (module states, resolved schemes)
+        """
+        from compressed_tensors_tpu_torch.models.llama import resolve_device
+
+        device = resolve_device(device)
+        reader = CheckpointReader(path)
+        try:
+            module_names = reader.module_names()
+            if modules is None:
+                modules = module_graph_from_names(module_names)
+            module_states = {
+                name: {k: v.to(device) for k, v in
+                       reader.module_state_dict(name).items()}
+                for name in module_names}
+        finally:
+            reader.close()
+        schemes = self.resolve_schemes(modules)
+        if not run_compressed:
+            module_states = self.decompress_state(module_states, modules)
+        return module_states, schemes
+
+    def update_config(self, save_directory: str) -> None:
+        """Write this compressor's configs into ``config.json`` (the real
+        sparsity config; see ``utils.safetensors_io.update_config``)."""
+        if self.quantization_config is None and self.sparsity_config is None:
+            return
+        update_config(save_directory,
+                      quantization_config=self.quantization_config,
+                      sparsity_config=self.sparsity_config)

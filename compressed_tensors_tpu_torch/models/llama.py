@@ -26,6 +26,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from compressed_tensors_tpu_torch.flags import kernels_enabled
 from compressed_tensors_tpu_torch.models.config import LlamaConfig
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
@@ -456,6 +457,7 @@ def llama_forward(params: dict, config: LlamaConfig,
         on the CPU); False selects the JAX package's non-kernel path
     :param last_logit_only: lm_head logits for the final position only
     """
+    use_kernels = kernels_enabled(use_kernels)
     embed = params["embed_tokens"]
     embed_w = materialize_weight(embed) if isinstance(
         embed, QuantizedTensor) else embed

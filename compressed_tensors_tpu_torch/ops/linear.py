@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from compressed_tensors_tpu_torch.config import CompressionFormat
+from compressed_tensors_tpu_torch.flags import kernels_enabled
 from compressed_tensors_tpu_torch.ops.bitmask import sparse24_decompress
 from compressed_tensors_tpu_torch.ops.fp4_pack import unpack_fp4_from_uint8
 from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
@@ -515,6 +516,15 @@ def _w4b8_mode(m_rows: int, n: int, k: int) -> str:
     return "a8b" if m_rows >= 256 and n >= 4096 and k >= 4096 else "int4b"
 
 
+def _dense_above(m_rows: int) -> bool:
+    """Whether a 4-bit linear at bf16 activations runs dequantized at
+    ``m_rows`` rows (see flags.w4_dense_m; 0, the default, is never)."""
+    from compressed_tensors_tpu_torch.flags import FLAGS
+
+    return (FLAGS.w4_dense_m > 0 and FLAGS.w4_act != "int8"
+            and m_rows >= FLAGS.w4_dense_m)
+
+
 def _dense_matmul(x, w):
     return torch.matmul(x.to(torch.float32), w.to(torch.float32).t()).to(
         x.dtype)
@@ -636,7 +646,7 @@ def quantized_matmul_experts(x: torch.Tensor, qt: QuantizedTensor,
     E, C, K = x.shape
     kind = qt.kernel_meta[0] if qt.kernel_meta is not None else None
 
-    if use_kernels and kind in ("w4a16", "w4e8"):
+    if kernels_enabled(use_kernels) and kind in ("w4a16", "w4e8"):
         n, k, group_size = qt.kernel_meta[1:4]
         x = x.contiguous()
         if kind == "w4a16":
@@ -704,7 +714,14 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
 
     kind = qt.kernel_meta[0] if qt.kernel_meta is not None else None
     lead = x.shape[:-1]
-    if use_kernels and kind in ("w4a16", "w4packed", "w4e8", "fp4", "w8a8"):
+    use_kernels = kernels_enabled(use_kernels)
+    if (use_kernels and kind in ("w4a16", "w4packed", "w4e8")
+            and _dense_above(x.numel() // x.shape[-1])
+            and qt.weight_packed is not None):
+        # the w4_dense_m opt-in: dequantize the weight once, one matmul
+        out = torch.matmul(x, materialize_weight(qt, dtype=x.dtype).t())
+    elif use_kernels and kind in ("w4a16", "w4packed", "w4e8", "fp4",
+                                  "w8a8"):
         if qt.kernel_perm is not None:
             x = x.index_select(-1, qt.kernel_perm)
         n, k = qt.kernel_meta[1:3]

@@ -1,6 +1,6 @@
-"""Quantization-parameter math used on the run-compressed path: ranges,
-scale/zero-point calculation, dynamic (per-call) scales and NVFP4 global
-scales.
+"""Quantization-parameter math: ranges, scale/zero-point calculation,
+dynamic (per-call) scales, NVFP4 global scales and the block strategy's
+padding.
 
 Counterpart of ``compressed_tensors_tpu/ops/qparams.py``, with the same
 numerics (zero always representable, eps flooring of zero scales, the
@@ -35,7 +35,14 @@ __all__ = [
     "calculate_qparams",
     "compute_dynamic_scales_and_zp",
     "generate_gparam",
+    "strategy_cdiv",
+    "calculate_block_padding",
+    "maybe_pad_tensor_for_block_quant",
+    "KV_CACHE_TARGETS",
 ]
+
+# targets for KV-cache scale attachment
+KV_CACHE_TARGETS = ["re:.*(self_attn|attention)$"]
 
 
 def calculate_range(args: QuantizationArgs) -> tuple[float, float]:
@@ -167,3 +174,52 @@ def generate_gparam(
     global_scale = torch.nan_to_num(global_scale, nan=1.0, posinf=1.0,
                                     neginf=1.0)
     return global_scale.to(dtype).reshape([1])
+
+
+def strategy_cdiv(
+    value: int,
+    divisor: int,
+    strategy: QuantizationStrategy | None = None,
+    strict: bool = False,
+) -> int:
+    """ceil(value / divisor); warns (or with ``strict`` raises) when the
+    division is not exact."""
+    dividend = math.ceil(value / divisor)
+    if dividend * divisor != value:
+        message = (
+            f"{strategy} quantization strategy requires strict division of "
+            f"weight/activation size {value} and group/block size {divisor}.")
+        if strict:
+            raise ValueError(message)
+        import logging
+
+        logging.getLogger(__name__).warning(message)
+    return dividend
+
+
+def calculate_block_padding(
+    shape: tuple[int, ...], block_structure: tuple[int, int]
+) -> tuple[int, int]:
+    """Rows and columns of padding that make the last two dims divisible
+    by the block."""
+    if len(shape) < 2:
+        raise ValueError(f"Tensor must be at least 2D, got shape {shape}")
+    rows, cols = shape[-2], shape[-1]
+    block_height, block_width = block_structure
+    return ((block_height - rows % block_height) % block_height,
+            (block_width - cols % block_width) % block_width)
+
+
+def maybe_pad_tensor_for_block_quant(
+    tensor: torch.Tensor, block_structure: tuple[int, int]
+) -> torch.Tensor:
+    """Zero-pad the last two dims to block-divisible sizes."""
+    pad_rows, pad_cols = calculate_block_padding(tuple(tensor.shape),
+                                                 block_structure)
+    if pad_rows == 0 and pad_cols == 0:
+        return tensor
+    rows, cols = tensor.shape[-2:]
+    out = torch.zeros((*tensor.shape[:-2], rows + pad_rows, cols + pad_cols),
+                      dtype=tensor.dtype, device=tensor.device)
+    out[..., :rows, :cols] = tensor
+    return out

@@ -1,9 +1,12 @@
-"""Safetensors + checkpoint I/O in pure Python, returning torch tensors.
+"""Safetensors + checkpoint I/O, returning torch tensors.
 
-Counterpart of ``compressed_tensors_tpu/utils/safetensors_io.py`` (reader,
-writer and config discovery): 8-byte little-endian header length, JSON
-header, raw little-endian tensor data. bf16 and fp8 tensors come back in
-their torch dtypes.
+Counterpart of ``compressed_tensors_tpu/utils/safetensors_io.py``: reader
+and writer (8-byte little-endian header length, JSON header, raw
+little-endian tensor data; bf16 and fp8 tensors in their torch dtypes),
+shard and index resolution, index and ``config.json`` writing,
+weight-name -> file mappings and nested qparam grouping. Tensors of 64 MiB
+or more are read by the native parallel reader (``utils/native.py``) when
+it is available.
 """
 
 from __future__ import annotations
@@ -12,21 +15,33 @@ import json
 import os
 import re
 import struct
-from typing import Mapping
+from typing import Iterable, Mapping
 
 import torch
 
 from compressed_tensors_tpu_torch.config import (
+    COMPRESSION_VERSION_NAME,
     QUANTIZATION_CONFIG_NAME,
     QUANTIZATION_METHOD,
     QUANTIZATION_METHOD_NAME,
+    SPARSITY_CONFIG_NAME,
+    TRANSFORM_CONFIG_NAME,
 )
 from compressed_tensors_tpu_torch.utils.dtypes import SAFETENSORS_DTYPES
 
 __all__ = [
     "SafetensorsFile",
+    "load_safetensors",
     "save_safetensors",
+    "get_weight_map",
+    "get_checkpoint_files",
+    "get_safetensors_header",
+    "get_nested_weight_mappings",
+    "get_quantization_parameter_to_path_mapping",
+    "is_quantization_param",
     "get_quantization_config_dict",
+    "update_config",
+    "update_safetensors_index",
     "CheckpointReader",
 ]
 
@@ -49,11 +64,24 @@ class SafetensorsFile:
     def keys(self) -> list[str]:
         return list(self.header.keys())
 
+    # tensors at least this large use the native parallel reader when it
+    # is available (cold-cache loads are IO-latency bound)
+    PARALLEL_READ_BYTES = 64 * 1024 * 1024
+
     def get(self, name: str) -> torch.Tensor:
         """One tensor, copied into a new CPU tensor."""
         info = self.header[name]
         dtype = SAFETENSORS_DTYPES[info["dtype"]]
         start, end = info["data_offsets"]
+        if end - start >= self.PARALLEL_READ_BYTES:
+            from compressed_tensors_tpu_torch.utils.native import (
+                read_range_parallel,
+            )
+
+            buf = read_range_parallel(self.path, self._data_start + start,
+                                      end - start)
+            if buf is not None:
+                return buf.view(dtype).reshape(info["shape"])
         if self._file is None:
             self._file = open(self.path, "rb")
         buf = bytearray(end - start)
@@ -64,10 +92,24 @@ class SafetensorsFile:
             return torch.empty(info["shape"], dtype=dtype)
         return torch.frombuffer(buf, dtype=dtype).reshape(info["shape"])
 
+    def get_shape(self, name: str) -> tuple[int, ...]:
+        return tuple(self.header[name]["shape"])
+
+    def get_dtype(self, name: str) -> torch.dtype:
+        return SAFETENSORS_DTYPES[self.header[name]["dtype"]]
+
     def close(self):
         if self._file is not None:
             self._file.close()
             self._file = None
+
+
+def load_safetensors(path: str) -> dict[str, torch.Tensor]:
+    f = SafetensorsFile(path)
+    try:
+        return {k: f.get(k) for k in f.keys()}
+    finally:
+        f.close()
 
 
 def save_safetensors(
@@ -75,7 +117,8 @@ def save_safetensors(
     tensors: Mapping[str, torch.Tensor],
     metadata: Mapping[str, str] | None = None,
 ):
-    """Write a safetensors file (8-byte-aligned header)."""
+    """Write a safetensors file (8-byte-aligned header). Tensors may lie
+    on any device: each is copied to the host once."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = dict(metadata)
@@ -105,7 +148,8 @@ def save_safetensors(
                 f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
 
 
-def _checkpoint_files(path: str) -> list[str]:
+def get_checkpoint_files(path: str) -> list[str]:
+    """All safetensors shard paths of a local checkpoint directory."""
     index_path = os.path.join(path, _ST_INDEX_NAME)
     if os.path.exists(index_path):
         with open(index_path) as f:
@@ -118,17 +162,79 @@ def _checkpoint_files(path: str) -> list[str]:
                   if f.endswith(".safetensors"))
 
 
-def _weight_map(path: str) -> dict[str, str]:
+def get_safetensors_header(path: str) -> dict:
+    """Header-only read of one safetensors file: tensor name -> {dtype,
+    shape, data_offsets}, no tensor data touched."""
+    with open(path, "rb") as f:
+        header_len = struct.unpack("<Q", f.read(8))[0]
+        header = json.loads(f.read(header_len))
+    header.pop("__metadata__", None)
+    return header
+
+
+def is_quantization_param(name: str) -> bool:
+    """Whether a tensor name is a quantization parameter (a scale, zero
+    point or g_idx)."""
+    return (name.endswith("_scale") or name.endswith("zero_point")
+            or name.endswith("g_idx"))
+
+
+def get_quantization_parameter_to_path_mapping(path: str) -> dict[str, str]:
+    """Full tensor name -> absolute shard path, qparams only."""
+    return {name: os.path.join(path, fname)
+            for name, fname in get_weight_map(path).items()
+            if is_quantization_param(name)}
+
+
+def get_nested_weight_mappings(
+    path: str,
+    params_to_nest: Iterable[str] | None = None,
+    return_unmatched_params: bool = False,
+):
+    """module name -> {local param name -> absolute shard path}. With
+    ``params_to_nest`` only those local names are kept; with
+    ``return_unmatched_params`` the flat {full name -> path} map of
+    everything not nested is returned too."""
+    keep = set(params_to_nest) if params_to_nest is not None else None
+    nested: dict[str, dict[str, str]] = {}
+    unmatched: dict[str, str] = {}
+    for name, fname in get_weight_map(path).items():
+        module, param = CheckpointReader.split(name)
+        full_path = os.path.join(path, fname)
+        if keep is not None and param not in keep:
+            unmatched[name] = full_path
+            continue
+        nested.setdefault(module, {})[param] = full_path
+    if return_unmatched_params:
+        return nested, unmatched
+    return nested
+
+
+def get_weight_map(path: str) -> dict[str, str]:
     """tensor name -> shard filename."""
     index_path = os.path.join(path, _ST_INDEX_NAME)
     if os.path.exists(index_path):
         with open(index_path) as f:
             return json.load(f)["weight_map"]
     weight_map = {}
-    for file in _checkpoint_files(path):
+    for file in get_checkpoint_files(path):
         for key in SafetensorsFile(file).keys():
             weight_map[key] = os.path.basename(file)
     return weight_map
+
+
+def update_safetensors_index(save_directory: str,
+                             weight_map: dict[str, str]) -> None:
+    """Write model.safetensors.index.json (total size of the shards on
+    disk, sorted keys), as the JAX package writes it."""
+    total_size = 0
+    for file in set(weight_map.values()):
+        fpath = os.path.join(save_directory, file)
+        if os.path.exists(fpath):
+            total_size += os.path.getsize(fpath)
+    index = {"metadata": {"total_size": total_size}, "weight_map": weight_map}
+    with open(os.path.join(save_directory, _ST_INDEX_NAME), "w") as f:
+        json.dump(index, f, indent=2, sort_keys=True)
 
 
 def get_quantization_config_dict(path: str) -> dict | None:
@@ -146,6 +252,47 @@ def get_quantization_config_dict(path: str) -> dict | None:
     return qconfig
 
 
+def update_config(
+    save_directory: str,
+    quantization_config=None,
+    sparsity_config=None,
+    transform_config=None,
+    version: str | None = None,
+) -> None:
+    """Write the quantization (and sparsity) config into
+    ``config.json["quantization_config"]``, keeping the file's other keys.
+
+    The JAX package writes ``sparsity_config: {}`` whatever the model
+    holds; this writes the given sparsity config (``{}`` without one), so
+    that a sparse checkpoint names its sparse format. A
+    ``transform_config`` waits for the transforms (ROADMAP A6) and
+    raises."""
+    from compressed_tensors_tpu_torch.version import __version__
+
+    if transform_config is not None:
+        raise NotImplementedError(
+            "transform_config: the transforms are not ported yet (ROADMAP "
+            "A6)")
+    config_file_path = os.path.join(save_directory, "config.json")
+    config_data = {}
+    if os.path.exists(config_file_path):
+        with open(config_file_path) as file:
+            config_data = json.load(file)
+    qconfig_data = (quantization_config.model_dump(
+        mode="json", exclude=["quant_method"])
+        if quantization_config is not None else {})
+    config_data[QUANTIZATION_CONFIG_NAME] = {
+        COMPRESSION_VERSION_NAME: version or __version__,
+        QUANTIZATION_METHOD_NAME: QUANTIZATION_METHOD,
+        SPARSITY_CONFIG_NAME: (sparsity_config.model_dump(mode="json")
+                               if sparsity_config is not None else {}),
+        TRANSFORM_CONFIG_NAME: {},
+        **qconfig_data,
+    }
+    with open(config_file_path, "w") as config_file:
+        json.dump(config_data, config_file, indent=2, sort_keys=True)
+
+
 class CheckpointReader:
     """Reader over a (possibly sharded) checkpoint, grouping tensors into
     per-module local state dicts."""
@@ -161,7 +308,7 @@ class CheckpointReader:
 
     def __init__(self, path: str):
         self.path = path
-        self.weight_map = _weight_map(path)
+        self.weight_map = get_weight_map(path)
         self._files: dict[str, SafetensorsFile] = {}
 
     def _file_for(self, tensor_name: str) -> SafetensorsFile:

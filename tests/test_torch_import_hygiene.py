@@ -1,6 +1,6 @@
 """The PyTorch port imports neither JAX, ml_dtypes (absent where the
 kernels run) nor the JAX package, and importing any of its modules builds
-no kernel."""
+no kernel and no native host library."""
 
 import subprocess
 import sys
@@ -15,6 +15,7 @@ def test_port_imports_no_jax_and_builds_nothing():
         import importlib, pkgutil, sys
         import compressed_tensors_tpu_torch as pkg
         from compressed_tensors_tpu_torch.ops.kernels import _build
+        from compressed_tensors_tpu_torch.utils import native
         names = [m.name for m in pkgutil.walk_packages(
             pkg.__path__, pkg.__name__ + ".")]
         for name in names:
@@ -23,7 +24,11 @@ def test_port_imports_no_jax_and_builds_nothing():
                     "ops.kernels.flash_decode", "ops.kernels.paged_decode",
                     "engine.serving", "engine.generate", "ops.fp4",
                     "ops.fp4_pack", "ops.mx", "compressors.nvfp4",
-                    "ops.bitmask", "compressors.sparse"):
+                    "ops.bitmask", "compressors.sparse",
+                    "quantization.lifecycle", "quantization.quant_metadata",
+                    "modeling.attention", "linear.compressed_linear",
+                    "utils.native", "utils.impl_backend", "utils.mtp",
+                    "logger", "version"):
             assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -32,6 +37,7 @@ def test_port_imports_no_jax_and_builds_nothing():
                      or m.startswith("compressed_tensors_tpu."))
         assert not bad, bad
         assert _build._lib is None
+        assert native._LIB is None and not native._TRIED
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
