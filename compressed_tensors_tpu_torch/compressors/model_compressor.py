@@ -12,7 +12,11 @@ codec), and the checkpoint level:
 - load: read the shards into per-module state dicts on ``device`` and
   hand them to the engine run compressed, or decompress them.
 
-A ``transform_config`` waits for the transforms (ROADMAP A6) and raises.
+A ``transform_config`` is kept and written into ``config.json``. At load,
+as in the JAX package, the compressor that ``from_compression_config``
+builds holds none: its offline (``weight_*``) transforms are already fused
+into the checkpoint's weights. A config with an online transform is
+refused there, since no engine of either package applies one.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from compressed_tensors_tpu_torch.quantization import (
     QuantizationScheme,
     QuantizationStatus,
 )
+from compressed_tensors_tpu_torch.transform.schemas import TransformLocation
 from compressed_tensors_tpu_torch.utils.match import (
     ModuleInfo,
     is_match,
@@ -53,6 +58,32 @@ from compressed_tensors_tpu_torch.utils.safetensors_io import (
 )
 
 __all__ = ["ModelCompressor", "module_graph_from_names", "resolve_module_schemes"]
+
+
+def _refuse_online_transforms(transform_config: dict | None) -> None:
+    """Raise NotImplementedError if a checkpoint's raw ``transform_config``
+    block applies any transform online (``input``, ``output``,
+    ``q_attn``, ``k_cache``): no engine of this package or of the JAX
+    package applies one, and the model would silently run without it.
+    ``weight_input`` / ``weight_output`` transforms are fused into the
+    weights and need nothing at run time. The block is not parsed
+    otherwise: the JAX package drops it unread, so whatever else it holds
+    loads as there."""
+    online_locations = {loc.value for loc in TransformLocation
+                        if loc.is_online()}
+    groups = (transform_config or {}).get("config_groups") or {}
+    online = sorted({
+        f"{name}: {args['location']}"
+        for name, scheme in groups.items()
+        for args in (scheme or {}).get("apply") or ()
+        if args.get("location") in online_locations})
+    if online:
+        raise NotImplementedError(
+            f"transform_config applies online transforms ({', '.join(online)}"
+            "): no engine of either package (compressed_tensors_tpu_torch or "
+            "compressed_tensors_tpu) applies online transforms; only "
+            "weight_input/weight_output transforms, fused into the weights, "
+            "load")
 
 
 def module_graph_from_names(
@@ -108,20 +139,22 @@ class ModelCompressor:
         transform_config=None,
         force_compression_format: str | None = None,
     ):
-        if transform_config is not None:
-            raise NotImplementedError(
-                "transform_config: the transforms are not ported yet "
-                "(ROADMAP A6)")
         self.quantization_config = quantization_config
         self.sparsity_config = sparsity_config
-        self.transform_config = None
+        self.transform_config = transform_config
         self.force_compression_format = force_compression_format
 
     @classmethod
     def from_compression_config(cls, config: dict) -> "ModelCompressor | None":
-        """Build from a raw config.json["quantization_config"] dict."""
+        """Build from a raw config.json["quantization_config"] dict. The
+        compressor holds no ``transform_config`` (as in the JAX package):
+        a checkpoint's ``weight_*`` transforms are fused into its weights.
+        An online transform (``input``, ``output``, ``q_attn``,
+        ``k_cache``) raises NotImplementedError: neither package's engine
+        applies one, and the model would run without it."""
         if config is None:
             return None
+        _refuse_online_transforms(config.get("transform_config"))
         sparsity_config = config.get("sparsity_config") or None
         if sparsity_config:
             sparsity_config = SparsityCompressionConfig.load_from_registry(
@@ -135,10 +168,6 @@ class ModelCompressor:
         )
         if quantization_config is None and sparsity_config is None:
             return None
-        if config.get("transform_config"):
-            raise NotImplementedError(
-                "transform_config: the transforms are not ported yet "
-                "(ROADMAP A6)")
         return cls(quantization_config=quantization_config,
                    sparsity_config=sparsity_config)
 
@@ -326,9 +355,12 @@ class ModelCompressor:
 
     def update_config(self, save_directory: str) -> None:
         """Write this compressor's configs into ``config.json`` (the real
-        sparsity config; see ``utils.safetensors_io.update_config``)."""
-        if self.quantization_config is None and self.sparsity_config is None:
+        sparsity config and the transform config; see
+        ``utils.safetensors_io.update_config``)."""
+        if self.quantization_config is None and \
+                self.sparsity_config is None and self.transform_config is None:
             return
         update_config(save_directory,
                       quantization_config=self.quantization_config,
-                      sparsity_config=self.sparsity_config)
+                      sparsity_config=self.sparsity_config,
+                      transform_config=self.transform_config)

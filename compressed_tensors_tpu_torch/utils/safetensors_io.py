@@ -259,20 +259,15 @@ def update_config(
     transform_config=None,
     version: str | None = None,
 ) -> None:
-    """Write the quantization (and sparsity) config into
+    """Write the quantization, sparsity and transform configs into
     ``config.json["quantization_config"]``, keeping the file's other keys.
 
     The JAX package writes ``sparsity_config: {}`` whatever the model
     holds; this writes the given sparsity config (``{}`` without one), so
-    that a sparse checkpoint names its sparse format. A
-    ``transform_config`` waits for the transforms (ROADMAP A6) and
-    raises."""
+    that a sparse checkpoint names its sparse format. The transform config
+    is written as the JAX package writes it (``{}`` without one)."""
     from compressed_tensors_tpu_torch.version import __version__
 
-    if transform_config is not None:
-        raise NotImplementedError(
-            "transform_config: the transforms are not ported yet (ROADMAP "
-            "A6)")
     config_file_path = os.path.join(save_directory, "config.json")
     config_data = {}
     if os.path.exists(config_file_path):
@@ -286,7 +281,8 @@ def update_config(
         QUANTIZATION_METHOD_NAME: QUANTIZATION_METHOD,
         SPARSITY_CONFIG_NAME: (sparsity_config.model_dump(mode="json")
                                if sparsity_config is not None else {}),
-        TRANSFORM_CONFIG_NAME: {},
+        TRANSFORM_CONFIG_NAME: (transform_config.model_dump(mode="json")
+                                if transform_config is not None else {}),
         **qconfig_data,
     }
     with open(config_file_path, "w") as config_file:

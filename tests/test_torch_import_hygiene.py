@@ -28,7 +28,11 @@ def test_port_imports_no_jax_and_builds_nothing():
                     "quantization.lifecycle", "quantization.quant_metadata",
                     "modeling.attention", "linear.compressed_linear",
                     "utils.native", "utils.impl_backend", "utils.mtp",
-                    "logger", "version"):
+                    "logger", "version", "transform", "transform.schemas",
+                    "transform.hadamard", "transform.hadamard_data",
+                    "transform.apply", "entrypoints", "entrypoints.convert",
+                    "entrypoints.convert.converters",
+                    "entrypoints.convert.convert_checkpoint"):
             assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

@@ -32,6 +32,10 @@ from compressed_tensors_tpu.engine import greedy_generate as j_generate
 from compressed_tensors_tpu.models import llama as jl
 from compressed_tensors_tpu.modeling import attention as jattn
 from compressed_tensors_tpu.quantization import lifecycle as jlc
+from compressed_tensors_tpu.transform import TransformConfig as JTransformConfig
+from compressed_tensors_tpu_torch.transform import (
+    TransformConfig as TTransformConfig,
+)
 from compressed_tensors_tpu.utils import mtp as jmtp
 from compressed_tensors_tpu.utils import safetensors_io as jio
 from compressed_tensors_tpu_torch.engine import greedy_generate
@@ -182,6 +186,61 @@ def test_saved_checkpoints_match(w4_walk):
     qc = _json(str(root / "torch" / "config.json"))["quantization_config"]
     assert qc["quantization_status"] == "compressed"
     assert qc["sparsity_config"] == {} and qc["transform_config"] == {}
+
+
+def test_ct_dequantizer_over_port_checkpoint_matches_jax(w4_walk,
+                                                         tmp_path):
+    """``CompressedTensorsDequantizer`` by ``convert_checkpoint`` over the
+    port-written W4A16 + W8A8-int-head checkpoint (no linear biases).
+
+    Reference caveat: ``get_dependencies`` reads only the first scheme
+    that targets ``Linear`` (here W4A16, whose first param is
+    ``weight_packed``), so ``lm_head.weight`` of the W8A8 scheme gets no
+    dependencies, and where its ``weight_scale`` lies in another shard
+    both packages' ``validate`` refuse the checkpoint alike. The same
+    tensors in one file convert in both: equal dense bf16 tensors, every
+    quantized module dequantized and its qparams gone."""
+    import compressed_tensors_tpu.entrypoints.convert as jcv
+    import compressed_tensors_tpu_torch.entrypoints.convert as tcv
+
+    src = str(w4_walk[0] / "torch")
+    weight_map = tio.get_weight_map(src)
+    assert weight_map["lm_head.weight"] != weight_map["lm_head.weight_scale"]
+    errors = []
+    for cv, kw in ((jcv, {}), (tcv, {"device": "cpu"})):
+        with pytest.raises(ValueError) as e:
+            cv.convert_checkpoint(src, str(tmp_path / "refused"),
+                                  cv.CompressedTensorsDequantizer
+                                  .from_pretrained(src, **kw))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == \
+        "Expected key lm_head.weight_scale not found"
+
+    one = tmp_path / "one_file"
+    one.mkdir()
+    shutil.copy(os.path.join(src, "config.json"), one / "config.json")
+    tio.save_safetensors(str(one / "model.safetensors"), {
+        n: t for f in sorted(set(weight_map.values()))
+        for n, t in tio.load_safetensors(os.path.join(src, f)).items()})
+    jcv.convert_checkpoint(str(one), str(tmp_path / "jax"),
+                           jcv.CompressedTensorsDequantizer.from_pretrained(
+                               str(one)))
+    tcv.convert_checkpoint(str(one), str(tmp_path / "torch"),
+                           tcv.CompressedTensorsDequantizer.from_pretrained(
+                               str(one), device="cpu"))
+    quantized = {n.rpartition(".")[0] for n in weight_map
+                 if n.endswith(".weight_scale")}
+    assert len(quantized) == 7 * CFG["num_hidden_layers"] + 1
+    jt = jio.load_safetensors(str(tmp_path / "jax" / "model.safetensors"))
+    tt = tio.load_safetensors(str(tmp_path / "torch" / "model.safetensors"))
+    assert list(jt) == list(tt)
+    assert {n for n in tt if n.rpartition(".")[0] in quantized} == {
+        f"{m}.weight" for m in quantized}
+    assert all(tt[f"{m}.weight"].dtype == torch.bfloat16 for m in quantized)
+    with open(tmp_path / "jax" / "model.safetensors", "rb") as f:
+        want = f.read()
+    with open(tmp_path / "torch" / "model.safetensors", "rb") as f:
+        assert f.read() == want
 
 
 def _ids(S, seed):
@@ -362,7 +421,8 @@ def test_update_config_sparsity_differs_from_jax(tmp_path):
     """The one intended difference in ``config.json``: for a sparse model the
     port writes its sparsity config, the JAX ``update_config`` writes
     ``sparsity_config: {}`` (ROADMAP, known caveats); everything else is
-    equal. A transform config waits for ROADMAP A6 and raises."""
+    equal. A transform config is kept and written; at load the compressor
+    holds none (as the JAX one), and an online transform is refused."""
     recipe = dict(W4_RECIPE, sparsity_config={
         "format": "sparse-24-bitmask", "targets": ["Linear"],
         "sparsity_structure": "2:4"})
@@ -378,11 +438,27 @@ def test_update_config_sparsity_differs_from_jax(tmp_path):
     assert sparse["format"] == "sparse-24-bitmask"
     assert sparse["sparsity_structure"] == "2:4"
     assert jcfg == tcfg
-    with pytest.raises(NotImplementedError, match="A6"):
-        tct.ModelCompressor(transform_config={"config_groups": {}})
-    with pytest.raises(NotImplementedError, match="A6"):
+    fused = {"config_groups": {"R1": {"type": "hadamard", "apply": [
+        {"targets": ["Linear"], "location": "weight_input"}]}}}
+    for name, pkg, tc, mc in (("jt", jct, JTransformConfig, jmc),
+                              ("tt", tct, TTransformConfig, tmc)):
+        os.makedirs(tmp_path / name)
+        pkg.ModelCompressor(quantization_config=mc.quantization_config,
+                            transform_config=tc.model_validate(fused)
+                            ).update_config(str(tmp_path / name))
+    written = _json(str(tmp_path / "tt" / "config.json"))
+    assert written == _json(str(tmp_path / "jt" / "config.json"))
+    assert written["quantization_config"]["transform_config"] == \
+        TTransformConfig.model_validate(fused).model_dump(mode="json")
+    for pkg in (jct, tct):
+        mc = pkg.ModelCompressor.from_compression_config(
+            dict(W4_RECIPE, transform_config=fused))
+        assert mc.transform_config is None and mc.quantization_config
+    online = {"config_groups": {"R4": {"type": "hadamard", "apply": [
+        {"targets": ["down_proj"], "location": "input"}]}}}
+    with pytest.raises(NotImplementedError, match="online"):
         tct.ModelCompressor.from_compression_config(
-            dict(W4_RECIPE, transform_config={"config_groups": {}}))
+            dict(W4_RECIPE, transform_config=online))
 
 
 def test_infer_format_from_schemes_matches_jax():

@@ -285,8 +285,24 @@ def test_update_config_keeps_other_keys_and_matches_jax(tmp_path):
         assert json.load(f) == got
     assert got["hidden_size"] == 256
     assert got["quantization_config"]["version"] == tct.__version__
-    with pytest.raises(NotImplementedError, match="A6"):
-        tio.update_config(str(tmp_path / "t"), transform_config=object())
+    # a transform config is written as the JAX package writes it
+    from compressed_tensors_tpu.transform import TransformConfig as JTC
+    from compressed_tensors_tpu_torch.transform import TransformConfig as TTC
+
+    block = {"config_groups": {"R1": {
+        "type": "random-hadamard", "apply": [
+            {"targets": ["Linear"], "location": "weight_input",
+             "inverse": True}]}}}
+    tio.update_config(str(tmp_path / "t"), quantization_config=cfg,
+                      transform_config=TTC.model_validate(block))
+    jio.update_config(str(tmp_path / "j"), quantization_config=jcfg,
+                      transform_config=JTC.model_validate(block))
+    with open(tmp_path / "t" / "config.json") as f:
+        got = json.load(f)
+    with open(tmp_path / "j" / "config.json") as f:
+        assert json.load(f) == got
+    assert got["quantization_config"]["transform_config"] == \
+        TTC.model_validate(block).model_dump(mode="json")
 
 
 def test_large_tensors_read_through_native_reader(tmp_path, monkeypatch):
