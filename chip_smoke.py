@@ -95,10 +95,17 @@ end to end:
   first MoE layer counted, the decode-step logits by depth against the
   non-kernel (non-absorbed) path with two planted faults (rolled group
   scales, the softmax scale of the latent width) that must fail every
-  check, an fp8 latent cache against the plain versions, the requests
-  dense and paged (identical, 161 B1 + 78 B1e + 1 B3 + 27 latent launches
-  a decode step), ``greedy_generate`` at batch 64, and a 2-layer DeepSeek
-  V2 checkpoint written and read back with identical greedy tokens;
+  check, an fp8 latent cache against the plain versions with a
+  saturating-scales control, the requests dense and paged on the fp8
+  latent cache and on a bf16 one (identical, 161 B1 + 78 B1e + 1 B3 + 27
+  latent launches a decode step), ``greedy_generate`` at batch 64, and a
+  2-layer DeepSeek V2 checkpoint written and read back with identical
+  greedy tokens;
+- DeepSeek-V2 W4A16 g64 at full width (128 heads, q_lora_rank 1536, 160
+  experts of width 1536) cut to 3 layers, built on the card: its
+  decode-step logits at 1 and 3 layers against B5-L's, B1's and B1e's
+  plain versions with the softmax-scale control, 64 requests dense and
+  paged (identical, one latent launch a layer a decode step);
 - the PTQ lifecycle and save path (phase 16): a dense bf16 Llama-3-8B
   drawn on the card, quantized with ``apply_quantization_config``,
   calibrated (``calibrate_module``, min-max) and compressed on the card,
@@ -114,7 +121,14 @@ end to end:
   model on a bf16 cache with a saturating-scales control, greedy; and
   MXFP4A16 through B8, its logits against the QDQ model with the
   rolled-scales control, greedy (the first model run of B8's MXFP4
-  path);
+  path); the W4A16 checkpoint planned with a 3 GiB device budget
+  (``dispatch_plan``), streamed by ``stream_modules`` (every tensor equal
+  to ``CheckpointReader``'s), its host-planned tensors onloaded from a
+  pinned ``HostCache`` and from a ``DiskCache`` adopting the shards; the
+  first 4 layers' calibrated states compressed by
+  ``compress_state_parallel`` over two processes of this script on the one
+  card (gloo; equal to ``compress_state``), and ``init_dist`` on NCCL at
+  world size 1 in a process of its own;
 - the transforms (phase 17): ``hadamard_matrix`` at four real widths
   checked exact on the card; the same dense Llama-3-8B rotated by
   SpinQuant's R1 + R2 fused in float64 on the card (layer 0 and the
@@ -1633,7 +1647,7 @@ def serve_requests(params, config, requests, name, keep=False, **kw):
         f"step over {timing['steps']} steps; prefix-cache hits "
         f"{engine.prefix_cache_hits}; preemptions {engine.preemptions}; "
         f"kernel launches {counts}")
-    if sorted(outs) != list(range(N_REQUESTS)) or any(
+    if sorted(outs) != sorted(i for i, _, _ in requests) or any(
             len(outs[i]) != new for i, _, new in requests):
         raise AssertionError(f"serving {name}: completions missing")
     if not all(0 <= t < config.vocab_size for o in outs.values()
@@ -2768,24 +2782,66 @@ def phase_parity_fp8(errs):
 
 
 def fp8_synthetic_llama(config):
-    """Llama FP8_DYNAMIC by ``make_synthetic_llama`` (seed 0, drawn with
-    numpy on the host) with a W8A8-int lm_head, fused, k_scale = v_scale =
-    KV_SCALE in every layer; each linear prepared under the
-    ``fp8_transcode`` flag in force."""
+    """Llama FP8_DYNAMIC in ``make_synthetic_llama``'s layout and with its
+    distributions, drawn on the card from seed 0 (that function's numpy
+    draw on the host takes about 4 s a layer at 8B width): fp8 e4m3
+    weights N(0, 100^2) clipped to +-440 with channel scales in [1e-4,
+    3e-4], the embedding N(0, 0.02^2), a W8A8-int lm_head (codes in
+    [-127, 127]), norms at one; fused, k_scale = v_scale = KV_SCALE in
+    every layer; each linear prepared under the ``fp8_transcode`` flag in
+    force."""
     import torch
 
-    from compressed_tensors_tpu_torch.models.synthetic import (
-        make_synthetic_llama,
-    )
+    from compressed_tensors_tpu_torch.config import CompressionFormat
     from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
 
-    params = fuse_llama_layers(make_synthetic_llama(
-        config, "FP8_DYNAMIC", seed=0, lm_head_preset="W8A8",
-        device="cuda"))
-    for layer in params["layers"]:
-        layer["k_scale"] = torch.tensor([KV_SCALE], device="cuda")
-        layer["v_scale"] = torch.tensor([KV_SCALE], device="cuda")
-    return params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, I, V = config.hidden_size, config.intermediate_size, config.vocab_size
+    NH, KVH, D = (config.num_attention_heads, config.num_key_value_heads,
+                  config.head_dim)
+    fp8 = preset_name_to_scheme("FP8_DYNAMIC", ["Linear"])
+
+    def scales(n):
+        return torch.rand((n, 1), generator=gen, device="cuda") * 2e-4 + 1e-4
+
+    def linear(n, k):
+        w = (torch.randn((n, k), generator=gen, device="cuda") * 100).clamp_(
+            -440, 440).to(torch.float8_e4m3fn)
+        return prepare_for_kernels(QuantizedTensor(
+            weight=w, scale=scales(n), shape=(n, k), scheme=fp8,
+            format=CompressionFormat.float_quantized.value))
+
+    def ones():
+        return torch.ones((H,), dtype=torch.bfloat16, device="cuda")
+
+    params = {
+        "embed_tokens": (torch.randn((V, H), generator=gen, device="cuda")
+                         * 0.02).to(torch.bfloat16),
+        "norm": ones(),
+        "layers": [dict(
+            q_proj=linear(NH * D, H), k_proj=linear(KVH * D, H),
+            v_proj=linear(KVH * D, H), o_proj=linear(H, NH * D),
+            input_layernorm=ones(), post_attention_layernorm=ones(),
+            gate_proj=linear(I, H), up_proj=linear(I, H),
+            down_proj=linear(H, I),
+            k_scale=torch.tensor([KV_SCALE], device="cuda"),
+            v_scale=torch.tensor([KV_SCALE], device="cuda"))
+            for _ in range(config.num_hidden_layers)],
+        "lm_head": prepare_for_kernels(QuantizedTensor(
+            weight=torch.randint(-127, 128, (V, H), generator=gen,
+                                 device="cuda", dtype=torch.int8),
+            scale=scales(V), shape=(V, H),
+            scheme=preset_name_to_scheme("W8A8", ["lm_head"]),
+            format=CompressionFormat.int_quantized.value)),
+    }
+    return fuse_llama_layers(params)
 
 
 def phase_fp8():
@@ -2807,7 +2863,8 @@ def phase_fp8():
     t0 = time.perf_counter()
     params = fp8_synthetic_llama(config)
     torch.cuda.synchronize()
-    log(f"Llama-3-8B FP8_DYNAMIC synthetic model (seed 0, fused, W8A8-int "
+    log(f"Llama-3-8B FP8_DYNAMIC synthetic model (drawn on the card, seed 0, "
+        f"fused, W8A8-int "
         f"lm_head, k_scale = v_scale = {KV_SCALE}): built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -4984,7 +5041,6 @@ V2_LITE = dict(model_type="deepseek_v2", vocab_size=102400, hidden_size=2048,
                tie_word_embeddings=False, n_routed_experts=64,
                num_experts_per_tok=6, moe_intermediate_size=1408,
                first_k_dense_replace=1, norm_topk_prob=False)
-V2_SHARED = 2 * 1408       # n_shared_experts x moe_intermediate_size
 # W4A16 groups of 64: 10944 = 85.5 x 128, so a group of 128 leaves layer
 # 0's down_proj without a kernel layout; 64 divides every K of the model
 MLA_GROUP = 64
@@ -5004,6 +5060,9 @@ MLA_STEPS = 4              # decode steps whose logits are held
 # greedy_generate's cache and of the serving engine's
 LATENT_WIDTHS = ((576, 512), (128, 64))
 LATENT_SPADS = (192, 1024)
+# query heads: one head, one head group of the kernels (16), a padded
+# second group (20) and DeepSeek-V2's 128
+LATENT_REPS = (1, 16, 20, 128)
 # B1e at V2-Lite's experts, group 64: (E, C, N, K) at a decode step's C
 # (batch 64, 6 of 64 experts: 8), a 512-row serving chunk's (64) and
 # greedy's 64 x 128-token prefill (960)
@@ -5013,15 +5072,19 @@ V2_EXPERT_CASES = [(64, c, n, k) for n, k in ((1408, 2048), (2048, 1408))
 
 def parity_latent(errs):
     """B5-L and B7-L against their plain versions on every cache type, at
-    the (K, V) widths of ``LATENT_WIDTHS``, 16 query heads and one, S_pad
-    of ``LATENT_SPADS``; lengths 0, 1, 63-65, each side of a split
-    boundary below S_pad, S_pad - 1 and an inactive row; on the slab and
-    through shuffled page tables. Each element within the a8b rule of the
-    plain version's f32 result in the kernels' order and the outputs within
-    TOL_KERNEL of the one-softmax plain version; inactive rows zero; cache
-    bytes equal to the plain version's and changed at the step's positions
-    only. Then B1e at V2-Lite's expert shapes in groups of 64 by the a8b
-    rule (one launch a call)."""
+    the (K, V) widths of ``LATENT_WIDTHS``, the query heads of
+    ``LATENT_REPS``, S_pad of ``LATENT_SPADS``; lengths 0, 1, 63-65, each
+    side of a split boundary below S_pad, S_pad - 1 and an inactive row;
+    on the slab and through shuffled page tables. Every element within the
+    a8b rule of the plain version's f32 result in the kernels' order plus
+    that version's bound on the probabilities' bf16 roundings
+    (``LATENT_FLIP_REL``: a probability near a rounding midpoint may round
+    the other way on the kernel's f32 scores); above 16 heads the output
+    also equal bit for bit to the kernel's launches on each group of 16
+    heads alone; the outputs within TOL_KERNEL of the one-softmax plain
+    version; inactive rows zero; cache bytes equal to the plain version's
+    and changed at the step's positions only. Then B1e at V2-Lite's
+    expert shapes in groups of 64 by the a8b rule (one launch a call)."""
     import itertools
 
     import torch
@@ -5035,20 +5098,22 @@ def parity_latent(errs):
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     rng = np.random.default_rng(16)
-    page, worst, cases, outside = 64, 0.0, 0, 0
+    page, worst, cases, flipped = 64, 0.0, 0, 0
     dtypes = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
               "int8": torch.int8}
     for cache, (dk, dv), rep, s_pad in itertools.product(
-            dtypes, LATENT_WIDTHS, (16, 1), LATENT_SPADS):
+            dtypes, LATENT_WIDTHS, LATENT_REPS, LATENT_SPADS):
         dtype = dtypes[cache]
         span = da.latent_split(dtype)
-        lens = sorted({n for n in (0, 1, 63, 64, 65, span - 1, span, span + 1,
-                                   s_pad - 1) if n < s_pad}) + [-1]
+        lens = sorted({n for n in (0, 1, 63, 64, 65, span - 1, span,
+                                   span + 1, s_pad - 1)
+                       if n < s_pad}) + [-1]
         B, P = len(lens), s_pad // page
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         active = lengths >= 0
         sc = CACHE_SCALES.get(cache)
-        ks = vs = None if sc is None else torch.tensor([sc], device="cuda")
+        ks = vs = (None if sc is None
+                   else torch.tensor([sc], device="cuda"))
         kw = dict(layer=1, k_scale=ks, v_scale=vs, true_d=dk // 3)
 
         def make(shape):
@@ -5064,18 +5129,20 @@ def parity_latent(errs):
         for name, shapes, kernel, plain, at in (
                 ("decode_attention_latent",
                  ((2, B, 1, s_pad, dk), (2, B, 1, s_pad, dv)),
-                 lambda k, v: da.decode_attention(q, nk, nv, k, v, lengths,
-                                                  **kw),
+                 lambda k, v, q=q: da.decode_attention(q, nk, nv, k, v,
+                                                       lengths, **kw),
                  lambda k, v, **o: da.latent_decode_attention_plain(
                      q, nk, nv, k, v, lengths, **kw, **o),
                  lambda b: (b, lens[b])),
                 ("paged_decode_attention_latent",
-                 ((2, B * P + 1, 1, page, dk), (2, B * P + 1, 1, page, dv)),
-                 lambda k, v: pd.paged_decode_attention(
+                 ((2, B * P + 1, 1, page, dk),
+                  (2, B * P + 1, 1, page, dv)),
+                 lambda k, v, q=q: pd.paged_decode_attention(
                      q, nk, nv, k, v, tables_d, lengths, **kw),
                  lambda k, v, **o: pd.paged_decode_attention_plain(
                      q, nk, nv, k, v, tables_d, lengths, **kw, **o),
-                 lambda b: (int(tables[b, lens[b] // page]), lens[b] % page))):
+                 lambda b: (int(tables[b, lens[b] // page]),
+                            lens[b] % page))):
             ck, cv = make(shapes[0]), make(shapes[1])
             ck0, cv0 = ck.clone(), cv.clone()
             before = getattr(*_counter(name))
@@ -5083,44 +5150,63 @@ def parity_latent(errs):
             if getattr(*_counter(name)) != before + 1:
                 raise AssertionError(f"{name}: not one launch a call")
             got = got.float()
-            ordered = plain(ck0.clone(), cv0.clone(), kernel_order=True,
-                            out_dtype=torch.float32)[0]
+            ordered, flip = plain(ck0.clone(), cv0.clone(),
+                                  kernel_order=True, out_dtype=torch.float32,
+                                  flip_rel=da.LATENT_FLIP_REL)[0]
             ck_p, cv_p = ck0.clone(), cv0.clone()
             want = plain(ck_p, cv_p)[0].float()
-            label = f"{name} K={dk} V={dv} rep={rep} {cache} S_pad={s_pad}"
+            label = (f"{name} K={dk} V={dv} rep={rep} {cache} "
+                     f"S_pad={s_pad}")
             if not bool(got.isfinite().all()):
                 raise AssertionError(f"{label}: non-finite output")
             diff = (got[active] - ordered[active]).abs()
-            bad = int((diff > A8B_REL * ordered[active].abs()
-                       + A8B_ABS * ordered[active].abs().max()).sum())
-            outside += bad
+            rule = (A8B_REL * ordered[active].abs()
+                    + A8B_ABS * ordered[active].abs().max())
+            bad = int((diff > rule + flip[active]).sum())
+            flipped += int((diff > rule).sum())
             rel = ((got[active] - want[active]).abs().max()
                    / want[active].abs().max()).item()
+            if rep > 16:
+                groups = torch.cat([
+                    kernel(ck0.clone(), cv0.clone(),
+                           q=q[:, h0:h0 + 16].contiguous())[0]
+                    for h0 in range(0, rep, 16)], dim=1)
+                if not torch.equal(got, groups.float()):
+                    raise AssertionError(f"{label}: differs from the "
+                                         "kernel on each group of 16 "
+                                         "heads")
             if bad or rel > TOL_KERNEL:
-                raise AssertionError(f"{label}: {bad} elements outside the "
-                                     f"a8b rule, {rel} of max|plain|")
+                raise AssertionError(f"{label}: {bad} elements outside "
+                                     "the a8b rule with its probability "
+                                     f"roundings, {rel} of max|plain|")
             if got[~active].any():
-                raise AssertionError(f"{label}: inactive rows must be zero")
+                raise AssertionError(f"{label}: inactive rows must be "
+                                     "zero")
             if not (torch.equal(byte_view(ck), byte_view(ck_p))
                     and torch.equal(byte_view(cv), byte_view(cv_p))):
-                raise AssertionError(f"{label}: cache bytes differ from plain")
+                raise AssertionError(f"{label}: cache bytes differ from "
+                                     "plain")
             expect = [(1, *at(b)[:1], 0, at(b)[1]) for b in range(B)
                       if lens[b] >= 0]
             check_written(label, ck, ck0, expect)
             check_written(label, cv, cv0, expect)
             key = name
-            errs[key] = max(errs.get(key, 0.0),
-                            (got[active] - want[active]).abs().max().item())
+            errs[key] = max(errs.get(key, 0.0), (
+                got[active] - want[active]).abs().max().item())
             worst, cases = max(worst, rel), cases + 1
             del ck, cv, ck0, cv0, ck_p, cv_p
         torch.cuda.empty_cache()
     log(f"parity B5-L/B7-L over {cases} cases (cache bf16/fp8/int8, (K, V) "
-        f"{LATENT_WIDTHS}, rep 16 and 1, S_pad {LATENT_SPADS}, lengths 0, 1, "
-        "63-65, each side of the split, S_pad - 1, one inactive; slab and "
-        f"shuffled pages): {outside} elements outside the a8b rule against "
-        "the kernels' order, max error "
-        f"{worst:.4g} of max|plain| against one softmax (limit {TOL_KERNEL});"
-        " cache bytes equal, written at the step's positions only")
+        f"{LATENT_WIDTHS}, rep {LATENT_REPS}, S_pad {LATENT_SPADS}, lengths "
+        "0, 1, 63-65, each side of the split, S_pad - 1, one inactive; slab "
+        "and shuffled pages): every element within the a8b rule plus the "
+        "plain version's bound on its probabilities' bf16 roundings "
+        f"(flip_rel {da.LATENT_FLIP_REL}) against the kernels' order, "
+        f"{flipped} of them outside the a8b rule alone; above 16 heads "
+        "every output equal bit for bit to the kernel on each group of 16 "
+        f"heads; max error {worst:.4g} of max|plain| against one softmax "
+        f"(limit {TOL_KERNEL}); cache bytes equal, written at the step's "
+        "positions only")
 
     worst = 0.0
     for e, c, n, k in V2_EXPERT_CASES:
@@ -5150,12 +5236,15 @@ def parity_latent(errs):
 
 
 def mla_llama(config, seed):
-    """DeepSeek-V2-Lite at full width and depth built on the card from
-    ``seed``, as ``moe_llama`` draws its MoE model: symmetric W4A16 g64
-    pack-quantized linears with codes in [-7, 7] and bf16 group scales in
-    [1e-3, 3e-3] (those of q_proj, kv_a_proj_with_mqa and kv_b_proj times
-    ``MLA_QK_SCALE``; the MLA projections, layer 0's dense MLP, the shared
-    experts and the stacked (E, N, K) routed experts, each with its kernel
+    """A DeepSeek-V2 model (V2-Lite, or V2 at the depth of ``config``)
+    built on the card from ``seed``, as ``moe_llama`` draws its MoE model:
+    symmetric W4A16 g64 pack-quantized linears with codes in [-7, 7] and
+    bf16 group scales in [1e-3, 3e-3] (those of q_proj, or q_b_proj where
+    the config has a q_lora_rank, kv_a_proj_with_mqa and kv_b_proj times
+    ``MLA_QK_SCALE``; the MLA projections (q_a_proj, q_a_layernorm and
+    q_b_proj for a q_lora_rank), layer 0's dense MLP, the 2 shared experts
+    (n_shared_experts in both published configs) and the stacked (E, N, K)
+    routed experts, each with its kernel
     layout but kv_b_proj, kept in checkpoint layout and dequantized once
     into ``w_kb``/``w_vb`` as the loader does), the interleaved-rope rows
     already in the engine's half layout, the router N(0, 0.02^2) in bf16,
@@ -5208,13 +5297,17 @@ def mla_llama(config, seed):
                 "down_proj": linear(H, width)}
 
     def layer(i):
-        qk = MLA_QK_SCALE
-        out = {"q_proj": linear(h * (nope + rope), H, scale_by=qk),
-               "kv_a_proj_with_mqa": linear(r + rope, H, scale_by=qk),
-               "kv_a_layernorm": ones(r),
-               "kv_b_proj": linear(h * (nope + vd), r, kernels=False,
-                                   scale_by=qk),
-               "o_proj": linear(H, h * vd)}
+        qk, qa = MLA_QK_SCALE, config.q_lora_rank
+        if qa:
+            out = {"q_a_proj": linear(qa, H), "q_a_layernorm": ones(qa),
+                   "q_b_proj": linear(h * (nope + rope), qa, scale_by=qk)}
+        else:
+            out = {"q_proj": linear(h * (nope + rope), H, scale_by=qk)}
+        out.update({"kv_a_proj_with_mqa": linear(r + rope, H, scale_by=qk),
+                    "kv_a_layernorm": ones(r),
+                    "kv_b_proj": linear(h * (nope + vd), r, kernels=False,
+                                        scale_by=qk),
+                    "o_proj": linear(H, h * vd)})
         out["w_kb"], out["w_vb"] = kv_b_weights(out, config, torch.bfloat16)
         if config.layer_is_moe(i):
             Im = config.moe_intermediate_size
@@ -5224,7 +5317,7 @@ def mla_llama(config, seed):
                 "experts": {"gate_proj": experts(Im, H),
                             "up_proj": experts(Im, H),
                             "down_proj": experts(H, Im)},
-                "shared_expert": mlp(V2_SHARED)}
+                "shared_expert": mlp(2 * Im)}
         else:
             out.update(mlp(config.intermediate_size))
         return out
@@ -5233,14 +5326,15 @@ def mla_llama(config, seed):
 
 
 def mla_step_logits(params, config, ids, steps, depth, use_kernels, label,
-                    cache_dtype=None):
+                    cache_dtype=None, check=True):
     """f32 logits (len(steps), V) of decode steps through the first
     ``depth`` layers (full width): the prompt ``ids`` prefilled (the
     non-absorbed form on either path), then the tokens ``steps`` fed one a
-    step (the absorbed decode through B5-L on the kernel path); the latent
-    cache checked for NaN."""
+    step (the absorbed decode through B5-L on the kernel path); with
+    ``check`` (off for a planted fault's runs) the latent cache checked
+    for NaN."""
     return ptq_logits(params, config, ids, depth, use_kernels, steps,
-                      cache_dtype=cache_dtype, label=label)[1:]
+                      cache_dtype=cache_dtype, check=check, label=label)[1:]
 
 
 def mla_logits_by_depth(params, config, ids, steps, label, depths,
@@ -5252,15 +5346,18 @@ def mla_logits_by_depth(params, config, ids, steps, label, depths,
     max|reference|). The reference is the non-kernel path, or with
     ``plain`` the kernel path inside that context manager. ``faults``:
     (name, context manager factory) pairs, each planted fault's sweep of
-    the kernel path against the same references. Returns (sweep, {name:
-    sweep})."""
+    the kernel path against the same references (a non-finite reading
+    counts as infinite). Returns (sweep, {name: sweep})."""
     emb, tok = params["embed_tokens"], ids[len(ids) // 3]
     row = emb[tok].clone()
     ref_name = "non-kernel path" if plain is None else "plain path"
 
-    def run(depth, use_kernels):
+    def run(depth, use_kernels, check=True):
         return mla_step_logits(params, config, ids, steps, depth, use_kernels,
-                               label, cache_dtype)
+                               label, cache_dtype, check)
+
+    def finite(x):
+        return x if np.isfinite(x) else float("inf")
 
     sweep, refs = {}, {}
     for depth in depths:
@@ -5289,10 +5386,11 @@ def mla_logits_by_depth(params, config, ids, steps, label, depths,
         faulty[name] = {}
         with fault():
             for depth, ref in refs.items():
-                bad = run(depth, True)
+                bad = run(depth, True, check=False)
                 faulty[name][depth] = (
-                    rel_rms(bad, ref), sweep[depth][1],
-                    (bad - ref).abs().max().item() / ref.abs().max().item())
+                    finite(rel_rms(bad, ref)), sweep[depth][1],
+                    finite((bad - ref).abs().max().item()
+                           / ref.abs().max().item()))
     return sweep, faulty
 
 
@@ -5352,25 +5450,7 @@ def check_mla_logits(params, config, ids, steps):
     sweep, faulty = mla_logits_by_depth(params, config, ids, steps,
                                         "V2-Lite bf16", MLA_DEPTHS,
                                         faults=faults)
-    failures = logits_rule_failures(sweep)
-    if failures:
-        raise AssertionError(f"V2-Lite decode-step logits: "
-                             f"{'; '.join(failures)}")
-    log(f"V2-Lite decode-step logits: within {TOL_WNA16_DEPTH1} of max|ref| "
-        f"at one layer, and at every depth within {TOL_E2E_8B} of max|ref| "
-        f"or {FLOOR_RATIO}x the perturbation spread (rel_rms / spread: "
-        + ", ".join(f"{d}: {e / max(s, 1e-30):.3g}"
-                    for d, (e, s, _) in sweep.items()) + ")")
-    for name, bad in faulty.items():
-        caught = logits_rule_failures(bad)
-        log(f"V2-Lite control, {name}: " + ", ".join(
-            f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
-            for d, (e, _, t) in bad.items())
-            + f"; the rule fails {len(caught)} of its {len(sweep) + 1} checks")
-        if len(caught) < len(sweep) + 1:
-            raise AssertionError(f"V2-Lite logits rule accepted the planted "
-                                 f"fault ({name}) in "
-                                 f"{len(sweep) + 1 - len(caught)} checks")
+    check_mla_rule("V2-Lite decode-step logits", sweep, faulty)
 
 
 def mla_checkpoint_round_trip(raw, config):
@@ -5421,10 +5501,12 @@ def phase_mla(errs):
     decode-step logits by depth (1 and 27 layers) at bf16 activations
     against the non-kernel path with two planted faults
     (``check_mla_logits``), an fp8 latent cache against the model run
-    through B5-L's, B1's and B1e's plain versions at 1 and 4 layers; the
-    96 requests dense and paged (identical) with 161 B1 + 78 B1e + 1 B3 +
-    27 latent launches a decode step and no GQA decode launch,
-    ``greedy_generate`` at batch 64; the 2-layer checkpoint round trip."""
+    through B5-L's, B1's and B1e's plain versions at 1 and 4 layers with
+    the k/v scales / 16 as a control that must fail every check; the 96
+    requests dense and paged (identical) on the fp8 latent cache and on a
+    bf16 one (``serve_mla``: 161 B1 + 78 B1e + 1 B3 + 27 latent launches a
+    decode step and no GQA decode launch), ``greedy_generate`` at batch
+    64; the 2-layer checkpoint round trip."""
     import torch
 
     from compressed_tensors_tpu_torch.flags import flag_overrides
@@ -5441,7 +5523,7 @@ def phase_mla(errs):
     log(f"DeepSeek-V2-Lite W4A16 g{MLA_GROUP} model (built on the card from "
         f"seed 0, {config.num_hidden_layers} MLA layers, layer 0 dense, "
         f"{config.num_local_experts} experts of {config.moe_intermediate_size}"
-        f" + shared {V2_SHARED}, W8A8-int lm_head): "
+        f" + shared {2 * config.moe_intermediate_size}, W8A8-int lm_head): "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     kinds = {qt.kernel_meta[0] for qt in expert_layers(params)}
@@ -5458,52 +5540,30 @@ def phase_mla(errs):
         check_mla_logits(params, config, ids, steps)
 
     # the fp8 latent cache (k_scale = v_scale per tensor) against the
-    # model run through the plain versions of B5-L, B1 and B1e
-    scale = torch.tensor([KV_SCALE], device="cuda")
-    fp8 = dict(params, layers=[dict(layer, k_scale=scale, v_scale=scale)
-                               for layer in params["layers"]])
+    # model run through the plain versions of B5-L, B1 and B1e, with the
+    # k/v scales / 16 as the control; then served (ROADMAP C3)
+    fp8 = dict(params, layers=[
+        dict(layer, k_scale=torch.tensor([KV_SCALE], device="cuda"),
+             v_scale=torch.tensor([KV_SCALE], device="cuda"))
+        for layer in params["layers"]])
+    cache8 = dict(cache_dtype=torch.float8_e4m3fn)
     reset_counts()
-    sweep, _ = mla_logits_by_depth(fp8, config, ids, steps, "V2-Lite fp8 "
-                                   "cache", MLA_FEW,
-                                   cache_dtype=torch.float8_e4m3fn,
-                                   plain=plain_latent_w4)
+    sweep, faulty = mla_logits_by_depth(
+        fp8, config, ids, steps, "V2-Lite fp8 cache", MLA_FEW,
+        plain=plain_latent_w4, faults=(("k/v scales / 16", lambda:
+                                        kv_scales_times(fp8, 1 / 16)),),
+        **cache8)
     counts = read_counts()
-    failures = logits_rule_failures(sweep)
     log(f"V2-Lite fp8 latent cache: decode_attention latent launches "
         f"{counts['decode_attention_latent']}")
-    if failures or not counts["decode_attention_latent"]:
-        raise AssertionError(f"V2-Lite fp8 latent cache against its plain "
-                             f"path: {'; '.join(failures)}")
+    check_mla_rule("V2-Lite fp8 latent cache", sweep, faulty)
+    if not counts["decode_attention_latent"]:
+        raise AssertionError("V2-Lite fp8 latent cache: no B5-L launch")
     results = {"mla fp8 logits": {"counts": counts}}
+    results.update(serve_mla(fp8, config, requests, "mla fp8", **cache8))
     del fp8
 
-    results["mla dense"] = serve_requests(params, config, requests,
-                                          "mla dense")
-    results["mla paged"] = serve_requests(params, config, requests,
-                                          "mla paged", paged=True,
-                                          prefix_caching=False)
-    same = sum(results["mla dense"]["outs"][i] == results["mla paged"][
-        "outs"][i] for i in range(N_REQUESTS))
-    log(f"V2-Lite serving: paged = dense in {same} of {N_REQUESTS} "
-        "completions")
-    if same != N_REQUESTS:
-        raise AssertionError("V2-Lite paged completions differ from dense")
-    L = config.num_hidden_layers
-    moe_layers = L - config.first_k_dense_replace
-    base = {"w4a16_matmul": 5 + 6 * moe_layers,
-            "w4a16_experts_matmul": 3 * moe_layers, "w8a8_matmul": 1}
-    gqa = ("decode_attention", "decode_attention_scaled",
-           "flash_decode_attention", "flash_decode_attention_scaled",
-           "paged_decode_attention", "paged_decode_attention_scaled")
-    for run, latent in (("mla dense", "decode_attention_latent"),
-                        ("mla paged", "paged_decode_attention_latent")):
-        step = dict(base, **{latent: L})
-        got = {k: v for k, v in results[run]["per_step"].items()
-               if v and (k.startswith(("w4", "w8a8")) or k in gqa
-                         or k.endswith("_latent"))}
-        log(f"{run}: launches a decode step {got} (expected {step})")
-        if got != step:
-            raise AssertionError(f"{run}: a decode step launched {got}")
+    results.update(serve_mla(params, config, requests, "mla"))
     results["mla greedy_generate"] = greedy_8b(params, config, "V2-Lite",
                                                vocab=config.vocab_size)
     del params
@@ -5516,14 +5576,157 @@ def phase_mla(errs):
         "mla fp8 logits": ("decode_attention_latent",),
         "mla dense": base + ("decode_attention_latent",),
         "mla paged": base + ("paged_decode_attention_latent",),
+        "mla fp8 dense": base + ("decode_attention_latent",),
+        "mla fp8 paged": base + ("paged_decode_attention_latent",),
         "mla greedy_generate": base + ("decode_attention_latent",)})
     return results
 
 
-def latent_row(gen, rng, name, cache, s_pad, label):
+def check_mla_rule(label, sweep, faulty):
+    """The decode-step logits rule (``logits_rule_failures``) held by
+    ``sweep``, and failed in every check by each planted fault of
+    ``faulty``."""
+    failures = logits_rule_failures(sweep)
+    if failures:
+        raise AssertionError(f"{label} against its plain path: "
+                             f"{'; '.join(failures)}")
+    log(f"{label}: within {TOL_WNA16_DEPTH1} of max|ref| at one layer, and "
+        f"at every depth within {TOL_E2E_8B} of max|ref| or {FLOOR_RATIO}x "
+        "the perturbation spread (rel_rms / spread: "
+        + ", ".join(f"{d}: {e / max(sp, 1e-30):.3g}"
+                    for d, (e, sp, _) in sweep.items()) + ")")
+    for name, bad in faulty.items():
+        caught = logits_rule_failures(bad)
+        log(f"{label} control, {name}: " + ", ".join(
+            f"{d}: rel_rms {e:.4g} (max {t:.4g} of max|ref|)"
+            for d, (e, _, t) in bad.items())
+            + f"; the rule fails {len(caught)} of its {len(sweep) + 1} checks")
+        if len(caught) < len(sweep) + 1:
+            raise AssertionError(f"{label}: the rule accepted the planted "
+                                 f"fault ({name}) in "
+                                 f"{len(sweep) + 1 - len(caught)} checks")
+
+
+def mla_step_launches(config, latent):
+    """The launches a decode step of an MLA model makes: B1 in q_proj (or
+    q_a_proj and q_b_proj), kv_a_proj_with_mqa and o_proj of every layer,
+    the fused gate_up and down of the dense layers and the 3 unfused
+    shared-expert linears of the MoE layers; B1e in the 3 expert linears
+    of each MoE layer; B3 in the lm_head; one ``latent`` launch a layer."""
+    q = 2 if config.q_lora_rank else 1
+    dense = config.first_k_dense_replace
+    moe = config.num_hidden_layers - dense
+    return {"w4a16_matmul": (q + 4) * dense + (q + 5) * moe,
+            "w4a16_experts_matmul": 3 * moe, "w8a8_matmul": 1,
+            latent: config.num_hidden_layers}
+
+
+def serve_mla(params, config, requests, label, **kw):
+    """The requests through the dense and the paged engine (``kw`` to
+    both): paged identical to dense token for token (one decode body), a
+    decode step launching ``mla_step_launches`` and no GQA decode kernel.
+    Returns {"<label> dense": ..., "<label> paged": ...}."""
+    results = {f"{label} dense": serve_requests(
+        params, config, requests, f"{label} dense", **kw)}
+    results[f"{label} paged"] = serve_requests(
+        params, config, requests, f"{label} paged", paged=True,
+        prefix_caching=False, **kw)
+    dense, paged = (results[f"{label} {r}"]["outs"] for r in ("dense",
+                                                             "paged"))
+    same = sum(dense[i] == paged[i] for i in dense)
+    log(f"{label} serving: paged = dense in {same} of {len(dense)} "
+        "completions")
+    if same != len(dense):
+        raise AssertionError(f"{label}: paged completions differ from dense")
+    gqa = ("decode_attention", "decode_attention_scaled",
+           "flash_decode_attention", "flash_decode_attention_scaled",
+           "paged_decode_attention", "paged_decode_attention_scaled")
+    for run, latent in (("dense", "decode_attention_latent"),
+                        ("paged", "paged_decode_attention_latent")):
+        step = mla_step_launches(config, latent)
+        got = {k: v for k, v in results[f"{label} {run}"]["per_step"].items()
+               if v and (k.startswith(("w4", "w8a8")) or k in gqa
+                         or k.endswith("_latent"))}
+        log(f"{label} {run}: launches a decode step {got} (expected {step})")
+        if got != step:
+            raise AssertionError(f"{label} {run}: a decode step launched "
+                                 f"{got}")
+    return results
+
+
+# deepseek-ai/DeepSeek-V2's published config.json (cited, not fetched):
+# MLA with 128 heads (q_lora_rank 1536, kv_lora_rank 512, nope 128, rope
+# 64, v 128), hidden 5120, layer 0 a dense MLP of 12288
+# (first_k_dense_replace 1), the other layers 160 routed experts of width
+# 1536, 6 a token (norm_topk_prob false), and 2 shared experts; vocab
+# 102400. Cut from 60 layers to 3 (layer 0 dense, layers 1-2 MoE): the 60
+# at W4A16 g64 would need about 118 GB, one card holds 80. Neither package
+# reads its grouped routing (n_group 8, topk_group 3),
+# routed_scaling_factor (16) or YaRN rope_scaling.
+V2 = dict(V2_LITE, hidden_size=5120, intermediate_size=12288,
+          num_hidden_layers=3, num_attention_heads=128,
+          num_key_value_heads=128, q_lora_rank=1536, n_routed_experts=160,
+          moe_intermediate_size=1536)
+V2_DEPTHS = (1, 3)
+V2_REQUESTS = 64
+
+
+def phase_mla_v2():
+    """Phase 15b: DeepSeek-V2 at 128 query heads (ROADMAP B-v), full width,
+    3 layers, W4A16 g64 built on the card (``mla_llama``), fused: the
+    decode-step logits at 1 and 3 layers against the model run through
+    B5-L's (in its kernels' order), B1's and B1e's plain versions by the
+    depth rule, the latent kernels' softmax scale 1/sqrt(576) for
+    1/sqrt(192) as the control that must fail every check; 64 requests
+    dense and paged (identical) with ``mla_step_launches`` a decode step."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    config = LlamaConfig.from_dict(V2)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = fuse_llama_layers(mla_llama(config, seed=2))
+    torch.cuda.synchronize()
+    log(f"DeepSeek-V2 W4A16 g{MLA_GROUP} model (built on the card from seed "
+        f"2, {config.num_hidden_layers} MLA layers of "
+        f"{config.num_attention_heads} heads, q_lora_rank "
+        f"{config.q_lora_rank}, layer 0 dense, {config.num_local_experts} "
+        f"experts of {config.moe_intermediate_size} + shared "
+        f"{2 * config.moe_intermediate_size}, W8A8-int lm_head): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    requests = serving_requests(config.vocab_size)[:V2_REQUESTS]
+    steps = np.random.default_rng(16).integers(
+        0, config.vocab_size, size=MLA_STEPS).tolist()
+    ids = probe_request(requests)[1]
+    reset_counts()
+    sweep, faulty = mla_logits_by_depth(
+        params, config, ids, steps, "V2 bf16", V2_DEPTHS,
+        plain=plain_latent_w4,
+        faults=(("softmax scale 1/sqrt(Dk)", latent_scale_of_dk),))
+    counts = read_counts()
+    check_mla_rule("V2 decode-step logits", sweep, faulty)
+    results = {"v2 logits": {"counts": counts}}
+    results.update(serve_mla(params, config, requests, "v2"))
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 15b (DeepSeek-V2, 128 heads) wall "
+        f"{time.perf_counter() - t0:.1f} s ({card()})")
+    base = ("w4a16_matmul", "w4a16_experts_matmul", "w8a8_matmul")
+    check_launched(results, {
+        "v2 logits": ("decode_attention_latent",),
+        "v2 dense": base + ("decode_attention_latent",),
+        "v2 paged": base + ("paged_decode_attention_latent",)})
+    return results
+
+
+def latent_row(gen, rng, name, cache, s_pad, label, h=16):
     """Device ms of B5-L (``s_pad`` S_pad, lengths 128-159 at 192 or 0-1000
     at 1024) or B7-L (the paged engine's pool through shuffled tables,
-    lengths 0-1000) on one layer of a 27-layer V2-Lite cache at batch 64,
+    lengths 0-1000) on one layer of a 27-layer latent cache at batch 64
+    with ``h`` query heads (V2-Lite's 16, V2's 128),
     the calls walking the layers as a decode step does, beside its bound
     (the live cache bytes read once at 3.35 TB/s, q, the new rows and the
     output), its plain version and SDPA on the same operands (the one
@@ -5538,7 +5741,7 @@ def latent_row(gen, rng, name, cache, s_pad, label):
     )
     from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
-    L, h, dk, dv = 27, 16, 576, 512
+    L, dk, dv = 27, 576, 512
     dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}[cache]
     sc = CACHE_SCALES.get(cache)
     ks = vs = None if sc is None else torch.tensor([sc], device="cuda")
@@ -5614,7 +5817,8 @@ def latent_row(gen, rng, name, cache, s_pad, label):
 
 def timings_mla():
     """B5-L on bf16 and fp8 caches at S_pad 192 and 1024, B7-L on bf16 and
-    fp8 pools, and B1e at V2-Lite's gate and down at group 64 (C = 8)."""
+    fp8 pools (V2-Lite's 16 heads), both on bf16 at V2's 128 heads, and
+    B1e at V2-Lite's gate and down at group 64 (C = 8)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -5628,6 +5832,12 @@ def timings_mla():
         rows["paged_decode_attention_latent"][cache] = latent_row(
             gen, rng, "paged_decode_attention_latent", cache, 1024,
             f"V2-Lite {cache} pool, lengths 0-1000")
+    rows["decode_attention_latent"]["bf16 V2 h128 S_pad=1024"] = latent_row(
+        gen, rng, "decode_attention_latent", "bf16", 1024,
+        "V2 (128 heads) bf16 slab S_pad 1024", h=128)
+    rows["paged_decode_attention_latent"]["bf16 V2 h128"] = latent_row(
+        gen, rng, "paged_decode_attention_latent", "bf16", 1024,
+        "V2 (128 heads) bf16 pool, lengths 0-1000", h=128)
     b1e = {}
     for label, n, k in (("gate", 1408, 2048), ("down", 2048, 1408)):
         b1e[f"V2-Lite {label} C=8 g64"] = experts_row(
@@ -6454,9 +6664,11 @@ def phase_ptq():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         results.update(ptq_arm_w4(dense, extra, config, requests,
                                   os.path.join(tmp, "w4a16")))
+        phase_offload(os.path.join(tmp, "w4a16"), tmp)
     dense, extra = first_layers(dense, 4), first_layers(extra, 4)
     config = dataclasses.replace(config, num_hidden_layers=4)
     torch.cuda.empty_cache()
+    phase_distributed(dense, config)
     for arm, name in ((ptq_arm_fp8, "fp8"), (ptq_arm_mxfp4, "mxfp4")):
         with tempfile.TemporaryDirectory(
                 dir=os.path.join(ROOT, "build")) as tmp:
@@ -6466,6 +6678,242 @@ def phase_ptq():
     log(f"phase 16 (PTQ) wall {time.perf_counter() - t_phase:.1f} s "
         f"({card()})")
     return results
+
+
+# --------------------------------------------------------------------------- #
+# phases 16b-16c: offload and distributed, on phase 16's model
+
+OFFLOAD_BUDGET = 3 * 1024**3   # the device budget of the offload plan
+SPAWN_SECONDS = 300            # each spawned rank's time limit
+
+
+def checkpoint_modules(path):
+    """({module: bytes} in checkpoint order, {tensor name: shard path}) of
+    a checkpoint, from its shards' headers."""
+    from compressed_tensors_tpu_torch.utils.safetensors_io import (
+        CheckpointReader,
+        SafetensorsFile,
+    )
+
+    reader = CheckpointReader(path)
+    headers = {f: SafetensorsFile(os.path.join(path, f)).header
+               for f in set(reader.weight_map.values())}
+    sizes, where = {}, {}
+    for name, f in reader.weight_map.items():
+        module = CheckpointReader.split(name)[0]
+        start, end = headers[f][name]["data_offsets"]
+        sizes[module] = sizes.get(module, 0) + end - start
+        where[name] = os.path.join(path, f)
+    return sizes, where
+
+
+def phase_offload(path, tmp):
+    """Phase 16b: the offload layer (ROADMAP A8a) on arm A's full-depth
+    W4A16 Llama-3-8B checkpoint (``path``, 5.18 GB): ``get_device_map``
+    on the card's free memory, then ``dispatch_plan`` with a device budget
+    of ``OFFLOAD_BUDGET`` (the trailing modules planned to the host, -1);
+    ``stream_modules`` under that plan, every tensor equal to
+    ``CheckpointReader``'s byte for byte and on its planned device; the
+    host-planned tensors through a pinned ``HostCache`` and through a
+    ``DiskCache`` that adopts them from their shards (links, no copy),
+    each onloaded onto the card byte for byte, with its GB/s (warm reads:
+    the checkpoint was just written and read); one ``DiskCache`` entry
+    updated (its link broken, the shard untouched) and
+    ``save_checkpoint`` linking the clean entries to the shards."""
+    import torch
+
+    from compressed_tensors_tpu_torch.offload import (
+        DiskCache,
+        HostCache,
+        dispatch_plan,
+        stream_modules,
+    )
+    from compressed_tensors_tpu_torch.offload.dispatch import get_device_map
+    from compressed_tensors_tpu_torch.utils.safetensors_io import (
+        CheckpointReader,
+    )
+
+    t_phase = time.perf_counter()
+    sizes, where = checkpoint_modules(path)
+    live = get_device_map(sizes)
+    plan = dispatch_plan(sizes, [OFFLOAD_BUDGET])
+    host = [m for m in sizes if plan[m] < 0]     # in checkpoint order
+    host_bytes = sum(sizes[m] for m in host)
+    log(f"offload plan of the PTQ 8B checkpoint ({len(sizes)} modules, "
+        f"{sum(sizes.values()) / 1e9:.3f} GB): get_device_map on the card's "
+        f"free memory puts {sum(d == 0 for d in live.values())} on device 0 "
+        f"and {sum(d < 0 for d in live.values())} on the host; "
+        f"dispatch_plan with {OFFLOAD_BUDGET / 2**30:.0f} GiB puts "
+        f"{len(plan) - len(host)} on device 0 and {len(host)} "
+        f"({host_bytes / 1e9:.3f} GB, from {host[0] if host else None}) on "
+        "the host (-1)")
+    if not host or len(host) == len(plan):
+        raise AssertionError("the offload plan must split the checkpoint "
+                             "between the card and the host")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = dict(stream_modules(path, plan))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    if list(streamed) != list(sizes):
+        raise AssertionError("stream_modules: modules out of checkpoint order")
+    reader = CheckpointReader(path)
+    try:
+        for module, state in streamed.items():
+            want = reader.module_state_dict(module)
+            device = "cpu" if plan[module] < 0 else "cuda"
+            if list(state) != list(want) or any(
+                    t.device.type != device or not same_bits(t, want[k])
+                    for k, t in state.items()):
+                raise AssertionError(f"stream_modules: {module} differs from "
+                                     f"CheckpointReader's or is not on "
+                                     f"{device}")
+    finally:
+        reader.close()
+    log(f"stream_modules: {sum(sizes.values()) / 1e9:.3f} GB in "
+        f"{stream_s:.2f} s ({sum(sizes.values()) / 1e9 / stream_s:.2f} "
+        "GB/s, warm reads), every tensor equal to CheckpointReader's byte "
+        "for byte and on its planned device")
+
+    tensors = {f"{m}.{k}": t for m in host for k, t in streamed[m].items()}
+    del streamed
+    torch.cuda.empty_cache()
+
+    def onload(cache, label):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = {n: cache[n] for n in cache}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        bad = [n for n, v in out.items() if v.device.type != "cuda"
+               or not same_bits(v, tensors[n])]
+        log(f"{label}: {len(out)} tensors of the host-planned modules "
+            f"({host_bytes / 1e9:.3f} GB) onloaded onto the card in "
+            f"{seconds:.3f} s ({host_bytes / 1e9 / seconds:.2f} GB/s, warm), "
+            f"{len(out) - len(bad)} equal byte for byte ({card()})")
+        if bad:
+            raise AssertionError(f"{label}: onloaded tensors differ: "
+                                 f"{bad[:4]}")
+        return out
+
+    hc = HostCache()
+    t = time.perf_counter()
+    for n, v in tensors.items():
+        hc[n] = v
+    log(f"HostCache: offloaded into pinned host memory in "
+        f"{time.perf_counter() - t:.3f} s "
+        f"(pinned: {all(v.is_pinned() for v in hc._store.values())})")
+    onload(hc, "HostCache (pinned)")
+    del hc
+    dc = DiskCache(os.path.join(tmp, "disk_cache"))
+    for n in tensors:
+        dc.adopt(n, where[n], n)
+    if not all(dc.is_adopted(n) for n in tensors):
+        raise AssertionError("DiskCache: adopted entries are not links")
+    on = onload(dc, "DiskCache (adopted from the shards)")
+    first = next(iter(tensors))
+    shard = where[first]
+    stat = os.stat(shard)
+    dc[first] = on[first]
+    if dc.is_adopted(first) or not same_bits(dc[first], tensors[first]) \
+            or os.stat(shard).st_mtime_ns != stat.st_mtime_ns:
+        raise AssertionError("DiskCache: an update must break the link and "
+                             "leave the shard")
+    saved = dc.save_checkpoint(os.path.join(tmp, "disk_saved"))
+    links = [n for n, f in saved.items() if os.path.islink(f)]
+    if sorted(links) != sorted(set(tensors) - {first}) or not all(
+            os.path.samefile(saved[n], where[n]) for n in links):
+        raise AssertionError("DiskCache.save_checkpoint: the clean entries "
+                             "must link to their shards")
+    log(f"DiskCache: update of {first} broke its link (shard unchanged); "
+        f"save_checkpoint linked {len(links)} clean entries to their shards "
+        f"and wrote 1")
+    del on, dc, tensors
+    torch.cuda.empty_cache()
+    log(f"phase 16b (offload) wall {time.perf_counter() - t_phase:.1f} s "
+        f"({card()})")
+
+
+def phase_distributed(dense, config):
+    """Phase 16c: the distributed layer (ROADMAP A8b) on the calibrated
+    states of the PTQ model's first 4 layers (28 W4A16 linears, arm A's
+    recipe): ``compress_state_parallel`` over 2 processes on the one card
+    (``tests/torch_dist_worker.py``, the tests' two-process harness, case
+    "compress-file"; ``init_dist`` with gloo, which carries the object
+    broadcast; NCCL takes one rank a card, and this machine has one), its
+    recoupled state on each rank equal to this process's single-process
+    ``compress_state`` byte for byte, each rank's time printed; then
+    ``init_dist`` on NCCL at world size 1 in a process of its own (case
+    "nccl"), an all-reduce, and the group torn down. No NCCL collective across cards
+    runs here."""
+    import torch
+
+    from compressed_tensors_tpu_torch.compressors import (
+        ModelCompressor,
+        module_graph_from_names,
+    )
+    from compressed_tensors_tpu_torch.utils.safetensors_io import (
+        load_safetensors,
+        save_safetensors,
+    )
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_worker
+
+    t_phase = time.perf_counter()
+    names = [n for n in dense if n.startswith("model.layers.")]
+    _, qconfig, states = ptq_calibrate({n: dense[n] for n in names}, PTQ_W4,
+                                       config)
+    module_states = {n: {"weight": dense[n], **states[n].qparams}
+                     for n in names}
+    modules = module_graph_from_names(names)
+    qjson = qconfig.model_dump(mode="json")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ModelCompressor(quantization_config=qconfig).compress_state(
+        module_states, modules)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for s in module_states.values()
+                 for t in s.values())
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        save_safetensors(os.path.join(tmp, "states.safetensors"),
+                         {f"{m}.{k}": t for m, s in module_states.items()
+                          for k, t in s.items()})
+        with open(os.path.join(tmp, "quantization_config.json"), "w") as f:
+            json.dump(qjson, f)
+        reports = torch_dist_worker.spawn("compress-file", tmp, 2, "cuda",
+                                          SPAWN_SECONDS)
+        flat = {f"{m}.{k}": t for m, s in ref.items() for k, t in s.items()}
+        for r in reports:
+            got = load_safetensors(os.path.join(tmp, f"rank{r['rank']}"
+                                                     ".safetensors"))
+            bad = sorted(set(flat) ^ set(got)) or [
+                n for n, t in flat.items() if not same_bits(t, got[n])]
+            if bad:
+                raise AssertionError(f"compress_state_parallel rank "
+                                     f"{r['rank']}: differs from "
+                                     f"compress_state in {bad[:4]}")
+        log(f"compress_state_parallel over 2 processes on the one card "
+            f"(gloo), {len(names)} linears of 4 layers "
+            f"({nbytes / 1e9:.3f} GB of calibrated states): "
+            + "; ".join(f"rank {r['rank']} owns {r['owned']} modules "
+                        f"({r['owned_bytes'] / 1e9:.3f} GB), compressed and "
+                        f"recoupled in {r['seconds']:.3f} s"
+                        for r in reports)
+            + f"; single-process compress_state {single_s:.3f} s; both "
+            f"ranks' full states equal it byte for byte ({card()})")
+        nccl = torch_dist_worker.spawn("nccl", tmp, 1, "cuda",
+                                       SPAWN_SECONDS)[0]
+    log(f"init_dist on NCCL at world size 1: backend {nccl['backend']}, "
+        f"all-reduce {nccl['all_reduce']}, group down "
+        f"{not nccl['initialized_after']}; no NCCL collective across cards "
+        "was run (one card)")
+    if nccl["backend"] != "nccl" or nccl["all_reduce"] != 1.0 \
+            or nccl["initialized_after"]:
+        raise AssertionError(f"init_dist on NCCL: {nccl}")
+    log(f"phase 16c (distributed) wall {time.perf_counter() - t_phase:.1f} s "
+        f"({card()})")
 
 
 # --------------------------------------------------------------------------- #
@@ -7822,6 +8270,9 @@ def main() -> int:
     log(f"phase 14 timings done at {time.perf_counter() - t_start:.1f} s")
     mla = phase_mla(errs)
     log(f"phase 15 (DeepSeek-V2-Lite MLA) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    mla.update(phase_mla_v2())
+    log(f"phase 15b (DeepSeek-V2, 128 heads) done at "
         f"{time.perf_counter() - t_start:.1f} s")
     latent_rows, b1e_g64 = timings_mla()
     variant_rows.update(latent_rows)

@@ -9,10 +9,8 @@ paths (``ops/kernels/``, sources in ``csrc/``). Entry points run on the
 card unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 
-The top level re-exports the JAX package's top-level names that the port
-has; the offload names (``DeviceCache``, ``DiskCache``, ``HostCache``,
-``OffloadCache``, ``disable_offloading``, ``disable_onloading``,
-``dispatch_plan``, ``max_binary_search``) wait for ROADMAP A8.
+The top level re-exports the JAX package's top-level names, the offload
+caches and planner among them.
 """
 
 from compressed_tensors_tpu_torch.version import __version__  # noqa: F401
@@ -103,6 +101,16 @@ from compressed_tensors_tpu_torch.utils.safetensors_io import (  # noqa: F401
     get_weight_map,
     is_quantization_param,
     update_safetensors_index,
+)
+from compressed_tensors_tpu_torch.offload import (  # noqa: F401
+    DeviceCache,
+    DiskCache,
+    HostCache,
+    OffloadCache,
+    disable_offloading,
+    disable_onloading,
+    dispatch_plan,
+    max_binary_search,
 )
 from compressed_tensors_tpu_torch.logger import logger  # noqa: F401
 from compressed_tensors_tpu_torch.flags import (  # noqa: F401

@@ -11,6 +11,8 @@
 // wide, 512). Position p of row b is at b * S_pad + p of the slab cache
 // (L, B, 1, S_pad, D), or at p % page of pool page tables[b, p / page] of
 // the pool (L, NP, 1, page, D); only positions 0..lengths[b] are touched.
+// Any number of query heads: the heads go in groups of 16 (the rows of one
+// mma tile), the last group padded and masked.
 //
 // Bound on the H100: the live cache bytes, sum(len + 1) * (Dk + Dv) *
 // sizeof(cache element) per layer, against 3.35 TB/s (the products are 2 h
@@ -18,10 +20,18 @@
 // design keeps the card full at one kv head and keeps the wide rows out of
 // registers:
 //   - the keys split as in the flash / paged decode kernels
-//     (csrc/paged_decode.cu): grid (row, split), a split `per` runs of 64
-//     positions, a second pass merging a row's splits (not launched when
-//     the capacity fits one split). One kv head gives B blocks a split
-//     where the GQA kernels have KVH * B, so the splits fill the 132 SMs;
+//     (csrc/paged_decode.cu): grid ((row, head group), split), a split `per`
+//     runs of 64 positions, a second pass merging a row's splits (not
+//     launched when the capacity fits one split). One kv head gives B
+//     blocks a split where the GQA kernels have KVH * B, so the splits
+//     fill the 132 SMs;
+//   - more than 16 query heads (DeepSeek-V2/V3's 128) take one block a
+//     group of 16 heads: the 16 x Dv f32 output of a group is all the
+//     registers of a block hold. The head group is the fastest part of
+//     grid.x (no limit on B), so the groups of one (row, split) are
+//     launched next to each other and may read each K/V tile while it is
+//     in L2 (the HBM reads of the cache at 128 heads are not measured:
+//     PERF.md);
 //   - a tile of 32 positions, K and V in the cache's own bytes (bf16, e4m3
 //     or int8), copied with 16-byte cp.async into a ring of two stages, the
 //     next tile in flight while one is used;
@@ -37,8 +47,9 @@
 //     their fragments are read.
 // A row with a negative length is inactive: its output is zero and no
 // cache byte of it is read or written. The step's K/V rows are written in
-// place at position lengths[b] by the block whose split holds it, which
-// puts the same values into its own tile.
+// place at position lengths[b] by the first head group's block whose split
+// holds it; every group's block puts the same values into its own tile
+// (no block reads that position from the cache).
 //
 // Arithmetic as the TPU kernels: a bf16 cache holds the rows as they are;
 // an e4m3 or int8 cache holds x / scale (per-tensor scales), read back with
@@ -53,7 +64,7 @@ namespace {
 
 constexpr int TILE = 32;              // positions a tile
 constexpr int WARPS = 4, THREADS = 32 * WARPS;
-constexpr int QROWS = 16;             // query heads, padded
+constexpr int QROWS = 16;             // query heads a block (a head group)
 constexpr int MAX_D = 640;            // widest K row
 constexpr int MAX_NT = MAX_D / WARPS / 8;  // n8 output tiles a warp
 constexpr int SS = TILE + 4;          // f32 score row stride
@@ -122,13 +133,16 @@ latent_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, Dk)
   constexpr int ISZ = sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int b = blockIdx.x, z = blockIdx.y;
+  // grid.x runs over (row, head group), the groups of a row adjacent
+  const int groups = (H + QROWS - 1) / QROWS, hg = blockIdx.x % groups;
+  const int b = blockIdx.x / groups, z = blockIdx.y;
+  const int h0 = hg * QROWS, hn = min(QROWS, H - h0);  // this group
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = lengths[b];
-  if (len < 0) {  // inactive: block z = 0 writes its zeros
+  if (len < 0) {  // inactive: block z = 0 of each group writes its zeros
     if (z == 0)
-      for (int e = tid; e < H * Dv; e += THREADS)
-        out[(size_t)b * H * Dv + e] = __float2bfloat16(0.f);
+      for (int e = tid; e < hn * Dv; e += THREADS)
+        out[((size_t)b * H + h0) * Dv + e] = __float2bfloat16(0.f);
     return;
   }
   const int cached = min(len, capacity);  // positions read from the cache
@@ -157,19 +171,19 @@ latent_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, Dk)
 
   const float sk = C::kScaled ? k_scale[0] : 1.f;
   const float sv = C::kScaled ? v_scale[0] : 1.f;
-  // the block holding the new token writes its rows in place
-  if (cached < p1 && len < capacity) {
+  // the first group's block holding the new token writes its rows in place
+  if (hg == 0 && cached < p1 && len < capacity) {
     for (int d = tid; d < Dk; d += THREADS)
       cache_k[offset(len, Dk) + d] = C::from_new(new_k[(size_t)b * Dk + d], sk);
     for (int d = tid; d < Dv; d += THREADS)
       cache_v[offset(len, Dv) + d] = C::from_new(new_v[(size_t)b * Dv + d], sv);
   }
-  // q (k_scale folded, rounded to bf16), rows past H zero
+  // the group's q rows (k_scale folded, rounded to bf16), rows past H zero
   for (int i = tid; i < QROWS * Dk; i += THREADS) {
     const int h = i / Dk, d = i - h * Dk;
     float qv = 0.f;
-    if (h < H) {
-      qv = __bfloat162float(q[((size_t)b * H + h) * Dk + d]);
+    if (h < hn) {
+      qv = __bfloat162float(q[((size_t)b * H + h0 + h) * Dk + d]);
       if (C::kScaled) qv = __bfloat162float(__float2bfloat16(qv * sk));
     }
     qs[h * lay.rsq + d] = __float2bfloat16(qv);
@@ -333,7 +347,7 @@ latent_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, Dk)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = g + 8 * half;
-      if (r >= H) continue;
+      if (r >= hn) continue;
       const float v0 = o[i][2 * half], v1 = o[i][2 * half + 1];
       if (whole) {
         const float inv = 1.f / fmaxf(rowl[r], 1e-30f);
@@ -342,38 +356,42 @@ latent_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, Dk)
           y0 *= sv;
           y1 *= sv;
         }
-        *reinterpret_cast<uint32_t*>(out + ((size_t)b * H + r) * Dv + col) =
+        *reinterpret_cast<uint32_t*>(out + ((size_t)b * H + h0 + r) * Dv + col) =
             ct::pack_bf16x2(y0, y1);
       } else {
-        *reinterpret_cast<float2*>(part_o + (slot * H + r) * Dv + col) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(part_o + (slot * H + h0 + r) * Dv + col) =
+            make_float2(v0, v1);
       }
     }
   }
-  if (!whole && tid < H) part_ml[slot * H + tid] = make_float2(rowm[tid], rowl[tid]);
+  if (!whole && tid < hn) part_ml[slot * H + h0 + tid] = make_float2(rowm[tid], rowl[tid]);
 }
 
 // Second pass, launched when a row may take more than one split: a row's
 // split partials merged (a row of one split was written by its block, an
-// inactive row zeroed). grid (B).
+// inactive row zeroed). grid (row, head group), the group fastest.
 template <bool SCALED>
 __global__ void __launch_bounds__(THREADS)
 latent_merge_kernel(const int* __restrict__ lengths, const float2* __restrict__ part_ml,
                     const float* __restrict__ part_o, __nv_bfloat16* __restrict__ out,
                     const float* __restrict__ v_scale, int H, int Dv, int capacity,
                     int span, int splits) {
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int groups = (H + QROWS - 1) / QROWS, hg = blockIdx.x % groups;
+  const int b = blockIdx.x / groups, tid = threadIdx.x;
+  const int h0 = hg * QROWS, hn = min(QROWS, H - h0);
   const int len = lengths[b];
   if (len < 0) return;
   const int ns = (min(len, capacity) + span) / span;  // ceil((cached + 1) / span)
   if (ns == 1) return;
   const size_t slot = (size_t)b * splits;
   __shared__ float rowm[QROWS], rowl[QROWS];
-  if (tid < H) {
+  if (tid < hn) {
+    const int h = h0 + tid;
     float mx = -INFINITY;
-    for (int zz = 0; zz < ns; ++zz) mx = fmaxf(mx, part_ml[(slot + zz) * H + tid].x);
+    for (int zz = 0; zz < ns; ++zz) mx = fmaxf(mx, part_ml[(slot + zz) * H + h].x);
     float l = 0.f;
     for (int zz = 0; zz < ns; ++zz) {
-      const float2 ml = part_ml[(slot + zz) * H + tid];
+      const float2 ml = part_ml[(slot + zz) * H + h];
       l += ml.y * expf(ml.x - mx);
     }
     rowm[tid] = mx;
@@ -381,14 +399,14 @@ latent_merge_kernel(const int* __restrict__ lengths, const float2* __restrict__ 
   }
   __syncthreads();
   const float sv = SCALED ? v_scale[0] : 1.f;
-  for (int e = tid; e < H * Dv; e += THREADS) {
-    const int r = e / Dv, d = e - r * Dv;
+  for (int e = tid; e < hn * Dv; e += THREADS) {
+    const int r = e / Dv, d = e - r * Dv, h = h0 + r;
     float acc = 0.f;
     for (int zz = 0; zz < ns; ++zz)
-      acc += expf(part_ml[(slot + zz) * H + r].x - rowm[r]) *
-             part_o[((slot + zz) * H + r) * Dv + d];
+      acc += expf(part_ml[(slot + zz) * H + h].x - rowm[r]) *
+             part_o[((slot + zz) * H + h) * Dv + d];
     const float v = acc / fmaxf(rowl[r], 1e-30f);
-    out[(size_t)b * H * Dv + e] = __float2bfloat16(SCALED ? v * sv : v);
+    out[((size_t)b * H + h0) * Dv + e] = __float2bfloat16(SCALED ? v * sv : v);
   }
 }
 
@@ -416,8 +434,9 @@ int launch_kind(const Args& a, cudaStream_t s) {
     attr_set = true;
   }
   const int span = a.per * 64;
+  const int groups = (a.H + QROWS - 1) / QROWS;
   const size_t smem = Layout(a.Dk, a.Dv, sizeof(T)).total;
-  kernel<<<dim3(a.B, a.splits), THREADS, smem, s>>>(
+  kernel<<<dim3(groups * a.B, a.splits), THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.new_k),
       static_cast<const __nv_bfloat16*>(a.new_v), static_cast<T*>(a.cache_k),
       static_cast<T*>(a.cache_v), static_cast<const int*>(a.tables),
@@ -428,7 +447,7 @@ int launch_kind(const Args& a, cudaStream_t s) {
       a.splits, a.inv_sqrt_d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return static_cast<int>(e);
-  latent_merge_kernel<ct::Cache<KIND>::kScaled><<<a.B, THREADS, 0, s>>>(
+  latent_merge_kernel<ct::Cache<KIND>::kScaled><<<groups * a.B, THREADS, 0, s>>>(
       static_cast<const int*>(a.lengths), static_cast<const float2*>(a.part_ml),
       static_cast<const float*>(a.part_o), static_cast<__nv_bfloat16*>(a.out),
       static_cast<const float*>(a.v_scale), a.H, a.Dv, a.capacity, span, a.splits);
@@ -439,7 +458,7 @@ template <bool PAGED>
 int launch(const Args& a, int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int span = a.per * 64;
-  if (a.H < 1 || a.H > QROWS || a.Dk % 64 || a.Dv % 64 || a.Dv < 64 || a.Dv > a.Dk ||
+  if (a.H < 1 || a.Dk % 64 || a.Dv % 64 || a.Dv < 64 || a.Dv > a.Dk ||
       a.Dk > MAX_D || a.per < 1 || a.page < 1 ||
       a.splits != (a.capacity + span) / span)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -459,7 +478,7 @@ int launch(const Args& a, int kind, void* stream) {
 // k_scale/v_scale (1,) f32, read only for the e4m3 and int8 caches;
 // part_ml (B, splits, H) float2 and part_o (B, splits, H, Dv) f32 scratch,
 // splits = (S_pad + 64 per) / (64 per), read only when splits > 1. All
-// contiguous. Dk and Dv multiples of 64, Dv <= Dk <= 640, H <= 16.
+// contiguous. Dk and Dv multiples of 64, Dv <= Dk <= 640, any H >= 1.
 extern "C" int ct_latent_decode(const void* q, const void* new_k, const void* new_v,
                                 void* cache_k, void* cache_v, const void* lengths,
                                 void* out, const void* k_scale, const void* v_scale,

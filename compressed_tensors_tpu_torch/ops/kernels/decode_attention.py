@@ -40,7 +40,10 @@ entry point ``ct_latent_decode``): the same contract with V narrower than
 K and the softmax scale 1/sqrt(``true_d``), as the JAX package calls its
 kernel with ``kvh=1, rep=h, d=Dp, true_d``. Its plain version is
 ``latent_decode_attention_plain``; its launches count in
-``decode_attention.latent_launches``.
+``decode_attention.latent_launches``. It takes any number of query heads
+(DeepSeek-V2/V3's 128): one block a group of 16 heads, the groups of one
+row and split launched next to each other so that they share each K/V
+tile through L2.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "latent_decode_attention_plain", "is_latent_head",
-           "block_decode_form", "SCORE_POSITIONS", "LATENT_TILE"]
+           "block_decode_form", "SCORE_POSITIONS", "LATENT_TILE",
+           "LATENT_FLIP_REL"]
 
 # cache element type -> ct::CacheKind of csrc/common.cuh
 _CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
@@ -63,9 +67,15 @@ _CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
 SCORE_POSITIONS = 512
 # positions a tile of the latent-head kernels (csrc/mla_decode.cu)
 LATENT_TILE = 32
-# the widest latent K row the latent-head kernels take, and their most
-# query heads (the 16 rows of an mma tile)
-LATENT_MAX_D, LATENT_MAX_REP = 640, 16
+# the widest latent K row the latent-head kernels take
+LATENT_MAX_D = 640
+# how far (relative) the latent-head kernels' f32 probabilities may stand
+# from the plain version's in the kernels' order: the scores are the same
+# bf16 products summed in another order, which moves a probability by
+# about 2^-17 of itself at most on 576-wide rows of N(0, 1) draws (twice
+# the largest f32-to-f64 difference, 2^-18.2), and 2^-14 leaves a factor
+# of 8
+LATENT_FLIP_REL = 2**-14
 
 
 def block_decode_form(s_pad: int) -> str:
@@ -116,10 +126,6 @@ def check_latent_operands(name, q, new_k, new_v, cache_k, cache_v, lengths):
     returns (B, H, Dk, Dv)."""
     B, H, Dk = q.shape
     Dv = new_v.shape[-1]
-    if H > LATENT_MAX_REP:
-        raise NotImplementedError(
-            f"{name} latent-head kernel serves up to {LATENT_MAX_REP} query "
-            f"heads, got {H} (ROADMAP B-v)")
     if not (Dk % 64 == 0 and Dv % 64 == 0 and 64 <= Dv <= Dk <= LATENT_MAX_D
             and H >= 1):
         raise NotImplementedError(
@@ -241,7 +247,8 @@ def latent_split(cache_dtype) -> int:
 def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
                                   lengths, *, layer=None, k_scale=None,
                                   v_scale=None, true_d=None,
-                                  kernel_order=False, out_dtype=None):
+                                  kernel_order=False, out_dtype=None,
+                                  flip_rel=None):
     """B5-L's plain version: the in-place row write at lengths[b] (K rows
     of width Dk, V rows of width Dv, in the cache's representation), then
     ``flash_decode.attend_plain`` over the row's cached prefix with the
@@ -250,7 +257,10 @@ def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
     before P.V, v_scale onto the f32 output). ``kernel_order`` sums in the
     CUDA kernel's order (runs of ``latent_split`` positions, tiles of
     ``LATENT_TILE`` positions inside them), as ``chip_smoke.py`` compares
-    it, with ``out_dtype`` f32 for the unrounded result. Outputs of
+    it, with ``out_dtype`` f32 for the unrounded result; with
+    ``flip_rel`` (``LATENT_FLIP_REL``) the first item is (output, flip),
+    flip bounding the kernels' other rounding of probabilities that lie
+    near a rounding midpoint (``flash_decode.attend_plain``). Outputs of
     inactive rows are zero."""
     from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
     from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
@@ -265,7 +275,7 @@ def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
         split=latent_split(ck.dtype) if kernel_order else None,
         tile=LATENT_TILE if kernel_order else None,
         inv_sqrt_d=1.0 / math.sqrt(true_d or q.shape[-1]),
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, flip_rel=flip_rel)
     lengths = lengths.to(torch.int64)
     rows = torch.nonzero((lengths >= 0) & (lengths < ck.shape[2])).reshape(-1)
     byte_view(ck)[rows, :, lengths[rows]] = byte_view(nk_c[rows])

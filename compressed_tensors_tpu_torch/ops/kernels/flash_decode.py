@@ -76,7 +76,7 @@ def split_scratch(B, KVH, rep, D, capacity, itemsize, device):
 
 def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
                  v_scale, split=None, inv_sqrt_d=None, tile=None,
-                 out_dtype=None):
+                 out_dtype=None, flip_rel=None):
     """The flash/paged decode arithmetic in plain PyTorch, as the TPU
     kernels compute it: the new token (in its cache representation) plus
     each row's cached positions 0..lengths[b]-1 of ``keys`` (B, KVH, T, D)
@@ -94,7 +94,15 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
     the latent-head kernel: inside a run the tiles of ``tile`` positions
     update one online softmax, each tile's probabilities cast against the
     running max after that tile. The output is in q's dtype, or
-    ``out_dtype`` (f32 to hold a kernel to its unrounded result)."""
+    ``out_dtype`` (f32 to hold a kernel to its unrounded result).
+
+    With ``flip_rel`` (and ``split``) it returns (output, flip): flip (f32,
+    the output's shape) bounds what the probabilities' rounding to q's
+    dtype can change when a kernel's f32 probability differs from this
+    one's by up to ``flip_rel`` of it (another summation order of the
+    scores): each probability that close to a rounding midpoint may round
+    to the other neighbour, one ulp, and flip sums those ulps times |v|
+    through the same softmax weights."""
     B, H, D = q.shape
     KVH, T, Dv = keys.shape[1], keys.shape[2], values.shape[-1]
     cd = q.dtype
@@ -107,6 +115,8 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
     if inv_sqrt_d is None:
         inv_sqrt_d = 1.0 / math.sqrt(D)
     lengths = lengths.to(torch.int64)
+    if flip_rel is not None and split is None:
+        raise ValueError("flip_rel needs the split order")
     if split is None:
         s_new = torch.einsum("bkrd,bkd->bkr", qg, nkf)[..., None] * inv_sqrt_d
         s_old = torch.einsum("bkrd,bktd->bkrt", qg, kf) * inv_sqrt_d
@@ -120,18 +130,35 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
                + torch.einsum("bkrt,bktd->bkrd", pr[..., 1:], vf))
         out = acc / l.clamp_min(1e-30)
     else:
-        out = _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd,
-                            inv_sqrt_d, tile)
-    if folded:
-        out = out * v_scale.to(torch.float32).reshape(())
-    out = out.reshape(B, H, Dv)
-    out = torch.where((lengths >= 0)[:, None, None], out, torch.zeros_like(out))
-    return out.to(out_dtype or cd)
+        out, flip = _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd,
+                                  inv_sqrt_d, tile, flip_rel)
+    active = (lengths >= 0)[:, None, None]
+
+    def finish(t):
+        if folded:
+            t = t * v_scale.to(torch.float32).reshape(())
+        t = t.reshape(B, H, Dv)
+        return torch.where(active, t, torch.zeros_like(t))
+
+    out = finish(out).to(out_dtype or cd)
+    return out if flip_rel is None else (out, finish(flip))
+
+
+def _rounding_flips(p, pr, cd, rel):
+    """Per f32 probability ``p`` rounded to ``pr`` in ``cd``: one ulp of
+    ``pr`` where ``p`` lies within ``rel`` * p of a rounding midpoint (a
+    nearby value could round to the other neighbour), else 0."""
+    mant, e = torch.frexp(pr)                    # pr = mant * 2^e
+    ulp = torch.ldexp(torch.full_like(pr, torch.finfo(cd).eps), e - 1)
+    below = torch.where(mant == 0.5, ulp / 2, ulp)  # under a power of two
+    gap = torch.where(p >= pr, ulp, below) / 2 - (p - pr).abs()
+    return torch.where((p > 0) & (gap <= rel * p), ulp, torch.zeros_like(p))
 
 
 def _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd, inv_sqrt_d,
-                  tile=None):
-    """``attend_plain``'s split order: f32 (B, KVH, rep, Dv) outputs."""
+                  tile=None, flip_rel=None):
+    """``attend_plain``'s split order: f32 (B, KVH, rep, Dv) outputs, and
+    their rounding-flip bound with ``flip_rel`` (else None)."""
     B, KVH, T, D = kf.shape
     Dv = vf.shape[-1]
     cached = lengths.clamp(0, T)
@@ -165,8 +192,15 @@ def _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd, inv_sqrt_d,
     acc = (acc_t * w[..., None]).sum(dim=-2)
     top = m.amax(dim=-1, keepdim=True)
     f = torch.exp(m - top)                                   # empty runs: 0
-    total = (f * l).sum(dim=-1)[..., None]
-    return (f[..., None] * acc).sum(dim=-2) / total.clamp_min(1e-30)
+    total = (f * l).sum(dim=-1)[..., None].clamp_min(1e-30)
+    out = (f[..., None] * acc).sum(dim=-2) / total
+    if flip_rel is None:
+        return out, None
+    flips = _rounding_flips(p, pr, cd, flip_rel)
+    acc_f = torch.einsum("bkrztp,bkztpd->bkrztd", flips, vx.abs().reshape(
+        B, KVH, n // split, nt, tile, Dv))
+    acc_f = (acc_f * w[..., None]).sum(dim=-2)
+    return out, (f[..., None] * acc_f).sum(dim=-2) / total
 
 
 def flash_decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths,

@@ -61,7 +61,8 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
 def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
                                  lengths, *, layer=0, k_scale=None,
                                  v_scale=None, true_d=None,
-                                 kernel_order=False, out_dtype=None):
+                                 kernel_order=False, out_dtype=None,
+                                 flip_rel=None):
     """Plain PyTorch version: gather each row's pages into a contiguous
     view, ``attend_plain`` over its cached prefix, then write the new row
     into page tables[b, len // page] at offset len % page. It is B7's and
@@ -69,7 +70,8 @@ def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
     ``true_d`` sets the softmax scale 1/sqrt(true_d) (the K width by
     default). ``kernel_order`` sums in B7-L's order
     (``decode_attention.latent_decode_attention_plain``), ``out_dtype``
-    keeps the output unrounded."""
+    keeps the output unrounded, and ``flip_rel`` makes the first item
+    (output, flip) as there."""
     from compressed_tensors_tpu_torch.models.llama import _quantize_to_cache
 
     pk, pv = pool_k[layer], pool_v[layer]          # (NP, KVH, page, D)
@@ -88,7 +90,7 @@ def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
         split=latent_split(pk.dtype) if kernel_order else None,
         tile=LATENT_TILE if kernel_order else None,
         inv_sqrt_d=1.0 / math.sqrt(true_d or q.shape[-1]),
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, flip_rel=flip_rel)
     lengths = lengths.to(torch.int64)
     rows = torch.nonzero((lengths >= 0) & (lengths < P * page)).reshape(-1)
     pids = idx[rows, lengths[rows] // page]

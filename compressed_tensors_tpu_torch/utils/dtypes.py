@@ -20,6 +20,11 @@ __all__ = [
     "serialize_dtype",
     "SAFETENSORS_DTYPES",
     "byte_view",
+    "is_float_dtype",
+    "dtype_bits",
+    "finfo_max",
+    "finfo_min",
+    "finfo_eps",
 ]
 
 # canonical names -> torch dtype; names are torch's, so `torch.<name>`
@@ -69,6 +74,42 @@ def serialize_dtype(dtype: torch.dtype | None) -> str | None:
     if dtype is None:
         return None
     return f"torch.{_DTYPE_TO_NAME[dtype]}"
+
+
+def is_float_dtype(dtype: torch.dtype) -> bool:
+    return dtype.is_floating_point
+
+
+def dtype_bits(dtype: torch.dtype) -> int:
+    """Bits of one element of storage (8 for a bool and for a pair of fp4
+    values, as the JAX package counts them)."""
+    return dtype.itemsize * 8
+
+
+# torch.finfo has no fp4 entry: the e2m1 element's (max 6, eps 0.5)
+_FP4_FINFO = {"max": 6.0, "min": -6.0, "eps": 0.5}
+
+
+def _finfo(dtype: torch.dtype, field: str) -> float:
+    """A float dtype's finfo field; an integer or bool dtype raises
+    ValueError, as the JAX package's ``ml_dtypes.finfo`` does."""
+    if not dtype.is_floating_point:
+        raise ValueError(f"data type {dtype} not inexact")
+    if dtype == getattr(torch, "float4_e2m1fn_x2", None):
+        return _FP4_FINFO[field]
+    return float(getattr(torch.finfo(dtype), field))
+
+
+def finfo_max(dtype: torch.dtype) -> float:
+    return _finfo(dtype, "max")
+
+
+def finfo_min(dtype: torch.dtype) -> float:
+    return _finfo(dtype, "min")
+
+
+def finfo_eps(dtype: torch.dtype) -> float:
+    return _finfo(dtype, "eps")
 
 
 class _TensorDTypeAnnotation:

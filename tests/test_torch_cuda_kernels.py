@@ -147,11 +147,13 @@ def test_w4a16_a8b_matmul(dev, m, asym):
         w4.w4a16_matmul(x, w, s, zp, n=n, k=k, group_size=g, mode="a8b"), got)
 
 
-def _within_a8b_rule(got, want):
+def _within_a8b_rule(got, want, flip=0.0):
     """Each element within 2^-8 * |y| (bf16 output rounding) plus 1e-4 *
-    max|y| (f32 summation order) of the f32 plain result."""
+    max|y| (f32 summation order) of the f32 plain result, plus ``flip``
+    (the latent-head kernels' probability roundings: ``flip_rel``)."""
     err = (got.float() - want).abs()
-    return bool((err <= 2**-8 * want.abs() + 1e-4 * want.abs().max()).all())
+    return bool((err <= 2**-8 * want.abs() + 1e-4 * want.abs().max()
+                 + flip).all())
 
 
 # (M, N, K, group) of the grouped-weight kernels: every row count the main
@@ -993,7 +995,8 @@ def test_expert_wrappers_refuse_bad_operands(dev):
 
 
 # B5-L / B7-L, MLA's latent head: (K, V) widths of DeepSeek-V2-Lite (576,
-# 512) and a narrow pair (128, 64), 16 query heads and one, every cache
+# 512) and a narrow pair (128, 64); one query head, 16 (one head group),
+# 20 (a padded second group), 32 and DeepSeek-V2's 128; every cache
 # type; lengths 0, 1, 63-65, each side of a split boundary and S_pad - 1,
 # an inactive row; the softmax scale of a true_d below K's width
 LATENT_WIDTHS = [(576, 512), (128, 64)]
@@ -1019,13 +1022,18 @@ def _latent_case(rng, dev, rep, dk, dv, cache, s_pad, lens):
 @pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn,
                                    torch.int8], ids=["bf16", "fp8", "int8"])
 @pytest.mark.parametrize("dk,dv", LATENT_WIDTHS)
-@pytest.mark.parametrize("rep", [1, 16])
+@pytest.mark.parametrize("rep", [1, 16, 20, 32, 128])
 def test_latent_decode_grid(dev, rep, dk, dv, cache):
     """B5-L on the slab and B7-L on shuffled pages: every element within
     the a8b rule of the plain version's f32 result in the kernels' order,
-    within TOL of the one-softmax plain version, inactive rows zero, cache
-    bytes equal to the plain version's and changed at the step's positions
-    only, one launch a call."""
+    plus that version's bound on the probabilities' bf16 roundings
+    (``LATENT_FLIP_REL``: a probability near a rounding midpoint may round
+    the other way on the kernel's f32 scores); within TOL of the
+    one-softmax plain version; inactive rows zero; cache bytes equal to
+    the plain version's and changed at the step's positions only; one
+    launch a call. Above 16 heads (more than one head group) the output
+    also equals the kernel's launches on each group of 16 heads alone bit
+    for bit."""
     rng = np.random.default_rng(rep + dk + dv)
     span = da.latent_split(cache)
     s_pad, page, true_d = span + 192, 64, dk // 3
@@ -1037,10 +1045,16 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
                                            s_pad, lens)
     kw = dict(layer=1, k_scale=ks, v_scale=vs, true_d=true_d)
 
-    def check(out, run_plain, caches, before):
-        ordered = run_plain([c.clone() for c in before], kernel_order=True,
-                            out_dtype=torch.float32)[0]
-        assert _within_a8b_rule(out[live], ordered[live])
+    def check(out, run_plain, caches, before, run_kernel):
+        ordered, flip = run_plain([c.clone() for c in before],
+                                  kernel_order=True, out_dtype=torch.float32,
+                                  flip_rel=da.LATENT_FLIP_REL)[0]
+        assert _within_a8b_rule(out[live], ordered[live], flip[live])
+        if rep > 16:
+            groups = [run_kernel(q[:, g:g + 16].contiguous(),
+                                 [c.clone() for c in before])
+                      for g in range(0, rep, 16)]
+            assert torch.equal(out, torch.cat(groups, dim=1))
         one = run_plain([c.clone() for c in before])[0]
         _close(out[live], one[live])
         assert out.shape == (B, rep, dv) and not out[B - 1].any()
@@ -1056,7 +1070,8 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
     out, _, _ = da.decode_attention(q, nk, nv, ck, cv, lengths, **kw)
     assert da.decode_attention.latent_launches == count + 1
     check(out, lambda c, **o: da.latent_decode_attention_plain(
-        q, nk, nv, *c, lengths, **kw, **o), (ck, cv), before)
+        q, nk, nv, *c, lengths, **kw, **o), (ck, cv), before,
+        lambda qg, c: da.decode_attention(qg, nk, nv, *c, lengths, **kw)[0])
     changed = torch.nonzero((ck.view(torch.uint8) != before[0].view(
         torch.uint8)).any(-1)).tolist()
     assert sorted(map(tuple, changed)) == sorted(
@@ -1074,7 +1089,9 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
                                             lengths, **kw)
     assert pd.paged_decode_attention.latent_launches == count + 1
     check(out_p, lambda c, **o: pd.paged_decode_attention_plain(
-        q, nk, nv, *c, tables_d, lengths, **kw, **o), (pk, pv), before)
+        q, nk, nv, *c, tables_d, lengths, **kw, **o), (pk, pv), before,
+        lambda qg, c: pd.paged_decode_attention(qg, nk, nv, *c, tables_d,
+                                                lengths, **kw)[0])
     changed = torch.nonzero((pk.view(torch.uint8) != before[0].view(
         torch.uint8)).any(-1)).tolist()
     assert sorted(map(tuple, changed)) == sorted(
@@ -1105,13 +1122,54 @@ def test_latent_decode_pages_smaller_than_a_tile(dev):
     assert torch.equal(out_p[:-1], out_d[:-1])
 
 
+def test_latent_decode_more_rows_than_a_grid_dimension(dev):
+    """B7-L and its merge pass at 65537 rows (more than a CUDA grid's y or
+    z dimension holds), 20 heads (two head groups) and the narrow latent
+    widths (K 128, V 64): the live rows, the first and the last eight,
+    equal the plain version run on them alone by the rule of
+    ``test_latent_decode_grid``, the other rows are inactive and zero, and
+    the pool's bytes equal the plain version's."""
+    rng = np.random.default_rng(23)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, h, dk, dv, page, P = 65537, 20, 128, 64, 64, 5
+    live = [0, *range(B - 8, B)]
+    lens = np.full(B, -1, np.int32)
+    lens[live] = [7, 0, 63, 255, 256, 257, 300, 319, 5]
+    tables = np.zeros((B, P), np.int32)
+    tables[live] = rng.permutation(np.arange(1, len(live) * P + 1)).reshape(
+        len(live), P)
+    q, nk, nv = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((B, h, dk), (B, 1, dk), (B, 1, dv)))
+    pk, pv = (_bf16(rng, 1, len(live) * P + 1, 1, page, d, device=dev)
+              for d in (dk, dv))
+    before = [pk.clone(), pv.clone()]
+    lengths, tables_d = (torch.from_numpy(a).to(dev) for a in (lens, tables))
+    count = pd.paged_decode_attention.latent_launches
+    out, _, _ = pd.paged_decode_attention(q, nk, nv, pk, pv, tables_d,
+                                          lengths, true_d=48)
+    assert pd.paged_decode_attention.latent_launches == count + 1
+    rows = torch.tensor(live, device=dev)
+    plain = [c.clone() for c in before]
+    ordered, flip = pd.paged_decode_attention_plain(
+        q[rows], nk[rows], nv[rows], *plain, tables_d[rows], lengths[rows],
+        true_d=48, kernel_order=True, out_dtype=torch.float32,
+        flip_rel=da.LATENT_FLIP_REL)[0]
+    assert _within_a8b_rule(out[rows], ordered, flip)
+    inactive = torch.ones(B, dtype=torch.bool, device=dev)
+    inactive[rows] = False
+    assert not out[inactive].any()
+    for got, want in zip((pk, pv), plain):
+        assert _same_bytes(got, want)
+
+
 def test_latent_decode_refuses_operands(dev):
-    """More than 16 query heads, a K width that is no multiple of 64, V
-    wider than K and a per-head scale raise before any launch."""
+    """A K width that is no multiple of 64, V wider than K and a per-head
+    scale raise before any launch (any number of query heads is served:
+    ``test_latent_decode_grid``)."""
     rng = np.random.default_rng(22)
     lengths = torch.tensor([3], dtype=torch.int32, device=dev)
     count = da.decode_attention.latent_launches
-    for h, dk, dv in ((17, 576, 512), (16, 560, 512), (16, 512, 576)):
+    for h, dk, dv in ((16, 560, 512), (16, 512, 576)):
         q = _bf16(rng, 1, h, dk, device=dev)
         nk, nv = _bf16(rng, 1, 1, dk, device=dev), _bf16(rng, 1, 1, dv,
                                                          device=dev)

@@ -32,7 +32,10 @@ def test_port_imports_no_jax_and_builds_nothing():
                     "transform.hadamard", "transform.hadamard_data",
                     "transform.apply", "entrypoints", "entrypoints.convert",
                     "entrypoints.convert.converters",
-                    "entrypoints.convert.convert_checkpoint"):
+                    "entrypoints.convert.convert_checkpoint",
+                    "offload", "offload.cache", "offload.dispatch",
+                    "offload.load", "distributed", "distributed.utils",
+                    "distributed.assign", "distributed.module_parallel"):
             assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

@@ -397,23 +397,45 @@ def _pad(a, width):
         (*a.shape[:-1], width - a.shape[-1]), np.asarray(a).dtype)], axis=-1)
 
 
+@pytest.mark.parametrize("h", [1, 16, 20, 128])
+def test_latent_operand_check_takes_any_head_count(h):
+    """The latent-head kernels' operand check (run before every CUDA
+    launch) takes any number of query heads, as the JAX kernels do, and
+    still refuses K or V widths the kernels do not serve."""
+    def operands(dk, dv):
+        z = functools.partial(torch.zeros, dtype=torch.bfloat16)
+        return (z(2, h, dk), z(2, 1, dk), z(2, 1, dv), z(1, 2, 1, 64, dk),
+                z(1, 2, 1, 64, dv), torch.zeros(2, dtype=torch.int32))
+
+    assert tda.check_latent_operands("t", *operands(576, 512)) == (
+        2, h, 576, 512)
+    for dk, dv in ((560, 512), (512, 576), (704, 512)):
+        with pytest.raises(NotImplementedError):
+            tda.check_latent_operands("t", *operands(dk, dv))
+
+
+@pytest.mark.parametrize("h", [16, 32, 128])
 @pytest.mark.parametrize("cache", ["f32", "fp8", "int8"])
-def test_latent_plain_versions_match_jax_kernels(cache):
+def test_latent_plain_versions_match_jax_kernels(cache, h):
     """B5-L's and B7-L's plain versions (one softmax, and the CUDA
     kernels' split-and-tile order) against the JAX decode and paged
-    decode kernels at kvh=1, rep=h, d=Dp, true_d, interpreted: the JAX
+    decode kernels at kvh=1, rep=h, d=Dp, true_d, interpreted, at 16
+    query heads (one head group of the CUDA kernels), 32 and DeepSeek-V2's
+    128: the JAX
     call pads q, the rows and the caches to Dp = 128 lanes (V as
     [c_kv ; 0]) and its output is read on the V width. Lengths 0, 63,
     64, 65 and an inactive row. The kernels' order is also taken with
     runs of 64 positions (two runs and their merge at lengths 64 and 65).
 
-    The JAX paged kernel on an 8-bit pool gives the row of length 63 an
+    The JAX paged kernel on an fp8 pool gives the row of length 63 an
     output 3e-4 of max|out| away from its own dense kernel on the same
-    rows (ROADMAP, known caveats); both port plain versions agree with the
-    dense kernel to 1e-5, so the paged outputs are held to the JAX dense
-    kernel at 1e-5 and to the JAX paged kernel at 1e-3."""
+    rows at 16 heads, and 1.02e-3 at 128 (ROADMAP, known caveats); both
+    port plain versions agree with the dense kernel to 1e-5, so the paged
+    outputs are held to the JAX dense kernel at 1e-5 and to the JAX paged
+    kernel at 1e-3 on every row where that kernel stands within 1e-3 of
+    its own dense kernel (all rows but at most one)."""
     rng = np.random.default_rng(8)
-    B, h, dk, dv, s_pad, dp, page, true_d = 5, 16, 96, 64, 192, 128, 16, 48
+    B, dk, dv, s_pad, dp, page, true_d = 5, 96, 64, 192, 128, 16, 48
     scale = 0.03
     q, nk, nv, ck, cv = _latent_operands(rng, B, h, dk, dv, s_pad, cache,
                                          scale)
@@ -489,7 +511,15 @@ def test_latent_plain_versions_match_jax_kernels(cache):
             *args, tk, tv, torch.from_numpy(tables), torch.from_numpy(lens),
             layer=1, true_d=true_d, kernel_order=kernel_order, **t_scales)
         _close(out[live], np.asarray(j_out)[live][..., :dv], 1e-5)
-        _close(out[live], np.asarray(jp_out)[live][..., :dv], 1e-3)
+        jd, jp = (np.asarray(o)[live][..., :dv] for o in (j_out, jp_out))
+        # rows where the JAX paged kernel stands more than 1e-3 of max|out|
+        # from its own dense kernel (at 128 heads on fp8: the row of
+        # length 63, 1.02e-3) are held to the dense kernel only
+        top = np.abs(jd).max()
+        kept = np.abs(jp - jd).max(axis=(1, 2)) <= 1e-3 * top
+        assert kept.sum() >= len(kept) - 1, kept
+        np.testing.assert_allclose(to_numpy(out[live])[kept], jp[kept],
+                                   atol=1e-3 * top, rtol=0)
         assert not out[~live].any()
         np.testing.assert_array_equal(raw_bytes(tk)[:, 1:],
                                       raw_bytes(np.asarray(jp_k)[..., :dk])
@@ -497,6 +527,53 @@ def test_latent_plain_versions_match_jax_kernels(cache):
         np.testing.assert_array_equal(raw_bytes(tv)[:, 1:],
                                       raw_bytes(np.asarray(jp_v)[..., :dv])
                                       [:, 1:])
+
+
+@pytest.mark.parametrize("cache", ["bf16", "fp8"])
+def test_latent_flip_bound_covers_another_score_order(cache):
+    """The per-element rule the CUDA latent-head kernels are held to on the
+    card: |kernel - plain| within 2^-8 |plain| + a summation term + the
+    plain version's flip bound (``flip_rel=LATENT_FLIP_REL``). A kernel's
+    f32 scores differ from the plain version's in the last bits, and a
+    probability near a bf16 rounding midpoint may round to the other
+    neighbour. Here the scores move by a relative 2^-20 (the softmax scale
+    perturbed, more than another summation order moves them): the
+    kernel-order output stays within the rule with its flip term at every
+    element, and without it some elements fall outside (the term is
+    needed). The flip bound needs the split order."""
+    rng = np.random.default_rng(5)
+    B, h, dk, dv, s_pad, true_d = 6, 32, 576, 512, 1024, 192
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    q, nk, nv = bf16(B, h, dk), bf16(B, 1, dk), bf16(B, 1, dv)
+    ck, cv = bf16(2, B, 1, s_pad, dk), bf16(2, B, 1, s_pad, dv)
+    kw = {}
+    if cache == "fp8":
+        ck, cv = ((c.float() / 0.03).to(torch.float8_e4m3fn)
+                  for c in (ck, cv))
+        kw = dict(k_scale=torch.tensor([0.03]), v_scale=torch.tensor([0.03]))
+    lens = torch.tensor([0, 1, 64, 511, 700, 1023], dtype=torch.int32)
+
+    def run(d, **o):
+        return tda.latent_decode_attention_plain(
+            q, nk, nv, ck.clone(), cv.clone(), lens, layer=1, true_d=d,
+            kernel_order=True, out_dtype=torch.float32, **kw, **o)[0]
+
+    want, flip = run(true_d, flip_rel=tda.LATENT_FLIP_REL)
+    torch.testing.assert_close(want, run(true_d), rtol=0, atol=0)
+    assert bool((flip >= 0).all()) and bool((flip > 0).any())
+    moved = run(true_d * (1 + 2**-20))
+    diff = (moved - want).abs()
+    rule = 2**-8 * want.abs() + 1e-6 * want.abs().max()
+    assert not bool((diff > rule + flip).any())
+    assert bool((diff > rule).any())
+    with pytest.raises(ValueError, match="split"):
+        tda.latent_decode_attention_plain(
+            q, nk, nv, ck.clone(), cv.clone(), lens, layer=1, true_d=true_d,
+            flip_rel=tda.LATENT_FLIP_REL, **kw)
 
 
 # ------------------------------------------------------------------ #

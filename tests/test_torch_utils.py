@@ -38,10 +38,9 @@ def _bits(t):
     return raw_bytes(t)
 
 
-# the JAX top-level names that wait for ROADMAP A8 (offload)
-NOT_YET_PORTED = {"DeviceCache", "DiskCache", "HostCache", "OffloadCache",
-                  "disable_offloading", "disable_onloading", "dispatch_plan",
-                  "max_binary_search"}
+# the JAX top-level names the port does not export (none since the
+# offload names came, ROADMAP A8a)
+NOT_YET_PORTED = set()
 
 
 def _graph(pkg, layers=3):
@@ -578,6 +577,29 @@ def test_top_level_exports_match_jax():
     missing = (jnames - modules) - tnames
     assert missing == NOT_YET_PORTED
     assert tct.__version__ == jct.__version__
+
+
+def test_dtype_helpers_match_jax():
+    """``is_float_dtype``, ``dtype_bits`` and the finfo helpers on every
+    dtype both packages name: equal values, and ValueError for the
+    integer and bool dtypes in both."""
+    from compressed_tensors_tpu.utils import dtypes as jdt
+    from compressed_tensors_tpu_torch.utils import dtypes as tdt
+
+    names = sorted(set(jdt._NAME_TO_DTYPE) & set(tdt._NAME_TO_DTYPE))
+    assert len(names) >= 17
+    for name in names:
+        j, t = jdt._NAME_TO_DTYPE[name], tdt._NAME_TO_DTYPE[name]
+        assert tdt.is_float_dtype(t) == jdt.is_float_dtype(j), name
+        assert tdt.dtype_bits(t) == jdt.dtype_bits(j), name
+        for fn in ("finfo_max", "finfo_min", "finfo_eps"):
+            try:
+                want = getattr(jdt, fn)(j)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    getattr(tdt, fn)(t)
+            else:
+                assert getattr(tdt, fn)(t) == want, (name, fn)
 
 
 def test_compressed_linear_is_a_raising_stub():
