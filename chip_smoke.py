@@ -1795,6 +1795,16 @@ def logits_rule_failures(sweep):
     return out
 
 
+def spread_rule_failures(sweep):
+    """The spread arm of ``logits_rule_failures`` alone: at every depth
+    the relative RMS error within FLOOR_RATIO times the reference's own
+    spread under the one-ulp perturbation."""
+    return [f"{depth} layers: rel_rms {err:.4g} > {FLOOR_RATIO} x the "
+            f"spread {spread:.4g}"
+            for depth, (err, spread, _) in sweep.items()
+            if err > FLOOR_RATIO * spread]
+
+
 def check_logits_by_depth(params, config, requests, label, depths=DEPTHS,
                           plain=None, ref_params=None, kinds=GROUP_KINDS):
     """The logits checks of phases 5 and 7-10.
@@ -6842,9 +6852,9 @@ def phase_distributed(dense, config):
     "compress-file"; ``init_dist`` with gloo, which carries the object
     broadcast; NCCL takes one rank a card, and this machine has one), its
     recoupled state on each rank equal to this process's single-process
-    ``compress_state`` byte for byte, each rank's time printed; then
-    ``init_dist`` on NCCL at world size 1 in a process of its own (case
-    "nccl"), an all-reduce, and the group torn down. No NCCL collective across cards
+    ``compress_state`` byte for byte, each rank's time printed; and, in a
+    process of its own run beside them, ``init_dist`` on NCCL at world
+    size 1 (case "nccl"), an all-reduce, and the group torn down. No NCCL collective across cards
     runs here."""
     import torch
 
@@ -6882,8 +6892,18 @@ def phase_distributed(dense, config):
                           for k, t in s.items()})
         with open(os.path.join(tmp, "quantization_config.json"), "w") as f:
             json.dump(qjson, f)
-        reports = torch_dist_worker.spawn("compress-file", tmp, 2, "cuda",
-                                          SPAWN_SECONDS)
+        # the NCCL process (world size 1) runs beside the gloo ranks: its
+        # start-up is the phase's fixed cost
+        nccl_dir = os.path.join(tmp, "nccl")
+        os.mkdir(nccl_dir)
+        nccl_rank = torch_dist_worker.start("nccl", nccl_dir, 1, "cuda")
+        try:
+            reports = torch_dist_worker.spawn("compress-file", tmp, 2,
+                                              "cuda", SPAWN_SECONDS)
+            nccl = torch_dist_worker.finish("nccl", nccl_rank, nccl_dir,
+                                            SPAWN_SECONDS)[0]
+        finally:
+            torch_dist_worker.stop(nccl_rank)
         flat = {f"{m}.{k}": t for m, s in ref.items() for k, t in s.items()}
         for r in reports:
             got = load_safetensors(os.path.join(tmp, f"rank{r['rank']}"
@@ -6903,8 +6923,6 @@ def phase_distributed(dense, config):
                         for r in reports)
             + f"; single-process compress_state {single_s:.3f} s; both "
             f"ranks' full states equal it byte for byte ({card()})")
-        nccl = torch_dist_worker.spawn("nccl", tmp, 1, "cuda",
-                                       SPAWN_SECONDS)[0]
     log(f"init_dist on NCCL at world size 1: backend {nccl['backend']}, "
         f"all-reduce {nccl['all_reduce']}, group down "
         f"{not nccl['initialized_after']}; no NCCL collective across cards "
@@ -8056,6 +8074,420 @@ def fp8_block_dequantizer():
                                  "from the CPU's")
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: tensor parallelism (parallel/, ServingEngine(mesh=...))
+
+# meta-llama/Meta-Llama-3-70B's published config.json (cited, not fetched)
+LLAMA3_70B = dict(vocab_size=128256, hidden_size=8192,
+                  intermediate_size=28672, num_hidden_layers=80,
+                  num_attention_heads=64, num_key_value_heads=8,
+                  head_dim=128, rope_theta=500000.0,
+                  max_position_embeddings=8192)
+TP70_LAYERS = 4            # of the 80
+TP70_REQUESTS = 32         # phase 5's first 32 requests
+TP_MS = (BATCH, M_CHUNK)   # 19b's rows: a decode step's and a prefill chunk's
+
+
+def phase_mesh_one(serving):
+    """Phase 19a: ``ServingEngine(mesh=make_mesh())`` (one process, every
+    axis 1) on phase 5's Llama-3-8B W4A16 model and 96 requests, dense and
+    paged: the completions identical to phase 5's unsharded engine token
+    for token, and 128 B1 + 1 B3 launches a decode step (the unsharded
+    path)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.parallel import make_mesh
+
+    params = fuse_llama_layers(w4a16_llama(LLAMA3_8B, 0, asym=False))
+    requests = serving_requests()
+    mesh = make_mesh()
+    results = {}
+    for name, kw in (("dense", dict(paged=False)),
+                     ("paged", dict(paged=True, prefix_caching=False))):
+        run = f"mesh-one {name}"
+        results[run] = res = serve_requests(params, LLAMA3_8B, requests, run,
+                                            mesh=mesh, **kw)
+        want = serving[name]["outs"]
+        same = sum(res["outs"][i] == want[i] for i in want)
+        step = {k: res["per_step"][k] for k in ("w4a16_matmul",
+                                                "w8a8_matmul")}
+        log(f"{run}: {same}/{len(want)} completions identical to phase 5's "
+            f"unsharded engine; launches a decode step {step} (expected "
+            "128 B1 + 1 B3)")
+        if same != len(want) or step != {"w4a16_matmul": 128,
+                                         "w8a8_matmul": 1}:
+            raise AssertionError(f"{run}: differs from the unsharded engine")
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
+def shard_rule(name, got, want, slack=None):
+    """``got`` (a kernel's bf16 output) against ``want`` (its plain version
+    in f32) by the a8b rule per element (``slack`` replaces A8B_REL * |y|
+    where the result sums several bf16 roundings); returns max|got -
+    want| / max|want|."""
+    got, want = got.float(), want.float()
+    top = want.abs().max().item()
+    limit = (A8B_REL * want.abs() if slack is None else slack) + A8B_ABS * top
+    bad = int(((got - want).abs() > limit).sum())
+    err = (got - want).abs().max().item() / top
+    if bad or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: {bad} elements outside the a8b rule")
+    return err
+
+
+def shard_call(x, qt):
+    """A rank's kernel call on its shard as ``quantized_matmul`` makes it,
+    beside the kernel's plain version in f32: (kernel output, plain
+    output, the mode that ran)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.ops.kernels import w4a16_matmul as w4
+    from compressed_tensors_tpu_torch.ops.kernels import w8a8_matmul as w8
+    from compressed_tensors_tpu_torch.ops.linear import (
+        _w4b8_mode,
+        quantized_matmul,
+    )
+
+    kind, n, k = qt.kernel_meta[:3]
+    got = quantized_matmul(x, qt)
+    if kind == "w8a8":
+        return got, w8.w8a8_matmul_plain(x, qt.kernel_packed,
+                                         qt.kernel_scales, n=n, k=k,
+                                         out_dtype=torch.float32), "B3"
+    mode = _w4b8_mode(x.shape[0], n, k)
+    return got, w4.w4a16_matmul_plain(
+        x, qt.kernel_packed, qt.kernel_scales, qt.kernel_zp, n=n, k=k,
+        group_size=qt.kernel_meta[3], mode=mode,
+        out_dtype=torch.float32), {"int4b": "B1", "a8b": "B2"}[mode]
+
+
+def phase_shard_arithmetic():
+    """Phase 19b: each rank's shard arithmetic at tp = 2 in this process,
+    no collectives: layer 0 of config 5's mix at Llama-3-70B width (W4A16
+    g128 and, as layer 1, W8A8-int, fused) and the int8 lm_head, sharded
+    by ``shard_llama_params`` for rank 0 and rank 1 (``make_mesh(tp=2,
+    rank=r, world=2)``). At a decode step's 64 rows and a 512-row chunk,
+    every shard's kernel call (B1, B2 or B3 as ``quantized_matmul``
+    dispatches the local shape) is held to its plain version by the a8b
+    rule; the column-parallel outputs of the two ranks, put back in order,
+    and the row-parallel f32 partials, summed, are read against the
+    unsharded layer's kernel output. The quantized ring's two K-slice B1
+    launches (``ring_k_slices``) on rank 0's qkv shard, summed, are held
+    to B1 on the whole shard within the bf16 rounding of the three
+    outputs."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.ops.kernels.w4a16_matmul import (
+        w4a16_matmul,
+    )
+    from compressed_tensors_tpu_torch.ops.linear import quantized_matmul
+    from compressed_tensors_tpu_torch.parallel import (
+        make_mesh,
+        shard_llama_params,
+    )
+    from compressed_tensors_tpu_torch.parallel.mesh import row_parallel_input
+    from compressed_tensors_tpu_torch.parallel.overlap import ring_k_slices
+
+    t_phase = time.perf_counter()
+    config = LlamaConfig(**dict(LLAMA3_70B, num_hidden_layers=2))
+    params = fuse_llama_layers(mixed_llama(config, seed=2))
+    meshes = [make_mesh(tp=2, rank=r, world=2, device="cuda")
+              for r in range(2)]
+    ranks = [shard_llama_params(params, mesh, config) for mesh in meshes]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    modes = set()
+    for li, layer in enumerate(params["layers"]):
+        for name in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"):
+            full = layer[name]
+            for m in TP_MS:
+                x = dev_randn(gen, m, full.shape[1])
+                ref = quantized_matmul(x, full).float()
+                parts, errs = [], []
+                for r, shards in enumerate(ranks):
+                    local = shards["layers"][li][name]
+                    if name in ("o_proj", "down_proj"):
+                        k = local.shape[1]
+                        xin = row_parallel_input(
+                            x[:, r * k:(r + 1) * k], local, meshes[r],
+                            amax=x.float().abs().amax(-1, keepdim=True))
+                    else:
+                        xin = x
+                    got, want, mode = shard_call(xin.contiguous(), local)
+                    modes.add(mode)
+                    errs.append(shard_rule(f"19b layer {li} {name} M={m} "
+                                           f"rank {r}", got, want))
+                    parts.append(got.float())
+                if name in ("o_proj", "down_proj"):
+                    whole = parts[0] + parts[1]
+                else:
+                    sizes = ([config.num_attention_heads * config.head_dim]
+                             + [config.num_key_value_heads
+                                * config.head_dim] * 2
+                             if name == "qkv_proj"
+                             else [config.intermediate_size] * 2)
+                    cols, start = [], 0
+                    for n in sizes:
+                        for p in parts:
+                            a = start // 2
+                            cols.append(p[:, a:a + n // 2])
+                        start += n
+                    whole = torch.cat(cols, dim=1)
+                dist_full = ((whole - ref).abs().max().item()
+                             / ref.abs().max().item())
+                log(f"19b layer {li} ({full.kernel_meta[0]}) {name} M={m}: "
+                    f"shards {[s['layers'][li][name].shape for s in ranks]} "
+                    f"({mode}), each within the a8b rule of its plain "
+                    f"version (max {max(errs):.4g} of max|plain|); the two "
+                    f"ranks {'summed' if name in ('o_proj', 'down_proj') else 'put together'}"
+                    f" against the unsharded layer: max {dist_full:.4g} of "
+                    f"max|ref|")
+    lm = params["lm_head"]
+    for m in TP_MS:
+        x = dev_randn(gen, m, lm.shape[1])
+        ref = quantized_matmul(x, lm).float()
+        parts = []
+        for r, shards in enumerate(ranks):
+            got, want, _ = shard_call(x, shards["lm_head"])
+            shard_rule(f"19b lm_head M={m} rank {r}", got, want)
+            parts.append(got.float())
+        whole = torch.cat(parts, dim=1)
+        log(f"19b lm_head (vocabulary halves {shards['lm_head'].shape}) "
+            f"M={m}: each within the a8b rule of B3's plain version; put "
+            f"together against the unsharded head: max "
+            f"{(whole - ref).abs().max().item() / ref.abs().max().item():.4g}"
+            f" of max|ref|, {int((whole != ref).sum())} of {ref.numel()} "
+            "logits differ")
+    local = ranks[0]["layers"][0]["qkv_proj"]
+    n, k, g = local.kernel_meta[1:]
+    x = dev_randn(gen, BATCH, k)
+    whole = w4a16_matmul(x, local.kernel_packed, local.kernel_scales,
+                         local.kernel_zp, n=n, k=k, group_size=g).float()
+    chunks = [w4a16_matmul(x[:, s * ks:(s + 1) * ks].contiguous(), wp, sc,
+                           zp, n=n, k=ks, group_size=g).float()
+              for s, (wp, sc, zp, ks) in enumerate(ring_k_slices(local, 2))]
+    err = shard_rule("19b ring K-slices", chunks[0] + chunks[1], whole,
+                     slack=A8B_REL * (chunks[0].abs() + chunks[1].abs()
+                                      + whole.abs()))
+    log(f"19b quantized ring on rank 0's qkv shard (N {n}, K {k}): two "
+        f"K-slice B1 launches of K {k // 2}, summed in f32, against B1 on "
+        f"the whole shard: max {err:.4g} of max|B1|, within 2^-8 of the "
+        "three bf16 outputs' magnitudes plus 1e-4 max|y|")
+    if not {"B1", "B2", "B3"} <= modes:
+        raise AssertionError(f"19b ran {modes}, not B1, B2 and B3")
+    del params, ranks
+    torch.cuda.empty_cache()
+    log(f"phase 19b wall {time.perf_counter() - t_phase:.1f} s ({card()})")
+
+
+def tp2_parent_side(config, requests, probe, depths, serve, tmp, ranks):
+    """Phase 19c in this process while the ranks start: the model drawn
+    (``mixed_llama`` from seed 3) and its checkpoint written, the unsharded
+    model's logits (each with its one-ulp spread)
+    and its paged serving, plain and with its embeddings one ulp up; then
+    inputs.json for the ranks, and their reports. Returns (reports, ref,
+    spread, single, moved, checkpoint bytes)."""
+    import torch
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        save_llama_checkpoint,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+
+    import torch_dist_worker
+
+    raw = mixed_llama(config, seed=3)
+    t0 = time.perf_counter()
+    save_llama_checkpoint(raw, config, os.path.join(tmp, "ckpt"))
+    write_s = time.perf_counter() - t0
+    total = sum(os.path.getsize(os.path.join(tmp, "ckpt", f))
+                for f in os.listdir(os.path.join(tmp, "ckpt"))
+                if f.endswith(".safetensors"))
+    log(f"19c Llama-3-70B mix, {TP70_LAYERS} of 80 layers: checkpoint of "
+        f"{total / 1e9:.3f} GB written in {write_s:.1f} s")
+    params = fuse_llama_layers(raw)
+    del raw
+    emb, tok = params["embed_tokens"], probe[len(probe) // 3]
+    ref, spread = {}, {}
+    for act in ("bf16", "auto"):
+        with flag_overrides(w4_act=act):
+            for d in depths:
+                ref[act, d] = torch_dist_worker.last_logits(
+                    params, config, probe, d)
+                row = emb[tok].clone()
+                emb[tok, :64] = (row[:64].float() * (1 + 2**-7)).to(
+                    emb.dtype)
+                spread[act, d] = rel_rms(torch_dist_worker.last_logits(
+                    params, config, probe, d), ref[act, d])
+                emb[tok] = row
+    single = serve_requests(params, config, requests, "70B tp=1 paged",
+                            paged=True, prefix_caching=False)
+    # the model's own sensitivity: one bf16 ulp up on the first 64 values
+    # of every embedding row
+    row = emb[:, :64].clone()
+    emb[:, :64] = (row.float() * (1 + 2**-7)).to(emb.dtype)
+    moved = serve_requests(params, config, requests,
+                           "70B tp=1 paged, embeddings one ulp up",
+                           paged=True, prefix_caching=False)
+    emb[:, :64] = row
+    del params, row
+    torch.cuda.empty_cache()
+    with open(os.path.join(tmp, "inputs.tmp"), "w") as f:
+        json.dump({"requests": requests, "probe": probe, "depths": depths,
+                   "serve": serve}, f)
+    os.replace(os.path.join(tmp, "inputs.tmp"),
+               os.path.join(tmp, "inputs.json"))
+    reports = torch_dist_worker.finish("tp70b", ranks, tmp, SPAWN_SECONDS)
+    return reports, ref, spread, single, moved, total
+
+
+def phase_tp2_processes():
+    """Phase 19c: tensor parallelism across two processes on the one card
+    (gloo over CUDA tensors; NCCL takes one rank a card). Config 5's mix
+    at Llama-3-70B width (even layers W4A16 g128, odd W8A8-int, int8
+    lm_head; ``mixed_llama`` from seed 3) cut from 80 layers to 4, written
+    once by ``save_llama_checkpoint``; each rank
+    (``tests/torch_dist_worker.py`` case "tp70b") reads its blocks through
+    ``load_llama_params(mesh=make_mesh(tp=2))`` (``load_sharded_params``'
+    reader), fuses, and computes the probe's last-position logits at 1 and
+    4 layers, with every W4 linear at bf16 activations (as phase 5 holds
+    the depth rule) and at the serving default (a8b prefill rows), then
+    both again with every decoder linear's scales rolled by one group (one
+    channel for W8A8), and serves phase 5's first 32 requests through the
+    paged engine. Here (``tp2_parent_side``, while the ranks start): the
+    same logits of the unsharded model (the reference) and its one-ulp
+    spread at each activation setting; on both ranks the depth rule
+    (``logits_rule_failures``) held at bf16 activations and its spread arm
+    (``spread_rule_failures``) at the default (a one-ulp change moves this
+    model's one-layer logits at the default as far as the rule's one-layer
+    limit), each failing every check under the control; both ranks'
+    completions equal, and at least as many of their first tokens equal
+    to the unsharded paged engine's as the unsharded model's with its
+    embeddings one ulp up; bytes read and seconds per
+    rank, decode ms a step at tp = 2 against tp = 1."""
+    import torch
+
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_worker
+
+    t_phase = time.perf_counter()
+    config = LlamaConfig(**dict(LLAMA3_70B, num_hidden_layers=TP70_LAYERS))
+    requests = serving_requests()[:TP70_REQUESTS]
+    _, probe, _ = probe_request(requests)
+    depths = (1, TP70_LAYERS)
+    serve = dict(SERVE, paged=True, prefix_caching=False)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # the ranks start (torch, the card, the group) while this process
+        # writes the checkpoint and computes the references; they wait for
+        # inputs.json, written last
+        t_spawn = time.perf_counter()
+        ranks = torch_dist_worker.start("tp70b", tmp, 2, "cuda")
+        try:
+            reports, ref, spread, single, moved, total = tp2_parent_side(
+                config, requests, probe, depths, serve, tmp, ranks)
+        finally:
+            torch_dist_worker.stop(ranks)
+        spawn_s = time.perf_counter() - t_spawn
+        logits = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                  for r in range(2)]
+    for r, (rep, lg) in enumerate(zip(reports, logits)):
+        for label, key, act in (
+                ("bf16 activations", "bf16_d", "bf16"),
+                ("control (scales rolled), bf16", "rolled_bf16_d", "bf16"),
+                ("the default (a8b prefill rows)", "auto_d", "auto"),
+                ("control (scales rolled), the default", "rolled_auto_d",
+                 "auto")):
+            sweep = {}
+            for d in depths:
+                got, want = lg[f"{key}{d}"].cuda(), ref[act, d]
+                sweep[d] = (rel_rms(got, want), spread[act, d],
+                            (got - want).abs().max().item()
+                            / want.abs().max().item())
+            # at bf16 activations the depth rule; at the default its
+            # spread arm alone: the one-ulp change moves this model's
+            # one-layer logits as far as the rule's one-layer limit
+            fails = (logits_rule_failures(sweep) if act == "bf16"
+                     else spread_rule_failures(sweep))
+            checks = len(sweep) + (act == "bf16")
+            log(f"19c rank {r} logits at {label} vs the unsharded model: "
+                + ", ".join(f"{d} layers rel_rms {e:.4g} (one-ulp spread "
+                            f"{s:.4g}, max {t:.4g} of max|ref|)"
+                            for d, (e, s, t) in sweep.items())
+                + f"; the {'depth' if act == 'bf16' else 'spread'} rule "
+                f"fails {len(fails)} of {checks}")
+            if not key.startswith("rolled") and fails:
+                raise AssertionError(f"19c rank {r} logits at {label}: "
+                                     f"{fails}")
+            if key.startswith("rolled") and len(fails) < checks:
+                raise AssertionError(f"19c rank {r}: the rule accepted "
+                                     f"the rolled scales at {act}")
+    outs = [{int(i): o for i, o in rep["completions"].items()}
+            for rep in reports]
+    if outs[0] != outs[1]:
+        raise AssertionError("19c: the ranks' completions differ")
+
+    def agreement(got):
+        """(identical completions, equal first tokens, mean common
+        prefix in tokens) against the unsharded engine's."""
+        ref_outs = single["outs"]
+        common = [next((j for j, (a, b) in enumerate(zip(got[i], o))
+                        if a != b), min(len(got[i]), len(o)))
+                  for i, o in ref_outs.items()]
+        return (sum(got[i] == o for i, o in ref_outs.items()),
+                sum(got[i][0] == o[0] for i, o in ref_outs.items()),
+                sum(common) / len(common))
+
+    same, first, prefix = agreement(outs[0])
+    ulp_same, ulp_first, ulp_prefix = agreement(moved["outs"])
+    tp1_ms = single["decode_s"] * 1e3 / max(single["steps"], 1)
+    for r, rep in enumerate(reports):
+        log(f"19c rank {r}: local heads {rep['heads']}, read "
+            f"{rep['bytes_read'] / 1e9:.3f} of {total / 1e9:.3f} GB in "
+            f"{rep['load_s']:.2f} s with the fuse ({rep['gib']:.2f} GiB on "
+            f"the card); served {len(rep['completions'])} requests in "
+            f"{rep['serve_s']:.2f} s, decode {rep['decode_ms']:.2f} ms a "
+            f"step over {rep['steps']} steps; launches {rep['launches']}")
+    n = len(single["outs"])
+    log(f"19c tp = 2 over 2 processes (gloo): completions equal on both "
+        f"ranks; against the unsharded engine's {same}/{n} identical, "
+        f"{first}/{n} first tokens equal, {prefix:.2f} tokens in common on "
+        f"average (the unsharded model with its embeddings one ulp up: "
+        f"{ulp_same}/{n}, {ulp_first}/{n}, {ulp_prefix:.2f}); decode "
+        f"{reports[0]['decode_ms']:.2f} ms a step at tp = 2 against "
+        f"{tp1_ms:.2f} at tp = 1; the ranks ran {spawn_s:.1f} s, started "
+        f"before the checkpoint was written ({card()})")
+    if first < ulp_first:
+        raise AssertionError(
+            f"19c: {first}/{n} first tokens equal to tp = 1's, fewer than "
+            f"the one-ulp model's {ulp_first}/{n}")
+    for rep in reports:
+        missing = [k for k, v in rep["launches"].items() if not v]
+        if missing:
+            raise AssertionError(f"19c never launched {missing}")
+    log(f"phase 19c wall {time.perf_counter() - t_phase:.1f} s ({card()})")
+    return {"70B tp=1 paged": single,
+            "70B tp=1 paged, embeddings one ulp up": moved}
+
+
+def phase_parallel(serving):
+    """Phase 19 (19a, 19b, 19c)."""
+    t_phase = time.perf_counter()
+    results = phase_mesh_one(serving)
+    log(f"phase 19a wall {time.perf_counter() - t_phase:.1f} s")
+    phase_shard_arithmetic()
+    results.update(phase_tp2_processes())
+    log(f"phase 19 wall {time.perf_counter() - t_phase:.1f} s ({card()})")
+    return results
+
+
 KERNEL_META = {
     "w4a16_matmul": ("compressed_tensors_tpu_torch/csrc/w4a16_matmul.cu",
                      "compressed_tensors_tpu/ops/kernels/w4a16_matmul.py:541"),
@@ -8284,11 +8716,13 @@ def main() -> int:
     log(f"phase 17 (transforms) done at {time.perf_counter() - t_start:.1f} s")
     converters = phase_converters()
     log(f"phase 18 (converters) done at {time.perf_counter() - t_start:.1f} s")
+    parallel = phase_parallel(serving)
+    log(f"phase 19 (parallel) done at {time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})
     for phase in (fp8, nvfp4, w8a16, qwen25, qwen3, sparse24, w8a8_tiny,
-                  mixed, moe, mla, ptq, transforms, converters):
+                  mixed, moe, mla, ptq, transforms, converters, parallel):
         paths.update({run: res["counts"] for run, res in phase.items()})
     kernels = kernel_report(errs, rows, variant_rows, paths)
     log(f"total {time.perf_counter() - t_start:.1f} s")

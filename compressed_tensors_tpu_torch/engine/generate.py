@@ -15,18 +15,22 @@ from compressed_tensors_tpu_torch.models.llama import (
     llama_forward,
     resolve_device,
 )
+from compressed_tensors_tpu_torch.parallel.mesh import local_config
 
 __all__ = ["greedy_generate", "make_step_fns"]
 
 
 def make_step_fns(config: LlamaConfig, max_len: int, dtype=torch.bfloat16,
                   cache_dtype=None, use_kernels: bool = True, device="cuda"):
-    """(prefill, decode) step functions over a cache of ``max_len``."""
+    """(prefill, decode) step functions over a cache of ``max_len``. The
+    params may be a rank's slice (``parallel.shard_llama_params``): the
+    cache then holds its kv heads and every rank gets the full logits."""
     device = resolve_device(device)
 
     def prefill(params, input_ids, prompt_len: int):
         B, S = input_ids.shape
-        cache = init_kv_cache(config, B, max_len, dtype=dtype,
+        cache = init_kv_cache(local_config(params, config), B, max_len,
+                              dtype=dtype,
                               cache_dtype=cache_dtype, device=device)
         positions = torch.arange(S, device=device).expand(B, S)
         # unpadded prompt: only the last position's logits matter; a padded

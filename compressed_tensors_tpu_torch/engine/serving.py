@@ -6,6 +6,11 @@ Requests queue up; finished slots are released and refilled by prefilling
 the next request into the freed slot while the other slots keep decoding.
 Slot, page and prefix bookkeeping is on the host; steps run eagerly.
 
+With a ``mesh`` every rank runs the engine on its slice of the params
+(``parallel/mesh.py``); the forward gathers the vocabulary-sharded logits,
+so the argmax, and with it every host-side decision, is the same on every
+rank.
+
 Three things differ from the JAX engine, with the same completions:
 
 - A prefill chunk runs the forward over the slot's row only, with a
@@ -44,6 +49,7 @@ from compressed_tensors_tpu_torch.models.llama import (
     resolve_device,
     transcode_fp8_kv_to_int8,
 )
+from compressed_tensors_tpu_torch.parallel.mesh import local_config
 
 __all__ = ["ServingEngine", "Request", "Completion"]
 
@@ -91,6 +97,13 @@ class ServingEngine:
     :param paged: a page pool with per-slot page tables (page 0 is the null
         page), with sha256 prefix caching and newest-first preemption
     :param num_pages: pool size (default: full residency plus the null page)
+    :param mesh: a ``parallel.make_mesh`` mesh: the params are sharded
+        over it (``shard_llama_params``; a rank's already sharded params
+        are taken as they are) and the cache holds this rank's kv heads.
+        Every rank runs the same host-side slot, page and prefix
+        bookkeeping on the same gathered logits, so the ranks take the
+        same decisions. The engine then runs on ``mesh.device`` (in place
+        of ``device``); dp > 1 raises NotImplementedError (ROADMAP A8d)
     :param device: where the engine runs; CUDA unless the caller asks for
         the CPU
     """
@@ -113,13 +126,23 @@ class ServingEngine:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...) is not ported yet (ROADMAP A8)")
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         params, cache_dtype = transcode_fp8_kv_to_int8(params, cache_dtype)
+        if mesh is not None:
+            from compressed_tensors_tpu_torch.parallel.mesh import (
+                shard_llama_params,
+            )
+
+            # full params are sharded here; a rank's own slice (already
+            # sharded, e.g. by load_llama_params(mesh=...)) is kept
+            if params.get("shard") is None:
+                params = shard_llama_params(params, mesh, config)
+        self.mesh = mesh
         self.params = params
         self.config = config
+        # the caches hold this rank's kv heads
+        cache_config = local_config(params, config)
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
@@ -133,7 +156,7 @@ class ServingEngine:
         self._lengths = np.zeros((max_batch,), np.int32)
         if paged:
             self.cache = init_paged_kv_cache(
-                config, max_batch, max_len, num_pages=num_pages,
+                cache_config, max_batch, max_len, num_pages=num_pages,
                 page_size=page_size, dtype=dtype, cache_dtype=cache_dtype,
                 device=self.device)
             # host-side page allocator: free list over the pool (page 0 is
@@ -151,7 +174,7 @@ class ServingEngine:
             self._page_digest: dict[int, bytes] = {}
             self._cached_free: "OrderedDict[int, bytes]" = OrderedDict()
         else:
-            self.cache = init_kv_cache(config, max_batch, max_len,
+            self.cache = init_kv_cache(cache_config, max_batch, max_len,
                                        dtype=dtype, cache_dtype=cache_dtype,
                                        device=self.device)
         self.prefix_cache_hits = 0  # pages reused across requests

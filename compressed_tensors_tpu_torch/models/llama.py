@@ -301,7 +301,7 @@ def _attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all, kv_v_all,
 
     def project(out):
         out = out.reshape(B, S, H * D).to(x.dtype)
-        return quantized_matmul(out, layer["o_proj"], use_kernels)
+        return row_matmul(out, layer, "o_proj", use_kernels)
 
     def step():  # the decode kernels' (B, heads, D) operands
         return (q[:, 0].contiguous(), k[:, 0].contiguous(),
@@ -405,7 +405,7 @@ def _attention_dense_tail(layer: dict, x, q, k, v, cache_k_l, cache_v_l,
             out = torch.einsum("bkrst,btkd->bskrd", probs.to(torch.float32),
                                v_a.to(torch.float32)).to(x.dtype)
         out = out.reshape(B, S, H * D).to(x.dtype)
-        return quantized_matmul(out, layer["o_proj"], use_kernels)
+        return row_matmul(out, layer, "o_proj", use_kernels)
 
     keys = _dequantize_from_cache(cache_k_l, k_scale, x.dtype)
     values = _dequantize_from_cache(cache_v_l, v_scale, x.dtype)
@@ -420,8 +420,7 @@ def _attention_dense_tail(layer: dict, x, q, k, v, cache_k_l, cache_v_l,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkrst,bktd->bskrd", probs.to(torch.float32),
                        values.to(torch.float32)).to(x.dtype)
-    return quantized_matmul(out.reshape(B, S, H * D), layer["o_proj"],
-                            use_kernels)
+    return row_matmul(out.reshape(B, S, H * D), layer, "o_proj", use_kernels)
 
 
 def _mlp(layer: dict, x, config: LlamaConfig, use_kernels: bool = True):
@@ -436,7 +435,51 @@ def _mlp(layer: dict, x, config: LlamaConfig, use_kernels: bool = True):
     else:
         gate = quantized_matmul(x, layer["gate_proj"], use_kernels)
         up = quantized_matmul(x, layer["up_proj"], use_kernels)
-    return quantized_matmul(F.silu(gate) * up, layer["down_proj"], use_kernels)
+    return row_matmul(F.silu(gate) * up, layer, "down_proj", use_kernels)
+
+
+def row_matmul(x, layer: dict, name: str, use_kernels: bool = True):
+    """``layer[name]`` applied to x: ``quantized_matmul``, or, where the
+    layer's shard makes it row-parallel, the rank's partial product summed
+    over the mesh's "tp" axis (``parallel.mesh.row_parallel_matmul``)."""
+    shard = layer.get("shard")
+    if shard is None or name not in shard.rows:
+        return quantized_matmul(x, layer[name], use_kernels)
+    from compressed_tensors_tpu_torch.parallel.mesh import (
+        row_parallel_matmul,
+    )
+
+    return row_parallel_matmul(x, layer[name], shard.mesh,
+                               name in shard.replicated_inputs, use_kernels)
+
+
+def _embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``input_ids`` (a vocabulary-sharded table: the
+    rank's masked lookup summed over "tp")."""
+    embed = params["embed_tokens"]
+    embed_w = materialize_weight(embed) if isinstance(
+        embed, QuantizedTensor) else embed
+    shard = params.get("shard")
+    if shard is not None:
+        return shard.embed(embed_w, input_ids)
+    return embed_w[input_ids]
+
+
+def _lm_head(params: dict, x, config: LlamaConfig, use_kernels: bool,
+             last_only: bool = False):
+    """Final norm and lm_head logits, of the last position only where
+    ``last_only`` (a vocabulary-sharded head's gathered over "tp")."""
+    x = rms_norm(x, params["norm"], config.rms_norm_eps)
+    if last_only:
+        x = x[:, -1:, :]
+    lm_head = params["lm_head"]
+    if isinstance(lm_head, QuantizedTensor):
+        logits = quantized_matmul(x, lm_head, use_kernels)
+    else:
+        logits = torch.matmul(x.to(torch.float32),
+                              lm_head.to(torch.float32).t())
+    shard = params.get("shard")
+    return shard.logits(logits) if shard is not None else logits
 
 
 def llama_forward(params: dict, config: LlamaConfig,
@@ -458,10 +501,13 @@ def llama_forward(params: dict, config: LlamaConfig,
     :param last_logit_only: lm_head logits for the final position only
     """
     use_kernels = kernels_enabled(use_kernels)
-    embed = params["embed_tokens"]
-    embed_w = materialize_weight(embed) if isinstance(
-        embed, QuantizedTensor) else embed
-    x = embed_w[input_ids]
+    shard = params.get("shard")
+    if shard is not None:
+        # a rank's slice of sharded params (parallel.mesh): local heads,
+        # the collectives of its mesh
+        shard.mesh.require_groups()
+        config = shard.local_config(config)
+    x = _embed(params, input_ids)
     B, S = input_ids.shape
     rope_dim = config.qk_rope_head_dim if config.is_mla else config.head_dim
     cos, sin = _rope(positions, rope_dim, config.rope_theta)
@@ -490,15 +536,7 @@ def llama_forward(params: dict, config: LlamaConfig,
         h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
         x = x + _mlp(layer, h, config, use_kernels)
 
-    x = rms_norm(x, params["norm"], config.rms_norm_eps)
-    if last_logit_only:
-        x = x[:, -1:, :]
-    lm_head = params["lm_head"]
-    if isinstance(lm_head, QuantizedTensor):
-        logits = quantized_matmul(x, lm_head, use_kernels)
-    else:
-        logits = torch.matmul(x.to(torch.float32),
-                              lm_head.to(torch.float32).t())
+    logits = _lm_head(params, x, config, use_kernels, last_logit_only)
     lengths = (cache_lens + S).to(torch.int32)
     if tables is not None:
         return logits, PagedKVCache(k=kv_k_all, v=kv_v_all, tables=tables,
@@ -507,13 +545,17 @@ def llama_forward(params: dict, config: LlamaConfig,
 
 
 def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
-                      use_kernels: bool = True
+                      use_kernels: bool = True, mesh=None
                       ) -> tuple[dict, LlamaConfig, Any]:
     """Load a compressed-tensors Llama checkpoint run compressed.
 
     :param device: where the params live; CUDA unless the caller asks for
         another device
     :param use_kernels: build the kernel weight layouts at load
+    :param mesh: a ``parallel.make_mesh`` mesh that splits tp: each rank
+        reads only the blocks of its shard (``parallel.mesh.
+        ShardedCheckpointReader``) and gets the params
+        ``shard_llama_params`` would give it; dense GQA models only
     :return: (params, config, model_compressor)
     """
     from compressed_tensors_tpu_torch.compressors import (
@@ -532,6 +574,15 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
     tensor_names = set(reader.tensor_names())
     schemes = (mc.resolve_schemes(module_graph_from_names(module_names))
                if mc is not None else {})
+    sharded = mesh is not None and (mesh.shape["tp"] > 1
+                                    or mesh.shape["ep"] > 1)
+    if sharded:
+        from compressed_tensors_tpu_torch.parallel.mesh import (
+            ShardedCheckpointReader,
+        )
+
+        reader.close()
+        reader = ShardedCheckpointReader(path, config, schemes, mesh)
 
     def _tensor(name):
         return reader.get(name).to(device)
@@ -653,4 +704,6 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
     params["lm_head"] = (_get_qt("lm_head") if "lm_head" in module_names
                          else params["embed_tokens"])
     reader.close()
+    if sharded:
+        params = reader.finish(params)
     return params, config, mc

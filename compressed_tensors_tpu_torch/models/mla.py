@@ -44,6 +44,7 @@ from compressed_tensors_tpu_torch.models.llama import (
     _dequantize_from_cache,
     _quantize_to_cache,
     rms_norm,
+    row_matmul,
 )
 from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     decode_attention,
@@ -121,8 +122,8 @@ def mla_attention(layer: dict, layer_idx: int, x, cos, sin, kv_k_all,
     k_scale, v_scale = layer.get("k_scale"), layer.get("v_scale")
 
     def project(attn):  # (B, S, h, vd) -> o_proj
-        return quantized_matmul(attn.reshape(B, S, h * vd).to(x.dtype),
-                                layer["o_proj"], use_kernels)
+        return row_matmul(attn.reshape(B, S, h * vd).to(x.dtype), layer,
+                          "o_proj", use_kernels)
 
     if S == 1 and use_kernels and (k_scale is None) == (v_scale is None):
         # absorbed decode: h query heads over the one latent head

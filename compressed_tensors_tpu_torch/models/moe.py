@@ -104,12 +104,32 @@ def moe_mlp(layer: dict, x: torch.Tensor, config: LlamaConfig,
     buf[rows] = tokens[sort_idx // k]
     dispatched = buf[:E * C].view(E, C, H)
 
+    # a rank of an expert-parallel mesh holds experts [e0, e0 + El) (with
+    # their tp shards, ``parallel.mesh``) and computes their rows only
+    shard = layer.get("shard")
+    e0, El, ex_tp = (shard.experts if shard is not None
+                     and shard.experts is not None else (0, E, False))
+    if El != E:
+        dispatched = dispatched[e0:e0 + El]
     experts = moe["experts"]
     gate = quantized_matmul_experts(dispatched, experts["gate_proj"],
                                     use_kernels)
     up = quantized_matmul_experts(dispatched, experts["up_proj"], use_kernels)
-    y = quantized_matmul_experts(F.silu(gate) * up, experts["down_proj"],
-                                 use_kernels)  # (E, C, H)
+    if ex_tp:
+        # K-sharded down projections: the rank's partials
+        from compressed_tensors_tpu_torch.parallel.mesh import (
+            row_parallel_experts,
+        )
+
+        y = row_parallel_experts(F.silu(gate) * up, experts["down_proj"],
+                                 shard.mesh, use_kernels)
+    else:
+        y = quantized_matmul_experts(F.silu(gate) * up, experts["down_proj"],
+                                     use_kernels)  # (El, C, H)
+    if El != E:
+        full = torch.zeros((E, C, H), dtype=y.dtype, device=y.device)
+        full[e0:e0 + El] = y
+        y = full
 
     # combine: each (token, k) slot's expert row (the zero row when
     # dropped), weighted in f32 and summed over the k slots in order
@@ -118,12 +138,30 @@ def moe_mlp(layer: dict, x: torch.Tensor, config: LlamaConfig,
     slot_rows = torch.empty_like(rows)
     slot_rows[sort_idx] = rows
     contrib = y[slot_rows].to(torch.float32) * top_w.reshape(T * k, 1)
-    out = contrib.reshape(T, k, H).sum(dim=1).to(x.dtype)
+    out = contrib.reshape(T, k, H).sum(dim=1)
+    if shard is not None and shard.experts is not None:
+        # the other experts' rows (where the rank holds some of them only:
+        # an expert count that "ep" does not divide replicates them), then
+        # the other tp shards' partials
+        if El != E:
+            shard.mesh.all_reduce(out, "ep")
+        if ex_tp:
+            shard.mesh.all_reduce(out, "tp")
+    out = out.to(x.dtype)
 
     shared = moe.get("shared_expert")
     if shared is not None:
         g = quantized_matmul(tokens, shared["gate_proj"], use_kernels)
         u = quantized_matmul(tokens, shared["up_proj"], use_kernels)
-        out = out + quantized_matmul(F.silu(g) * u, shared["down_proj"],
-                                     use_kernels)
+        if shard is not None and shard.shared_rows:
+            from compressed_tensors_tpu_torch.parallel.mesh import (
+                row_parallel_matmul,
+            )
+
+            down = row_parallel_matmul(F.silu(g) * u, shared["down_proj"],
+                                       shard.mesh, use_kernels=use_kernels)
+        else:
+            down = quantized_matmul(F.silu(g) * u, shared["down_proj"],
+                                    use_kernels)
+        out = out + down
     return out.reshape(B, S, H)

@@ -12,5 +12,6 @@ from compressed_tensors_tpu_torch.offload.dispatch import (  # noqa: F401
     max_binary_search,
 )
 from compressed_tensors_tpu_torch.offload.load import (  # noqa: F401
+    load_sharded_params,
     stream_modules,
 )

@@ -1,10 +1,12 @@
-"""Streaming model loading.
+"""Sharded and streaming model loading.
 
-Counterpart of ``compressed_tensors_tpu/offload/load.py:stream_modules``:
-a checkpoint read one module at a time (bounded host memory), each
-module's tensors placed on its planned device. ``load_sharded_params``,
-which reads each process's slice of a sharded tensor, waits for the
-port's tensor-parallel slice (ROADMAP A8c).
+Counterpart of ``compressed_tensors_tpu/offload/load.py``:
+``load_sharded_params`` reads each process's block of every sharded tensor
+of a checkpoint, and only those bytes (where the JAX package assembles
+global arrays from the blocks each process reads, a process here keeps its
+block as a plain tensor); ``stream_modules`` reads a checkpoint one module
+at a time (bounded host memory), each module's tensors placed on its
+planned device.
 """
 
 from __future__ import annotations
@@ -15,7 +17,56 @@ import torch
 
 from compressed_tensors_tpu_torch.utils.safetensors_io import CheckpointReader
 
-__all__ = ["stream_modules"]
+__all__ = ["load_sharded_params", "read_block", "stream_modules"]
+
+
+def load_sharded_params(
+    path: str,
+    shardings: Mapping[str, tuple],
+    mesh,
+    stats: dict | None = None,
+) -> dict[str, torch.Tensor]:
+    """Read this process's block of each tensor of a checkpoint onto the
+    mesh's device.
+
+    :param path: checkpoint directory
+    :param shardings: tensor name -> spec, one mesh axis name (or None) per
+        dim, as a PartitionSpec; an axis that does not divide its dim
+        replicates that dim (``parallel.mesh._sanitize_spec``). Names
+        without a spec are read whole.
+    :param mesh: the ``parallel.make_mesh`` mesh whose coordinates pick
+        the blocks
+    :param stats: a dict that receives "bytes_read", the bytes this
+        process read
+    :return: name -> this process's block
+    """
+    reader = CheckpointReader(path)
+    out: dict[str, torch.Tensor] = {}
+    read = 0
+    try:
+        for name in reader.tensor_names():
+            t, n = read_block(reader, name, shardings.get(name), mesh)
+            read += n
+            out[name] = t.to(mesh.device)
+    finally:
+        reader.close()
+    if stats is not None:
+        stats["bytes_read"] = stats.get("bytes_read", 0) + read
+    return out
+
+
+def read_block(reader: CheckpointReader, name: str, spec, mesh
+               ) -> tuple[torch.Tensor, int]:
+    """This process's block of tensor ``name`` of ``reader`` under
+    ``spec`` (as in ``load_sharded_params``), reading only its bytes; the
+    whole tensor where ``spec`` is None. Returns (tensor, bytes read)."""
+    from compressed_tensors_tpu_torch.parallel.mesh import _slice_ranges
+
+    if spec is None:
+        t = CheckpointReader.get(reader, name)
+        return t, t.numel() * t.element_size()
+    return reader.get_slice(name, _slice_ranges(reader.get_shape(name), spec,
+                                                mesh))
 
 
 def stream_modules(

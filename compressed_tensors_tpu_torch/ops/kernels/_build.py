@@ -59,6 +59,8 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+# source name -> nvcc's output of the last verbose build (ptxas's report)
+_VERBOSE_OUT: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -95,6 +97,8 @@ def build(verbose: bool = False) -> Path:
     failed = []
     for src, _, proc in jobs:
         out, _ = proc.communicate()
+        if verbose:
+            _VERBOSE_OUT[src.name] = out
         if proc.returncode or verbose:
             print(f"[nvcc {src.name}]\n{out}", file=sys.stderr)
         if proc.returncode:
@@ -111,21 +115,25 @@ def build(verbose: bool = False) -> Path:
 def ptxas_report(sources: tuple[str, ...], serialized: dict | None = None
                  ) -> dict[str, tuple[int, int]]:
     """Registers and spill-store bytes of every kernel in ``sources``
-    (``csrc`` file names), from ptxas's report of a compile-only build
-    (each source by its own nvcc, all at once): {mangled name: (registers,
-    spill bytes)}. A ``serialized`` dict receives {mangled name: [codes]}
-    of ptxas's "wgmma ... serialized" performance warnings (C75xx)."""
+    (``csrc`` file names), from ptxas's report: the one a verbose
+    ``build`` of this process printed, else a compile-only build (each
+    source by its own nvcc, all at once): {mangled name: (registers, spill
+    bytes)}. A ``serialized`` dict receives {mangled name: [codes]} of
+    ptxas's "wgmma ... serialized" performance warnings (C75xx)."""
     import re
     import tempfile
 
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / src),
-             "-o", os.path.join(tmp, f"{i}.o")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for i, src in enumerate(sources)]
-        outs = [p.communicate()[0] for p in procs]
+    outs = [_VERBOSE_OUT[src] for src in sources if src in _VERBOSE_OUT]
+    missing = [src for src in sources if src not in _VERBOSE_OUT]
+    if missing:
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / src),
+                 "-o", os.path.join(tmp, f"{i}.o")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for i, src in enumerate(missing)]
+            outs += [p.communicate()[0] for p in procs]
     report, name = {}, None
     for line in "\n".join(outs).splitlines():
         m = re.search(r"\((C75\d\d)\).*serialized.*function '([^']+)'", line)

@@ -17,6 +17,7 @@ import re
 import struct
 from typing import Iterable, Mapping
 
+import numpy as np
 import torch
 
 from compressed_tensors_tpu_torch.config import (
@@ -91,6 +92,40 @@ class SafetensorsFile:
         if not buf:
             return torch.empty(info["shape"], dtype=dtype)
         return torch.frombuffer(buf, dtype=dtype).reshape(info["shape"])
+
+    def get_slice(self, name: str, ranges) -> torch.Tensor:
+        """The block ``ranges`` ((start, stop) per dim) of one tensor, read
+        as its contiguous runs only: one read per index of the dims before
+        the last sliced one. Returns (tensor, bytes read)."""
+        info = self.header[name]
+        dtype = SAFETENSORS_DTYPES[info["dtype"]]
+        shape = list(info["shape"])
+        out_shape = [b - a for a, b in ranges]
+        item = torch.empty((), dtype=dtype).element_size()
+        cut = [d for d, (a, b) in enumerate(ranges) if (a, b) != (0, shape[d])]
+        last = cut[-1] if cut else 0
+        inner = int(np.prod(shape[last + 1:], dtype=np.int64))
+        run = (ranges[last][1] - ranges[last][0]) * inner * item
+        strides = [int(np.prod(shape[d + 1:], dtype=np.int64))
+                   for d in range(len(shape))]
+        offsets = np.zeros((1,), np.int64)
+        for d in range(last + 1):
+            a, b = ranges[d] if d < last else (ranges[d][0], ranges[d][0] + 1)
+            offsets = (offsets[:, None] + np.arange(a, b, dtype=np.int64)
+                       * strides[d]).reshape(-1)
+        buf = bytearray(run * len(offsets))
+        if self._file is None:
+            self._file = open(self.path, "rb")
+        fd, base = self._file.fileno(), self._data_start + info[
+            "data_offsets"][0]
+        view = memoryview(buf)
+        for i, off in enumerate(offsets.tolist()):
+            if os.preadv(fd, [view[i * run:(i + 1) * run]],
+                         base + off * item) != run:
+                raise ValueError(f"{self.path}: tensor {name} is truncated")
+        if not buf:
+            return torch.empty(out_shape, dtype=dtype), 0
+        return torch.frombuffer(buf, dtype=dtype).reshape(out_shape), len(buf)
 
     def get_shape(self, name: str) -> tuple[int, ...]:
         return tuple(self.header[name]["shape"])
@@ -318,6 +353,17 @@ class CheckpointReader:
 
     def get(self, name: str) -> torch.Tensor:
         return self._file_for(name).get(name)
+
+    def get_shape(self, name: str) -> tuple[int, ...]:
+        return self._file_for(name).get_shape(name)
+
+    def get_dtype(self, name: str) -> torch.dtype:
+        return self._file_for(name).get_dtype(name)
+
+    def get_slice(self, name: str, ranges) -> tuple[torch.Tensor, int]:
+        """The block ``ranges`` ((start, stop) per dim) of a tensor, reading
+        only its bytes; returns (tensor, bytes read)."""
+        return self._file_for(name).get_slice(name, ranges)
 
     def module_names(self) -> list[str]:
         """Distinct module prefixes, in checkpoint order."""

@@ -1186,3 +1186,32 @@ def test_latent_decode_refuses_operands(dev):
         da.decode_attention(q, nk, nv, ck, cv, lengths, layer=0, k_scale=two,
                             v_scale=two)
     assert da.decode_attention.latent_launches == count
+
+
+def test_ring_k_slices_sum_to_b1(dev):
+    """The quantized ring's K-slices (``parallel.overlap.ring_k_slices``,
+    cut once per weight): their two B1 launches, summed in f32, against B1
+    on the whole (N/2, K) shard, within the bf16 rounding of the three
+    outputs plus 1e-4 max|y|."""
+    import dataclasses
+
+    from torch_dist_worker import ring_shard
+
+    from compressed_tensors_tpu_torch.parallel.overlap import ring_k_slices
+
+    qt = ring_shard(0)
+    qt = dataclasses.replace(qt, kernel_packed=qt.kernel_packed.to(dev),
+                             kernel_scales=qt.kernel_scales.to(dev))
+    n, k, g = qt.kernel_meta[1:]
+    x = _bf16(np.random.default_rng(23), 8, k, device=dev)
+    whole = w4.w4a16_matmul(x, qt.kernel_packed, qt.kernel_scales, None,
+                            n=n, k=k, group_size=g).float()
+    slices = ring_k_slices(qt, 2)
+    assert ring_k_slices(qt, 2) is slices
+    parts = [w4.w4a16_matmul(x[:, s * ks:(s + 1) * ks].contiguous(), wp, sc,
+                             zp, n=n, k=ks, group_size=g).float()
+             for s, (wp, sc, zp, ks) in enumerate(slices)]
+    got = parts[0] + parts[1]
+    tol = 2**-8 * (parts[0].abs() + parts[1].abs() + whole.abs()) \
+        + 1e-4 * whole.abs().max()
+    assert bool(((got - whole).abs() <= tol).all())

@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_builds_nothing():
                     "entrypoints.convert.convert_checkpoint",
                     "offload", "offload.cache", "offload.dispatch",
                     "offload.load", "distributed", "distributed.utils",
-                    "distributed.assign", "distributed.module_parallel"):
+                    "distributed.assign", "distributed.module_parallel",
+                    "parallel", "parallel.mesh", "parallel.overlap",
+                    "parallel.pipeline"):
             assert "compressed_tensors_tpu_torch." + mod in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -51,3 +53,20 @@ def test_port_imports_no_jax_and_builds_nothing():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30
+
+
+def test_sharded_loading_and_parallel_import_alone_without_jax():
+    """``offload.load`` (``load_sharded_params``) and ``parallel``, each
+    imported first and alone, pull in neither JAX nor the JAX package."""
+    for module in ("offload.load", "parallel"):
+        code = textwrap.dedent(f"""
+            import sys
+            import compressed_tensors_tpu_torch.{module}
+            bad = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "ml_dtypes",
+                                                "compressed_tensors_tpu"))
+            assert not bad, bad
+        """)
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, (module, out.stderr)

@@ -179,9 +179,13 @@ def test_fp8_kv_cache_completions_match_jax(fp8_models, name):
 
 def test_engine_defaults_to_cuda_and_names_unported_options(models,
                                                             monkeypatch):
+    from compressed_tensors_tpu_torch.parallel import make_mesh
+
     _, _, tp, tc = models
-    with pytest.raises(NotImplementedError, match="A8"):
-        ServingEngine(tp, tc, mesh=object(), device="cpu")
+    # the mesh engine is ported; data parallelism is not (ROADMAP A8d)
+    with pytest.raises(NotImplementedError, match="A8d"):
+        ServingEngine(tp, tc, mesh=make_mesh(dp=2, rank=0, world=2,
+                                             device="cpu"), device="cpu")
     # quantized KV caches are served: fp8 as it is, int8 under the transcode
     for paged in (False, True):
         eng = ServingEngine(tp, tc, dtype=torch.float32, max_len=64,

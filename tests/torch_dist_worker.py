@@ -19,7 +19,13 @@ and calibrated with the port on DEVICE. CASE "compress-file": a gloo group
 states the parent wrote to ``OUT_DIR/states.safetensors`` with the recipe
 of ``OUT_DIR/quantization_config.json``, loaded onto DEVICE, timed. CASE
 "nccl": an NCCL group on the card, an all-reduce of a one, the group torn
-down.
+down. CASE "parallel": a gloo group on the CPU and the tensor, expert and
+pipeline parallel oracles of ``tests/test_torch_parallel.py`` over the
+inputs the parent wrote (``inputs.json``, ``inputs.npz``), the arrays
+written to ``rank<RANK>.npz``. CASE "tp70b": a gloo group over CUDA tensors
+(NCCL takes one rank a card): this rank's blocks of the checkpoint under
+``OUT_DIR/ckpt`` loaded at tp = 2, logits and serving as ``chip_smoke.py``
+phase 19c reads them (``rank<RANK>.pt``).
 """
 
 import json
@@ -64,35 +70,52 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(case, out_dir, world=2, device="cpu", timeout=90):
-    """Run ``world`` ranks of CASE on DEVICE, each within ``timeout``
-    seconds; returns their reports after every rank exited 0, and raises
-    with a rank's output otherwise. No rank outlives the call."""
+def start(case, out_dir, world=2, device="cpu"):
+    """Start ``world`` ranks of CASE on DEVICE; ``finish`` collects them."""
     port = free_port()
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
                 "LOCAL_RANK"):
         env.pop(var, None)
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), case, device, str(rank),
          str(world), str(port), str(out_dir)], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]
+
+
+def stop(procs):
+    """Kill the ranks still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def spawn(case, out_dir, world=2, device="cpu", timeout=90):
+    """Run ``world`` ranks of CASE on DEVICE, each within ``timeout``
+    seconds; returns their reports after every rank exited 0, and raises
+    with a rank's output otherwise. No rank outlives the call."""
+    return finish(case, start(case, out_dir, world, device), out_dir,
+                  timeout)
+
+
+def finish(case, procs, out_dir, timeout=90):
+    """Wait for ranks from ``start``, each within ``timeout`` seconds;
+    their reports, as ``spawn`` returns them. No rank outlives the
+    call."""
     outs = []
     try:
         for p in procs:
             outs.append(p.communicate(timeout=timeout)[0])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop(procs)
     for rank, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             raise RuntimeError(f"{case} rank {rank} exited {p.returncode}:"
                                f"\n{out[-4000:]}")
     reports = []
-    for rank in range(world):
+    for rank in range(len(procs)):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
             reports.append(json.load(f))
     return reports
@@ -171,6 +194,463 @@ def compress(case, device, rank, world, out_dir):
                                for v in s.values()})}
 
 
+# --------------------------------------------------------------------------- #
+# CASE "parallel": tensor, expert and pipeline parallelism (parallel/), each
+# sub-case's results written for the parent, which holds them against the
+# JAX package's single-device results
+
+# tests/test_parallel/test_moe_sharding.py's and test_pipeline.py's model
+PARALLEL_CFG = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, head_dim=32)
+MOE = dict(num_local_experts=4, num_experts_per_tok=2,
+           moe_intermediate_size=128)
+# (name, mesh, MOE overrides) of the MoE forwards
+MOE_CASES = (("moe_ep2", "ep2", {}), ("moe_tp2", "tp2", {}),
+             ("moe_wide_tp2", "tp2", dict(moe_intermediate_size=256)),
+             ("moe_ep2_odd", "ep2", dict(num_local_experts=3)))
+
+
+def engine_run(params, config, requests, mesh, **kw):
+    """test_serving_sharded.py's ``_run`` settings through the port's
+    engine; ``kw`` overrides them."""
+    from compressed_tensors_tpu_torch.engine import Request, ServingEngine
+
+    settings = dict(max_batch=2, max_len=32, prefill_chunk=4)
+    settings.update(kw)
+    engine = ServingEngine(params, config, dtype=torch.float32, mesh=mesh,
+                           device="cpu", **settings)
+    done = []
+    for batch in requests:   # each batch runs to its end before the next
+        for r in batch:
+            engine.submit(Request(**r))
+        done += engine.run()
+    out = {"completions": {c.request_id: [c.output_ids, c.finish_reason]
+                           for c in done},
+           "preemptions": engine.preemptions,
+           "prefix_cache_hits": engine.prefix_cache_hits}
+    if engine.paged:
+        out["pages_accounted"] = (len(engine._free_pages)
+                                  + len(engine._cached_free)
+                                  + len(engine._page_ref))
+    return out
+
+
+def parallel(out_dir, rank):
+    """Every sub-case of CASE "parallel" on this rank (2 gloo ranks on the
+    CPU); returns the JSON report and the arrays."""
+    import dataclasses
+
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models import (
+        llama_forward,
+        load_llama_params,
+    )
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        make_synthetic_llama,
+    )
+    from compressed_tensors_tpu_torch.offload import load_sharded_params
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.ops.kernels.w8a8_matmul import (
+        quantize_rows_plain,
+    )
+    from compressed_tensors_tpu_torch.parallel import (
+        make_mesh,
+        matmul_reducescatter,
+        pipeline_forward,
+        ring_allgather_matmul,
+        ring_allgather_matmul_quantized,
+        shard_llama_params,
+        stack_stage_params,
+    )
+    from compressed_tensors_tpu_torch.ops.linear import quantized_matmul
+    from compressed_tensors_tpu_torch.parallel.mesh import (
+        _shard_qt,
+        row_parallel_input,
+        row_parallel_matmul,
+    )
+
+    with open(os.path.join(out_dir, "inputs.json")) as f:
+        inputs = json.load(f)
+    arrays = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    # every rank opens the same groups in the same order
+    tp2 = make_mesh(tp=2, device="cpu")
+    ep2 = make_mesh(ep=2, device="cpu")
+    pp2 = make_mesh(pp=2, device="cpu")
+    report, out = {}, {}
+    t0 = time.perf_counter()
+
+    def load(name):
+        return load_llama_params(inputs["paths"][name], dtype=torch.float32,
+                                 device="cpu")
+
+    # engines: test_serving_sharded.py's oracles at tp = 2
+    params, config, _ = load("w4")
+    fused = fuse_llama_layers(params)
+    reqs = inputs["requests"]["w4"]
+    report["dense"] = engine_run(fused, config, [reqs], tp2)
+    report["paged"] = engine_run(fused, config, [reqs], tp2, paged=True,
+                                 page_size=8)
+    # the multiprocess forward and sharded loading
+    ids = torch.from_numpy(arrays["forward_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    sharded = shard_llama_params(params, tp2, config)
+    out["forward_logits"] = llama_forward(sharded, config, ids, pos)[0]
+    # B2's a8b mode quantizes each row by its absmax: a K shard takes the
+    # whole row's
+    with flag_overrides(w4_act="int8"):
+        out["a8b_sharded"] = llama_forward(sharded, config, ids, pos)[0]
+        out["a8b_unsharded"] = llama_forward(params, config, ids, pos)[0]
+    loaded, _, _ = load_llama_params(inputs["paths"]["w4"],
+                                     dtype=torch.float32, device="cpu",
+                                     mesh=tp2)
+    same = []
+    for a, b in zip(loaded["layers"], sharded["layers"]):
+        for key, qt in b.items():
+            if hasattr(qt, "kernel_meta"):
+                for field in dataclasses.fields(qt):
+                    x, y = getattr(qt, field.name), getattr(a[key],
+                                                           field.name)
+                    same.append(torch.equal(x, y) if isinstance(
+                        x, torch.Tensor) else x == y)
+    report["sharded_load_equal"] = all(same) and torch.equal(
+        loaded["embed_tokens"], sharded["embed_tokens"])
+    out["loaded_logits"] = llama_forward(loaded, config, ids, pos)[0]
+    report["loaded_bytes"] = loaded["shard"].bytes_read
+
+    mixed, mconfig, _ = load("mixed")
+    mfused = fuse_llama_layers(mixed)
+    reqs = inputs["requests"]["mixed"]
+    report["mixed"] = engine_run(mfused, mconfig, [reqs], tp2)
+    report["mixed_paged"] = engine_run(mfused, mconfig, [reqs], tp2,
+                                       paged=True, page_size=8)
+    report["preempt"] = engine_run(
+        mfused, mconfig, [inputs["requests"]["preempt"]], tp2,
+        prefill_chunk=8, paged=True, page_size=8, num_pages=5)
+    # the unsharded dense engine the JAX test holds preemption against
+    report["preempt_unsharded"] = engine_run(
+        mfused, mconfig, [inputs["requests"]["preempt"]], None,
+        prefill_chunk=8)
+    report["prefix"] = engine_run(
+        mfused, mconfig, [[r] for r in inputs["requests"]["prefix"]], tp2,
+        max_len=64, prefill_chunk=8, paged=True, page_size=8)
+    report["burst"] = engine_run(mfused, mconfig,
+                                 [inputs["requests"]["burst"]], tp2,
+                                 steps_per_sync=4)
+    report["burst_per_step"] = engine_run(mfused, mconfig,
+                                          [inputs["requests"]["burst"]], tp2)
+
+    # a K-sharded W8A8 down projection, rows' absmax on the other rank
+    qt = mixed["layers"][1]["down_proj"]
+    x = torch.from_numpy(arrays["w8_x"])
+    k = qt.shape[1] // 2
+    local = shard_llama_params(mixed, tp2, mconfig)["layers"][1]["down_proj"]
+    xin = row_parallel_input(x[:, rank * k:(rank + 1) * k], local, tp2)
+    xq, xs = quantize_rows_plain(xin, torch.int8)
+    fq, fs = quantize_rows_plain(x, torch.int8)
+    report["w8_codes_equal"] = torch.equal(xq[:, :k],
+                                           fq[:, rank * k:(rank + 1) * k])
+    report["w8_scales_equal"] = torch.equal(xs, fs)
+    out["w8_y"] = row_parallel_matmul(x[:, rank * k:(rank + 1) * k], local,
+                                      tp2)
+    out["w8_y_nonkernel"] = row_parallel_matmul(
+        x[:, rank * k:(rank + 1) * k], local, tp2, use_kernels=False)
+
+    # an actorder (g_idx) W4A16 linear split on K: the permutation crosses
+    # the shards, so each rank gathers the input, permutes, and takes its
+    # slice through the permuted kernel layout
+    qt, x = actorder_linear()
+    local = _shard_qt(qt, "down_proj", tp2)
+    k = qt.shape[1] // 2
+    out["actorder_y"] = row_parallel_matmul(x[:, rank * k:(rank + 1) * k],
+                                            local, tp2)
+    out["actorder_ref"] = quantized_matmul(x, qt)
+    try:
+        row_parallel_matmul(x[:, rank * k:(rank + 1) * k], local, tp2,
+                            use_kernels=False)
+        report["actorder_nonkernel_refused"] = False
+    except NotImplementedError:
+        report["actorder_nonkernel_refused"] = True
+
+    # shard-per-process checkpoint load
+    stats = {}
+    blocks = load_sharded_params(os.path.join(out_dir, "st"),
+                                 {"w": ("tp", None)}, tp2, stats=stats)
+    out["st_w"], out["st_b"] = blocks["w"], blocks["b"]
+    report["st_bytes_read"] = stats["bytes_read"]
+
+    # MLA: only o_proj is sharded
+    mla, mla_config, _ = load("mla")
+    mla_ids = torch.from_numpy(arrays["mla_ids"])
+    mla_pos = torch.arange(mla_ids.shape[1]).expand(mla_ids.shape)
+    mla_s = shard_llama_params(mla, tp2, mla_config)
+    report["mla_rows"] = sorted(mla_s["layers"][0]["shard"].rows)
+    report["mla_replicated_inputs"] = sorted(
+        mla_s["layers"][0]["shard"].replicated_inputs)
+    report["mla_q_a_whole"] = (mla_s["layers"][0]["q_a_proj"]
+                               is mla["layers"][0]["q_a_proj"])
+    out["mla_logits"] = llama_forward(mla_s, mla_config, mla_ids, mla_pos)[0]
+
+    # rings (test_overlap.py)
+    x, w = torch.from_numpy(arrays["ring_x"]), torch.from_numpy(
+        arrays["ring_w"])
+    kk, nn = x.shape[1] // 2, w.shape[0] // 2
+    out["ring_ag"] = ring_allgather_matmul(
+        x[:, rank * kk:(rank + 1) * kk], w[rank * nn:(rank + 1) * nn], tp2)
+    out["ring_rs"] = matmul_reducescatter(
+        x[:, rank * kk:(rank + 1) * kk], w[:, rank * kk:(rank + 1) * kk], tp2)
+    x, wu, wd = (torch.from_numpy(arrays[n]) for n in
+                 ("mlp_x", "mlp_up", "mlp_down"))
+    hh, ii = x.shape[1] // 2, wu.shape[0] // 2
+    h = ring_allgather_matmul(x[:, rank * hh:(rank + 1) * hh],
+                              wu[rank * ii:(rank + 1) * ii], tp2)
+    out["ring_mlp"] = matmul_reducescatter(
+        torch.nn.functional.gelu(h, approximate="tanh"),
+        wd[:, rank * ii:(rank + 1) * ii], tp2)
+    x = torch.from_numpy(arrays["ringq_x"])
+    shard = ring_shard(rank)
+    kk = x.shape[1] // 2
+    out["ring_q"] = ring_allgather_matmul_quantized(
+        x[:, rank * kk:(rank + 1) * kk], shard, tp2)
+
+    # pipeline (test_pipeline.py): pp = 2
+    pcfg = LlamaConfig(**dict(PARALLEL_CFG, num_hidden_layers=4))
+    ids = torch.from_numpy(arrays["pp_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    for preset in ("W4A16", "W8A8"):
+        p = make_synthetic_llama(pcfg, preset=preset, use_kernels=False,
+                                 dtype=torch.float32, device="cpu")
+        p["stages"] = stack_stage_params(p.pop("layers"), 2)
+        out[f"pp_{preset}"] = pipeline_forward(p, pcfg, ids, pos, pp2,
+                                               n_microbatches=2)
+
+    # MoE (test_moe_sharding.py): ep = 2, tp = 2, and tp = 2 with experts
+    # wide enough to split into whole groups; ep = 2 over 3 experts, which
+    # it does not divide (every rank holds them all)
+    ids = torch.from_numpy(arrays["moe_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    for name, mesh, extra in MOE_CASES:
+        cfg = LlamaConfig(**PARALLEL_CFG, **dict(MOE, **extra))
+        p = make_synthetic_llama(cfg, preset="W4A16", use_kernels=False,
+                                 dtype=torch.float32, device="cpu")
+        ps = shard_llama_params(p, {"ep2": ep2, "tp2": tp2}[mesh], cfg)
+        report[name + "_experts"] = list(ps["layers"][0]["shard"].experts)
+        out[name] = llama_forward(ps, cfg, ids, pos)[0]
+
+    # K shards of the other kernels that quantize their input rows by the
+    # row's absmax, each on an input whose rows' absmax lies on rank 1's
+    # half of K, against the unsharded port: the MoE block of stacked
+    # experts' int4 words in a8b (B2e) and of W8A8 experts (per-token int8
+    # products), and a down projection in the plane layout's a8 mode (B10)
+    from compressed_tensors_tpu_torch.models.moe import moe_mlp
+
+    wide = LlamaConfig(**PARALLEL_CFG, **dict(MOE, moe_intermediate_size=256))
+    dense = LlamaConfig(**PARALLEL_CFG)
+    x = torch.from_numpy(arrays["rows_x"])
+    for name, cfg, preset, flags in (
+            ("rows_moe_a8b", wide, "W4A16", dict(w4_act="int8")),
+            ("rows_moe_w8a8", wide, "W8A8", {}),
+            ("rows_planes_a8", dense, "W4A16",
+             dict(w4_layout="packed", w4_mode="a8"))):
+        with flag_overrides(**flags):
+            p = make_synthetic_llama(cfg, preset=preset, dtype=torch.float32,
+                                     device="cpu")
+            layer = shard_llama_params(p, tp2, cfg)["layers"][0]
+            if "moe" in layer:
+                report[name + "_split"] = bool(layer["shard"].experts[2])
+                out[name + "_sharded"] = moe_mlp(layer, x, cfg)
+                out[name + "_unsharded"] = moe_mlp(p["layers"][0], x, cfg)
+            else:
+                local = layer["down_proj"]
+                report[name + "_split"] = "down_proj" in layer["shard"].rows
+                h = torch.nn.functional.silu(x @ x.new_ones(128, 256) / 64)
+                h[..., 200] = 9.0
+                k = local.shape[1]
+                out[name + "_sharded"] = row_parallel_matmul(
+                    h[..., rank * k:(rank + 1) * k], local, tp2)
+                out[name + "_unsharded"] = quantized_matmul(
+                    h, p["layers"][0]["down_proj"])
+    report["seconds"] = time.perf_counter() - t0
+    return report, {k: v.numpy() for k, v in out.items()}
+
+
+def actorder_linear(n=64, k=512, group=128):
+    """A W4A16 g128 linear with an actorder g_idx (each group's columns
+    scattered over K), compressed and prepared by the port, and an input."""
+    from compressed_tensors_tpu_torch.compressors import (
+        PackedQuantizationCompressor,
+    )
+    from compressed_tensors_tpu_torch.ops.linear import (
+        from_compressed_state,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    scheme = preset_name_to_scheme("W4A16", ["Linear"])
+    r = np.random.default_rng(13)
+    w = torch.from_numpy((r.normal(size=(n, k)) * 0.1).astype(np.float32))
+    g_idx = torch.from_numpy(r.permutation(k) // group).to(torch.int32)
+    scale = torch.from_numpy(r.uniform(0.01, 0.03, size=(n, k // group))
+                             .astype(np.float32))
+    comp = PackedQuantizationCompressor.compress(
+        {"weight": w, "weight_scale": scale, "weight_g_idx": g_idx}, scheme)
+    qt = prepare_for_kernels(from_compressed_state(comp, scheme))
+    assert qt.kernel_perm is not None
+    x = torch.from_numpy(r.normal(size=(4, k)).astype(np.float32))
+    return qt, x
+
+
+def ring_shard(seed, n=64, k=2048, tp=2):
+    """test_overlap.py's ``make_shard``: an (N/tp, K) W4A16 shard drawn
+    from ``seed``, compressed and prepared by the port."""
+    from compressed_tensors_tpu_torch.compressors import (
+        PackedQuantizationCompressor,
+    )
+    from compressed_tensors_tpu_torch.ops import calculate_qparams
+    from compressed_tensors_tpu_torch.ops.linear import (
+        from_compressed_state,
+        prepare_for_kernels,
+    )
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    scheme = preset_name_to_scheme("W4A16", ["Linear"])
+    args = scheme.weights
+    r = np.random.default_rng(seed)
+    w = torch.from_numpy((r.normal(size=(n // tp, k)) * 0.1).astype(
+        np.float32))
+    g = w.reshape(n // tp, -1, args.group_size)
+    scale, _ = calculate_qparams(g.amin(-1), g.amax(-1), args)
+    comp = PackedQuantizationCompressor.compress(
+        {"weight": w, "weight_scale": scale}, scheme)
+    return prepare_for_kernels(from_compressed_state(comp, scheme))
+
+
+# --------------------------------------------------------------------------- #
+# CASE "tp70b": the card's tensor-parallel run (chip_smoke.py phase 19c)
+
+
+def last_logits(params, config, ids, depth):
+    """f32 logits of the last prompt position through the first ``depth``
+    layers (full width)."""
+    from compressed_tensors_tpu_torch.models import llama_forward
+
+    p = dict(params, layers=params["layers"][:depth])
+    ids = torch.as_tensor(ids, device=p["norm"].device)[None]
+    logits, _ = llama_forward(p, config, ids,
+                              torch.arange(ids.shape[1], device=ids.device)
+                              [None], last_logit_only=True)
+    return logits[0, -1].float()
+
+
+def roll_scales(params, step):
+    """Roll the kernel scales of every W4A16 and W8A8 decoder linear by
+    ``step`` groups (channels for W8A8): a planted fault, undone by
+    rolling back."""
+    for layer in params["layers"]:
+        for qt in layer.values():
+            meta = getattr(qt, "kernel_meta", None)
+            if meta and meta[0] in ("w4a16", "w8a8"):
+                qt.kernel_scales.copy_(qt.kernel_scales.roll(step, 0))
+
+
+def tp70b(out_dir, rank, device):
+    """Load this rank's blocks of the checkpoint under OUT_DIR/ckpt
+    (``load_llama_params(mesh=...)``, tp = 2 on DEVICE: bf16 on the card,
+    f32 on the CPU), fuse; the last prompt position's logits at each
+    depth with every W4 linear at bf16 activations and at the default
+    (a8b prefill rows), then both again with the scales rolled; the
+    requests through the paged engine, timed."""
+    from compressed_tensors_tpu_torch.engine import Request, ServingEngine
+    from compressed_tensors_tpu_torch.flags import flag_overrides
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.ops.kernels import (
+        paged_decode,
+        prefill_attention,
+        w4a16_matmul,
+        w8a8_matmul,
+    )
+    from compressed_tensors_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(tp=2, device=device)
+    # the parent may start the ranks before it has written the checkpoint:
+    # inputs.json comes last
+    inputs_path = os.path.join(out_dir, "inputs.json")
+    while not os.path.exists(inputs_path):
+        time.sleep(0.1)
+    with open(inputs_path) as f:
+        inputs = json.load(f)
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    dist.barrier()
+    t0 = time.perf_counter()
+    params, config, _ = load_llama_params(os.path.join(out_dir, "ckpt"),
+                                          dtype=dtype, device=device,
+                                          mesh=mesh)
+    params = fuse_llama_layers(params)
+    sync()
+    report = {"load_s": time.perf_counter() - t0,
+              "bytes_read": params["shard"].bytes_read,
+              "heads": list(params["shard"].heads),
+              "gib": (torch.cuda.memory_allocated() / 2**30
+                      if device == "cuda" else 0.0)}
+    logits = {}
+    for act in ("bf16", "auto"):   # every W4 linear at bf16; the default
+        with flag_overrides(w4_act=act):
+            for d in inputs["depths"]:
+                logits[f"{act}_d{d}"] = last_logits(params, config,
+                                                    inputs["probe"], d)
+    roll_scales(params, 1)
+    for act in ("bf16", "auto"):
+        with flag_overrides(w4_act=act):
+            for d in inputs["depths"]:
+                logits[f"rolled_{act}_d{d}"] = last_logits(
+                    params, config, inputs["probe"], d)
+    roll_scales(params, -1)
+    torch.save({k: v.cpu() for k, v in logits.items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+    engine = ServingEngine(params, config, mesh=mesh, dtype=dtype,
+                           **inputs["serve"])
+    timing = {"decode_s": 0.0, "steps": 0}
+    decode = engine._decode
+
+    def timed_decode(active, burst):
+        t = time.perf_counter()
+        out = decode(active, burst)   # ends in the trace's host copy
+        timing["decode_s"] += time.perf_counter() - t
+        timing["steps"] += burst
+        return out
+
+    engine._decode = timed_decode
+    for i, ids, new in inputs["requests"]:
+        engine.submit(Request(request_id=i, prompt_ids=ids,
+                              max_new_tokens=new))
+    kernels = {"w4a16_matmul": w4a16_matmul.w4a16_matmul,
+               "w4a16_a8b_matmul": w4a16_matmul.w4a16_a8b_matmul,
+               "w8a8_matmul": w8a8_matmul.w8a8_matmul,
+               "prefill_attention": prefill_attention.prefill_attention,
+               "paged_decode_attention": paged_decode.paged_decode_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    sync()
+    dist.barrier()
+    t = time.perf_counter()
+    done = engine.run()
+    sync()
+    report["serve_s"] = time.perf_counter() - t
+    report["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    report["decode_ms"] = timing["decode_s"] * 1e3 / max(timing["steps"], 1)
+    report["steps"] = timing["steps"]
+    report["completions"] = {c.request_id: c.output_ids for c in done}
+    return report
+
+
 def main(case, device, rank, world, port, out_dir):
     address = f"localhost:{port}"
     if case == "nccl":
@@ -198,6 +678,12 @@ def main(case, device, rank, world, port, out_dir):
                         dist.barrier(async_op=True)])
     elif case in ("compress", "compress-file"):
         report.update(compress(case, device, rank, world, out_dir))
+    elif case == "tp70b":
+        report.update(tp70b(out_dir, rank, device))
+    elif case == "parallel":
+        got, arrays = parallel(out_dir, rank)
+        report.update(got)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     else:
         raise ValueError(f"unknown case {case!r}")
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
