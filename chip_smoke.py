@@ -582,10 +582,13 @@ def kernel_resources(report):
             out[f"block_decode<D={m.group(1)}, {CACHE_NAMES[int(m.group(2))]}, "
                 f"{'scores' if m.group(3) == '1' else 'recompute'}>"] = value
             continue
-        m = re.search(r"latent_kernelILb([01])ELi(\d)EE", mangled)
+        m = re.search(r"latent_kernelILb([01])ELi(\d)ELi(\d)ELi(\d)EE", mangled)
         if m:
+            width = (f"K {64 * int(m.group(3))}, " if m.group(3) != "0"
+                     else "")
             out[f"latent_decode<{'paged' if m.group(1) == '1' else 'dense'}, "
-                f"{CACHE_NAMES[int(m.group(2))]}>"] = value
+                f"{CACHE_NAMES[int(m.group(2))]}, {width}{m.group(4)} "
+                "chunks>"] = value
             continue
         m = re.search(r"latent_merge_kernelILb([01])EE", mangled)
         if m:
@@ -5070,8 +5073,8 @@ MLA_STEPS = 4              # decode steps whose logits are held
 # greedy_generate's cache and of the serving engine's
 LATENT_WIDTHS = ((576, 512), (128, 64))
 LATENT_SPADS = (192, 1024)
-# query heads: one head, one head group of the kernels (16), a padded
-# second group (20) and DeepSeek-V2's 128
+# query heads: one head, 16 and 20 (one head block of the kernels, rows
+# padded to 64) and DeepSeek-V2's 128 (two head blocks)
 LATENT_REPS = (1, 16, 20, 128)
 # B1e at V2-Lite's experts, group 64: (E, C, N, K) at a decode step's C
 # (batch 64, 6 of 64 experts: 8), a 512-row serving chunk's (64) and
@@ -5083,18 +5086,21 @@ V2_EXPERT_CASES = [(64, c, n, k) for n, k in ((1408, 2048), (2048, 1408))
 def parity_latent(errs):
     """B5-L and B7-L against their plain versions on every cache type, at
     the (K, V) widths of ``LATENT_WIDTHS``, the query heads of
-    ``LATENT_REPS``, S_pad of ``LATENT_SPADS``; lengths 0, 1, 63-65, each
-    side of a split boundary below S_pad, S_pad - 1 and an inactive row;
-    on the slab and through shuffled page tables. Every element within the
-    a8b rule of the plain version's f32 result in the kernels' order plus
-    that version's bound on the probabilities' bf16 roundings
+    ``LATENT_REPS``, S_pad of ``LATENT_SPADS``; lengths 0, 1, 15-17 and
+    63-65 (each side of a 16-position tile), S_pad - 1 and an inactive
+    row; on the slab and through shuffled page tables. Every element
+    within the a8b rule of the plain version's f32 result in the kernels'
+    order plus that version's bound on the probabilities' bf16 roundings
     (``LATENT_FLIP_REL``: a probability near a rounding midpoint may round
-    the other way on the kernel's f32 scores); above 16 heads the output
-    also equal bit for bit to the kernel's launches on each group of 16
-    heads alone; the outputs within TOL_KERNEL of the one-softmax plain
-    version; inactive rows zero; cache bytes equal to the plain version's
-    and changed at the step's positions only. Then B1e at V2-Lite's
-    expert shapes in groups of 64 by the a8b rule (one launch a call)."""
+    the other way on the kernel's f32 scores), at the schedule's default
+    ranges (``latent_ranges``: about a segment a tile here) and at 2
+    ranges (segments of many tiles, one row cut and merged); above 16
+    heads the output also equal bit for bit to the kernel's launches on
+    each group of 16 heads alone over the same ranges; the outputs within
+    TOL_KERNEL of the one-softmax plain version; inactive rows zero; cache
+    bytes equal to the plain version's and changed at the step's
+    positions only. Then B1e at V2-Lite's expert shapes in groups of 64
+    by the a8b rule (one launch a call)."""
     import itertools
 
     import torch
@@ -5114,9 +5120,7 @@ def parity_latent(errs):
     for cache, (dk, dv), rep, s_pad in itertools.product(
             dtypes, LATENT_WIDTHS, LATENT_REPS, LATENT_SPADS):
         dtype = dtypes[cache]
-        span = da.latent_split(dtype)
-        lens = sorted({n for n in (0, 1, 63, 64, 65, span - 1, span,
-                                   span + 1, s_pad - 1)
+        lens = sorted({n for n in (0, 1, 15, 16, 17, 63, 64, 65, s_pad - 1)
                        if n < s_pad}) + [-1]
         B, P = len(lens), s_pad // page
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -5136,19 +5140,21 @@ def parity_latent(errs):
             np.int32).reshape(B, P)
         tables[~active.cpu().numpy()] = 0
         tables_d = torch.from_numpy(tables).cuda()
+        args = (kw["layer"], ks, vs, kw["true_d"])
+        ranges = da.latent_ranges(rep, "cuda")
         for name, shapes, kernel, plain, at in (
                 ("decode_attention_latent",
                  ((2, B, 1, s_pad, dk), (2, B, 1, s_pad, dv)),
-                 lambda k, v, q=q: da.decode_attention(q, nk, nv, k, v,
-                                                       lengths, **kw),
+                 lambda k, v, q=q, r=ranges: da._latent_decode(
+                     q, nk, nv, k, v, lengths, *args, ranges=r),
                  lambda k, v, **o: da.latent_decode_attention_plain(
                      q, nk, nv, k, v, lengths, **kw, **o),
                  lambda b: (b, lens[b])),
                 ("paged_decode_attention_latent",
                  ((2, B * P + 1, 1, page, dk),
                   (2, B * P + 1, 1, page, dv)),
-                 lambda k, v, q=q: pd.paged_decode_attention(
-                     q, nk, nv, k, v, tables_d, lengths, **kw),
+                 lambda k, v, q=q, r=ranges: pd._latent_paged_decode(
+                     q, nk, nv, k, v, tables_d, lengths, *args, ranges=r),
                  lambda k, v, **o: pd.paged_decode_attention_plain(
                      q, nk, nv, k, v, tables_d, lengths, **kw, **o),
                  lambda b: (int(tables[b, lens[b] // page]),
@@ -5185,6 +5191,16 @@ def parity_latent(errs):
                     raise AssertionError(f"{label}: differs from the "
                                          "kernel on each group of 16 "
                                          "heads")
+            # 2 ranges: long segments, a row cut between them and merged
+            got2 = kernel(ck0.clone(), cv0.clone(), r=2)[0].float()
+            ordered2, flip2 = plain(ck0.clone(), cv0.clone(),
+                                    kernel_order=True, ranges=2,
+                                    out_dtype=torch.float32,
+                                    flip_rel=da.LATENT_FLIP_REL)[0]
+            diff2 = (got2[active] - ordered2[active]).abs()
+            bad += int((diff2 > A8B_REL * ordered2[active].abs()
+                        + A8B_ABS * ordered2[active].abs().max()
+                        + flip2[active]).sum())
             if bad or rel > TOL_KERNEL:
                 raise AssertionError(f"{label}: {bad} elements outside "
                                      "the a8b rule with its probability "
@@ -5208,13 +5224,14 @@ def parity_latent(errs):
         torch.cuda.empty_cache()
     log(f"parity B5-L/B7-L over {cases} cases (cache bf16/fp8/int8, (K, V) "
         f"{LATENT_WIDTHS}, rep {LATENT_REPS}, S_pad {LATENT_SPADS}, lengths "
-        "0, 1, 63-65, each side of the split, S_pad - 1, one inactive; slab "
-        "and shuffled pages): every element within the a8b rule plus the "
-        "plain version's bound on its probabilities' bf16 roundings "
-        f"(flip_rel {da.LATENT_FLIP_REL}) against the kernels' order, "
-        f"{flipped} of them outside the a8b rule alone; above 16 heads "
-        "every output equal bit for bit to the kernel on each group of 16 "
-        f"heads; max error {worst:.4g} of max|plain| against one softmax "
+        "0, 1, 15-17, 63-65, S_pad - 1, one inactive; slab and shuffled "
+        "pages): every element within the a8b rule plus the plain "
+        "version's bound on its probabilities' bf16 roundings (flip_rel "
+        f"{da.LATENT_FLIP_REL}) against the kernels' order at the default "
+        f"ranges and at 2, {flipped} of them outside the a8b rule alone "
+        "(default ranges); above 16 heads every output equal bit for bit "
+        "to the kernel on each group of 16 heads over the same ranges; max "
+        f"error {worst:.4g} of max|plain| against one softmax "
         f"(limit {TOL_KERNEL}); cache bytes equal, written at the step's "
         "positions only")
 

@@ -53,8 +53,8 @@ _SIGNATURES = {
     "ct_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     "ct_flash_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
     "ct_paged_decode": [_P] * 12 + [_I] * 11 + [_F, _P],
-    "ct_latent_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
-    "ct_latent_paged_decode": [_P] * 12 + [_I] * 11 + [_F, _P],
+    "ct_latent_decode": [_P] * 12 + [_I] * 9 + [_F, _P],
+    "ct_latent_paged_decode": [_P] * 13 + [_I] * 11 + [_F, _P],
 }
 
 _lib = None

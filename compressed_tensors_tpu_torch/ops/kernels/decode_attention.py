@@ -41,9 +41,10 @@ K and the softmax scale 1/sqrt(``true_d``), as the JAX package calls its
 kernel with ``kvh=1, rep=h, d=Dp, true_d``. Its plain version is
 ``latent_decode_attention_plain``; its launches count in
 ``decode_attention.latent_launches``. It takes any number of query heads
-(DeepSeek-V2/V3's 128): one block a group of 16 heads, the groups of one
-row and split launched next to each other so that they share each K/V
-tile through L2.
+(DeepSeek-V2/V3's 128) in blocks of ``LATENT_HEADS``, on a persistent grid
+that cuts the live tiles of ``LATENT_TILE`` positions into
+``latent_ranges`` contiguous ranges (``latent_segments`` gives the order
+of its sums), and a merge pass for the rows a range boundary cuts.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 __all__ = ["decode_attention", "decode_attention_plain",
            "latent_decode_attention_plain", "is_latent_head",
            "block_decode_form", "SCORE_POSITIONS", "LATENT_TILE",
-           "LATENT_FLIP_REL"]
+           "LATENT_HEADS", "LATENT_FLIP_REL", "latent_ranges",
+           "latent_segments"]
 
 # cache element type -> ct::CacheKind of csrc/common.cuh
 _CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
@@ -66,7 +68,11 @@ _CACHE_KINDS = {torch.bfloat16: 0, torch.float8_e4m3fn: 1, torch.int8: 2}
 # memory: every cache that decode_attn="auto" sends here (S_pad < 512)
 SCORE_POSITIONS = 512
 # positions a tile of the latent-head kernels (csrc/mla_decode.cu)
-LATENT_TILE = 32
+LATENT_TILE = 16
+# query heads a block of the latent-head kernels (one wgmma M tile)
+LATENT_HEADS = 64
+# the H100's SMs: the latent-head kernels' ranges on a CPU tensor
+LATENT_CTAS = 132
 # the widest latent K row the latent-head kernels take
 LATENT_MAX_D = 640
 # how far (relative) the latent-head kernels' f32 probabilities may stand
@@ -232,32 +238,50 @@ def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, *,
     return out.to(cd), cache_k, cache_v
 
 
-def latent_split(cache_dtype) -> int:
-    """Positions a split of the latent-head kernels' keys: the flash and
-    paged decode kernels' split (``flash_decode.SPLIT_TILES``)."""
-    from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
-        CHUNK,
-        SPLIT_TILES,
-    )
+def latent_ranges(heads, device=None) -> int:
+    """Ranges of the latent-head kernels' persistent grid: the SMs of
+    ``device`` (``LATENT_CTAS`` for the CPU) over the blocks of
+    ``LATENT_HEADS`` query heads, at least 1."""
+    sms = LATENT_CTAS
+    if device is not None and torch.device(device).type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, sms // -(-heads // LATENT_HEADS))
 
-    return SPLIT_TILES[torch.empty((), dtype=cache_dtype).element_size()] \
-        * CHUNK
+
+def latent_segments(lengths, capacity, ranges):
+    """The latent-head kernels' schedule as (B, capacity // LATENT_TILE + 1)
+    bool: True at each tile that starts a segment of a row. Row b holds
+    min(lengths[b], capacity) // LATENT_TILE + 1 live tiles (none when
+    inactive), the rows' tiles in order number 0..T-1, and the ranges
+    floor(r T / ranges) .. floor((r + 1) T / ranges) cut them: a segment
+    starts at a row's first tile and at each range's first tile."""
+    lengths = lengths.to(torch.int64)
+    n = torch.where(lengths >= 0,
+                    lengths.clamp(max=capacity) // LATENT_TILE + 1, 0)
+    first = torch.cumsum(n, 0) - n                   # a row's first tile
+    total = int(n.sum())
+    j = torch.arange(capacity // LATENT_TILE + 1, device=lengths.device)
+    cuts = torch.arange(1, ranges, device=lengths.device) * total // ranges
+    cut = torch.isin(first[:, None] + j, cuts) & (j < n[:, None])
+    return (j == 0) | cut
 
 
 def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
                                   lengths, *, layer=None, k_scale=None,
                                   v_scale=None, true_d=None,
                                   kernel_order=False, out_dtype=None,
-                                  flip_rel=None):
+                                  flip_rel=None, ranges=None):
     """B5-L's plain version: the in-place row write at lengths[b] (K rows
     of width Dk, V rows of width Dv, in the cache's representation), then
     ``flash_decode.attend_plain`` over the row's cached prefix with the
     softmax scale 1/sqrt(``true_d``): the TPU kernel's numerics (q *
     k_scale rounded to q's dtype, the probabilities rounded to q's dtype
     before P.V, v_scale onto the f32 output). ``kernel_order`` sums in the
-    CUDA kernel's order (runs of ``latent_split`` positions, tiles of
-    ``LATENT_TILE`` positions inside them), as ``chip_smoke.py`` compares
-    it, with ``out_dtype`` f32 for the unrounded result; with
+    CUDA kernel's order (tiles of ``LATENT_TILE`` positions, an online
+    softmax over each segment of ``latent_segments`` with ``ranges``, by
+    default ``latent_ranges`` of the head count on q's device), as
+    ``chip_smoke.py`` compares it, with ``out_dtype`` f32 for the
+    unrounded result; with
     ``flip_rel`` (``LATENT_FLIP_REL``) the first item is (output, flip),
     flip bounding the kernels' other rounding of probabilities that lie
     near a rounding midpoint (``flash_decode.attend_plain``). Outputs of
@@ -270,10 +294,14 @@ def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
     ck, cv = _layer_views(cache_k, cache_v, layer)
     nk_c = _quantize_to_cache(new_k, k_scale, ck.dtype, head_axis=1)
     nv_c = _quantize_to_cache(new_v, v_scale, cv.dtype, head_axis=1)
+    segments = None
+    if kernel_order:
+        segments = latent_segments(
+            lengths, ck.shape[2],
+            ranges or latent_ranges(q.shape[1], q.device))
     out = attend_plain(
         q, nk_c, nv_c, ck, cv, lengths, k_scale, v_scale,
-        split=latent_split(ck.dtype) if kernel_order else None,
-        tile=LATENT_TILE if kernel_order else None,
+        tile=LATENT_TILE if kernel_order else None, segments=segments,
         inv_sqrt_d=1.0 / math.sqrt(true_d or q.shape[-1]),
         out_dtype=out_dtype, flip_rel=flip_rel)
     lengths = lengths.to(torch.int64)
@@ -283,14 +311,22 @@ def latent_decode_attention_plain(q, new_k, new_v, cache_k, cache_v,
     return out, cache_k, cache_v
 
 
-def _latent_decode(q, new_k, new_v, cache_k, cache_v, lengths, layer,
-                   k_scale, v_scale, true_d):
-    """B5-L on CUDA tensors: one launch of ``ct_latent_decode`` (and its
-    merge pass when a row may take more than one split)."""
-    from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
-        split_scratch,
-    )
+def latent_scratch(B, H, Dv, ranges, device):
+    """The latent-head kernels' scratch: (f32 partials, their (max, sum)
+    pairs' pointer, the row prefix sums (B + 1,) int32). Two partial slots
+    a block of the grid (``ranges`` times the head blocks), each
+    ``LATENT_HEADS`` rows of Dv outputs and then the pairs."""
+    slots = 2 * ranges * -(-H // LATENT_HEADS) * LATENT_HEADS
+    part = torch.empty(slots * (Dv + 2), dtype=torch.float32, device=device)
+    prefix = torch.empty(B + 1, dtype=torch.int32, device=device)
+    return part, part.data_ptr() + slots * Dv * 4, prefix
 
+
+def _latent_decode(q, new_k, new_v, cache_k, cache_v, lengths, layer,
+                   k_scale, v_scale, true_d, ranges=None):
+    """B5-L on CUDA tensors: one call of ``ct_latent_decode`` (the kernel
+    and its merge pass) over ``ranges`` ranges (``latent_ranges`` of the
+    head count by default)."""
     B, H, Dk, Dv = check_latent_operands(
         "decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
     kind, ks, vs, _, scaled = kernel_scales(
@@ -301,17 +337,17 @@ def _latent_decode(q, new_k, new_v, cache_k, cache_v, lengths, layer,
     L, _, _, S_pad, _ = cache_k.shape
     if layer is None or not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} cache layers")
+    ranges = ranges or latent_ranges(H, q.device)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-    per, splits, (part_ml, part_o, _scratch) = split_scratch(
-        B, 1, H, Dv, S_pad, cache_k.element_size(), q.device)
+    part, part_ml, prefix = latent_scratch(B, H, Dv, ranges, q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.ct_latent_decode(
             q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), ks.data_ptr() if scaled else None,
-            vs.data_ptr() if scaled else None, part_ml, part_o, B, H, S_pad,
-            Dk, Dv, layer, kind, per, splits,
+            vs.data_ptr() if scaled else None, part_ml, part.data_ptr(),
+            prefix.data_ptr(), B, H, S_pad, Dk, Dv, layer, L, kind, ranges,
             1.0 / math.sqrt(true_d or Dk),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention (latent head)")

@@ -54,7 +54,7 @@ SPLIT_TILES = {2: 4, 1: 8}
 
 def split_scratch(B, KVH, rep, D, capacity, itemsize, device):
     """(tiles a split, splits, scratch pointers) of the flash and paged
-    decode kernels (and the latent-head ones) for rows of up to
+    decode kernels for rows of up to
     ``capacity`` cached positions (positions 0..capacity, the new token's
     included) in a cache of ``itemsize``-byte elements; ``D`` is the
     output width (the V width). The scratch is one f32 ``torch.empty``
@@ -76,7 +76,7 @@ def split_scratch(B, KVH, rep, D, capacity, itemsize, device):
 
 def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
                  v_scale, split=None, inv_sqrt_d=None, tile=None,
-                 out_dtype=None, flip_rel=None):
+                 out_dtype=None, flip_rel=None, segments=None):
     """The flash/paged decode arithmetic in plain PyTorch, as the TPU
     kernels compute it: the new token (in its cache representation) plus
     each row's cached positions 0..lengths[b]-1 of ``keys`` (B, KVH, T, D)
@@ -90,19 +90,22 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
     new token sits at position min(lengths[b], T) after the cached ones,
     each run of ``split`` positions takes its own softmax (max, sum and
     unnormalized output, the probabilities cast against the run's max),
-    and the runs merge by their maxima. With ``tile`` too, the order of
-    the latent-head kernel: inside a run the tiles of ``tile`` positions
-    update one online softmax, each tile's probabilities cast against the
-    running max after that tile. The output is in q's dtype, or
+    and the runs merge by their maxima. With ``tile`` too, the order of an
+    online softmax: inside a run the tiles of ``tile`` positions update
+    one running max, each tile's probabilities cast against the running
+    max after that tile. ``segments`` ((B, T // tile + 1) bool, with
+    ``tile``) replaces the runs: a row's segment starts at each tile
+    marked True (the latent-head kernels' schedule,
+    ``decode_attention.latent_segments``). The output is in q's dtype, or
     ``out_dtype`` (f32 to hold a kernel to its unrounded result).
 
-    With ``flip_rel`` (and ``split``) it returns (output, flip): flip (f32,
-    the output's shape) bounds what the probabilities' rounding to q's
-    dtype can change when a kernel's f32 probability differs from this
-    one's by up to ``flip_rel`` of it (another summation order of the
-    scores): each probability that close to a rounding midpoint may round
-    to the other neighbour, one ulp, and flip sums those ulps times |v|
-    through the same softmax weights."""
+    With ``flip_rel`` (and ``split`` or ``segments``) it returns (output,
+    flip): flip (f32, the output's shape) bounds what the probabilities'
+    rounding to q's dtype can change when a kernel's f32 probability
+    differs from this one's by up to ``flip_rel`` of it (another summation
+    order of the scores): each probability that close to a rounding
+    midpoint may round to the other neighbour, one ulp, and flip sums
+    those ulps times |v| through the same softmax weights."""
     B, H, D = q.shape
     KVH, T, Dv = keys.shape[1], keys.shape[2], values.shape[-1]
     cd = q.dtype
@@ -115,9 +118,10 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
     if inv_sqrt_d is None:
         inv_sqrt_d = 1.0 / math.sqrt(D)
     lengths = lengths.to(torch.int64)
-    if flip_rel is not None and split is None:
+    ordered = split is not None or segments is not None
+    if flip_rel is not None and not ordered:
         raise ValueError("flip_rel needs the split order")
-    if split is None:
+    if not ordered:
         s_new = torch.einsum("bkrd,bkd->bkr", qg, nkf)[..., None] * inv_sqrt_d
         s_old = torch.einsum("bkrd,bktd->bkrt", qg, kf) * inv_sqrt_d
         valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
@@ -130,8 +134,14 @@ def attend_plain(q, new_k_c, new_v_c, keys, values, lengths, k_scale,
                + torch.einsum("bkrt,bktd->bkrd", pr[..., 1:], vf))
         out = acc / l.clamp_min(1e-30)
     else:
-        out, flip = _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd,
-                                  inv_sqrt_d, tile, flip_rel)
+        tile = tile or split
+        if segments is None:
+            starts = (torch.arange(T // tile + 1, device=q.device) * tile
+                      % split == 0).expand(B, -1)
+        else:
+            starts = segments.to(q.device)
+        out, flip = _attend_segments(qg, nkf, nvf, kf, vf, lengths, tile,
+                                     starts, cd, inv_sqrt_d, flip_rel)
     active = (lengths >= 0)[:, None, None]
 
     def finish(t):
@@ -155,51 +165,66 @@ def _rounding_flips(p, pr, cd, rel):
     return torch.where((p > 0) & (gap <= rel * p), ulp, torch.zeros_like(p))
 
 
-def _attend_split(qg, nkf, nvf, kf, vf, lengths, split, cd, inv_sqrt_d,
-                  tile=None, flip_rel=None):
-    """``attend_plain``'s split order: f32 (B, KVH, rep, Dv) outputs, and
-    their rounding-flip bound with ``flip_rel`` (else None)."""
+def _attend_segments(qg, nkf, nvf, kf, vf, lengths, tile, starts, cd,
+                     inv_sqrt_d, flip_rel=None):
+    """``attend_plain``'s ordered form: tiles of ``tile`` positions, an
+    online softmax over each segment's tiles (a segment starting at each
+    tile where ``starts`` (B, NT) is True), the segments merged by their
+    maxima. f32 (B, KVH, rep, Dv) outputs, and their rounding-flip bound
+    with ``flip_rel`` (else None)."""
     B, KVH, T, D = kf.shape
     Dv = vf.shape[-1]
+    NT = T // tile + 1
+    n = NT * tile
     cached = lengths.clamp(0, T)
-    n = -(-(T + 1) // split) * split
-    pad = n - T
     rows = torch.arange(B, device=kf.device)
-    kx = torch.cat([kf, kf.new_zeros(B, KVH, pad, D)], dim=2)
-    vx = torch.cat([vf, vf.new_zeros(B, KVH, pad, Dv)], dim=2)
+    kx = torch.cat([kf, kf.new_zeros(B, KVH, n - T, D)], dim=2)
+    vx = torch.cat([vf, vf.new_zeros(B, KVH, n - T, Dv)], dim=2)
     kx[rows, :, cached] = nkf
     vx[rows, :, cached] = nvf
     s = torch.einsum("bkrd,bktd->bkrt", qg, kx) * inv_sqrt_d
     valid = torch.arange(n, device=kf.device)[None, :] <= cached[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    if tile is None:
-        tile = split
-    nt = split // tile
-    # (B, KVH, R, Z, NT, tile): runs of `split`, tiles of `tile`
-    s = s.reshape(*s.shape[:3], n // split, nt, tile)
-    run = torch.cummax(s.amax(dim=-1), dim=-1).values     # running max
-    run_use = torch.where(torch.isinf(run), torch.zeros_like(run), run)
+    s = s.reshape(*s.shape[:3], NT, tile)           # (B, KVH, R, NT, tile)
+    tmax = s.amax(dim=-1)
+    starts = starts[:, None, None, :]
+    run = torch.empty_like(tmax)                    # the running max
+    cur = tmax[..., 0]
+    run[..., 0] = cur
+    for j in range(1, NT):
+        cur = torch.where(starts[..., j], tmax[..., j],
+                          torch.maximum(cur, tmax[..., j]))
+        run[..., j] = cur
+    ninf = torch.isinf(run)
+    run_use = torch.where(ninf, torch.zeros_like(run), run)
     p = torch.exp(s - run_use[..., None])
     pr = p.to(cd).to(torch.float32)
-    acc_t = torch.einsum("bkrztp,bkztpd->bkrztd", pr,
-                         vx.reshape(B, KVH, n // split, nt, tile, Dv))
-    m = run[..., -1]                                         # (B, KVH, R, Z)
+    vt = vx.reshape(B, KVH, NT, tile, Dv)
+    # each tile's sums carried to its segment's final max
+    seg = (torch.cumsum(starts.to(torch.int64), dim=-1) - 1).clamp_min(0)
+    seg = seg.expand_as(run)
+    m = torch.full_like(run, float("-inf")).scatter_reduce(
+        -1, seg, run, "amax")                       # (B, KVH, R, NT segs)
     m_use = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-    # each tile's sums carried to the run's final max
-    w = torch.where(torch.isinf(run), torch.zeros_like(run),
-                    torch.exp(run_use - m_use[..., None]))
-    l = (p.sum(dim=-1) * w).sum(dim=-1)
-    acc = (acc_t * w[..., None]).sum(dim=-2)
+    w = torch.where(ninf, torch.zeros_like(run),
+                    torch.exp(run_use - m_use.gather(-1, seg)))
+    l = torch.zeros_like(run).scatter_add(-1, seg, p.sum(dim=-1) * w)
+    idx = seg[..., None].expand(*seg.shape, Dv)
+
+    def by_segment(weights, values):
+        acc_t = torch.einsum("bkrjp,bkjpd->bkrjd", weights, values)
+        return torch.zeros_like(acc_t).scatter_add(-2, idx,
+                                                   acc_t * w[..., None])
+
+    acc = by_segment(pr, vt)
     top = m.amax(dim=-1, keepdim=True)
-    f = torch.exp(m - top)                                   # empty runs: 0
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    f = torch.exp(m - top)                          # empty segments: 0
     total = (f * l).sum(dim=-1)[..., None].clamp_min(1e-30)
     out = (f[..., None] * acc).sum(dim=-2) / total
     if flip_rel is None:
         return out, None
-    flips = _rounding_flips(p, pr, cd, flip_rel)
-    acc_f = torch.einsum("bkrztp,bkztpd->bkrztd", flips, vx.abs().reshape(
-        B, KVH, n // split, nt, tile, Dv))
-    acc_f = (acc_f * w[..., None]).sum(dim=-2)
+    acc_f = by_segment(_rounding_flips(p, pr, cd, flip_rel), vt.abs())
     return out, (f[..., None] * acc_f).sum(dim=-2) / total
 
 

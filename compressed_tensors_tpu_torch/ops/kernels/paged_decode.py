@@ -29,7 +29,8 @@ in ``paged_decode_attention.scaled_launches``.
 MLA's latent head (``decode_attention.is_latent_head``: one kv head, K
 rows wider than V rows) takes the latent-head kernel B7-L instead
 (``csrc/mla_decode.cu``, entry point ``ct_latent_paged_decode``, the
-B5-L body with the page indirection), with the softmax scale
+B5-L body with the page indirection: a 16-position tile lies in one page,
+so the page size is a multiple of 16), with the softmax scale
 1/sqrt(``true_d``); its launches count in
 ``paged_decode_attention.latent_launches``.
 """
@@ -48,7 +49,9 @@ from compressed_tensors_tpu_torch.ops.kernels.decode_attention import (
     check_latent_operands,
     is_latent_head,
     kernel_scales,
-    latent_split,
+    latent_ranges,
+    latent_scratch,
+    latent_segments,
 )
 from compressed_tensors_tpu_torch.ops.kernels.flash_decode import (
     attend_plain,
@@ -62,13 +65,13 @@ def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
                                  lengths, *, layer=0, k_scale=None,
                                  v_scale=None, true_d=None,
                                  kernel_order=False, out_dtype=None,
-                                 flip_rel=None):
+                                 flip_rel=None, ranges=None):
     """Plain PyTorch version: gather each row's pages into a contiguous
     view, ``attend_plain`` over its cached prefix, then write the new row
     into page tables[b, len // page] at offset len % page. It is B7's and
     B7-L's: K and V rows may differ in width (MLA's latent head), and
     ``true_d`` sets the softmax scale 1/sqrt(true_d) (the K width by
-    default). ``kernel_order`` sums in B7-L's order
+    default). ``kernel_order`` sums in B7-L's order over ``ranges``
     (``decode_attention.latent_decode_attention_plain``), ``out_dtype``
     keeps the output unrounded, and ``flip_rel`` makes the first item
     (output, flip) as there."""
@@ -85,10 +88,13 @@ def paged_decode_attention_plain(q, new_k, new_v, pool_k, pool_v, tables,
 
     nk_c = _quantize_to_cache(new_k, k_scale, pk.dtype, head_axis=1)
     nv_c = _quantize_to_cache(new_v, v_scale, pv.dtype, head_axis=1)
+    segments = None
+    if kernel_order:
+        segments = latent_segments(
+            lengths, P * page, ranges or latent_ranges(q.shape[1], q.device))
     out = attend_plain(
         q, nk_c, nv_c, gather(pk), gather(pv), lengths, k_scale, v_scale,
-        split=latent_split(pk.dtype) if kernel_order else None,
-        tile=LATENT_TILE if kernel_order else None,
+        tile=LATENT_TILE if kernel_order else None, segments=segments,
         inv_sqrt_d=1.0 / math.sqrt(true_d or q.shape[-1]),
         out_dtype=out_dtype, flip_rel=flip_rel)
     lengths = lengths.to(torch.int64)
@@ -160,9 +166,10 @@ def paged_decode_attention(q: torch.Tensor, new_k: torch.Tensor,
 
 
 def _latent_paged_decode(q, new_k, new_v, pool_k, pool_v, tables, lengths,
-                         layer, k_scale, v_scale, true_d):
-    """B7-L on CUDA tensors: one launch of ``ct_latent_paged_decode`` (and
-    its merge pass when a row may take more than one split)."""
+                         layer, k_scale, v_scale, true_d, ranges=None):
+    """B7-L on CUDA tensors: one call of ``ct_latent_paged_decode`` (the
+    kernel and its merge pass) over ``ranges`` ranges (``latent_ranges``
+    of the head count by default)."""
     B, H, Dk, Dv = check_latent_operands(
         "paged_decode_attention", q, new_k, new_v, pool_k, pool_v, lengths)
     kind, ks, vs, _, scaled = kernel_scales(
@@ -170,9 +177,12 @@ def _latent_paged_decode(q, new_k, new_v, pool_k, pool_v, tables, lengths,
     L, NP, _, page, _ = pool_k.shape
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} pool layers")
+    if page % LATENT_TILE:
+        raise ValueError(f"page size {page} must be a multiple of "
+                         f"{LATENT_TILE}")
+    ranges = ranges or latent_ranges(H, q.device)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
-    per, splits, (part_ml, part_o, _scratch) = split_scratch(
-        B, 1, H, Dv, tables.shape[1] * page, pool_k.element_size(), q.device)
+    part, part_ml, prefix = latent_scratch(B, H, Dv, ranges, q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.ct_latent_paged_decode(
@@ -180,9 +190,9 @@ def _latent_paged_decode(q, new_k, new_v, pool_k, pool_v, tables, lengths,
             pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             ks.data_ptr() if scaled else None,
-            vs.data_ptr() if scaled else None, part_ml, part_o, B, H, NP,
-            tables.shape[1], page, Dk, Dv, layer, kind, per, splits,
-            1.0 / math.sqrt(true_d or Dk),
+            vs.data_ptr() if scaled else None, part_ml, part.data_ptr(),
+            prefix.data_ptr(), B, H, NP, tables.shape[1], page, Dk, Dv,
+            layer, L, kind, ranges, 1.0 / math.sqrt(true_d or Dk),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_decode_attention (latent head)")
     paged_decode_attention.latent_launches += 1

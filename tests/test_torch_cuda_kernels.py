@@ -995,9 +995,9 @@ def test_expert_wrappers_refuse_bad_operands(dev):
 
 
 # B5-L / B7-L, MLA's latent head: (K, V) widths of DeepSeek-V2-Lite (576,
-# 512) and a narrow pair (128, 64); one query head, 16 (one head group),
-# 20 (a padded second group), 32 and DeepSeek-V2's 128; every cache
-# type; lengths 0, 1, 63-65, each side of a split boundary and S_pad - 1,
+# 512) and a narrow pair (128, 64); one query head, 16, 20, 32 (one head
+# block of 64 rows) and DeepSeek-V2's 128 (two); every cache type; lengths
+# 0, 1, 15-17 and 63-65 (each side of a 16-position tile) and S_pad - 1,
 # an inactive row; the softmax scale of a true_d below K's width
 LATENT_WIDTHS = [(576, 512), (128, 64)]
 
@@ -1028,16 +1028,16 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
     the a8b rule of the plain version's f32 result in the kernels' order,
     plus that version's bound on the probabilities' bf16 roundings
     (``LATENT_FLIP_REL``: a probability near a rounding midpoint may round
-    the other way on the kernel's f32 scores); within TOL of the
-    one-softmax plain version; inactive rows zero; cache bytes equal to
-    the plain version's and changed at the step's positions only; one
-    launch a call. Above 16 heads (more than one head group) the output
-    also equals the kernel's launches on each group of 16 heads alone bit
-    for bit."""
+    the other way on the kernel's f32 scores), at the default ranges of
+    the schedule (``latent_ranges``) and at 2 (segments of many tiles, a
+    row cut between the ranges and merged); within TOL of the one-softmax
+    plain version; inactive rows zero; cache bytes equal to the plain
+    version's and changed at the step's positions only; one launch a
+    call. Above 16 heads the output also equals the kernel's launches on
+    each group of 16 heads alone, over the same ranges, bit for bit."""
     rng = np.random.default_rng(rep + dk + dv)
-    span = da.latent_split(cache)
-    s_pad, page, true_d = span + 192, 64, dk // 3
-    lens = [0, 1, 63, 64, 65, span - 1, span, span + 1, s_pad - 1, -1]
+    s_pad, page, true_d = 448, 64, dk // 3
+    lens = [0, 1, 15, 16, 17, 63, 64, 65, s_pad - 1, -1]
     B, P = len(lens), s_pad // page
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     live = [b for b in range(B) if lens[b] >= 0]
@@ -1045,14 +1045,21 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
                                            s_pad, lens)
     kw = dict(layer=1, k_scale=ks, v_scale=vs, true_d=true_d)
 
+    ranges = da.latent_ranges(rep, dev)
+
     def check(out, run_plain, caches, before, run_kernel):
         ordered, flip = run_plain([c.clone() for c in before],
                                   kernel_order=True, out_dtype=torch.float32,
                                   flip_rel=da.LATENT_FLIP_REL)[0]
         assert _within_a8b_rule(out[live], ordered[live], flip[live])
+        two = run_kernel(q, [c.clone() for c in before], 2)
+        ordered, flip = run_plain([c.clone() for c in before],
+                                  kernel_order=True, out_dtype=torch.float32,
+                                  flip_rel=da.LATENT_FLIP_REL, ranges=2)[0]
+        assert _within_a8b_rule(two[live], ordered[live], flip[live])
         if rep > 16:
             groups = [run_kernel(q[:, g:g + 16].contiguous(),
-                                 [c.clone() for c in before])
+                                 [c.clone() for c in before], ranges)
                       for g in range(0, rep, 16)]
             assert torch.equal(out, torch.cat(groups, dim=1))
         one = run_plain([c.clone() for c in before])[0]
@@ -1071,7 +1078,8 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
     assert da.decode_attention.latent_launches == count + 1
     check(out, lambda c, **o: da.latent_decode_attention_plain(
         q, nk, nv, *c, lengths, **kw, **o), (ck, cv), before,
-        lambda qg, c: da.decode_attention(qg, nk, nv, *c, lengths, **kw)[0])
+        lambda qg, c, r: da._latent_decode(qg, nk, nv, *c, lengths, 1, ks,
+                                           vs, true_d, ranges=r)[0])
     changed = torch.nonzero((ck.view(torch.uint8) != before[0].view(
         torch.uint8)).any(-1)).tolist()
     assert sorted(map(tuple, changed)) == sorted(
@@ -1090,8 +1098,9 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
     assert pd.paged_decode_attention.latent_launches == count + 1
     check(out_p, lambda c, **o: pd.paged_decode_attention_plain(
         q, nk, nv, *c, tables_d, lengths, **kw, **o), (pk, pv), before,
-        lambda qg, c: pd.paged_decode_attention(qg, nk, nv, *c, tables_d,
-                                                lengths, **kw)[0])
+        lambda qg, c, r: pd._latent_paged_decode(
+            qg, nk, nv, *c, tables_d, lengths, 1, ks, vs, true_d,
+            ranges=r)[0])
     changed = torch.nonzero((pk.view(torch.uint8) != before[0].view(
         torch.uint8)).any(-1)).tolist()
     assert sorted(map(tuple, changed)) == sorted(
@@ -1099,8 +1108,9 @@ def test_latent_decode_grid(dev, rep, dk, dv, cache):
 
 
 def test_latent_decode_pages_smaller_than_a_tile(dev):
-    """B7-L with 16-position pages (a 32-position tile spans two pages)
-    gives the bits of B5-L on the same rows laid out densely."""
+    """B7-L with 16-position pages (one page a 16-position tile; the
+    kernels take pages that are multiples of 16) gives the bits of B5-L
+    on the same rows laid out densely."""
     rng = np.random.default_rng(21)
     dk, dv, page, s_pad = 576, 512, 16, 256
     lens = [5, 31, 32, 200, -1]
@@ -1163,9 +1173,9 @@ def test_latent_decode_more_rows_than_a_grid_dimension(dev):
 
 
 def test_latent_decode_refuses_operands(dev):
-    """A K width that is no multiple of 64, V wider than K and a per-head
-    scale raise before any launch (any number of query heads is served:
-    ``test_latent_decode_grid``)."""
+    """A K width that is no multiple of 64, V wider than K, a per-head
+    scale and a page that is no multiple of 16 raise before any launch
+    (any number of query heads is served: ``test_latent_decode_grid``)."""
     rng = np.random.default_rng(22)
     lengths = torch.tensor([3], dtype=torch.int32, device=dev)
     count = da.decode_attention.latent_launches
@@ -1186,6 +1196,13 @@ def test_latent_decode_refuses_operands(dev):
         da.decode_attention(q, nk, nv, ck, cv, lengths, layer=0, k_scale=two,
                             v_scale=two)
     assert da.decode_attention.latent_launches == count
+    # a page that is no multiple of the 16-position tile
+    pk, pv = (_bf16(rng, 1, 3, 1, 8, d, device=dev) for d in (576, 512))
+    tables = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    count = pd.paged_decode_attention.latent_launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pd.paged_decode_attention(q, nk, nv, pk, pv, tables, lengths)
+    assert pd.paged_decode_attention.latent_launches == count
 
 
 def test_ring_k_slices_sum_to_b1(dev):

@@ -418,14 +418,18 @@ def test_latent_operand_check_takes_any_head_count(h):
 @pytest.mark.parametrize("cache", ["f32", "fp8", "int8"])
 def test_latent_plain_versions_match_jax_kernels(cache, h):
     """B5-L's and B7-L's plain versions (one softmax, and the CUDA
-    kernels' split-and-tile order) against the JAX decode and paged
-    decode kernels at kvh=1, rep=h, d=Dp, true_d, interpreted, at 16
-    query heads (one head group of the CUDA kernels), 32 and DeepSeek-V2's
-    128: the JAX
+    kernels' order: tiles of 16 positions in the segments of
+    ``latent_segments``) against the JAX decode and paged decode kernels
+    at kvh=1, rep=h, d=Dp, true_d, interpreted, at 16 and 32 query heads
+    (one head block of the CUDA kernels, 132 ranges: a segment a tile
+    here) and DeepSeek-V2's 128 (two head blocks, 66 ranges), and in the
+    kernels' order over 2 ranges (segments of several tiles, a row cut
+    between them): the JAX
     call pads q, the rows and the caches to Dp = 128 lanes (V as
     [c_kv ; 0]) and its output is read on the V width. Lengths 0, 63,
-    64, 65 and an inactive row. The kernels' order is also taken with
-    runs of 64 positions (two runs and their merge at lengths 64 and 65).
+    64, 65 and an inactive row. ``attend_plain`` is also taken with runs
+    of 64 positions in tiles of 32 (two runs and their merge at lengths
+    64 and 65).
 
     The JAX paged kernel on an fp8 pool gives the row of length 63 an
     output 3e-4 of max|out| away from its own dense kernel on the same
@@ -454,12 +458,15 @@ def test_latent_plain_versions_match_jax_kernels(cache, h):
     # the JAX block kernel leaves an inactive row's output unwritten; the
     # port's decode kernels write zeros (ROADMAP, known caveats)
     live = lens >= 0
-    orders = (False,) if cache == "f32" else (False, True)
-    for kernel_order in orders:
+    orders = ((False, None),) if cache == "f32" else (
+        (False, None), (True, None), (True, 2))
+    segs = tda.latent_segments(torch.from_numpy(lens), s_pad, 2)
+    assert segs.sum(dim=1).tolist() == [1, 1, 2, 1, 1]   # row 64 is cut
+    for kernel_order, ranges in orders:
         tk, tv = to_torch(ck).clone(), to_torch(cv).clone()
         out, _, _ = tda.latent_decode_attention_plain(
             *args, tk, tv, torch.from_numpy(lens), layer=1, true_d=true_d,
-            kernel_order=kernel_order, **t_scales)
+            kernel_order=kernel_order, ranges=ranges, **t_scales)
         _close(out[live], np.asarray(j_out)[live][..., :dv], 1e-5)
         assert not out[~live].any()
         np.testing.assert_array_equal(raw_bytes(tk),
@@ -505,11 +512,12 @@ def test_latent_plain_versions_match_jax_kernels(cache, h):
             jnp.asarray(_pad(pv, dp)), jnp.asarray(tables), jnp.asarray(lens),
             kvh=1, rep=h, d=dp, true_d=true_d, layer=1,
             **{k: jnp.asarray(v) for k, v in scales.items()})
-    for kernel_order in orders:
+    for kernel_order, ranges in orders:
         tk, tv = to_torch(pk).clone(), to_torch(pv).clone()
         out, _, _ = tpd.paged_decode_attention_plain(
             *args, tk, tv, torch.from_numpy(tables), torch.from_numpy(lens),
-            layer=1, true_d=true_d, kernel_order=kernel_order, **t_scales)
+            layer=1, true_d=true_d, kernel_order=kernel_order,
+            ranges=ranges, **t_scales)
         _close(out[live], np.asarray(j_out)[live][..., :dv], 1e-5)
         jd, jp = (np.asarray(o)[live][..., :dv] for o in (j_out, jp_out))
         # rows where the JAX paged kernel stands more than 1e-3 of max|out|
@@ -536,40 +544,46 @@ def test_latent_flip_bound_covers_another_score_order(cache):
     plain version's flip bound (``flip_rel=LATENT_FLIP_REL``). A kernel's
     f32 scores differ from the plain version's in the last bits, and a
     probability near a bf16 rounding midpoint may round to the other
-    neighbour. Here the scores move by a relative 2^-20 (the softmax scale
-    perturbed, more than another summation order moves them): the
-    kernel-order output stays within the rule with its flip term at every
-    element, and without it some elements fall outside (the term is
-    needed). The flip bound needs the split order."""
-    rng = np.random.default_rng(5)
-    B, h, dk, dv, s_pad, true_d = 6, 32, 576, 512, 1024, 192
+    neighbour. Here the scores move by a relative 2^-18 (the softmax scale
+    perturbed, more than another summation order moves them, 16x inside
+    the probabilities' 2^-14 that the bound covers): the kernel-order
+    output stays within the rule with its flip term at every element, and
+    without it some elements fall outside (the term is needed). At 32
+    heads (one head block: ``latent_ranges`` 132, about one segment a
+    tile here) and 128 (two: 66 ranges). The flip bound needs the split
+    order."""
+    for h in (32, 128):
+        rng = np.random.default_rng(5)
+        B, dk, dv, s_pad, true_d = 6, 576, 512, 1024, 192
 
-    def bf16(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(torch.bfloat16)
+        def bf16(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(torch.bfloat16)
 
-    q, nk, nv = bf16(B, h, dk), bf16(B, 1, dk), bf16(B, 1, dv)
-    ck, cv = bf16(2, B, 1, s_pad, dk), bf16(2, B, 1, s_pad, dv)
-    kw = {}
-    if cache == "fp8":
-        ck, cv = ((c.float() / 0.03).to(torch.float8_e4m3fn)
-                  for c in (ck, cv))
-        kw = dict(k_scale=torch.tensor([0.03]), v_scale=torch.tensor([0.03]))
-    lens = torch.tensor([0, 1, 64, 511, 700, 1023], dtype=torch.int32)
+        q, nk, nv = bf16(B, h, dk), bf16(B, 1, dk), bf16(B, 1, dv)
+        ck, cv = bf16(2, B, 1, s_pad, dk), bf16(2, B, 1, s_pad, dv)
+        kw = {}
+        if cache == "fp8":
+            ck, cv = ((c.float() / 0.03).to(torch.float8_e4m3fn)
+                      for c in (ck, cv))
+            kw = dict(k_scale=torch.tensor([0.03]),
+                      v_scale=torch.tensor([0.03]))
+        lens = torch.tensor([0, 1, 64, 511, 700, 1023], dtype=torch.int32)
+        assert tda.latent_ranges(h) == {32: 132, 128: 66}[h]
 
-    def run(d, **o):
-        return tda.latent_decode_attention_plain(
-            q, nk, nv, ck.clone(), cv.clone(), lens, layer=1, true_d=d,
-            kernel_order=True, out_dtype=torch.float32, **kw, **o)[0]
+        def run(d, **o):
+            return tda.latent_decode_attention_plain(
+                q, nk, nv, ck.clone(), cv.clone(), lens, layer=1, true_d=d,
+                kernel_order=True, out_dtype=torch.float32, **kw, **o)[0]
 
-    want, flip = run(true_d, flip_rel=tda.LATENT_FLIP_REL)
-    torch.testing.assert_close(want, run(true_d), rtol=0, atol=0)
-    assert bool((flip >= 0).all()) and bool((flip > 0).any())
-    moved = run(true_d * (1 + 2**-20))
-    diff = (moved - want).abs()
-    rule = 2**-8 * want.abs() + 1e-6 * want.abs().max()
-    assert not bool((diff > rule + flip).any())
-    assert bool((diff > rule).any())
+        want, flip = run(true_d, flip_rel=tda.LATENT_FLIP_REL)
+        torch.testing.assert_close(want, run(true_d), rtol=0, atol=0)
+        assert bool((flip >= 0).all()) and bool((flip > 0).any())
+        moved = run(true_d * (1 + 2**-18))
+        diff = (moved - want).abs()
+        rule = 2**-8 * want.abs() + 1e-6 * want.abs().max()
+        assert not bool((diff > rule + flip).any())
+        assert bool((diff > rule).any())
     with pytest.raises(ValueError, match="split"):
         tda.latent_decode_attention_plain(
             q, nk, nv, ck.clone(), cv.clone(), lens, layer=1, true_d=true_d,
