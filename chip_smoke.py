@@ -151,7 +151,16 @@ end to end:
   two opt-in kernel paths no other phase runs: phase 6's FP8 model at 4
   layers under ``fp8_transcode="always"`` (int8 weights and cache) and
   W4A16 under ``w4_layout="e8"``, each held against its
-  plain versions by depth, greedy, the FP8 one served dense and paged.
+  plain versions by depth, greedy, the FP8 one served dense and paged;
+- parallelism (phase 19): a one-process mesh serving phase 5's requests
+  as the unsharded engine; config 5's mix at Llama-3-70B width sharded at
+  tp = 2 in one process, each shard's B1/B2/B3 call against its plain
+  version; the mix cut to 4 of 80 layers, written once, and served at
+  tp = 2 by two processes on the card (gloo over CUDA tensors);
+- data parallelism (phase 20): four processes, started with phase 19,
+  serving 19c's checkpoint and requests at dp = 2 x tp = 2, dense, paged
+  and prefix-cached, identical to 19c's tp = 2, with a prefix page that
+  one dp block wrote and the other read.
 
 Every kernel of each path must have launched during that path's run.
 Per-kernel times, bounds, plain and library times follow.
@@ -6677,13 +6686,41 @@ def phase_ptq():
 
     from compressed_tensors_tpu_torch.models.synthetic import LLAMA3_8B
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_worker
+
     config = LLAMA3_8B
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    # phase 16c's processes start now (torch, the group) and wait for the
+    # files it writes
+    dist_tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    os.mkdir(os.path.join(dist_tmp.name, "nccl"))
+    ranks = {"nccl": torch_dist_worker.start(
+                 "nccl", os.path.join(dist_tmp.name, "nccl"), 1, "cuda"),
+             "compress-file": torch_dist_worker.start(
+                 "compress-file", dist_tmp.name, 2, "cuda")}
+    try:
+        results = ptq_arms(config, dist_tmp.name, ranks)
+    finally:
+        for procs in ranks.values():
+            torch_dist_worker.stop(procs)
+        dist_tmp.cleanup()
+    log(f"phase 16 (PTQ) wall {time.perf_counter() - t_phase:.1f} s "
+        f"({card()})")
+    return results
+
+
+def ptq_arms(config, dist_tmp, ranks):
+    """Phase 16's body: the model, arm A with phase 16b, phase 16c (on
+    ``dist_tmp`` with its started ``ranks``), arms B and C."""
+    import torch
+
+    t0 = time.perf_counter()
     dense, extra = ptq_dense_llama(config, seed=0)
     torch.cuda.synchronize()
     log(f"dense bf16 Llama-3-8B drawn on the card from seed 0 in "
-        f"{time.perf_counter() - t_phase:.1f} s: "
+        f"{time.perf_counter() - t0:.1f} s: "
         f"{sum(w.numel() for w in dense.values()) / 1e9:.3f} G parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     requests = serving_requests()
@@ -6695,15 +6732,13 @@ def phase_ptq():
     dense, extra = first_layers(dense, 4), first_layers(extra, 4)
     config = dataclasses.replace(config, num_hidden_layers=4)
     torch.cuda.empty_cache()
-    phase_distributed(dense, config)
+    phase_distributed(dense, config, dist_tmp, ranks)
     for arm, name in ((ptq_arm_fp8, "fp8"), (ptq_arm_mxfp4, "mxfp4")):
         with tempfile.TemporaryDirectory(
                 dir=os.path.join(ROOT, "build")) as tmp:
             results.update(arm(dense, extra, config, requests,
                                os.path.join(tmp, name)))
         torch.cuda.empty_cache()
-    log(f"phase 16 (PTQ) wall {time.perf_counter() - t_phase:.1f} s "
-        f"({card()})")
     return results
 
 
@@ -6861,7 +6896,7 @@ def phase_offload(path, tmp):
         f"({card()})")
 
 
-def phase_distributed(dense, config):
+def phase_distributed(dense, config, tmp, ranks):
     """Phase 16c: the distributed layer (ROADMAP A8b) on the calibrated
     states of the PTQ model's first 4 layers (28 W4A16 linears, arm A's
     recipe): ``compress_state_parallel`` over 2 processes on the one card
@@ -6872,7 +6907,9 @@ def phase_distributed(dense, config):
     ``compress_state`` byte for byte, each rank's time printed; and, in a
     process of its own run beside them, ``init_dist`` on NCCL at world
     size 1 (case "nccl"), an all-reduce, and the group torn down. No NCCL collective across cards
-    runs here."""
+    runs here. The processes (``ranks``: case -> its processes) started
+    at phase 16's start; the gloo ranks wait for the files this writes
+    under ``tmp``, the recipe last."""
     import torch
 
     from compressed_tensors_tpu_torch.compressors import (
@@ -6884,7 +6921,6 @@ def phase_distributed(dense, config):
         save_safetensors,
     )
 
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_dist_worker
 
     t_phase = time.perf_counter()
@@ -6903,43 +6939,37 @@ def phase_distributed(dense, config):
     single_s = time.perf_counter() - t0
     nbytes = sum(t.numel() * t.element_size() for s in module_states.values()
                  for t in s.values())
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        save_safetensors(os.path.join(tmp, "states.safetensors"),
-                         {f"{m}.{k}": t for m, s in module_states.items()
-                          for k, t in s.items()})
-        with open(os.path.join(tmp, "quantization_config.json"), "w") as f:
-            json.dump(qjson, f)
-        # the NCCL process (world size 1) runs beside the gloo ranks: its
-        # start-up is the phase's fixed cost
-        nccl_dir = os.path.join(tmp, "nccl")
-        os.mkdir(nccl_dir)
-        nccl_rank = torch_dist_worker.start("nccl", nccl_dir, 1, "cuda")
-        try:
-            reports = torch_dist_worker.spawn("compress-file", tmp, 2,
-                                              "cuda", SPAWN_SECONDS)
-            nccl = torch_dist_worker.finish("nccl", nccl_rank, nccl_dir,
-                                            SPAWN_SECONDS)[0]
-        finally:
-            torch_dist_worker.stop(nccl_rank)
-        flat = {f"{m}.{k}": t for m, s in ref.items() for k, t in s.items()}
-        for r in reports:
-            got = load_safetensors(os.path.join(tmp, f"rank{r['rank']}"
-                                                     ".safetensors"))
-            bad = sorted(set(flat) ^ set(got)) or [
-                n for n, t in flat.items() if not same_bits(t, got[n])]
-            if bad:
-                raise AssertionError(f"compress_state_parallel rank "
-                                     f"{r['rank']}: differs from "
-                                     f"compress_state in {bad[:4]}")
-        log(f"compress_state_parallel over 2 processes on the one card "
-            f"(gloo), {len(names)} linears of 4 layers "
-            f"({nbytes / 1e9:.3f} GB of calibrated states): "
-            + "; ".join(f"rank {r['rank']} owns {r['owned']} modules "
-                        f"({r['owned_bytes'] / 1e9:.3f} GB), compressed and "
-                        f"recoupled in {r['seconds']:.3f} s"
-                        for r in reports)
-            + f"; single-process compress_state {single_s:.3f} s; both "
-            f"ranks' full states equal it byte for byte ({card()})")
+    save_safetensors(os.path.join(tmp, "states.safetensors"),
+                     {f"{m}.{k}": t for m, s in module_states.items()
+                      for k, t in s.items()})
+    with open(os.path.join(tmp, "quantization_config.tmp"), "w") as f:
+        json.dump(qjson, f)
+    os.replace(os.path.join(tmp, "quantization_config.tmp"),
+               os.path.join(tmp, "quantization_config.json"))
+    reports = torch_dist_worker.finish("compress-file", ranks["compress-file"],
+                                       tmp, SPAWN_SECONDS)
+    nccl = torch_dist_worker.finish("nccl", ranks["nccl"],
+                                    os.path.join(tmp, "nccl"),
+                                    SPAWN_SECONDS)[0]
+    flat = {f"{m}.{k}": t for m, s in ref.items() for k, t in s.items()}
+    for r in reports:
+        got = load_safetensors(os.path.join(tmp, f"rank{r['rank']}"
+                                                 ".safetensors"))
+        bad = sorted(set(flat) ^ set(got)) or [
+            n for n, t in flat.items() if not same_bits(t, got[n])]
+        if bad:
+            raise AssertionError(f"compress_state_parallel rank "
+                                 f"{r['rank']}: differs from "
+                                 f"compress_state in {bad[:4]}")
+    log(f"compress_state_parallel over 2 processes on the one card "
+        f"(gloo), {len(names)} linears of 4 layers "
+        f"({nbytes / 1e9:.3f} GB of calibrated states): "
+        + "; ".join(f"rank {r['rank']} owns {r['owned']} modules "
+                    f"({r['owned_bytes'] / 1e9:.3f} GB), compressed and "
+                    f"recoupled in {r['seconds']:.3f} s"
+                    for r in reports)
+        + f"; single-process compress_state {single_s:.3f} s; both "
+        f"ranks' full states equal it byte for byte ({card()})")
     log(f"init_dist on NCCL at world size 1: backend {nccl['backend']}, "
         f"all-reduce {nccl['all_reduce']}, group down "
         f"{not nccl['initialized_after']}; no NCCL collective across cards "
@@ -7136,23 +7166,51 @@ def ulps_apart(a, b):
 def rotation_card_vs_cpu(dense, rotated, modules, tconfig, names):
     """Check 2: the named modules fused again on the CPU from the same bf16
     weights (float64 on the host's BLAS): within one bf16 ulp of the
-    card's; the count of differing elements printed."""
+    card's; the count of differing elements printed. The CPU's fusion
+    runs in a thread beside the phase's work on the card (its BLAS
+    releases the interpreter lock); the returned function waits for it
+    and checks."""
+    import threading
+
     from compressed_tensors_tpu_torch.transform import apply_transform_config
 
-    t0 = time.perf_counter()
-    cpu, _ = apply_transform_config(
-        {n: {"weight": dense[n].cpu()} for n in names},
-        {n: modules[n] for n in names}, tconfig)
-    seconds = time.perf_counter() - t0
+    weights = {n: {"weight": dense[n].cpu()} for n in names}
+    rotated = {n: rotated[n].cpu() for n in names}
+    done = {}
+
+    def fuse():
+        t0 = time.perf_counter()
+        try:
+            done["cpu"], _ = apply_transform_config(
+                weights, {n: modules[n] for n in names}, tconfig)
+        except BaseException as e:  # raised again by check()
+            done["error"] = e
+        done["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=fuse, daemon=True)
+    thread.start()
+
+    def check():
+        thread.join()
+        if "error" in done:
+            raise done["error"]
+        rotation_cpu_check(rotated, done["cpu"], names, done["seconds"])
+
+    return check
+
+
+def rotation_cpu_check(rotated, cpu, names, seconds):
+    """Check 2's comparison (``rotation_card_vs_cpu``)."""
     readings = []
     for n in names:
-        bad, differ = ulps_apart(rotated[n].cpu(), cpu[n]["weight"])
+        bad, differ = ulps_apart(rotated[n], cpu[n]["weight"])
         readings.append(f"{n.split('.')[-1]} {differ}")
         if bad:
             raise AssertionError(f"transforms {n}: {bad} elements more than "
                                  "one bf16 ulp from the CPU's fusion")
     log(f"transforms: {len(names)} modules fused again on the CPU in "
-        f"{seconds:.1f} s: every element within one bf16 ulp of the card's; "
+        f"{seconds:.1f} s (beside the card's work): every element within one "
+        f"bf16 ulp of the card's; "
         f"elements that differ: {', '.join(readings)}")
 
 
@@ -7247,9 +7305,10 @@ def phase_transforms():
     del fused
     if any(torch.equal(rotated[n], dense[n]) for n in dense):
         raise AssertionError("a module came out of the fusion unchanged")
-    rotation_card_vs_cpu(dense, rotated, modules, tconfig, [
-        f"model.layers.0.{sub}.{name}"
-        for name, sub in PTQ_SUBMODULE.items()] + ["lm_head"])
+    check_cpu_fusion = rotation_card_vs_cpu(
+        dense, rotated, modules, tconfig,
+        [f"model.layers.0.{sub}.{name}"
+         for name, sub in PTQ_SUBMODULE.items()] + ["lm_head"])
     del dense
     torch.cuda.empty_cache()
 
@@ -7287,6 +7346,7 @@ def phase_transforms():
         ct_dequantizer(path, tmp)
     del rotated
     torch.cuda.empty_cache()
+    check_cpu_fusion()
     log("transforms: first-token logits' relative RMS against the dense "
         "bf16 model: " + ", ".join(f"{k} {v:.4g}"
                                    for k, v in readings.items())
@@ -8364,7 +8424,7 @@ def tp2_parent_side(config, requests, probe, depths, serve, tmp, ranks):
     return reports, ref, spread, single, moved, total
 
 
-def phase_tp2_processes():
+def phase_tp2_processes(tmp):
     """Phase 19c: tensor parallelism across two processes on the one card
     (gloo over CUDA tensors; NCCL takes one rank a card). Config 5's mix
     at Llama-3-70B width (even layers W4A16 g128, odd W8A8-int, int8
@@ -8387,12 +8447,14 @@ def phase_tp2_processes():
     completions equal, and at least as many of their first tokens equal
     to the unsharded paged engine's as the unsharded model's with its
     embeddings one ulp up; bytes read and seconds per
-    rank, decode ms a step at tp = 2 against tp = 1."""
+    rank, decode ms a step at tp = 2 against tp = 1. The checkpoint stays
+    under ``tmp`` for phase 20. Returns (the runs with their launch
+    counts, the tp = 2 completions and what phase 20 reads beside
+    them)."""
     import torch
 
     from compressed_tensors_tpu_torch.models.config import LlamaConfig
 
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_dist_worker
 
     t_phase = time.perf_counter()
@@ -8401,20 +8463,19 @@ def phase_tp2_processes():
     _, probe, _ = probe_request(requests)
     depths = (1, TP70_LAYERS)
     serve = dict(SERVE, paged=True, prefix_caching=False)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        # the ranks start (torch, the card, the group) while this process
-        # writes the checkpoint and computes the references; they wait for
-        # inputs.json, written last
-        t_spawn = time.perf_counter()
-        ranks = torch_dist_worker.start("tp70b", tmp, 2, "cuda")
-        try:
-            reports, ref, spread, single, moved, total = tp2_parent_side(
-                config, requests, probe, depths, serve, tmp, ranks)
-        finally:
-            torch_dist_worker.stop(ranks)
-        spawn_s = time.perf_counter() - t_spawn
-        logits = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                  for r in range(2)]
+    # the ranks start (torch, the card, the group) while this process
+    # writes the checkpoint and computes the references; they wait for
+    # inputs.json, written last
+    t_spawn = time.perf_counter()
+    ranks = torch_dist_worker.start("tp70b", tmp, 2, "cuda")
+    try:
+        reports, ref, spread, single, moved, total = tp2_parent_side(
+            config, requests, probe, depths, serve, tmp, ranks)
+    finally:
+        torch_dist_worker.stop(ranks)
+    spawn_s = time.perf_counter() - t_spawn
+    logits = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+              for r in range(2)]
     for r, (rep, lg) in enumerate(zip(reports, logits)):
         for label, key, act in (
                 ("bf16 activations", "bf16_d", "bf16"),
@@ -8490,18 +8551,209 @@ def phase_tp2_processes():
         if missing:
             raise AssertionError(f"19c never launched {missing}")
     log(f"phase 19c wall {time.perf_counter() - t_phase:.1f} s ({card()})")
-    return {"70B tp=1 paged": single,
-            "70B tp=1 paged, embeddings one ulp up": moved}
+    return ({"70B tp=1 paged": single,
+             "70B tp=1 paged, embeddings one ulp up": moved},
+            dict(outs=outs[0], requests=requests, first_floor=ulp_first,
+                 decode_ms=reports[0]["decode_ms"],
+                 ckpt=os.path.join(tmp, "ckpt")))
+
+
+# --------------------------------------------------------------------------- #
+# phase 20: data parallelism (dp = 2 x tp = 2, ServingEngine(mesh=...))
+
+DP70_RUNS = ("dense", "paged", "prefix")
+DP70_BATCH = 32            # two dp blocks of 16 slots
+
+
+def row_count_probe():
+    """The GEMMs of phase 20's decode step at 16 rows (a dp block) within
+    64 (phase 19c's batch): B1 (int4b) on a tp = 2 qkv shard of the 70B
+    mix and B3 on an lm_head vocabulary half, each row's output compared
+    bit for bit. Returns {kernel: rows whose output differs}."""
+    import torch
+
+    from compressed_tensors_tpu_torch.config import CompressionFormat
+    from compressed_tensors_tpu_torch.ops.linear import (
+        QuantizedTensor,
+        prepare_for_kernels,
+        quantized_matmul,
+    )
+    from compressed_tensors_tpu_torch.ops.pack import pack_to_int32
+    from compressed_tensors_tpu_torch.quantization import (
+        preset_name_to_scheme,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    h = LLAMA3_70B["hidden_size"]
+    qkv = (LLAMA3_70B["num_attention_heads"]
+           + 2 * LLAMA3_70B["num_key_value_heads"]) * LLAMA3_70B["head_dim"]
+    codes, scale = card_w4_codes(gen, qkv // 2, h)
+    linears = {
+        "w4a16_matmul": prepare_for_kernels(QuantizedTensor(
+            weight_packed=pack_to_int32(codes, 4), scale=scale,
+            shape=(qkv // 2, h),
+            scheme=preset_name_to_scheme("W4A16", ["Linear"]),
+            format=CompressionFormat.pack_quantized.value)),
+        "w8a8_matmul": card_w8a8(gen, LLAMA3_70B["vocab_size"] // 2, h,
+                                 preset_name_to_scheme("W8A8",
+                                                       ["Linear"]))}
+    x = dev_randn(gen, BATCH, h)
+    block = DP70_BATCH // 2
+    out = {}
+    for name, qt in linears.items():
+        whole = quantized_matmul(x, qt)[:block].view(torch.int16)
+        part = quantized_matmul(x[:block].contiguous(), qt).view(torch.int16)
+        out[name] = int((part != whole).any(-1).sum())
+    return out
+
+
+def dp70_parent_side(tp2, dp_dir, ranks):
+    """Phase 20 in this process: inputs.json for the ranks (started at
+    phase 19's start, waiting for it; after 19c's ranks, so that neither
+    phase's processes serve beside the other's), the row-count probe
+    while they load and serve, then their reports."""
+    import torch_dist_worker
+
+    with open(os.path.join(dp_dir, "inputs.tmp"), "w") as f:
+        json.dump({"ckpt": tp2["ckpt"], "requests": tp2["requests"],
+                   "serve": dict(SERVE, max_batch=DP70_BATCH),
+                   "counters": COUNTERS}, f)
+    os.replace(os.path.join(dp_dir, "inputs.tmp"),
+               os.path.join(dp_dir, "inputs.json"))
+    probe = row_count_probe()
+    reports = torch_dist_worker.finish("dp70b", ranks, dp_dir, SPAWN_SECONDS)
+    return reports, probe
+
+
+def phase_dp_processes(tp2, dp_dir, ranks):
+    """Phase 20: data parallelism, dp = 2 x tp = 2, four processes on the
+    one card (``tests/torch_dist_worker.py`` case "dp70b", gloo over CUDA
+    tensors, started at phase 19's start). Each rank reads its tp blocks
+    of 19c's checkpoint (config 5's mix at Llama-3-70B width, 4 of 80
+    layers) through ``load_llama_params(mesh=make_mesh(dp=2, tp=2))``
+    once 19c's ranks are done, fuses, and serves 19c's 32 requests at ``SERVE`` with 32 slots (two dp
+    blocks of 16) dense, paged, and paged with prefix caching. Checks:
+    the four ranks' completions equal in each run; dense = paged; both
+    identical to 19c's tp = 2 completions (the same tp shards with the
+    rows split; the GEMMs' per-row results at a block's 16 rows within
+    19c's 64 bit for bit, ``row_count_probe``), or, where a kernel's
+    per-row result depends on the rows of its call, that kernel named
+    and the first tokens held to 19c's rule; the prefix run's requests
+    without the prefix identical to the dense run's, hits > 0 of which
+    at least one on a page the other dp block wrote, and the pages both
+    blocks hold equal byte for byte on the ranks of one tp index; B1, B2,
+    B3, B4, B6 and B7 launched on every rank. Readings: bytes read,
+    seconds and GiB a rank, decode ms a step against 19c's tp = 2.
+    Returns each rank's runs with their launch counts."""
+    t_phase = time.perf_counter()
+    reports, probe = dp70_parent_side(tp2, dp_dir, ranks)
+    ref = {int(i): o for i, o in tp2["outs"].items()}
+    n = len(ref)
+    outs = {run: [{int(i): o for i, o in rep[run]["completions"].items()}
+                  for rep in reports] for run in DP70_RUNS}
+    for run in DP70_RUNS:
+        if any(o != outs[run][0] for o in outs[run]):
+            raise AssertionError(f"20 {run}: the ranks' completions differ")
+    if outs["dense"][0] != outs["paged"][0]:
+        raise AssertionError("20: dense and paged completions differ")
+    same = sum(outs["paged"][0][i] == o for i, o in ref.items())
+    first = sum(outs["paged"][0][i][0] == o[0] for i, o in ref.items())
+    log(f"20 row-count probe ({DP70_BATCH // 2} rows within {BATCH}): rows "
+        f"that differ "
+        f"bit for bit {probe} ({card()})")
+    if same != n:
+        moved = [k for k, v in probe.items() if v]
+        log(f"20: {same}/{n} completions identical to 19c's tp = 2, "
+            f"{first}/{n} first tokens; kernels whose per-row result "
+            f"depends on the call's rows: {moved or 'none of the probed'}")
+        if not moved or first < tp2["first_floor"]:
+            raise AssertionError(
+                f"20: {same}/{n} identical to tp = 2 and {first}/{n} first "
+                f"tokens (19c's rule: >= {tp2['first_floor']}); row-count "
+                f"probe {probe}")
+    prefix = outs["prefix"][0]
+    shared = {i for i, _, _ in tp2["requests"] if i % SHARE_EVERY == 0}
+    plain_same = sum(prefix[i] == outs["dense"][0][i] for i in ref
+                     if i not in shared)
+    if plain_same != n - len(shared):
+        raise AssertionError(f"20 prefix: {plain_same}/{n - len(shared)} "
+                             "requests without the prefix equal the dense "
+                             "run's")
+    for r, rep in enumerate(reports):
+        run = rep["prefix"]
+        if run["hits"] <= 0 or run["cross_block_hits"] <= 0 \
+                or not run["shared_pages"]:
+            raise AssertionError(f"20 rank {r}: prefix hits {run['hits']}, "
+                                 f"{run['cross_block_hits']} on the other "
+                                 "block's pages")
+    for tp in range(2):
+        digests = {rep["prefix"]["shared_digest"] for rep in reports
+                   if rep["coords"]["tp"] == tp}
+        if len(digests) != 1:
+            raise AssertionError(f"20: the pages both dp blocks hold differ "
+                                 f"at tp index {tp}")
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    results = {}
+    for r, rep in enumerate(reports):
+        missing = [k for k in ("w4a16_matmul", "w4a16_a8b_matmul",
+                               "w8a8_matmul", "prefill_attention",
+                               "flash_decode_attention",
+                               "paged_decode_attention")
+                   if not sum(rep[run]["counts"][k] for run in DP70_RUNS)]
+        if missing:
+            raise AssertionError(f"20 rank {r} never launched {missing}")
+        for run in DP70_RUNS:
+            results[f"70B dp=2 x tp=2 rank {r} {run}"] = rep[run]
+        log(f"20 rank {r} (dp {rep['coords']['dp']}, tp "
+            f"{rep['coords']['tp']}): local heads {rep['heads']}, read "
+            f"{rep['bytes_read'] / 1e9:.3f} GB in {rep['load_s']:.2f} s with "
+            f"the fuse ({rep['gib']:.2f} GiB on the card); "
+            + "; ".join(f"{run} {rep[run]['serve_s']:.2f} s, decode "
+                        f"{rep[run]['decode_ms']:.2f} ms a step over "
+                        f"{rep[run]['steps']} steps, launches "
+                        f"{nonzero(rep[run]['counts'])}"
+                        for run in DP70_RUNS)
+            + f"; prefix hits {rep['prefix']['hits']}, "
+            f"{rep['prefix']['cross_block_hits']} on pages the other block "
+            f"wrote, {len(rep['prefix']['shared_pages'])} pages both blocks "
+            "hold")
+    log(f"20 dp = 2 x tp = 2 over 4 processes (gloo): completions equal on "
+        f"all four ranks in each run, dense = paged, {same}/{n} identical "
+        f"to 19c's tp = 2 ({first}/{n} first tokens); prefix run: the "
+        f"{n - len(shared)} requests without the prefix equal the dense "
+        f"run's, {sum(prefix[i] == outs['dense'][0][i] for i in shared)}/"
+        f"{len(shared)} with it; decode {reports[0]['paged']['decode_ms']:.2f}"
+        f" ms a step (paged) against 19c's {tp2['decode_ms']:.2f} at tp = 2 "
+        f"({card()})")
+    log(f"phase 20 wall {time.perf_counter() - t_phase:.1f} s ({card()})")
+    return results
 
 
 def phase_parallel(serving):
-    """Phase 19 (19a, 19b, 19c)."""
+    """Phase 19 (19a, 19b, 19c) and phase 20, whose four ranks start first
+    (their torch import and group beside 19a-19c) and read 19c's
+    checkpoint: one temporary directory spans both."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_worker
+
     t_phase = time.perf_counter()
-    results = phase_mesh_one(serving)
-    log(f"phase 19a wall {time.perf_counter() - t_phase:.1f} s")
-    phase_shard_arithmetic()
-    results.update(phase_tp2_processes())
-    log(f"phase 19 wall {time.perf_counter() - t_phase:.1f} s ({card()})")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        dp_dir = os.path.join(tmp, "dp")
+        os.makedirs(dp_dir)
+        dp_ranks = torch_dist_worker.start("dp70b", dp_dir, 4, "cuda")
+        try:
+            results = phase_mesh_one(serving)
+            log(f"phase 19a wall {time.perf_counter() - t_phase:.1f} s")
+            phase_shard_arithmetic()
+            tp_results, tp2 = phase_tp2_processes(tmp)
+            results.update(tp_results)
+            log(f"phase 19 wall {time.perf_counter() - t_phase:.1f} s "
+                f"({card()})")
+            results.update(phase_dp_processes(tp2, dp_dir, dp_ranks))
+        finally:
+            torch_dist_worker.stop(dp_ranks)
     return results
 
 
@@ -8734,7 +8986,8 @@ def main() -> int:
     converters = phase_converters()
     log(f"phase 18 (converters) done at {time.perf_counter() - t_start:.1f} s")
     parallel = phase_parallel(serving)
-    log(f"phase 19 (parallel) done at {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 19-20 (parallel) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     paths = {"greedy_generate": e2e["run_counts"]}
     paths.update({f"serving {run}": res["counts"]
                   for run, res in serving.items()})

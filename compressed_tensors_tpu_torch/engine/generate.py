@@ -24,7 +24,9 @@ def make_step_fns(config: LlamaConfig, max_len: int, dtype=torch.bfloat16,
                   cache_dtype=None, use_kernels: bool = True, device="cuda"):
     """(prefill, decode) step functions over a cache of ``max_len``. The
     params may be a rank's slice (``parallel.shard_llama_params``): the
-    cache then holds its kv heads and every rank gets the full logits."""
+    cache then holds its kv heads and every rank gets the full logits.
+    Each rank runs the whole batch: over a dp mesh the params are
+    replicated and nothing is gathered over "dp"."""
     device = resolve_device(device)
 
     def prefill(params, input_ids, prompt_len: int):

@@ -11,6 +11,28 @@ With a ``mesh`` every rank runs the engine on its slice of the params
 so the argmax, and with it every host-side decision, is the same on every
 rank.
 
+Under data parallelism (a mesh with dp > 1 that divides ``max_batch``) a
+slot belongs to the dp block that holds its row (``dp_rows``), and every
+rank keeps the same slots, queue, pages, prefix index and preemption
+state. A prefill runs on the ranks of the slot's block only, so the
+blocks prefill their own slots side by side, and the first tokens of the
+prompts admitted in a step are all-gathered over "dp" once, at the end of
+the admission (a broadcast per prompt would make each block wait for the
+other's prefills). A decode step runs on every rank over its own block, also one
+whose rows are all inactive, so that it joins every collective; each rank
+keeps its (burst, B/dp) token trace on the device and all-gathers it over
+"dp" once, at the burst's end. The dense cache holds the rank's block of
+slots; the paged pool is whole on every rank, and each rank writes the
+pages of its own slots only. A prefix-cache hit can point a slot at a
+page that the other block wrote: the host records which block wrote each
+registered page, and when a slot of another block first hits it, the
+page's K/V rows are broadcast over "dp" from the writing block (then
+every block holds it until it is evicted). Copying at the first
+cross-block hit moves only pages that another block reads; a copy at
+registration would move every registered page, most of which are read
+by their own block or not at all. The dp collectives are broadcasts and
+all-gathers only, which gloo also carries for CUDA tensors.
+
 Three things differ from the JAX engine, with the same completions:
 
 - A prefill chunk runs the forward over the slot's row only, with a
@@ -49,7 +71,8 @@ from compressed_tensors_tpu_torch.models.llama import (
     resolve_device,
     transcode_fp8_kv_to_int8,
 )
-from compressed_tensors_tpu_torch.parallel.mesh import local_config
+from compressed_tensors_tpu_torch.parallel.mesh import dp_rows, local_config
+from compressed_tensors_tpu_torch.utils.dtypes import byte_view
 
 __all__ = ["ServingEngine", "Request", "Completion"]
 
@@ -103,7 +126,9 @@ class ServingEngine:
         Every rank runs the same host-side slot, page and prefix
         bookkeeping on the same gathered logits, so the ranks take the
         same decisions. The engine then runs on ``mesh.device`` (in place
-        of ``device``); dp > 1 raises NotImplementedError (ROADMAP A8d)
+        of ``device``). A dp axis that divides ``max_batch`` splits the
+        slots into blocks (module docstring); one that does not leaves
+        every rank all the slots, with nothing gathered
     :param device: where the engine runs; CUDA unless the caller asks for
         the CPU
     """
@@ -141,8 +166,12 @@ class ServingEngine:
         self.mesh = mesh
         self.params = params
         self.config = config
-        # the caches hold this rank's kv heads
+        # the caches hold this rank's kv heads; the dense cache this rank's
+        # dp block of the slots (all of them without a dp split)
         cache_config = local_config(params, config)
+        self._rows = (dp_rows(mesh, max_batch) if mesh is not None
+                      else slice(0, max_batch))
+        self._dp_split = self._rows != slice(0, max_batch)
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
@@ -173,11 +202,19 @@ class ServingEngine:
             self._prefix_index: dict[bytes, int] = {}
             self._page_digest: dict[int, bytes] = {}
             self._cached_free: "OrderedDict[int, bytes]" = OrderedDict()
+            # dp: the block that wrote each registered page, and the
+            # registered pages every block holds
+            self._page_writer: dict[int, int] = {}
+            self._page_shared: set[int] = set()
         else:
-            self.cache = init_kv_cache(cache_config, max_batch, max_len,
+            self.cache = init_kv_cache(cache_config,
+                                       self._rows.stop - self._rows.start,
+                                       max_len,
                                        dtype=dtype, cache_dtype=cache_dtype,
                                        device=self.device)
         self.prefix_cache_hits = 0  # pages reused across requests
+        # of them, pages another dp block wrote
+        self.cross_block_hits = 0
         self.tokens = torch.zeros((max_batch,), dtype=torch.int32,
                                   device=self.device)
 
@@ -197,12 +234,41 @@ class ServingEngine:
         """A device copy of host bookkeeping, on the current stream."""
         return torch.tensor(a, device=self.device)
 
+    def _block(self, slot: int) -> int:
+        """The dp block that holds ``slot`` (0 without a dp split)."""
+        return slot // (self._rows.stop - self._rows.start)
+
+    def _owns(self, slot: int) -> bool:
+        return self._rows.start <= slot < self._rows.stop
+
+    def _first_tokens(self, first: dict) -> None:
+        """Record the prefill tokens of the slots one ``_admit`` filled
+        (slot -> device scalar, None for another block's slot): over a dp
+        split each block computed its own, and one all-gather over "dp"
+        hands every rank all of them."""
+        if not first:
+            return
+        slots = list(first)
+        if self._dp_split:
+            local = torch.zeros((self._rows.stop - self._rows.start,),
+                                dtype=torch.int32, device=self.device)
+            for slot, token in first.items():
+                if self._owns(slot):
+                    local[slot - self._rows.start] = token
+            new = self.mesh.all_gather(local, "dp", dim=0)[slots]
+        else:
+            new = torch.stack([first[slot] for slot in slots])
+        self.tokens[slots] = new
+        for slot, token in zip(slots, new.tolist()):
+            self.slot_outputs[slot] = [token]
+
     def _prefill_chunk(self, slot: int, piece: list[int],
                        start: int) -> torch.Tensor:
         """Forward ``piece`` of one slot at ``start``; returns the next
         token (a device scalar)."""
         positions = torch.arange(start, start + len(piece),
                                  device=self.device)
+        local = slot - self._rows.start   # the slot's row of the dense cache
         if self.paged or len(piece) > 1:
             # one row: the slot's view of the cache
             if self.paged:
@@ -212,25 +278,26 @@ class ServingEngine:
                     lengths=self._to_device(np.asarray([start], np.int32)))
             else:
                 cache = KVCache(
-                    k=self.cache.k[:, slot:slot + 1],
-                    v=self.cache.v[:, slot:slot + 1],
+                    k=self.cache.k[:, local:local + 1],
+                    v=self.cache.v[:, local:local + 1],
                     lengths=self._to_device(np.asarray([start], np.int32)))
             row = 0
             input_ids = self._to_device(np.asarray([piece], np.int64))
             positions = positions[None]
         else:
             # a one-token chunk on the dense cache takes the decode kernel,
-            # which needs the whole contiguous cache: every other row is
-            # inactive (length -1) and left untouched
-            lengths = np.full((self.max_batch,), -1, np.int32)
-            lengths[slot] = start
+            # which needs the whole contiguous cache (this rank's block):
+            # every other row is inactive (length -1) and left untouched
+            n = self.cache.k.shape[1]
+            lengths = np.full((n,), -1, np.int32)
+            lengths[local] = start
             cache = KVCache(k=self.cache.k, v=self.cache.v,
                             lengths=self._to_device(lengths))
-            row = slot
-            all_ids = np.zeros((self.max_batch, 1), np.int64)
-            all_ids[slot, 0] = piece[0]
+            row = local
+            all_ids = np.zeros((n, 1), np.int64)
+            all_ids[local, 0] = piece[0]
             input_ids = self._to_device(all_ids)
-            positions = positions[None].expand(self.max_batch, 1)
+            positions = positions[None].expand(n, 1)
         logits, _ = llama_forward(
             self.params, self.config, input_ids, positions, cache,
             fresh_prefill=start == 0, use_kernels=self.use_kernels,
@@ -238,12 +305,14 @@ class ServingEngine:
         return torch.argmax(logits[row, 0]).to(torch.int32)
 
     def _decode(self, active: np.ndarray, burst: int) -> np.ndarray:
-        """``burst`` decode steps of every active slot, tokens kept on the
-        device; returns the (burst, B) token trace (one host copy)."""
-        active_d = self._to_device(active)
-        len0 = self._to_device(self._lengths)
-        tables = self._to_device(self._tables) if self.paged else None
-        tokens = self.tokens
+        """``burst`` decode steps of every active slot of this rank's
+        block, tokens kept on the device; returns the (burst, B) token
+        trace (one host copy, after one all-gather over "dp")."""
+        rows = self._rows
+        active_d = self._to_device(active[rows])
+        len0 = self._to_device(self._lengths[rows])
+        tables = self._to_device(self._tables[rows]) if self.paged else None
+        tokens = self.tokens[rows]
         trace = []
         for i in range(burst):
             lengths = torch.where(active_d, len0 + i, -1).to(torch.int32)
@@ -255,13 +324,19 @@ class ServingEngine:
                                 lengths=lengths)
             logits, _ = llama_forward(
                 self.params, self.config, tokens[:, None], lengths[:, None],
-                cache, use_kernels=self.use_kernels)
+                cache, use_kernels=self.use_kernels,
+                dp_block=self._dp_split)
             nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
             tokens = torch.where(active_d, nxt, tokens)
             trace.append(tokens)
+        trace = torch.stack(trace)
+        if self._dp_split:
+            # every block's tokens, once a burst
+            trace = self.mesh.all_gather(trace, "dp", dim=1)
+            tokens = trace[-1].clone()
         self.tokens = tokens
         self._lengths[active] += burst
-        return torch.stack(trace).cpu().numpy()
+        return trace.cpu().numpy()
 
     # ------------------------------------------------------------------ #
     def submit(self, request: Request) -> None:
@@ -287,6 +362,8 @@ class ServingEngine:
             pid, digest = self._cached_free.popitem(last=False)
             del self._prefix_index[digest]
             del self._page_digest[pid]
+            del self._page_writer[pid]
+            self._page_shared.discard(pid)
             return pid
         raise _PoolExhausted
 
@@ -383,7 +460,30 @@ class ServingEngine:
             self._tables[slot, i] = pid
         self._slot_pages[slot] = list(matched)
         self.prefix_cache_hits += len(matched)
+        self._share_pages(slot, matched)
         return len(matched) * page
+
+    def _share_pages(self, slot: int, pids: list[int]) -> None:
+        """Broadcast over "dp" the K/V rows of the pages in ``pids`` that
+        ``slot``'s block has not got, from the blocks that wrote them (on
+        every rank, in the same order: the host state is the same)."""
+        if not self._dp_split:
+            return
+        block = self._block(slot)
+        by_writer: dict[int, list[int]] = {}
+        for pid in pids:
+            writer = self._page_writer[pid]
+            if writer != block:
+                self.cross_block_hits += 1
+                if pid not in self._page_shared:
+                    by_writer.setdefault(writer, []).append(pid)
+        for writer, group in sorted(by_writer.items()):
+            idx = torch.tensor(group, device=self.device)
+            for pool in (self.cache.k, self.cache.v):
+                rows = byte_view(pool)[:, idx]   # a copy, moved as bytes
+                self.mesh.broadcast(rows.view(torch.uint8), "dp", writer)
+                byte_view(pool)[:, idx] = rows
+            self._page_shared.update(group)
 
     def _register_prefix(self, slot: int, ids: list[int]) -> None:
         """Content-address the slot's now-full prompt pages for reuse."""
@@ -396,12 +496,14 @@ class ServingEngine:
             if d not in self._prefix_index and pid not in self._page_digest:
                 self._prefix_index[d] = pid
                 self._page_digest[pid] = d
+                self._page_writer[pid] = self._block(slot)
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots (chunked). A preempted
         request resumes here: its prompt+generated prefix is prefilled and
         its pending next token restored, so generation continues exactly
         where preemption stopped."""
+        first = {}   # slot -> its prefill token
         for slot in self._free_slots():
             if not self.queue:
                 break
@@ -436,14 +538,18 @@ class ServingEngine:
                             "paged KV pool exhausted: a single sequence "
                             "needs more pages than the pool holds; raise "
                             "num_pages or lower max_len") from None
-                    return
+                    break
             chunk = self.prefill_chunk
             next_token = None
-            while start < len(ids):
-                piece = ids[start:start + chunk]
-                next_token = self._prefill_chunk(slot, piece, start)
-                start += len(piece)
-                self._lengths[slot] = start
+            if self._owns(slot):
+                while start < len(ids):
+                    piece = ids[start:start + chunk]
+                    next_token = self._prefill_chunk(slot, piece, start)
+                    start += len(piece)
+                    self._lengths[slot] = start
+            else:
+                # another dp block prefills the slot
+                self._lengths[slot] = len(ids)
             if self.prefix_caching:
                 self._register_prefix(slot, ids)
             if gen:
@@ -453,11 +559,11 @@ class ServingEngine:
                 self.slot_outputs[slot] = gen
                 req._generated = []
             else:
-                self.tokens[slot] = next_token
-                self.slot_outputs[slot] = [int(next_token)]
+                first[slot] = next_token
             self.slot_requests[slot] = req
             self._seq += 1
             self._slot_seq[slot] = self._seq
+        self._first_tokens(first)
 
     def _retire(self) -> None:
         """Release finished slots."""

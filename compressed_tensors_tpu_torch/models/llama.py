@@ -423,11 +423,13 @@ def _attention_dense_tail(layer: dict, x, q, k, v, cache_k_l, cache_v_l,
     return row_matmul(out.reshape(B, S, H * D), layer, "o_proj", use_kernels)
 
 
-def _mlp(layer: dict, x, config: LlamaConfig, use_kernels: bool = True):
+def _mlp(layer: dict, x, config: LlamaConfig, use_kernels: bool = True,
+         dp_block: bool = False):
     if "moe" in layer:
         from compressed_tensors_tpu_torch.models.moe import moe_mlp
 
-        return moe_mlp(layer, x, config, use_kernels=use_kernels)
+        return moe_mlp(layer, x, config, use_kernels=use_kernels,
+                       dp_block=dp_block)
     if "gate_up_proj" in layer:
         gu = quantized_matmul(x, layer["gate_up_proj"], use_kernels)
         split = layer["gate_up_split"]
@@ -488,7 +490,8 @@ def llama_forward(params: dict, config: LlamaConfig,
                   kv_cache: KVCache | PagedKVCache | None = None,
                   fresh_prefill: Optional[bool] = None,
                   use_kernels: bool = True,
-                  last_logit_only: bool = False):
+                  last_logit_only: bool = False,
+                  dp_block: bool = False):
     """Full forward pass. Returns (logits, kv cache); the cache tensors are
     updated in place and returned with lengths advanced by S.
 
@@ -499,6 +502,10 @@ def llama_forward(params: dict, config: LlamaConfig,
     :param use_kernels: run the hand-written kernels (their plain versions
         on the CPU); False selects the JAX package's non-kernel path
     :param last_logit_only: lm_head logits for the final position only
+    :param dp_block: the rows are this rank's dp block of the global batch
+        (``parallel.mesh.dp_rows``; the dense cache holds the same block):
+        MoE layers count capacity over every block's rows. False: the
+        rows are the whole batch (dp-replicated params gather nothing)
     """
     use_kernels = kernels_enabled(use_kernels)
     shard = params.get("shard")
@@ -534,7 +541,7 @@ def llama_forward(params: dict, config: LlamaConfig,
                 tables=tables, use_kernels=use_kernels)
         x = x + attn_out
         h = rms_norm(x, layer["post_attention_layernorm"], config.rms_norm_eps)
-        x = x + _mlp(layer, h, config, use_kernels)
+        x = x + _mlp(layer, h, config, use_kernels, dp_block)
 
     logits = _lm_head(params, x, config, use_kernels, last_logit_only)
     lengths = (cache_lens + S).to(torch.int32)
@@ -554,8 +561,9 @@ def load_llama_params(path: str, dtype=torch.bfloat16, device="cuda",
     :param use_kernels: build the kernel weight layouts at load
     :param mesh: a ``parallel.make_mesh`` mesh that splits tp: each rank
         reads only the blocks of its shard (``parallel.mesh.
-        ShardedCheckpointReader``) and gets the params
-        ``shard_llama_params`` would give it; dense GQA models only
+        ShardedCheckpointReader``; the same blocks at every dp index) and
+        gets the params ``shard_llama_params`` would give it; dense GQA
+        models only
     :return: (params, config, model_compressor)
     """
     from compressed_tensors_tpu_torch.compressors import (

@@ -15,6 +15,15 @@ them: the same sum to an f32 rounding, and the same bits in every run on
 the card, where a scatter-add of floats sums in no fixed order.
 
 The router stays dense, in f32, as in the JAX package.
+
+Under data parallelism (``dp_block``) the forward's rows are the rank's
+block of the global batch, where the JAX package's GSPMD routes the
+global batch: capacity and the kept slots are computed over every
+block's top-k experts, gathered over "dp" (a small int tensor, once a
+layer), in global row order, and the rank dispatches and computes its
+own slots only. A slot's expert products do not depend on the other rows
+of the (E, C, H) buffer, so each row comes out as the unsplit batch
+would give it.
 """
 
 from __future__ import annotations
@@ -77,7 +86,8 @@ def dispatch_rows(top_i: torch.Tensor, num_experts: int, capacity: int):
 
 def moe_mlp(layer: dict, x: torch.Tensor, config: LlamaConfig,
             capacity_factor: float = 1.25,
-            use_kernels: bool = True) -> torch.Tensor:
+            use_kernels: bool = True,
+            dp_block: bool = False) -> torch.Tensor:
     """MoE FFN block: route -> dispatch -> expert FFN -> weighted combine.
 
     ``layer["moe"]`` holds "router", the (E, H) dense router weight;
@@ -86,7 +96,10 @@ def moe_mlp(layer: dict, x: torch.Tensor, config: LlamaConfig,
     {gate,up,down}_proj of an always-on expert (Qwen/DeepSeek), run
     through ``quantized_matmul``. ``use_kernels`` selects the kernel
     layouts (their plain versions on the CPU) or the non-kernel path, for
-    the experts and the shared expert alike.
+    the experts and the shared expert alike. ``dp_block``: ``x`` holds
+    this rank's dp block of the batch (``parallel.mesh.dp_rows``), and
+    capacity is counted over every block's rows; otherwise ``x`` is the
+    whole batch and nothing is gathered.
     """
     moe = layer["moe"]
     B, S, H = x.shape
@@ -96,17 +109,28 @@ def moe_mlp(layer: dict, x: torch.Tensor, config: LlamaConfig,
     tokens = x.reshape(T, H)
 
     top_w, top_i = _route(tokens, moe["router"], config)
-    C = moe_capacity(T, E, k, capacity_factor)
+    shard = layer.get("shard")
+    first = 0   # this call's first token in the routed batch
+    if dp_block:
+        if shard is None:
+            raise ValueError("dp_block needs params sharded over a dp mesh "
+                             "(shard_llama_params)")
+        first = shard.mesh.index("dp") * T
+        top_i = shard.mesh.all_gather(top_i, "dp", dim=0)
+    C = moe_capacity(top_i.shape[0], E, k, capacity_factor)
     sort_idx, rows = dispatch_rows(top_i, E, C)
+    # each of this call's (token, k) slots' buffer row, in token order
+    slot_rows = torch.empty_like(rows)
+    slot_rows[sort_idx] = rows
+    slot_rows = slot_rows[first * k:(first + T) * k]
     # dispatch into (E, C, H); dropped slots go to a spare row past the
     # buffer (no host sync on which slots survive)
     buf = torch.zeros((E * C + 1, H), dtype=x.dtype, device=x.device)
-    buf[rows] = tokens[sort_idx // k]
+    buf[slot_rows] = tokens.repeat_interleave(k, dim=0)
     dispatched = buf[:E * C].view(E, C, H)
 
     # a rank of an expert-parallel mesh holds experts [e0, e0 + El) (with
     # their tp shards, ``parallel.mesh``) and computes their rows only
-    shard = layer.get("shard")
     e0, El, ex_tp = (shard.experts if shard is not None
                      and shard.experts is not None else (0, E, False))
     if El != E:
@@ -135,8 +159,6 @@ def moe_mlp(layer: dict, x: torch.Tensor, config: LlamaConfig,
     # dropped), weighted in f32 and summed over the k slots in order
     y = torch.cat([y.reshape(E * C, H),
                    torch.zeros((1, H), dtype=y.dtype, device=y.device)])
-    slot_rows = torch.empty_like(rows)
-    slot_rows[sort_idx] = rows
     contrib = y[slot_rows].to(torch.float32) * top_w.reshape(T * k, 1)
     out = contrib.reshape(T, k, H).sum(dim=1)
     if shard is not None and shard.experts is not None:

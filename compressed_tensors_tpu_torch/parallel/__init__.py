@@ -1,5 +1,6 @@
 from compressed_tensors_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
+    dp_rows,
     llama_param_specs,
     make_mesh,
     shard_kv_cache,

@@ -26,6 +26,14 @@ sharded whole or not at all: attention shards only where both head counts
 divide "tp" and every layer's projections split into whole groups and
 packed words, the MLP per layer on the same terms; otherwise that block is
 replicated and runs whole on every rank.
+
+Data parallelism replicates the params over "dp" and splits the batch:
+a caller hands each rank its block of rows (``dp_rows``, where GSPMD
+splits ``P("dp")``), the dense cache holds that block
+(``shard_kv_cache``), and the one collective of the forward over "dp" is
+a MoE layer's gather of every row's top-k experts, so that capacity is
+counted over the global batch (``models/moe.py``). The serving engine's
+own dp collectives are in ``engine/serving.py``.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from compressed_tensors_tpu_torch.quantization import QuantizationStrategy
 from compressed_tensors_tpu_torch.utils.safetensors_io import CheckpointReader
 
 __all__ = ["AXES", "Mesh", "make_mesh", "shard_llama_params",
-           "llama_param_specs", "shard_kv_cache", "shard_tensor",
+           "llama_param_specs", "shard_kv_cache", "shard_tensor", "dp_rows",
            "LayerShard", "ModelShard", "row_parallel_matmul",
            "row_parallel_input", "local_config"]
 
@@ -113,6 +121,16 @@ class Mesh:
         parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
         dist.all_gather(parts, t, group=self.group(axis))
         return torch.cat(parts, dim=dim)
+
+    def broadcast(self, t: torch.Tensor, axis: str, index: int
+                  ) -> torch.Tensor:
+        """In-place broadcast of ``t`` from the rank at ``index`` of this
+        rank's ``axis`` line to the whole line."""
+        if self.shape[axis] == 1:
+            return t
+        dist.broadcast(t, self.group_ranks[axis][index],
+                       group=self.group(axis))
+        return t
 
 
 def make_mesh(dp: int = 1, tp: int = 1, pp: int = 1, ep: int = 1,
@@ -548,10 +566,16 @@ def _per_head(t, heads: int, mesh: Mesh):
     return t.reshape(heads, *t.shape[1:])[i * part:(i + 1) * part].clone()
 
 
-def _check_mesh(mesh: Mesh) -> None:
-    if mesh.shape["dp"] > 1:
-        raise NotImplementedError(
-            "data parallelism (dp > 1) is not ported yet (ROADMAP A8d)")
+def dp_rows(mesh: Mesh, n: int) -> slice:
+    """This rank's block of ``n`` batch rows over "dp": dp index i owns
+    rows [i * n / dp, (i + 1) * n / dp), as ``P("dp")`` splits an axis.
+    Where dp does not divide ``n`` every rank holds all ``n`` rows (the
+    replicated fallback of ``_sanitize_spec``)."""
+    dp = mesh.shape["dp"]
+    if n % dp:
+        return slice(0, n)
+    part = n // dp
+    return slice(mesh.index("dp") * part, (mesh.index("dp") + 1) * part)
 
 
 def _members(layer: dict, fused: str, names) -> list:
@@ -655,11 +679,13 @@ def shard_llama_params(params: dict, mesh: Mesh, config) -> dict:
     """This rank's params of ``params`` (full, on every rank) over
     ``mesh``: tp and ep split as the module docstring says; dp, pp and sp
     replicate (``pipeline.stack_stage_params`` splits the layers over pp;
-    sp is only named, as in the JAX package). A mesh that splits nothing
+    sp is only named, as in the JAX package). Under dp > 1 the params
+    carry the mesh even where nothing splits: a MoE layer gathers its
+    routing over "dp" when the forward's rows are the rank's dp block
+    (``llama_forward(dp_block=True)``). A mesh that splits nothing else
     returns ``params`` itself, so the forward is the unsharded one."""
-    _check_mesh(mesh)
     tp, ep = mesh.shape["tp"], mesh.shape["ep"]
-    if tp == 1 and ep == 1:
+    if tp == 1 and ep == 1 and mesh.shape["dp"] == 1:
         return params
     if params.get("shard") is not None:
         raise ValueError("params are already sharded")
@@ -731,12 +757,16 @@ def shard_llama_params(params: dict, mesh: Mesh, config) -> dict:
 
 
 def shard_kv_cache(cache, mesh: Mesh):
-    """This rank's block of a dense or paged KV cache: the KV-head axis
-    over "tp" where it divides (the pool of a head-sharded model); tables
-    and lengths stay whole, so the host-side slot and page bookkeeping is
-    the same on every rank."""
-    _check_mesh(mesh)
-    spec = (None, None, "tp", None, None)
+    """This rank's block of a dense or paged KV cache, as the JAX package
+    shards it: the KV-head axis over "tp" (the pool of a head-sharded
+    model) and, for the dense cache only, the batch axis over "dp"; each
+    axis replicated where it does not divide. The paged pool stays whole
+    over dp, and tables and lengths stay whole, so the host-side slot and
+    page bookkeeping is the same on every rank."""
+    from compressed_tensors_tpu_torch.models.llama import PagedKVCache
+
+    spec = (None, None if isinstance(cache, PagedKVCache) else "dp", "tp",
+            None, None)
     return dataclasses.replace(cache, k=shard_tensor(cache.k, spec, mesh),
                                v=shard_tensor(cache.v, spec, mesh))
 
@@ -929,7 +959,6 @@ class ShardedCheckpointReader(CheckpointReader):
             from_compressed_state,
         )
 
-        _check_mesh(mesh)
         if config.is_mla or config.is_moe:
             raise NotImplementedError(
                 "sharded loading of MoE and MLA checkpoints: load them whole "

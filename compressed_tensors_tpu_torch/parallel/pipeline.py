@@ -8,7 +8,11 @@ microbatch t - s at step t, activations move to the next stage by
 send/recv over the pp group, and the last stage's output is broadcast to
 every pp rank before the final norm and the lm_head. In a pp x tp mesh a
 stage's layers are tp-sharded (``shard_llama_params``) and their
-collectives run inside the stage.
+collectives run inside the stage. In a pp x dp mesh each rank passes its
+dp block of the rows (``parallel.mesh.dp_rows``) and pipelines them over
+its own pp line (``group_ranks["pp"]`` of its dp index); a MoE stage
+counts capacity over those rows. Send/recv need a backend that carries
+the tensors' device (gloo refuses CUDA tensors).
 """
 
 from __future__ import annotations

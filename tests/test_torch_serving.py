@@ -182,10 +182,13 @@ def test_engine_defaults_to_cuda_and_names_unported_options(models,
     from compressed_tensors_tpu_torch.parallel import make_mesh
 
     _, _, tp, tc = models
-    # the mesh engine is ported; data parallelism is not (ROADMAP A8d)
-    with pytest.raises(NotImplementedError, match="A8d"):
-        ServingEngine(tp, tc, mesh=make_mesh(dp=2, rank=0, world=2,
-                                             device="cpu"), device="cpu")
+    # a data-parallel mesh built without its groups: the engine starts,
+    # and its first collective raises
+    eng = ServingEngine(tp, tc, dtype=torch.float32, max_len=64,
+                        mesh=make_mesh(dp=2, rank=0, world=2, device="cpu"))
+    eng.submit(Request(request_id=0, prompt_ids=[1, 2, 3], max_new_tokens=2))
+    with pytest.raises(RuntimeError, match="axis 'dp' .* no process group"):
+        eng.run()
     # quantized KV caches are served: fp8 as it is, int8 under the transcode
     for paged in (False, True):
         eng = ServingEngine(tp, tc, dtype=torch.float32, max_len=64,

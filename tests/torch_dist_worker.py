@@ -19,13 +19,18 @@ and calibrated with the port on DEVICE. CASE "compress-file": a gloo group
 states the parent wrote to ``OUT_DIR/states.safetensors`` with the recipe
 of ``OUT_DIR/quantization_config.json``, loaded onto DEVICE, timed. CASE
 "nccl": an NCCL group on the card, an all-reduce of a one, the group torn
-down. CASE "parallel": a gloo group on the CPU and the tensor, expert and
-pipeline parallel oracles of ``tests/test_torch_parallel.py`` over the
-inputs the parent wrote (``inputs.json``, ``inputs.npz``), the arrays
-written to ``rank<RANK>.npz``. CASE "tp70b": a gloo group over CUDA tensors
-(NCCL takes one rank a card): this rank's blocks of the checkpoint under
+down. CASE "parallel": a gloo group on the CPU and the tensor, expert,
+pipeline and data parallel oracles of ``tests/test_torch_parallel.py``
+over the inputs the parent wrote (``inputs.json``, ``inputs.npz``), the
+arrays written to ``rank<RANK>.npz``. CASE "dp4": four gloo ranks on the
+CPU, the dp = 2 x tp = 2 engine and the pp = 2 x dp = 2 pipeline of
+``tests/test_torch_data_parallel.py``, written the same way. CASE
+"tp70b": a gloo group over CUDA tensors (NCCL takes one rank a card):
+this rank's blocks of the checkpoint under
 ``OUT_DIR/ckpt`` loaded at tp = 2, logits and serving as ``chip_smoke.py``
-phase 19c reads them (``rank<RANK>.pt``).
+phase 19c reads them (``rank<RANK>.pt``). CASE "dp70b": four such ranks at
+dp = 2 x tp = 2, the checkpoint and requests ``OUT_DIR/inputs.json``
+names served dense, paged and prefix-cached (``chip_smoke.py`` phase 20).
 """
 
 import json
@@ -121,6 +126,13 @@ def finish(case, procs, out_dir, timeout=90):
     return reports
 
 
+def wait_for(path):
+    """Return once the parent has written ``path`` (it writes each file a
+    rank waits for under another name first, then renames it)."""
+    while not os.path.exists(path):
+        time.sleep(0.1)
+
+
 def recouple_states(device="cpu"):
     """The module states and graph of ``test_compress_state_parallel_
     recouple``, drawn and calibrated with the port."""
@@ -154,6 +166,9 @@ def file_states(out_dir, device):
         load_safetensors,
     )
 
+    # the parent may start the ranks before it writes the states: the
+    # recipe comes last
+    wait_for(os.path.join(out_dir, "quantization_config.json"))
     with open(os.path.join(out_dir, "quantization_config.json")) as f:
         qconfig = QuantizationConfig.model_validate(json.load(f))
     states = {}
@@ -211,15 +226,44 @@ MOE_CASES = (("moe_ep2", "ep2", {}), ("moe_tp2", "tp2", {}),
              ("moe_ep2_odd", "ep2", dict(num_local_experts=3)))
 
 
+def shared_pages_digest(engine):
+    """sha256 of the K/V bytes of the registered pages every dp block holds
+    (``ServingEngine._page_shared``), in page order."""
+    import hashlib
+
+    from compressed_tensors_tpu_torch.utils.dtypes import byte_view
+
+    pages = sorted(set(engine._page_shared) & set(engine._page_digest))
+    h = hashlib.sha256()
+    if pages:
+        idx = torch.tensor(pages, device=engine.cache.k.device)
+        for pool in (engine.cache.k, engine.cache.v):
+            rows = byte_view(pool)[:, idx].contiguous()
+            h.update(rows.view(torch.uint8).cpu().numpy().tobytes())
+    return pages, h.hexdigest()
+
+
 def engine_run(params, config, requests, mesh, **kw):
     """test_serving_sharded.py's ``_run`` settings through the port's
-    engine; ``kw`` overrides them."""
+    engine; ``kw`` overrides them. Over a dp split the decode calls with
+    an empty dp block are counted and the pages shared across blocks
+    digested."""
     from compressed_tensors_tpu_torch.engine import Request, ServingEngine
 
     settings = dict(max_batch=2, max_len=32, prefill_chunk=4)
     settings.update(kw)
     engine = ServingEngine(params, config, dtype=torch.float32, mesh=mesh,
                            device="cpu", **settings)
+    empty = [0]
+    if engine._dp_split:
+        decode = engine._decode
+
+        def counted(active, burst):
+            blocks = active.reshape(mesh.shape["dp"], -1).any(axis=1)
+            empty[0] += int(not blocks.all())
+            return decode(active, burst)
+
+        engine._decode = counted
     done = []
     for batch in requests:   # each batch runs to its end before the next
         for r in batch:
@@ -233,6 +277,12 @@ def engine_run(params, config, requests, mesh, **kw):
         out["pages_accounted"] = (len(engine._free_pages)
                                   + len(engine._cached_free)
                                   + len(engine._page_ref))
+    if engine._dp_split:
+        out["empty_block_steps"] = empty[0]
+        out["cross_block_hits"] = engine.cross_block_hits
+        if engine.paged:
+            out["shared_pages"], out["shared_digest"] = shared_pages_digest(
+                engine)
     return out
 
 
@@ -278,6 +328,7 @@ def parallel(out_dir, rank):
     tp2 = make_mesh(tp=2, device="cpu")
     ep2 = make_mesh(ep=2, device="cpu")
     pp2 = make_mesh(pp=2, device="cpu")
+    dp2 = make_mesh(dp=2, device="cpu")
     report, out = {}, {}
     t0 = time.perf_counter()
 
@@ -471,8 +522,95 @@ def parallel(out_dir, rank):
                     h[..., rank * k:(rank + 1) * k], local, tp2)
                 out[name + "_unsharded"] = quantized_matmul(
                     h, p["layers"][0]["down_proj"])
+    data_parallel(inputs, arrays, dp2, report, out, models=dict(
+        w4=(fused, config), mixed=(mfused, mconfig), mla=(mla, mla_config)))
     report["seconds"] = time.perf_counter() - t0
     return report, {k: v.numpy() for k, v in out.items()}
+
+
+def data_parallel(inputs, arrays, dp2, report, out, models):
+    """The data parallel sub-cases of CASE "parallel" at dp = 2 (keys
+    ``dp_*``): the engine cases and bursts, a prefix hit on a page the
+    other block wrote, ``moe_mlp`` with capacity over both blocks (and its
+    control, each block's capacity alone), ``llama_forward`` on each
+    rank's rows of the MoE, mixed and MLA models, and ``greedy_generate``
+    over dp-replicated MoE params with the whole batch."""
+    from compressed_tensors_tpu_torch.engine import greedy_generate
+    from compressed_tensors_tpu_torch.models import llama_forward
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.models.moe import moe_mlp
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        make_synthetic_llama,
+    )
+    from compressed_tensors_tpu_torch.parallel import (
+        dp_rows,
+        shard_llama_params,
+    )
+
+    reqs = inputs["requests"]
+    fused, config = models["w4"]
+    report["dp_dense"] = engine_run(fused, config, [reqs["w4"]], dp2)
+    report["dp_paged"] = engine_run(fused, config, [reqs["w4"]], dp2,
+                                    paged=True, page_size=8)
+    mfused, mconfig = models["mixed"]
+    report["dp_mixed"] = engine_run(mfused, mconfig, [reqs["mixed"]], dp2)
+    report["dp_mixed_paged"] = engine_run(mfused, mconfig, [reqs["mixed"]],
+                                          dp2, paged=True, page_size=8)
+    report["dp_preempt"] = engine_run(
+        mfused, mconfig, [reqs["preempt"]], dp2, prefill_chunk=8, paged=True,
+        page_size=8, num_pages=5)
+    report["dp_prefix"] = engine_run(
+        mfused, mconfig, [[r] for r in reqs["prefix"]], dp2, max_len=64,
+        prefill_chunk=8, paged=True, page_size=8)
+    report["dp_burst"] = engine_run(mfused, mconfig, [reqs["burst"]], dp2,
+                                    steps_per_sync=4)
+    # the first prefixed request shares slot 1 (block 1) with a filler in
+    # slot 0; the second, alone, takes slot 0 (block 0) and hits its pages
+    report["dp_cross"] = engine_run(
+        mfused, mconfig, reqs["dp_cross"], dp2, max_len=64, prefill_chunk=8,
+        paged=True, page_size=8)
+
+    # test_moe_sharding.py's model: moe_mlp with capacity over both
+    # blocks' rows, and the control, each block's capacity alone
+    cfg = LlamaConfig(**PARALLEL_CFG, **MOE)
+    p = make_synthetic_llama(cfg, preset="W4A16", use_kernels=False,
+                             dtype=torch.float32, device="cpu")
+    ps = shard_llama_params(p, dp2, cfg)
+    x = torch.from_numpy(arrays["dp_moe_x"])
+    rows = dp_rows(dp2, x.shape[0])
+    f = inputs["dp_capacity_factor"]
+    out["dp_moe_mlp"] = moe_mlp(ps["layers"][0], x[rows], cfg,
+                                capacity_factor=f, dp_block=True)
+    out["dp_moe_mlp_control"] = moe_mlp(p["layers"][0], x[rows], cfg,
+                                        capacity_factor=f)
+    # each rank's rows through the whole forward
+    ids = torch.from_numpy(arrays["moe_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    rows = dp_rows(dp2, ids.shape[0])
+    out["dp_moe_forward"] = llama_forward(ps, cfg, ids[rows], pos[rows],
+                                          dp_block=True)[0]
+    out["dp_greedy"] = greedy_generate(ps, cfg, ids[:, :4], max_new_tokens=4,
+                                       dtype=torch.float32, device="cpu")
+    out["dp_greedy_unsharded"] = greedy_generate(
+        p, cfg, ids[:, :4], max_new_tokens=4, dtype=torch.float32,
+        device="cpu")
+    mcfg = LlamaConfig(**dict(PARALLEL_CFG, num_hidden_layers=4))
+    p = make_synthetic_llama(mcfg, layer_presets=["W4A16", "W8A8"],
+                             use_kernels=False, dtype=torch.float32,
+                             device="cpu")
+    ids = torch.from_numpy(arrays["dp_mixed_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    rows = dp_rows(dp2, ids.shape[0])
+    out["dp_mixed_forward"] = llama_forward(
+        shard_llama_params(p, dp2, mcfg), mcfg, ids[rows], pos[rows],
+        use_kernels=False, dp_block=True)[0]
+    mla, mla_config = models["mla"]
+    ids = torch.from_numpy(arrays["mla_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    rows = dp_rows(dp2, ids.shape[0])
+    out["dp_mla_forward"] = llama_forward(
+        shard_llama_params(mla, dp2, mla_config), mla_config, ids[rows],
+        pos[rows], dp_block=True)[0]
 
 
 def actorder_linear(n=64, k=512, group=128):
@@ -531,6 +669,64 @@ def ring_shard(seed, n=64, k=2048, tp=2):
 
 
 # --------------------------------------------------------------------------- #
+# CASE "dp4": four ranks, dp = 2 x tp = 2 and pp = 2 x dp = 2
+
+
+def dp4(out_dir, rank):
+    """The engine at dp = 2 x tp = 2 on test_serving_sharded.py's W4A16
+    g32 recipe (each rank's tp blocks read by ``load_llama_params(mesh=
+    ...)``) and mixed recipe (dense and paged), and ``pipeline_forward``
+    at pp = 2 x dp = 2 over each rank's dp block of test_pipeline.py's
+    rows; returns the JSON report and the arrays."""
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.models.config import LlamaConfig
+    from compressed_tensors_tpu_torch.models.synthetic import (
+        make_synthetic_llama,
+    )
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.parallel import (
+        dp_rows,
+        make_mesh,
+        pipeline_forward,
+        stack_stage_params,
+    )
+
+    with open(os.path.join(out_dir, "inputs.json")) as f:
+        inputs = json.load(f)
+    arrays = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    # every rank opens the same groups in the same order
+    mesh = make_mesh(dp=2, tp=2, device="cpu")
+    pp_dp = make_mesh(pp=2, dp=2, device="cpu")
+    report, out = {}, {}
+    t0 = time.perf_counter()
+    reqs = inputs["requests"]
+    params, config, _ = load_llama_params(
+        inputs["paths"]["w4"], dtype=torch.float32, device="cpu", mesh=mesh)
+    report["heads"] = list(params["shard"].heads)
+    report["w4"] = engine_run(fuse_llama_layers(params), config,
+                              [reqs["w4"]], mesh)
+    params, config, _ = load_llama_params(
+        inputs["paths"]["mixed"], dtype=torch.float32, device="cpu")
+    params = fuse_llama_layers(params)
+    report["mixed"] = engine_run(params, config, [reqs["mixed"]], mesh)
+    report["mixed_paged"] = engine_run(params, config, [reqs["mixed"]],
+                                       mesh, paged=True, page_size=8)
+    pcfg = LlamaConfig(**dict(PARALLEL_CFG, num_hidden_layers=4))
+    ids = torch.from_numpy(arrays["pp_ids"])
+    pos = torch.arange(ids.shape[1]).expand(ids.shape)
+    rows = dp_rows(pp_dp, ids.shape[0])
+    for preset in ("W4A16", "W8A8"):
+        p = make_synthetic_llama(pcfg, preset=preset, use_kernels=False,
+                                 dtype=torch.float32, device="cpu")
+        p["stages"] = stack_stage_params(p.pop("layers"), 2)
+        out[f"pp_{preset}"] = pipeline_forward(p, pcfg, ids[rows], pos[rows],
+                                               pp_dp, n_microbatches=2)
+    report["coords"] = mesh.coords
+    report["seconds"] = time.perf_counter() - t0
+    return report, {k: v.numpy() for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------- #
 # CASE "tp70b": the card's tensor-parallel run (chip_smoke.py phase 19c)
 
 
@@ -580,10 +776,8 @@ def tp70b(out_dir, rank, device):
     mesh = make_mesh(tp=2, device=device)
     # the parent may start the ranks before it has written the checkpoint:
     # inputs.json comes last
-    inputs_path = os.path.join(out_dir, "inputs.json")
-    while not os.path.exists(inputs_path):
-        time.sleep(0.1)
-    with open(inputs_path) as f:
+    wait_for(os.path.join(out_dir, "inputs.json"))
+    with open(os.path.join(out_dir, "inputs.json")) as f:
         inputs = json.load(f)
     dtype = torch.bfloat16 if device == "cuda" else torch.float32
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -651,6 +845,92 @@ def tp70b(out_dir, rank, device):
     return report
 
 
+# --------------------------------------------------------------------------- #
+# CASE "dp70b": the card's data-parallel run (chip_smoke.py phase 20)
+
+
+def dp70b(out_dir, rank, device):
+    """dp = 2 x tp = 2 over four ranks on DEVICE: this rank's tp blocks of
+    the checkpoint ``inputs.json`` names (``load_llama_params(mesh=...)``,
+    bf16 on the card, f32 on the CPU), fused; the requests served dense,
+    paged without and paged with prefix caching, each run's completions,
+    kernel launches (the counters ``inputs.json`` names, reset before the
+    run), host seconds and decode ms a step, prefix hits, hits on pages
+    the other dp block wrote, and the digest of the pages both blocks
+    hold."""
+    import importlib
+
+    from compressed_tensors_tpu_torch.engine import Request, ServingEngine
+    from compressed_tensors_tpu_torch.models import load_llama_params
+    from compressed_tensors_tpu_torch.ops.fuse import fuse_llama_layers
+    from compressed_tensors_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(dp=2, tp=2, device=device)
+    # the parent starts the ranks long before it writes the checkpoint:
+    # inputs.json comes last
+    wait_for(os.path.join(out_dir, "inputs.json"))
+    with open(os.path.join(out_dir, "inputs.json")) as f:
+        inputs = json.load(f)
+    counters = {
+        name: (getattr(importlib.import_module(
+            f"compressed_tensors_tpu_torch.ops.kernels.{module}"), fn), attr)
+        for name, (module, fn, attr) in inputs["counters"].items()}
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    dist.barrier()
+    t0 = time.perf_counter()
+    params, config, _ = load_llama_params(inputs["ckpt"], dtype=dtype,
+                                          device=device, mesh=mesh)
+    params = fuse_llama_layers(params)
+    sync()
+    report = {"load_s": time.perf_counter() - t0,
+              "bytes_read": params["shard"].bytes_read,
+              "heads": list(params["shard"].heads), "coords": mesh.coords,
+              "gib": (torch.cuda.memory_allocated() / 2**30
+                      if device == "cuda" else 0.0)}
+    for run, kw in (("dense", dict(paged=False)),
+                    ("paged", dict(paged=True, prefix_caching=False)),
+                    ("prefix", dict(paged=True, prefix_caching=True))):
+        engine = ServingEngine(params, config, mesh=mesh, dtype=dtype,
+                               device=device, **inputs["serve"], **kw)
+        timing = {"decode_s": 0.0, "steps": 0}
+        decode = engine._decode
+
+        def timed_decode(active, burst, decode=decode, timing=timing):
+            t = time.perf_counter()
+            out = decode(active, burst)   # ends in the trace's host copy
+            timing["decode_s"] += time.perf_counter() - t
+            timing["steps"] += burst
+            return out
+
+        engine._decode = timed_decode
+        for i, ids, new in inputs["requests"]:
+            engine.submit(Request(request_id=i, prompt_ids=ids,
+                                  max_new_tokens=new))
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        sync()
+        dist.barrier()
+        t = time.perf_counter()
+        done = engine.run()
+        sync()
+        got = {"serve_s": time.perf_counter() - t,
+               "decode_ms": timing["decode_s"] * 1e3
+               / max(timing["steps"], 1),
+               "steps": timing["steps"],
+               "counts": {name: getattr(fn, attr)
+                          for name, (fn, attr) in counters.items()},
+               "completions": {c.request_id: c.output_ids for c in done},
+               "hits": engine.prefix_cache_hits,
+               "cross_block_hits": engine.cross_block_hits}
+        if engine.paged:
+            got["shared_pages"], got["shared_digest"] = shared_pages_digest(
+                engine)
+        report[run] = got
+        del engine
+    return report
+
+
 def main(case, device, rank, world, port, out_dir):
     address = f"localhost:{port}"
     if case == "nccl":
@@ -680,8 +960,11 @@ def main(case, device, rank, world, port, out_dir):
         report.update(compress(case, device, rank, world, out_dir))
     elif case == "tp70b":
         report.update(tp70b(out_dir, rank, device))
-    elif case == "parallel":
-        got, arrays = parallel(out_dir, rank)
+    elif case == "dp70b":
+        report.update(dp70b(out_dir, rank, device))
+    elif case in ("parallel", "dp4"):
+        got, arrays = (parallel if case == "parallel" else dp4)(out_dir,
+                                                                 rank)
         report.update(got)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     else:
